@@ -1,0 +1,207 @@
+"""Build and bind the stage kernels (csrc/*.cu).
+
+Each kernel source is compiled by its own `nvcc` process, all started
+together, into a shared library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o <build>/<name>.<digest>.so <name>.cu
+
+and loaded with ctypes (pointers and the stream as c_void_p). Outputs go
+to the package's `_build/` directory (listed in .gitignore), named by a
+digest of the sources so a stale library is never loaded; ptxas's
+register / local-memory report for each kernel lands beside it as
+`<name>.<digest>.ptxas.txt`. The same lane bodies build with g++ (-DPK_HOST)
+into `host_emu.so` for the CPU cross-check of the device code.
+
+`csrc/consts.cuh` is generated from the Python field/hash modules by
+`render_consts()`; a test holds the committed file to the rendering.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import tempfile
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "_build",
+)
+KERNELS = ("ed", "kes", "vrf_prep", "vrf_ladders", "finish")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+ARGTYPES = {
+    "pk_ed": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "pk_kes": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "pk_vrf_prep": [_I] + [_P] * 10,
+    "pk_vrf_ladders": [_I] + [_P] * 6,
+    "pk_finish": [_I] + [_P] * 16,
+}
+_ENTRY = {"ed": "pk_ed", "kes": "pk_kes", "vrf_prep": "pk_vrf_prep",
+          "vrf_ladders": "pk_vrf_ladders", "finish": "pk_finish"}
+
+_LIBS: dict = {}
+
+
+def render_consts() -> str:
+    """The device constant tables, rendered from the Python modules."""
+    from . import field as fe
+    from . import hashes as ph
+    from . import verify as pv
+
+    def fe_row(name, x):
+        vals = ", ".join(f"0x{v:07x}u" for v in fe.int_to_limbs(x))
+        return f"PK_CONST uint32_t {name}[10] = {{{vals}}};"
+
+    two_p = [2 * ((1 << w) - 1) for w in fe.W]
+    two_p[0] = 2 * ((1 << 26) - 19)
+    lines = [
+        "// Generated by ops/pk/build.py:render_consts() — do not edit.",
+        "#pragma once",
+        "#include <stdint.h>",
+        "#ifdef PK_HOST",
+        "#define PK_CONST static const",
+        "#else",
+        "#define PK_CONST __constant__ const",
+        "#endif",
+        "PK_CONST uint32_t PK_TWO_P[10] = {"
+        + ", ".join(f"0x{v:07x}u" for v in two_p) + "};",
+        fe_row("PK_D", fe.D),
+        fe_row("PK_D2", fe.D2),
+        fe_row("PK_SQRT_M1", fe.SQRT_M1),
+        fe_row("PK_A", pv.MONT_A),
+        fe_row("PK_NEG_A", -pv.MONT_A),
+        fe_row("PK_A2", pv._A2),
+        fe_row("PK_C2A2", pv._C2A2),
+        fe_row("PK_SQRT_2I", pv.SQRT_2I),
+        fe_row("PK_SQRT_M2I", pv.SQRT_M2I),
+        "PK_CONST uint8_t PK_L_BYTES[32] = {"
+        + ", ".join(str(b) for b in fe.L_BYTES) + "};",
+        "PK_CONST uint64_t PK_SHA512_H0[8] = {"
+        + ", ".join(f"0x{v:016x}ull" for v in ph.SHA512_H0) + "};",
+        "PK_CONST uint64_t PK_SHA512_K[80] = {",
+    ]
+    for i in range(0, 80, 4):
+        lines.append("    " + ", ".join(
+            f"0x{v:016x}ull" for v in ph.SHA512_K[i:i + 4]) + ",")
+    lines.append("};")
+    lines.append("PK_CONST uint8_t PK_B2B_SIGMA[10][16] = {")
+    for row in ph.B2B_SIGMA:
+        lines.append("    {" + ", ".join(str(v) for v in row) + "},")
+    lines.append("};")
+    return "\n".join(lines) + "\n"
+
+
+def _digest() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
+def _nvcc() -> str:
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    return cand if os.path.exists(cand) else "nvcc"
+
+
+def build_cuda() -> dict:
+    """Compile every kernel (parallel nvcc processes); -> {name: path}.
+    Raises with the compiler's output when any build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    dg = _digest()
+    out = {k: os.path.join(BUILD_DIR, f"{k}.{dg}.so") for k in KERNELS}
+    todo = [k for k in KERNELS
+            if not (os.path.exists(out[k]) and os.path.exists(ptxas_report(k)))]
+    procs = {}
+    for k in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, f"{k}.cu")]
+        procs[k] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for k, (tmp, p) in procs.items():
+        log, _ = p.communicate()
+        with open(ptxas_report(k), "w") as f:
+            f.write(log)
+        if p.returncode != 0:
+            failed.append(f"--- {k} ---\n{log}")
+            os.remove(tmp)
+        else:
+            os.replace(tmp, out[k])
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return out
+
+
+def ptxas_report(name: str) -> str:
+    """Path of ptxas's report for the current sources' build of `name`."""
+    return os.path.join(BUILD_DIR, f"{name}.{_digest()}.ptxas.txt")
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        paths = build_cuda()
+        for k, path in paths.items():
+            if k not in _LIBS:
+                lib = ctypes.CDLL(path)
+                fn = getattr(lib, _ENTRY[k])
+                fn.restype = ctypes.c_int
+                fn.argtypes = ARGTYPES[_ENTRY[k]]
+                _LIBS[k] = lib
+    return _LIBS[name]
+
+
+def kernel_lib(name: str):
+    """The launcher of one stage kernel, building on first use."""
+    return getattr(_lib(name), _ENTRY[name])
+
+
+def blocks_per_sm(name: str) -> int:
+    """Resident blocks per SM of one stage kernel at its 128-thread launch,
+    from the CUDA occupancy API (registers, stack and shared memory)."""
+    fn = getattr(_lib(name), _ENTRY[name] + "_occupancy")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p]
+    n = ctypes.c_int(0)
+    rc = fn(ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"{name}: occupancy query failed: cudaError {rc}")
+    return n.value
+
+
+def build_host_emu() -> ctypes.CDLL:
+    """g++ build of the lane bodies as host code (PK_HOST)."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    path = os.path.join(BUILD_DIR, f"host_emu.{_digest()}.so")
+    if not os.path.exists(path):
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            subprocess.run(
+                ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-DPK_HOST",
+                 "-Wno-unknown-pragmas", "-I", CSRC, "-o", tmp,
+                 os.path.join(CSRC, "host_emu.cpp")],
+                check=True, capture_output=True, text=True,
+            )
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    lib = ctypes.CDLL(path)
+    for entry, args in ARGTYPES.items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    return lib
