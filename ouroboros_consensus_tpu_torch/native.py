@@ -3,8 +3,8 @@
 Built with g++ on first use into the port's build directory (listed in
 .gitignore), through a temporary name and an atomic rename so that
 concurrent first uses never load a half-written library. The slice uses
-the sign side (Ed25519 keys and signatures, batch-compatible ECVRF
-proofs) for the forger, and `validate_praos` as the native replay
+the sign side (Ed25519 keys and signatures, draft-03 and
+batch-compatible ECVRF proofs) for the forger, and `validate_praos` as the native replay
 backend.
 """
 
@@ -56,6 +56,10 @@ def lib():
     so.oc_ed25519_sign.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
     ]
+    so.oc_ecvrf_prove.restype = None
+    so.oc_ecvrf_prove.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+    ]
     so.oc_ecvrf_prove_bc.restype = None
     so.oc_ecvrf_prove_bc.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
@@ -81,6 +85,13 @@ def ed25519_public(seed: bytes) -> bytes:
 def ed25519_sign(seed: bytes, msg: bytes) -> bytes:
     out = ctypes.create_string_buffer(64)
     lib().oc_ed25519_sign(seed, msg, len(msg), out)
+    return out.raw
+
+
+def ecvrf_prove(seed: bytes, alpha: bytes) -> bytes:
+    """80-byte draft-03 proof (Gamma ‖ c ‖ s)."""
+    out = ctypes.create_string_buffer(80)
+    lib().oc_ecvrf_prove(seed, alpha, len(alpha), out)
     return out.raw
 
 

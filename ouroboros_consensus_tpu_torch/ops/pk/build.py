@@ -1,4 +1,4 @@
-"""Build and bind the stage kernels (csrc/*.cu).
+"""Build and bind the stage and tool kernels (csrc/*.cu).
 
 Each kernel source is compiled by its own `nvcc` process, all started
 together, into a shared library with a plain C interface:
@@ -30,7 +30,19 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-KERNELS = ("ed", "kes", "vrf_prep", "vrf_ladders", "finish")
+# kernel source (csrc/<name>.cu) -> its C entry points
+ENTRIES = {
+    "ed": ("pk_ed",),
+    "kes": ("pk_kes",),
+    "vrf_prep": ("pk_vrf_prep",),
+    "vrf_bc_prep": ("pk_vrf_bc_prep",),
+    "vrf_ladders": ("pk_vrf_ladders",),
+    "finish": ("pk_finish",),
+    "primitives": ("pk_prim_sha", "pk_prim_shav", "pk_prim_b2b", "pk_prim_base",
+                   "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
+    "fe_bench": ("pk_fe_bench",),
+}
+KERNELS = tuple(ENTRIES)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,12 +53,21 @@ _I = ctypes.c_int
 ARGTYPES = {
     "pk_ed": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pk_kes": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "pk_vrf_prep": [_I] + [_P] * 10,
+    "pk_vrf_prep": [_I] + [_P] * 7,
+    "pk_vrf_bc_prep": [_I] + [_P] * 10,
     "pk_vrf_ladders": [_I] + [_P] * 6,
     "pk_finish": [_I] + [_P] * 16,
+    "pk_prim_sha": [_I] + [_P] * 3,
+    "pk_prim_shav": [_I, _P, _I, _P, _P, _P],
+    "pk_prim_b2b": [_I] + [_P] * 3,
+    "pk_prim_base": [_I] + [_P] * 4,
+    "pk_prim_lad": [_I] + [_P] * 4,
+    "pk_prim_dec": [_I] + [_P] * 4,
+    "pk_prim_red": [_I] + [_P] * 4,
+    "pk_fe_bench": [_I, _I, _I, _P, _P, _P],
+    # host build only: fe_sq over [10, B] limb columns
+    "pk_fe_sq": [_I] + [_P] * 3,
 }
-_ENTRY = {"ed": "pk_ed", "kes": "pk_kes", "vrf_prep": "pk_vrf_prep",
-          "vrf_ladders": "pk_vrf_ladders", "finish": "pk_finish"}
 
 _LIBS: dict = {}
 
@@ -156,22 +177,25 @@ def _lib(name: str) -> ctypes.CDLL:
         for k, path in paths.items():
             if k not in _LIBS:
                 lib = ctypes.CDLL(path)
-                fn = getattr(lib, _ENTRY[k])
-                fn.restype = ctypes.c_int
-                fn.argtypes = ARGTYPES[_ENTRY[k]]
+                for entry in ENTRIES[k]:
+                    fn = getattr(lib, entry)
+                    fn.restype = ctypes.c_int
+                    fn.argtypes = ARGTYPES[entry]
                 _LIBS[k] = lib
     return _LIBS[name]
 
 
-def kernel_lib(name: str):
-    """The launcher of one stage kernel, building on first use."""
-    return getattr(_lib(name), _ENTRY[name])
+def kernel_lib(name: str, entry: str | None = None):
+    """The launcher `entry` (default: the first) of kernel source `name`,
+    building on first use."""
+    return getattr(_lib(name), entry or ENTRIES[name][0])
 
 
 def blocks_per_sm(name: str) -> int:
-    """Resident blocks per SM of one stage kernel at its 128-thread launch,
-    from the CUDA occupancy API (registers, stack and shared memory)."""
-    fn = getattr(_lib(name), _ENTRY[name] + "_occupancy")
+    """Resident blocks per SM of one kernel source at its 128-thread
+    launch, from the CUDA occupancy API (registers, stack and shared
+    memory); for a source with several kernels, its heaviest."""
+    fn = getattr(_lib(name), f"pk_{name}_occupancy")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]
     n = ctypes.c_int(0)

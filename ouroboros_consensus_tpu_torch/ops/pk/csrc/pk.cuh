@@ -118,6 +118,37 @@ PK_DEV fe fe_mul(const fe &f, const fe &g) {
   return r;
 }
 
+// ref10's squaring: term (i, j) and term (j, i) of fe_mul(f, f) carry the
+// same factors, so each cross term i < j is formed once and doubled —
+// 10 squares and 45 cross terms, 55 32x32->64 products. Every column sum
+// h[k] is the same integer as fe_mul(f, f)'s and the carry passes are the
+// same, so the output equals fe_mul(f, f) limb for limb. The stages still
+// square with fe_sqr = fe_mul(a, a); tools/fe_bench.py times the two.
+PK_DEV fe fe_sq(const fe &f) {
+  u32 f2[10], f19[10];
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    f2[i] = 2 * f.v[i];
+    f19[i] = 19 * f.v[i];
+  }
+  u64 h[10];
+#pragma unroll
+  for (int k = 0; k < 10; k++) h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+#pragma unroll
+    for (int j = i; j < 10; j++) {
+      bool odd = (i & 1) && (j & 1);
+      u32 a = (i == j) ? (odd ? f2[i] : f.v[i]) : (odd ? 2 * f2[i] : f2[i]);
+      u32 b = (i + j >= 10) ? f19[j] : f.v[j];
+      h[(i + j) % 10] += (u64)a * b;
+    }
+  }
+  fe r;
+  fe_carry<2>(h, r);
+  return r;
+}
+
 PK_DEV fe fe_sqr(const fe &a) { return fe_mul(a, a); }
 
 PK_NOINLINE fe fe_pow2k(fe a, int k) {

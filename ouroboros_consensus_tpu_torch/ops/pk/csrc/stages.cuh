@@ -1,4 +1,4 @@
-// Per-lane bodies of the five Praos stage kernels. Column arrays are
+// Per-lane bodies of the six Praos stage kernels. Column arrays are
 // limb-first int32 [rows][B]: element (row r, lane i) at r * B + i, so a
 // warp's 32 lanes read 32 neighbouring words of each row. Points cross
 // stages as 40 rows (X, Y, Z, T, 10 limbs each, radix 2^25.5).
@@ -121,33 +121,57 @@ PK_NOINLINE ge elligator2(fe r) {
   return p;
 }
 
-PK_DEV void vrf_prep_lane(int i, int B, const int32_t *pk,
-                          const int32_t *gamma, const int32_t *u,
-                          const int32_t *v, const int32_t *s,
-                          const int32_t *alpha, int32_t *ok, int32_t *c16,
-                          int32_t *prep) {
-  u8 pkb[32], gb[32], sb[32], buf[130], dg[64];
+// ECVRF stage A, shared by both proof formats: decode Y and Γ, check s,
+// H = 8 · Elligator2(SHA-512(suite ‖ 1 ‖ Y ‖ alpha) mod 2^255); -> ok_pre
+PK_DEV bool vrf_decode_hash(int i, int B, const int32_t *pk,
+                            const int32_t *gamma, const int32_t *s,
+                            const int32_t *alpha, u8 *gb, ge &h, ge &y,
+                            ge &g) {
+  u8 pkb[32], sb[32], buf[66], dg[64];
   load_bytes(pk, 32, i, B, pkb);
   load_bytes(gamma, 32, i, B, gb);
   load_bytes(s, 32, i, B, sb);
-  ge y, g;
   bool ok_y = ge_decompress(y, pkb);
   bool ok_g = ge_decompress(g, gb);
   bool s_ok = sc_lt_l(sb);
-  // H = 8 · Elligator2(SHA-512(suite ‖ 1 ‖ Y ‖ alpha) mod 2^255)
   buf[0] = 0x04; buf[1] = 0x01;
   for (int k = 0; k < 32; k++) buf[2 + k] = pkb[k];
   load_bytes(alpha, 32, i, B, buf + 34);
   sha512_msg(buf, 66, dg);
-  ge h = ge_mul_cofactor(elligator2(fe_freeze(fe_from_bytes(dg))));
-  // c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖ V)[:16] over the announced U, V
+  h = ge_mul_cofactor(elligator2(fe_freeze(fe_from_bytes(dg))));
+  return ok_y && ok_g && s_ok;
+}
+
+// draft-03 (80-byte proof): the challenge is the proof's own c
+PK_DEV void vrf_prep_lane(int i, int B, const int32_t *pk,
+                          const int32_t *gamma, const int32_t *s,
+                          const int32_t *alpha, int32_t *ok, int32_t *prep) {
+  u8 gb[32];
+  ge h, y, g;
+  bool o = vrf_decode_hash(i, B, pk, gamma, s, alpha, gb, h, y, g);
+  ok[i] = o ? 1 : 0;
+  store_point(prep, i, B, h);
+  store_point(prep + (size_t)40 * B, i, B, y);
+  store_point(prep + (size_t)80 * B, i, B, g);
+}
+
+// batch-compatible (128-byte proof): c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖
+// V)[:16] over the announced U, V
+PK_DEV void vrf_bc_prep_lane(int i, int B, const int32_t *pk,
+                             const int32_t *gamma, const int32_t *u,
+                             const int32_t *v, const int32_t *s,
+                             const int32_t *alpha, int32_t *ok,
+                             int32_t *c16, int32_t *prep) {
+  u8 gb[32], buf[130], dg[64];
+  ge h, y, g;
+  bool o = vrf_decode_hash(i, B, pk, gamma, s, alpha, gb, h, y, g);
   buf[0] = 0x04; buf[1] = 0x02;
   ge_compress_many(&h, 1, buf + 2);
   for (int k = 0; k < 32; k++) buf[34 + k] = gb[k];
   load_bytes(u, 32, i, B, buf + 66);
   load_bytes(v, 32, i, B, buf + 98);
   sha512_msg(buf, 130, dg);
-  ok[i] = (ok_y && ok_g && s_ok) ? 1 : 0;
+  ok[i] = o ? 1 : 0;
   store_bytes(c16, 16, i, B, dg);
   store_point(prep, i, B, h);
   store_point(prep + (size_t)40 * B, i, B, y);

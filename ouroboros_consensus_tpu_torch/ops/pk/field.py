@@ -133,7 +133,41 @@ def mul(a, b):
     return carry((b[gidx] * fac * a.unsqueeze(0)).sum(1), 2)
 
 
+def _sq_terms():
+    """The 55 products of ref10's squaring: pair (i, j), i <= j, lands in
+    limb (i+j) mod 10 with fe_mul's factor (2 for two odd limbs, 19 past
+    2^255), doubled when i < j (the (j, i) term of fe_mul(a, a))."""
+    ii, jj, kk, ff = [], [], [], []
+    for i in range(NL):
+        for j in range(i, NL):
+            ii.append(i)
+            jj.append(j)
+            kk.append((i + j) % NL)
+            f = (2 if i % 2 == 1 and j % 2 == 1 else 1) * (19 if i + j >= NL else 1)
+            ff.append(f * (1 if i == j else 2))
+    return (torch.tensor(ii), torch.tensor(jj), torch.tensor(kk),
+            torch.tensor(ff, dtype=_I64).reshape(-1, 1))
+
+
+_SQ_TERMS = _sq_terms()
+
+
+@lru_cache(maxsize=8)
+def _sq_terms_on(device: str):
+    return tuple(t.to(device) for t in _SQ_TERMS)
+
+
+def sq(a):
+    """Dedicated squaring, the twin of pk.cuh's fe_sq: 55 products whose
+    column sums equal mul(a, a)'s, then the same two carry passes — so
+    the result equals mul(a, a) limb for limb."""
+    ii, jj, kk, ff = _sq_terms_on(str(a.device))
+    h = torch.zeros(NL, a.shape[-1], dtype=_I64, device=a.device)
+    return carry(h.index_add_(0, kk, a[ii] * a[jj] * ff), 2)
+
+
 def sqr(a):
+    """The stages' squaring: still mul(a, a), as the kernels' fe_sqr."""
     return mul(a, a)
 
 

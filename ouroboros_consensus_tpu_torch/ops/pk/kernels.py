@@ -1,4 +1,4 @@
-"""The five Praos stage kernels: wrappers, launch counts, plain twins.
+"""The six Praos stage kernels: wrappers, launch counts, plain twins.
 
 Each stage of ops/pk/verify.py is one hand-written CUDA kernel
 (csrc/<name>.cu, one lane per thread, 128 threads per block, grid sized
@@ -38,8 +38,10 @@ import torch
 from . import curve as pc
 from . import verify as pv
 
-# kernel name -> launches on the card (the plain twins do not count)
-LAUNCHES = {"ed": 0, "kes": 0, "vrf_bc_prep": 0, "vrf_ladders": 0, "finish": 0}
+# kernel source -> launches on the card (the plain twins do not count);
+# the two tool kernels (tools/debug_pk.py, tools/fe_bench.py) count here too
+LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
+            "vrf_ladders": 0, "finish": 0, "primitives": 0, "fe_bench": 0}
 
 _BASE8: dict = {}
 
@@ -182,11 +184,49 @@ def kes_points(vk, period, s, vk_leaf, siblings, hblocks, hnblocks, depth):
 
 
 # ---------------------------------------------------------------------------
-# vrf (batch-compatible): prep, then ladders
+# vrf: prep (draft-03 or batch-compatible), then the shared ladders
 # ---------------------------------------------------------------------------
 
 
-def _vrf_prep_launch(fn, stream, pk, gamma, u, v, s, alpha):
+def _vrf_prep_launch(fn, stream, pk, gamma, s, alpha):
+    b = pk.shape[-1]
+    dev = pk.device
+    ok = torch.empty((1, b), dtype=torch.int32, device=dev)
+    prep = torch.empty((120, b), dtype=torch.int32, device=dev)
+    rc = fn(b, _p(pk), _p(gamma), _p(s), _p(alpha), _p(ok), _p(prep), stream)
+    _raise_on(rc, "vrf_prep")
+    return ok, prep
+
+
+def vrf_prep(pk, gamma, s, alpha):
+    """Draft-03 ECVRF stage A. All inputs [32, B] ->
+    (ok [1, B], H ‖ Y ‖ Γ [120, B]); the challenge is the proof's own c.
+
+    Replaces ouroboros_consensus_tpu/ops/pk/kernels.py:_vrf_prep_kernel
+    (csrc/vrf_prep.cu). Operations-bound: two decompressions and the
+    single-chain Elligator2 (three exponentiation chains) and one SHA-512
+    compression — vrf_bc_prep without the inversion that compresses H and
+    the challenge's SHA-512.
+    On an H100 80GB HBM3 at 700 W: 81 multiplies and 778 squarings a lane
+    (50,890 wide products) bound it at 0.050 ms per 8192 lanes;
+    chip_smoke.py measured 0.44 ms."""
+    dev = pk.device
+    b = pk.shape[-1]
+    for n, t in (("pk", pk), ("gamma", gamma), ("s", s), ("alpha", alpha)):
+        _check(f"vrf_prep.{n}", t, (32, b), dev)
+    if _route(dev) == "plain":
+        ok, h, y, g = pv.vrf_core_prep(pk, gamma, s, alpha)
+        prep = torch.cat([pc.stack(h), pc.stack(y), pc.stack(g)])
+        return ok.to(torch.int32)[None], prep.to(torch.int32)
+    from . import build
+
+    out = _vrf_prep_launch(build.kernel_lib("vrf_prep"), _stream(dev), pk,
+                           gamma, s, alpha)
+    LAUNCHES["vrf_prep"] += 1
+    return out
+
+
+def _vrf_bc_prep_launch(fn, stream, pk, gamma, u, v, s, alpha):
     b = pk.shape[-1]
     dev = pk.device
     ok = torch.empty((1, b), dtype=torch.int32, device=dev)
@@ -203,7 +243,7 @@ def vrf_bc_prep(pk, gamma, u, v, s, alpha):
     (ok [1, B], c16 [16, B], H ‖ Y ‖ Γ [120, B]).
 
     Replaces ouroboros_consensus_tpu/ops/pk/kernels.py:_vrf_bc_prep_kernel
-    (csrc/vrf_prep.cu). Operations-bound: three exponentiation chains
+    (csrc/vrf_bc_prep.cu). Operations-bound: three exponentiation chains
     (two decompressions, the single-chain Elligator2), one inversion to
     compress H, and three SHA-512 compressions; no ladders.
     On an H100 80GB HBM3 at 700 W: 94 multiplies and 1,032 squarings a lane
@@ -220,8 +260,8 @@ def vrf_bc_prep(pk, gamma, u, v, s, alpha):
         return ok.to(torch.int32)[None], c16.to(torch.int32), prep.to(torch.int32)
     from . import build
 
-    out = _vrf_prep_launch(build.kernel_lib("vrf_prep"), _stream(dev), pk,
-                           gamma, u, v, s, alpha)
+    out = _vrf_bc_prep_launch(build.kernel_lib("vrf_bc_prep"), _stream(dev),
+                              pk, gamma, u, v, s, alpha)
     LAUNCHES["vrf_bc_prep"] += 1
     return out
 
@@ -260,6 +300,13 @@ def vrf_ladders(c16, s, prep):
                               c16, s, prep)
     LAUNCHES["vrf_ladders"] += 1
     return out
+
+
+def vrf_points(pk, gamma, c, s, alpha):
+    """Draft-03 prep chained into the ladders on the proof's challenge c
+    [16, B] -> (ok [1, B], points [200, B])."""
+    ok, prep = vrf_prep(pk, gamma, s, alpha)
+    return ok, vrf_ladders(c, s, prep)
 
 
 def vrf_points_bc(pk, gamma, u, v, s, alpha):
@@ -327,16 +374,11 @@ def finish(ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts,
 # ---------------------------------------------------------------------------
 
 
-def staged_to_limb_first_bc(
-    ed_pk, ed_r, ed_s, ed_hblocks, ed_hnblocks,
-    kes_vk, kes_period, kes_r, kes_s, kes_vk_leaf, kes_siblings,
-    kes_hblocks, kes_hnblocks,
-    vrf_pk, vrf_gamma, vrf_u, vrf_v, vrf_s, vrf_alpha,
-    beta, thr_lo, thr_hi,
-):
+def _limb_first(cols):
     """Batch-first staged columns ([B, n] bytes, [B, NB, 128] blocks,
-    [B] ints, [B, depth, 32] siblings) -> the 22 limb-first int32
-    arrays the stage kernels take, in the same order."""
+    [B] ints, [B, depth, 32] siblings) -> limb-first int32 arrays, in
+    the same order: the 13 ed / kes columns, then the VRF, beta and
+    threshold byte columns."""
 
     def t(a):
         return a.to(torch.int32).T.contiguous()
@@ -347,13 +389,49 @@ def staged_to_limb_first_bc(
     def blocks(a):
         return a.to(torch.int32).permute(1, 2, 0).contiguous()
 
+    (ed_pk, ed_r, ed_s, ed_hblocks, ed_hnblocks, kes_vk, kes_period, kes_r,
+     kes_s, kes_vk_leaf, kes_siblings, kes_hblocks, kes_hnblocks) = cols[:13]
     return (
         t(ed_pk), t(ed_r), t(ed_s), blocks(ed_hblocks), row(ed_hnblocks),
         t(kes_vk), row(kes_period), t(kes_r), t(kes_s), t(kes_vk_leaf),
         blocks(kes_siblings), blocks(kes_hblocks), row(kes_hnblocks),
-        t(vrf_pk), t(vrf_gamma), t(vrf_u), t(vrf_v), t(vrf_s), t(vrf_alpha),
-        t(beta), t(thr_lo), t(thr_hi),
+        *(t(a) for a in cols[13:]),
     )
+
+
+def staged_to_limb_first(*cols):
+    """The 21 draft-03 staged columns (ed, kes, then vrf_pk, gamma, c,
+    s, alpha, beta, thr_lo, thr_hi) -> the 21 limb-first arrays
+    verify_praos_tiles takes."""
+    if len(cols) != 21:
+        raise ValueError(f"expected 21 draft-03 columns, got {len(cols)}")
+    return _limb_first(cols)
+
+
+def staged_to_limb_first_bc(*cols):
+    """The 22 batch-compatible staged columns (the announced U, V in
+    place of the challenge c) -> the 22 limb-first arrays
+    verify_praos_tiles_bc takes."""
+    if len(cols) != 22:
+        raise ValueError(f"expected 22 batch-compatible columns, got {len(cols)}")
+    return _limb_first(cols)
+
+
+def verify_praos_tiles(
+    ed_pk, ed_r, ed_s, ed_hb, ed_hnb,
+    kes_vk, kes_per, kes_r, kes_s, kes_leaf, kes_sib, kes_hb, kes_hnb,
+    vrf_pk, vrf_g, vrf_c, vrf_s, vrf_al,
+    beta, tlo, thi, *, kes_depth: int,
+):
+    """The five draft-03 stages (ed, kes, vrf_prep, vrf_ladders, finish)
+    over limb-first columns -> (verdicts [5, B], eta [32, B], leader
+    value [32, B])."""
+    ed_ok, ed_pt = ed_points(ed_pk, ed_s, ed_hb, ed_hnb)
+    kes_ok, kes_pt = kes_points(kes_vk, kes_per, kes_s, kes_leaf, kes_sib,
+                                kes_hb, kes_hnb, kes_depth)
+    vrf_ok, vrf_pts = vrf_points(vrf_pk, vrf_g, vrf_c, vrf_s, vrf_al)
+    return finish(ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts,
+                  vrf_c, beta, tlo, thi)
 
 
 def verify_praos_tiles_bc(
@@ -362,7 +440,8 @@ def verify_praos_tiles_bc(
     vrf_pk, vrf_g, vrf_u, vrf_v, vrf_s, vrf_al,
     beta, tlo, thi, *, kes_depth: int,
 ):
-    """The five stages over limb-first columns -> (verdicts [5, B],
+    """The five batch-compatible stages (ed, kes, vrf_bc_prep,
+    vrf_ladders, finish) over limb-first columns -> (verdicts [5, B],
     eta [32, B], leader value [32, B])."""
     ed_ok, ed_pt = ed_points(ed_pk, ed_s, ed_hb, ed_hnb)
     kes_ok, kes_pt = kes_points(kes_vk, kes_per, kes_s, kes_leaf, kes_sib,
@@ -374,15 +453,21 @@ def verify_praos_tiles_bc(
 
 
 def verify_praos_packed_split(layout, packed, n_real: int, device):
-    """The packed per-lane dispatch (bc form): unpack the packed wire
-    columns on `device`, relayout, run the five stage kernels, then the
-    verdict reduction with the nonce fold left to the host (scan off).
+    """The packed per-lane dispatch: unpack the packed wire columns on
+    `device`, relayout, run the five stage kernels of the layout's proof
+    format (vrf_prep for 80-byte draft-03 proofs, vrf_bc_prep for 128-byte
+    batch-compatible ones), then the verdict reduction with the nonce fold
+    left to the host (scan off).
     -> ((masks [5, W] uint32, eta_u8 [B, 32] uint8), flags, eta, lv),
     the per-lane arrays left on `device`."""
     from ...protocol import batch as pbatch
 
     staged = pbatch.unpack_packed(layout, packed, device)
-    limb = staged_to_limb_first_bc(*staged)
-    flags, eta, lv = verify_praos_tiles_bc(*limb, kes_depth=layout.kes_depth)
+    if layout.vrf_proof_len == 128:
+        limb = staged_to_limb_first_bc(*staged)
+        flags, eta, lv = verify_praos_tiles_bc(*limb, kes_depth=layout.kes_depth)
+    else:
+        limb = staged_to_limb_first(*staged)
+        flags, eta, lv = verify_praos_tiles(*limb, kes_depth=layout.kes_depth)
     red = pbatch.verdict_reduce(flags, eta.T, n_real)
     return red, flags, eta, lv

@@ -1,10 +1,13 @@
 """The Praos verifier cores over lanes, plain PyTorch — the twins of the
-five CUDA stage kernels (csrc/stages.cu), same order of operations:
+six CUDA stage kernels (csrc/stages.cuh), same order of operations:
 
   ed_core           — Ed25519 verify-point of the OCert signature
                       (Praos.hs:580): P = s·B − h·A, compression deferred.
   kes_core          — CompactSum KES leaf verify-point + Merkle root walk
                       + period range check (Praos.hs:582).
+  vrf_core_prep     — draft-03 ECVRF stage A: decode Y, Γ, check s and
+                      H = 8·Elligator2(SHA-512(suite‖1‖Y‖α)); the
+                      challenge is the proof's own 16 bytes.
   vrf_core_bc_prep  — batch-compatible ECVRF stage A: decode Y, Γ, check
                       s, H = 8·Elligator2(SHA-512(suite‖1‖Y‖α)), and the
                       challenge c = SHA-512(suite‖2‖H‖Γ‖U‖V)[:16] over the
@@ -16,8 +19,9 @@ five CUDA stage kernels (csrc/stages.cu), same order of operations:
                       :103,116) and the bracketed leader-threshold compare.
 
 Byte arrays are [n, B] (lanes last); failures are mask lanes, never
-exceptions. finish's c' == c compare holds iff the recomputed U', V'
-compress to the announced bytes — the compare-on-bytes form of the two
+exceptions. finish's c' == c compare is the draft-03 check itself; for
+a batch-compatible proof it holds iff the recomputed U', V' compress to
+the announced bytes — the compare-on-bytes form of the two
 batch-compatible group equations.
 """
 
@@ -137,6 +141,16 @@ def hash_to_curve(pk, alpha):
     digest = ph.sha512_fixed(data)
     r = fe.freeze(fe.from_bytes(digest[:32]))
     return pc.mul_cofactor(elligator2(r))
+
+
+def vrf_core_prep(pk, gamma, s, alpha):
+    """-> (ok_pre bool[B], H, Y, Γ): vrf_core_bc_prep without the
+    compression of H and the challenge derivation."""
+    ok_y, y_pt = pc.decompress(pk)
+    ok_g, g_pt = pc.decompress(gamma)
+    s_ok = fe.scalar_lt_l(s)
+    h_pt = hash_to_curve(pk, alpha)
+    return ok_y & ok_g & s_ok, h_pt, y_pt, g_pt
 
 
 def vrf_core_bc_prep(pk, gamma, u, v, s, alpha):

@@ -1,11 +1,14 @@
-"""Batched Praos header validation over the five stage kernels.
+"""Batched Praos header validation over the per-lane stage kernels.
 
 A within-epoch window of header views is validated as one batch: the
 cheap non-crypto checks run on the host (`host_prechecks`), the window
 stages into the packed wire format (`stage_packed` — the KES-signed body
 is the single copy of every field it embeds, verified lane for lane),
 the device unpacks it (`unpack_packed`: field slices, SHA-512 padding,
-the VRF alpha), the five stage kernels return per-lane verdict bits, and
+the VRF alpha), five stage kernels return per-lane verdict bits (ed,
+kes, the VRF prep of the window's proof format — `vrf_prep` for 80-byte
+draft-03 proofs, `vrf_bc_prep` for 128-byte batch-compatible ones — the
+VRF ladders and finish), and
 the sequential epilogue finds the first failing header and rebuilds the
 exact `PraosValidationError` the reference fold would raise, in its
 order (Praos.hs:441-606: KES checks before VRF checks).
@@ -109,12 +112,13 @@ class PackedLayout(NamedTuple):
     o_issuer: int  # vk_cold (32)
     o_vrf_vk: int  # vrf_vk (32)
     o_vrf_out: int  # declared beta (64)
-    o_vrf_proof: int  # gamma ‖ u ‖ v ‖ s (128)
+    o_vrf_proof: int  # gamma ‖ c ‖ s (80) or gamma ‖ u ‖ v ‖ s (128)
     o_vk_hot: int  # OCert KES root vk (32)
     o_sigma: int  # OCert cold-key signature R ‖ s (64)
     kes_depth: int
     slots_per_kes: int
     has_nonce: bool  # False = neutral epoch nonce
+    vrf_proof_len: int  # 80 = draft-03, 128 = batch-compatible
 
 
 class Packed(NamedTuple):
@@ -133,17 +137,18 @@ class Packed(NamedTuple):
 
 
 class NotStagedError(NotImplementedError):
-    """A window the packed staging does not take (the generic staging
-    and draft-03 proofs are not part of this port yet)."""
+    """A window the packed staging does not take (the reference verifies
+    such a window through its generic staging, which is not ported)."""
 
 
 def stage_packed(params: PraosParams, ledger_view: LedgerView,
                  epoch_nonce: nonces.Nonce,
                  hvs: Sequence[HeaderView]) -> tuple[PackedLayout, Packed]:
     """Columnarize a window into the packed format. Qualification is
-    verified, not assumed: one body width, 128-byte proofs, every
-    extracted field equal to the parsed view field in every lane at the
-    lane-0 offsets, int32 integers. Raises NotStagedError otherwise."""
+    verified, not assumed: one body width, one proof length (80 or 128
+    bytes), every extracted field equal to the parsed view field in every
+    lane at the lane-0 offsets, int32 integers. Raises NotStagedError
+    otherwise."""
     b = len(hvs)
     h0 = hvs[0]
     body0 = h0.signed_bytes
@@ -154,8 +159,9 @@ def stage_packed(params: PraosParams, ledger_view: LedgerView,
     sig_len = 64 + 32 + 32 * depth
     if any(len(hv.kes_sig) != sig_len for hv in hvs):
         raise NotStagedError("kes-sig-len")
-    if any(len(hv.vrf_proof) != 128 for hv in hvs):
-        raise NotStagedError("proof-format (draft-03 proofs are not ported)")
+    plen = len(h0.vrf_proof)
+    if plen not in (80, 128) or any(len(hv.vrf_proof) != plen for hv in hvs):
+        raise NotStagedError("proof-format")
     fields0 = (h0.vk_cold, h0.vrf_vk, h0.vrf_output, h0.vrf_proof,
                h0.ocert.vk_hot, h0.ocert.sigma)
     offs = tuple(body0.find(f) for f in fields0)
@@ -171,7 +177,7 @@ def stage_packed(params: PraosParams, ledger_view: LedgerView,
         (offs[0], col([hv.vk_cold for hv in hvs], 32)),
         (offs[1], col([hv.vrf_vk for hv in hvs], 32)),
         (offs[2], col([hv.vrf_output for hv in hvs], 64)),
-        (offs[3], col([hv.vrf_proof for hv in hvs], 128)),
+        (offs[3], col([hv.vrf_proof for hv in hvs], plen)),
         (offs[4], col([hv.ocert.vk_hot for hv in hvs], 32)),
         (offs[5], col([hv.ocert.sigma for hv in hvs], 64)),
     )
@@ -198,7 +204,7 @@ def stage_packed(params: PraosParams, ledger_view: LedgerView,
         thr_idx[i] = rows.setdefault(lo + hi, len(rows))
     thr_tab = np.stack([np.frombuffer(r, np.uint8) for r in rows])
     layout = PackedLayout(lb, *offs, depth, params.slots_per_kes_period,
-                          epoch_nonce is not None)
+                          epoch_nonce is not None, plen)
     packed = Packed(
         body=body.copy(), kes_rs=np.ascontiguousarray(sigs[:, :64]),
         kes_tail_idx=kt_idx, kes_tail_tab=kt_tab, slot=slot,
@@ -263,11 +269,13 @@ def alpha_from_slots(slot: torch.Tensor, nonce: torch.Tensor | None) -> torch.Te
 
 
 def unpack_packed(layout: PackedLayout, packed: Packed, device) -> tuple:
-    """Packed columns -> the 22 batch-first staged columns on `device`
-    (the order of kernels.staged_to_limb_first_bc): field slices of the
-    body, the Ed25519 and KES SHA-512 inputs padded into blocks, the VRF
-    alpha, the KES evolution t = kes_period_of(slot) - c0 and the
-    per-lane threshold rows."""
+    """Packed columns -> the batch-first staged columns on `device`: the
+    21 of kernels.staged_to_limb_first for an 80-byte draft-03 proof
+    (gamma ‖ c ‖ s split at 32 / 48), the 22 of staged_to_limb_first_bc
+    for a 128-byte one (gamma ‖ u ‖ v ‖ s). Field slices of the body, the
+    Ed25519 and KES SHA-512 inputs padded into blocks, the VRF alpha, the
+    KES evolution t = kes_period_of(slot) - c0 and the per-lane threshold
+    rows."""
 
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(torch.int64)
@@ -280,8 +288,11 @@ def unpack_packed(layout: PackedLayout, packed: Packed, device) -> tuple:
     issuer = sl(layout.o_issuer, 32)
     vrf_vk = sl(layout.o_vrf_vk, 32)
     beta = sl(layout.o_vrf_out, 64)
-    proof = sl(layout.o_vrf_proof, 128)
-    gamma, vrf_u, vrf_v, vrf_s = (proof[:, 32 * k: 32 * (k + 1)] for k in range(4))
+    proof = sl(layout.o_vrf_proof, layout.vrf_proof_len)
+    if layout.vrf_proof_len == 128:
+        vrf_cols = (proof[:, :32], proof[:, 32:64], proof[:, 64:96], proof[:, 96:])
+    else:
+        vrf_cols = (proof[:, :32], proof[:, 32:48], proof[:, 48:])
     vk_hot = sl(layout.o_vk_hot, 32)
     sigma = sl(layout.o_sigma, 64)
     ed_r, ed_s = sigma[:, :32], sigma[:, 32:]
@@ -303,7 +314,7 @@ def unpack_packed(layout: PackedLayout, packed: Packed, device) -> tuple:
     return (
         issuer, ed_r, ed_s, ed_hb, ed_hnb,
         vk_hot, period, kes_r, kes_s, vk_leaf, siblings, kes_hb, kes_hnb,
-        vrf_vk, gamma, vrf_u, vrf_v, vrf_s, alpha,
+        vrf_vk, *vrf_cols, alpha,
         beta, thr[:, :32], thr[:, 32:],
     )
 
@@ -553,7 +564,8 @@ def run_batch_native(params: PraosParams, ledger_view: LedgerView,
 
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
                     hvs: Sequence[HeaderView], device: torch.device) -> PackedVerdicts:
-    """Stage -> H2D -> unpack -> five stage kernels -> reduce -> D2H."""
+    """Stage -> H2D -> unpack -> the five stage kernels of the window's
+    proof format -> reduce -> D2H."""
     b = len(hvs)
     layout, packed = stage_packed(params, lview, eta0, hvs)
     packed = pad_packed_to(packed, bucket_size(b))

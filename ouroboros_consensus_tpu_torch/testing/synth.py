@@ -1,4 +1,4 @@
-"""Host forger of bc-proof Praos chains (the replay's test and smoke input).
+"""Host forger of Praos chains (the replay's test and smoke input).
 
 Reference: `Cardano.Tools.DBSynthesizer`'s forging loop — per slot, check
 leadership for every credential, forge and append the winner's block to
@@ -7,7 +7,14 @@ the ImmutableDB, threading the protocol state with the crypto-free
 signing goes through the repo's C++ host crypto (`native.py`). For the
 same seeds, parameters and limit, the chunk and index files are byte for
 byte the JAX package's `tools/db_synthesizer.synthesize(vrf_backend="host")`
-output.
+output (its draft-03 output under `OCT_VRF_BATCH=0` for
+`proof_format="draft03"`).
+
+The VRF proof format is an argument: "bc" forges 128-byte
+batch-compatible proofs (Gamma ‖ U ‖ V ‖ s), "draft03" 80-byte ECVRF
+draft-03 proofs (Gamma ‖ c ‖ s), and a callable `block_no -> 80 | 128`
+switches format within one chain. Both formats certify the same output
+beta, so the leader schedule does not depend on the format.
 
 CompactSum KES (cardano-crypto-class `KES.CompactSum`): seeds split top
 down (left = Blake2b-256(0x01 ‖ seed), right = Blake2b-256(0x02 ‖ seed)),
@@ -136,11 +143,28 @@ def forge_block(params: PraosParams, pool: PoolCredentials, *, slot: int,
     return Block(Header(body, kes_sig), tuple(txs))
 
 
+def proof_length(proof_format, block_no: int) -> int:
+    """The proof length (80 or 128) that `proof_format` gives block
+    `block_no`: "draft03", "bc", or a callable block_no -> 80 | 128."""
+    if callable(proof_format):
+        n = proof_format(block_no)
+    else:
+        n = {"draft03": 80, "bc": 128}.get(proof_format)
+    if n not in (80, 128):
+        raise ValueError(f"unknown proof format {proof_format!r} at block {block_no}")
+    return n
+
+
+_PROVERS = {80: native.ecvrf_prove, 128: native.ecvrf_prove_bc}
+
+
 def synthesize(db_path: str, params: PraosParams, pools: list[PoolCredentials],
                lview: LedgerView, n_blocks: int, chunk_size: int = 21600,
-               txs_per_block: int = 0) -> PraosState:
+               txs_per_block: int = 0, proof_format="bc") -> PraosState:
     """Forge `n_blocks` blocks into `<db_path>/immutable`; -> final state.
-    Per slot the first winning credential forges (one block per slot)."""
+    Per slot the first winning credential forges (one block per slot);
+    `proof_format` picks each block's VRF proof format (module doc)."""
+    proof_length(proof_format, 0)  # refuse an unknown format before forging
     imm = ImmutableDB(os.path.join(db_path, "immutable"), chunk_size=chunk_size)
     if not imm.is_empty:
         raise RuntimeError(f"refusing to forge into non-empty DB at {db_path}")
@@ -155,7 +179,8 @@ def synthesize(db_path: str, params: PraosParams, pools: list[PoolCredentials],
             entry = lview.pool_distr.get(pool.pool_id)
             if entry is None:
                 continue
-            proof = native.ecvrf_prove_bc(pool.vrf_seed, alpha)
+            prove = _PROVERS[proof_length(proof_format, block_no)]
+            proof = prove(pool.vrf_seed, alpha)
             beta = native.proof_to_hash(proof)
             if not is_leader(nonces.vrf_leader_value(beta), entry.stake,
                              params.active_slot_coeff):

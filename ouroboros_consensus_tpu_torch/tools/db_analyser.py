@@ -6,9 +6,14 @@ CRC and body hash per block — ValidateAllChunks, the chain ends at the
 first block that fails), then the headers are revalidated from genesis,
 segmented at epoch boundaries and `max_batch`:
 
-  backend="device": the five stage kernels on `device` (None -> the
-                    CUDA card, raising when it is absent; "cpu" runs the
-                    plain PyTorch versions and is what the tests pass);
+  backend="device": the stage kernels on `device` (None -> the CUDA
+                    card, raising when it is absent; "cpu" runs the plain
+                    PyTorch versions and is what the tests pass). A window
+                    of draft-03 (80-byte) proofs runs ed, kes, vrf_prep,
+                    vrf_ladders and finish; a window of batch-compatible
+                    (128-byte) proofs runs vrf_bc_prep in vrf_prep's place.
+                    A chain that switches format is cut into windows at
+                    the switch;
   backend="native": the C++ verifier (native/hostcrypto.cpp).
 """
 

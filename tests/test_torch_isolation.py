@@ -1,11 +1,13 @@
 """The port stands alone: no module of ouroboros_consensus_tpu_torch and
-not chip_smoke.py imports jax or the JAX package; the port replays a
-chain with jax made unimportable; and its device entry point raises
-without CUDA instead of running on the CPU."""
+not chip_smoke.py imports jax or the JAX package; its CUDA sources
+include nothing from outside their directory but the C and CUDA
+headers; the port replays a chain with jax made unimportable; and its
+device entry point raises without CUDA instead of running on the CPU."""
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -56,6 +58,22 @@ def test_no_jax_or_reference_imports():
     bad = [(str(p.relative_to(REPO)), m) for p in files for m in _imports(p)
            if _forbidden(m)]
     assert bad == []
+
+
+def test_scan_covers_the_tools_and_every_kernel_source():
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+
+    scanned = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
+    assert {"tools/debug_pk.py", "tools/fe_bench.py", "testing/corrupt.py",
+            "ops/pk/kernels.py", "ops/pk/build.py"} <= scanned
+    csrc = PORT / "ops" / "pk" / "csrc"
+    assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
+    assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench"} <= set(build.KERNELS)
+    local = {p.name for p in csrc.iterdir()}
+    system = {"stddef.h", "stdint.h"}
+    for p in sorted(csrc.iterdir()):
+        for inc in re.findall(r'^#include [<"]([^>"]+)[>"]', p.read_text(), re.M):
+            assert inc in local or inc in system, (p.name, inc)
 
 
 def test_relative_imports_stay_in_the_port():

@@ -154,7 +154,7 @@ def test_device_lane_code_matches_plain_twins(batch, outputs):
     assert all(torch.equal(a, b) for a, b in zip(got, ed))
     got = K._kes_launch(emu.pk_kes, None, c[5], c[6], c[8], c[9], c[10], c[11], c[12], DEPTH)
     assert all(torch.equal(a, b) for a, b in zip(got, kes))
-    got = K._vrf_prep_launch(emu.pk_vrf_prep, None, *c[13:19])
+    got = K._vrf_bc_prep_launch(emu.pk_vrf_bc_prep, None, *c[13:19])
     assert all(torch.equal(a, b) for a, b in zip(got, prep))
     assert torch.equal(K._vrf_ladders_launch(emu.pk_vrf_ladders, None, prep[1], c[17], prep[2]), pts)
     got = K._finish_launch(emu.pk_finish, None, ed[0], ed[1], c[1], kes[0], kes[1], c[7],

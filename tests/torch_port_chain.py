@@ -1,20 +1,19 @@
-"""Shared fixture code of the port's replay tests: a small bc-proof chain
-forged by the JAX package's synthesizer, byte corruptions that keep the
-storage layer's CRCs consistent, and the comparison of the port's replay
-with the JAX package's sequential host fold."""
+"""Shared fixture code of the port's replay tests: a small chain forged
+by the JAX package's synthesizer (bc proofs by default, draft-03 under
+OCT_VRF_BATCH=0), byte corruptions that keep the storage layer's CRCs
+consistent, and the comparison of the port's replay with the JAX
+package's sequential host fold."""
 
-import os
 import shutil
-import zlib
 from fractions import Fraction
+
+import pytest
 
 from ouroboros_consensus_tpu.protocol.praos import PraosParams
 from ouroboros_consensus_tpu.tools import db_analyser as jda
 from ouroboros_consensus_tpu.tools import db_synthesizer as jds
-from ouroboros_consensus_tpu.utils import cbor
 from ouroboros_consensus_tpu_torch import carry
-from ouroboros_consensus_tpu_torch.block.praos_block import Block
-from ouroboros_consensus_tpu_torch.storage.immutable import ImmutableDB, chunk_name, index_name
+from ouroboros_consensus_tpu_torch.testing import corrupt, synth
 from ouroboros_consensus_tpu_torch.tools import db_analyser as pda
 
 # 1 pool, KES depth 3, 32-slot epochs (~16 blocks each: the 48-block chain
@@ -28,35 +27,31 @@ CHUNK = 24
 MID = 24  # the corrupted header's chain index
 
 
-def forge(path: str):
+def forge(path: str, draft03: bool = False):
+    """Forge the test chain with the JAX synthesizer: bc proofs, or
+    draft-03 ones (the reference's OCT_VRF_BATCH=0)."""
     pools, lview = jds.make_credentials(1, kes_depth=PARAMS.kes_depth)
-    jds.synthesize(path, PARAMS, pools, lview, jds.ForgeLimit(blocks=N_BLOCKS),
-                   chunk_size=CHUNK, vrf_backend="host")
+    with pytest.MonkeyPatch.context() as mp:
+        if draft03:
+            mp.setenv("OCT_VRF_BATCH", "0")
+        jds.synthesize(path, PARAMS, pools, lview, jds.ForgeLimit(blocks=N_BLOCKS),
+                       chunk_size=CHUNK, vrf_backend="host")
     return lview
 
 
-def corrupt_copy(src: str, dst: str, field: str, index: int = MID) -> None:
+def corrupt_copy(src: str, dst: str, field: str, index: int = MID,
+                 resign: bool = False) -> None:
     """Copy the chain and flip one byte of header `index`'s `field`
     ("kes_sig", "vrf_proof" or "ocert_sigma"), re-sealing that block's
-    index CRC so only the protocol check can catch the change."""
+    index CRC so only the protocol check can catch the change. With
+    `resign`, the header body is KES-signed again by the forging pool, so
+    a flipped VRF proof reaches the VRF check."""
     shutil.copytree(src, dst)
-    imm = ImmutableDB(os.path.join(dst, "immutable"))
-    entries = [(n, k, e) for n in imm._chunks for k, e in enumerate(imm._entries[n])]
-    n, k, e = entries[index]
-    cpath = os.path.join(imm.path, chunk_name(n))
-    with open(cpath, "rb") as f:
-        data = bytearray(f.read())
-    blob = bytes(data[e.offset: e.offset + e.size])
-    h = Block.from_bytes(blob).header
-    target = {"kes_sig": h.kes_sig, "vrf_proof": h.body.vrf_proof,
-              "ocert_sigma": h.body.ocert.sigma}[field]
-    data[e.offset + blob.index(target) + 40] ^= 0x01
-    with open(cpath, "wb") as f:
-        f.write(bytes(data))
-    rows = [e2.to_cbor_obj() for e2 in imm._entries[n]]
-    rows[k][5] = zlib.crc32(bytes(data[e.offset: e.offset + e.size]))
-    with open(os.path.join(imm.path, index_name(n)), "wb") as f:
-        f.write(b"".join(cbor.encode(r) for r in rows))
+    extra = {}
+    if resign:
+        extra = dict(params=carry.params_from_reference(PARAMS),
+                     pool=synth.make_pool(0, kes_depth=PARAMS.kes_depth))
+    corrupt.flip_header_byte(dst, index, field, **extra)
 
 
 def reference(path: str, lview):
