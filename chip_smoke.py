@@ -16,11 +16,12 @@ Phases (any failure raises and the script exits non-zero):
    vrf_ladders and finish (OCert signature, KES signature, VRF proof, VRF
    output, non-canonical s, off-curve and non-canonical keys, x = 0 with
    the sign bit, a KES period out of range, a short SHA-512 block count);
-   draft-03 (80-byte proof) lanes for vrf_prep (a flipped challenge byte,
-   a flipped Γ byte, s + L, an off-curve VRF key, an off-curve Γ, a wrong
-   alpha). Each kernel and its plain PyTorch version (run on the card,
-   same inputs) must agree byte for byte; both are timed with CUDA
-   events; the verdict rows must flag exactly the corrupted lanes.
+   draft-03 (80-byte proof) lanes for vrf_prep and vrf_ladders (a flipped
+   challenge byte, a flipped Γ byte, s + L, an off-curve VRF key, an
+   off-curve Γ, a wrong alpha). Each kernel and its plain PyTorch
+   version (run on the card, same inputs) must agree byte for byte; both
+   are timed with CUDA events; the verdict rows must flag exactly the
+   corrupted lanes.
 3. The main paths, each with the launch counts zeroed just before its
    device replay and read just after. Chains are forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
@@ -36,10 +37,28 @@ Phases (any failure raises and the script exits non-zero):
       its first half, batch-compatible in its second: 4,096 headers and
       the switch at block 2,048 by default), whose windows must be cut
       at the switch.
+   d. the generic staging: the views of a bc chain of an eighth as many
+      headers with their KES-signed bodies replaced by a stand-in that
+      embeds no header field (testing/corrupt.standin_views), so the
+      packed staging declines the window (`field-offsets`, which must be
+      recorded) and `protocol/batch.stage` feeds the same kernels;
+      replayed by `validate_chain` on the card and by the C++ verifier,
+      then a copy with one VRF-proof byte flipped two thirds of the way in.
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
 5. A `kernels` JSON line, the card line, and the final status line.
+
+Phase 2 also times the six stage kernels at the main path's one-block
+widths (8 and 128 lanes), and phase 1 prints ptxas's registers, stack
+and spill stores of each launched kernel with its resident blocks per SM.
+
+    python3 chip_smoke.py --ab PARENT     # A/B against another checkout
+
+runs, on one card and in turns (parent, this tree, this tree, parent),
+one process per turn: each tree's own phase 1 and phase 2 and the six
+stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`); one
+`AB {...}` JSON line per turn.
 
 It needs no network and no JAX; it imports nothing of the JAX package.
 """
@@ -86,7 +105,9 @@ PATH_KERNELS = {
     "mixed": {"ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish"},
     "tools": {"primitives", "fe_bench"},
 }
+PATH_KERNELS["generic"] = PATH_KERNELS["bc"]
 REPLAY_KERNELS = PATH_KERNELS["mixed"]
+STAGES = ("ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish")
 
 
 def log(msg: str) -> None:
@@ -131,7 +152,8 @@ def phase_build() -> dict:
     build.build_cuda()
     cuda_s = time.monotonic() - t0
     log(f"build: {len(build.KERNELS)} cuda sources {cuda_s:.1f} s (parallel nvcc), "
-        f"native {native_s:.1f} s")
+        f"native {native_s:.1f} s; each source's nvcc done at (s): "
+        f"{json.dumps({k: round(v, 1) for k, v in build.BUILD_SECONDS.items()})}")
     ptxas = {}
     for name, _src, _rep in KERNEL_ROWS:
         with open(build.ptxas_report(name)) as f:
@@ -170,7 +192,7 @@ def tiled_window(lanes: int, distinct: int, seed: int, workdir: str,
     params = bench_params()
     pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
     lview = synth.make_ledger_view(pools)
-    db = os.path.join(workdir, f"views_{proof_format}")
+    db = os.path.join(tempfile.mkdtemp(dir=workdir), f"views_{proof_format}")
     synth.synthesize(db, params, pools, lview, distinct, proof_format=proof_format)
     hvs = db_analyser.read_header_views(db)
     # one packed window per body width: take the widest run of views
@@ -425,16 +447,57 @@ def phase_kernels(dev, lanes: int = 8192, distinct: int = 256, seed: int = 7,
     return stages
 
 
+def stage_times(dev, lanes_list=(8, 128), distinct: int = 64, seed: int = 7,
+                reps: int = 5, workdir: str | None = None) -> dict:
+    """Each of the six stage kernels at each width of `lanes_list` (the
+    first lanes of a port-forged bc window, and of a draft-03 one for
+    vrf_prep), CUDA events over `reps` launches after a warm-up. Only
+    wrappers every port slice has, so `--ab` runs it on another tree's
+    package too. -> {kernel: {lanes: ms}}"""
+    from ouroboros_consensus_tpu_torch.device import time_ms
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    top = max(lanes_list)
+    bc, _ = tiled_window(top, distinct, seed, workdir, "bc")
+    d3, _ = tiled_window(top, distinct, seed + 4, workdir, "draft03")
+    out: dict = {k: {} for k in STAGES}
+    for n in lanes_list:
+        c = [x[..., :n].contiguous().to(dev) for x in bc]
+        d = [x[..., :n].contiguous().to(dev) for x in d3]
+        (ed_pk, ed_r, ed_s, ed_hb, ed_hnb, kes_vk, kes_per, kes_r, kes_s,
+         kes_leaf, kes_sib, kes_hb, kes_hnb, vrf_pk, vrf_g, vrf_u, vrf_v,
+         vrf_s, vrf_al, beta, tlo, thi) = c
+        ed = K.ed_points(ed_pk, ed_s, ed_hb, ed_hnb)
+        kes = K.kes_points(kes_vk, kes_per, kes_s, kes_leaf, kes_sib, kes_hb, kes_hnb, 7)
+        vok, c16, prep = K.vrf_bc_prep(vrf_pk, vrf_g, vrf_u, vrf_v, vrf_s, vrf_al)
+        pts = K.vrf_ladders(c16, vrf_s, prep)
+        runs = {
+            "ed": lambda: K.ed_points(ed_pk, ed_s, ed_hb, ed_hnb),
+            "kes": lambda: K.kes_points(kes_vk, kes_per, kes_s, kes_leaf, kes_sib,
+                                        kes_hb, kes_hnb, 7),
+            "vrf_prep": lambda: K.vrf_prep(d[13], d[14], d[16], d[17]),
+            "vrf_bc_prep": lambda: K.vrf_bc_prep(vrf_pk, vrf_g, vrf_u, vrf_v, vrf_s, vrf_al),
+            "vrf_ladders": lambda: K.vrf_ladders(c16, vrf_s, prep),
+            "finish": lambda: K.finish(ed[0], ed[1], ed_r, kes[0], kes[1], kes_r, vok,
+                                       pts, c16, beta, tlo, thi),
+        }
+        for k, fn in runs.items():
+            out[k][n] = time_ms(fn, reps)
+    log(f"stage ms by lanes: {json.dumps(out)}")
+    return out
+
+
 DRAFT03_KINDS = ("challenge", "gamma_byte", "noncanon_s", "offcurve_vk",
                  "offcurve_gamma", "wrong_alpha")
 
 
 def phase_vrf_prep(dev, lanes: int = 8192, distinct: int = 256, seed: int = 11,
                    reps: int = 5, workdir: str | None = None) -> dict:
-    """The draft-03 prep kernel against its plain version on `lanes`
-    draft-03 lanes with the draft-03 corrupt kinds (4 lanes each); the
-    five draft-03 stages' verdict rows must fail exactly the corrupted
-    lanes' VRF check and pass everything else. -> the vrf_prep record."""
+    """The draft-03 prep kernel, and the ladders over the proof's own c,
+    against their plain versions on `lanes` draft-03 lanes with the
+    draft-03 corrupt kinds (4 lanes each); the five draft-03 stages'
+    verdict rows must fail exactly the corrupted lanes' VRF check and
+    pass everything else. -> the vrf_prep record."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
@@ -472,6 +535,16 @@ def phase_vrf_prep(dev, lanes: int = 8192, distinct: int = 256, seed: int = 11,
 
     rec = hold("vrf_prep", lambda: K.vrf_prep(vrf_pk, vrf_g, vrf_s, vrf_al), plain,
                (vrf_pk, vrf_g, vrf_s, vrf_al), lanes, dev, reps)
+    # the ladders on the draft-03 window too, over the proof's own c
+    prep = K.vrf_prep(vrf_pk, vrf_g, vrf_s, vrf_al)[1]
+
+    def plain_ladders():
+        h, y, g = (pc.unstack(prep[40 * k: 40 * (k + 1)].to(torch.int64)) for k in range(3))
+        pts = pv.vrf_core_ladders(vrf_c, vrf_s, h, y, g)
+        return torch.cat([pc.stack(p) for p in pts]).to(torch.int32)
+
+    hold("vrf_ladders (draft-03 window)", lambda: K.vrf_ladders(vrf_c, vrf_s, prep),
+         plain_ladders, (vrf_c, vrf_s, prep), lanes, dev, 1)
     flags = K.verify_praos_tiles(*cols, kes_depth=7)[0].cpu()
     bad = np.zeros(lanes, bool)
     bad[lanes_of.reshape(-1)] = True
@@ -490,12 +563,16 @@ def phase_vrf_prep(dev, lanes: int = 8192, distinct: int = 256, seed: int = 11,
 
 
 def compare(tag: str, dres, nres) -> None:
-    """Device and native replays agree on n_valid, error and final state."""
+    """Device and native replays (revalidate's or validate_chain's
+    results) agree on n_valid, error and final state."""
     from ouroboros_consensus_tpu_torch import carry
+
+    def state(r):
+        return carry.state_to_plain(getattr(r, "final_state", None) or r.state)
 
     same = (dres.n_valid == nres.n_valid
             and carry.error_to_plain(dres.error) == carry.error_to_plain(nres.error)
-            and carry.state_to_plain(dres.final_state) == carry.state_to_plain(nres.final_state))
+            and state(dres) == state(nres))
     if not same:
         raise AssertionError(
             f"{tag}: device ({dres.n_valid}, {dres.error!r}) != native "
@@ -680,6 +757,67 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
     return paths
 
 
+def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
+    """The generic staging on the card (phase 3d): stand-in-body views
+    replayed on the card with the launch counts zeroed just before and
+    read just after, and by the C++ verifier; the packed staging's decline
+    must be recorded. Then one VRF-proof byte flipped two thirds of the
+    way in: both backends stop there with VRFKeyBadProof."""
+    import dataclasses
+
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.protocol.praos import PraosState
+    from ouroboros_consensus_tpu_torch.testing import corrupt, synth
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+
+    params = bench_params()
+    pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
+    lview = synth.make_ledger_view(pools)
+    db = os.path.join(workdir, "chain_generic")
+    synth.synthesize(db, params, pools, lview, headers, proof_format="bc")
+    hvs = corrupt.standin_views(db_analyser.read_header_views(db), params, pools[0])
+
+    def replay(views, backend):
+        return pbatch.validate_chain(params, lambda _e: lview, PraosState(), views,
+                                     max_batch=max_batch, backend=backend,
+                                     device=dev if backend == "device" else None)
+
+    before = pbatch.DECLINES.get("field-offsets", 0)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dres = replay(hvs, "device")
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    declined = pbatch.DECLINES.get("field-offsets", 0) - before
+    if declined <= 0:
+        raise AssertionError("generic path: the packed staging's decline was not recorded")
+    log(f"generic: launches {json.dumps(launches)}; field-offsets declines {declined}")
+    t0 = time.perf_counter()
+    nres = replay(hvs, "native")
+    native_s = time.perf_counter() - t0
+    compare("generic (stand-in bodies)", dres, nres)
+    if dres.n_valid != headers or dres.error is not None:
+        raise AssertionError(f"generic path: {dres.n_valid}/{headers}, {dres.error!r}")
+    target = int(headers * 2 / 3)
+    bad = list(hvs)
+    pi = bytearray(bad[target].vrf_proof)
+    pi[40] ^= 0x01
+    bad[target] = dataclasses.replace(bad[target], vrf_proof=bytes(pi))
+    dbad, nbad = replay(bad, "device"), replay(bad, "native")
+    compare("generic (stand-in bodies), vrf_proof byte flipped", dbad, nbad)
+    if dbad.n_valid != target or type(dbad.error).__name__ != "VRFKeyBadProof":
+        raise AssertionError(f"generic corrupted: expected VRFKeyBadProof at {target}, "
+                             f"got {dbad.n_valid} {dbad.error!r}")
+    log(f"generic: device {device_s:.3f} s, native {native_s:.3f} s for {headers} headers")
+    return {"launches": launches, "declines": declined, "n_valid": dres.n_valid,
+            "device_s": device_s, "native_s": native_s}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the tools
 # ---------------------------------------------------------------------------
@@ -736,13 +874,68 @@ def phase_tools(dev, reps: int = 5) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# --ab: this tree against another checkout, in turns on one card
+# ---------------------------------------------------------------------------
+
+AB_CHILD = r"""
+import json, sys, tempfile, importlib.util
+root, this, lanes = sys.argv[1], sys.argv[2], [int(x) for x in sys.argv[3].split(",")]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as own
+spec = importlib.util.spec_from_file_location("chip_smoke_this", this)
+new = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(new)
+dev = torch.device("cuda")
+w = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+rec = {"root": root, "ptxas": own.phase_build()}
+st = own.phase_kernels(dev, workdir=w)
+st["vrf_prep"] = own.phase_vrf_prep(dev, workdir=w)
+rec["phase2_ms"] = {k: v["ms"] for k, v in st.items()}
+rec["stage_ms"] = new.stage_times(dev, lanes, workdir=w)
+print("AB " + json.dumps(rec), flush=True)
+"""
+
+
+def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
+    """This tree against `parent` (a checkout of another commit), in turns
+    parent, this, this, parent; one process per turn, each building its
+    own tree's kernels. Prints each turn's `AB {...}` line and the card."""
+    this = os.path.abspath(__file__)
+    recs = []
+    for root in (parent, REPO, REPO, parent):
+        p = subprocess.run([sys.executable, "-c", AB_CHILD, os.path.abspath(root), this,
+                            ",".join(map(str, lanes))],
+                           capture_output=True, text=True)
+        line = [x for x in p.stdout.splitlines() if x.startswith("AB ")]
+        if p.returncode != 0 or not line:
+            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"A/B turn for {root} failed (exit {p.returncode})")
+        recs.append(json.loads(line[0][3:]))
+        print(line[0], flush=True)
+    for key in STAGES:
+        row = []
+        for n in lanes:
+            par = [r["stage_ms"][key][str(n)] for r in (recs[0], recs[3])]
+            cur = [r["stage_ms"][key][str(n)] for r in (recs[1], recs[2])]
+            row.append(f"{n}: parent {min(par):.4f} this {min(cur):.4f} "
+                       f"({min(par) / min(cur):.2f}x)")
+        log(f"A/B {key}: " + "; ".join(row))
+    print(f"card: {card_line()}", flush=True)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--headers", type=int, default=32768,
                     help="headers of the bc and of the draft-03 chain; the "
-                         "mixed chain has an eighth as many")
+                         "mixed chain and the stand-in-body chain have an "
+                         "eighth as many")
+    ap.add_argument("--ab", metavar="PARENT",
+                    help="time this tree against the checkout PARENT instead")
     a = ap.parse_args(argv)
 
     import torch
@@ -751,6 +944,8 @@ def main(argv=None) -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    if a.ab:
+        return ab_main(a.ab)
     from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz, resolve, wide_product_rate
 
     dev = resolve(None)
@@ -762,7 +957,10 @@ def main(argv=None) -> int:
     try:
         stages = phase_kernels(dev, workdir=work)
         stages["vrf_prep"] = phase_vrf_prep(dev, workdir=work)
+        for key, by_lanes in stage_times(dev, workdir=work).items():
+            stages[key]["ms_by_lanes"] = {**by_lanes, stages[key]["lanes"]: stages[key]["ms"]}
         paths = phase_main(dev, a.headers, a.headers // 8, 8192, work)
+        generic = phase_generic(dev, a.headers // 8, 8192, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     tools = phase_tools(dev)
@@ -775,6 +973,7 @@ def main(argv=None) -> int:
     # card's 3.35 TB/s.
     wide_rate = wide_product_rate()
     by_path = {p: out["launches"] for p, out in paths.items()}
+    by_path["generic"] = generic["launches"]
     by_path["tools"] = tools["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
@@ -797,12 +996,14 @@ def main(argv=None) -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None, "field_ops_per_lane": st.get("field_ops"),
             "wide_products_per_lane": per_lane,
+            "ms_by_lanes": st.get("ms_by_lanes"),
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
         })
     for p, out in paths.items():
-        fill = [{"lanes": n, "blocks": -(-n // 128), "sms_busy_at_most": min(-(-n // 128), sms)}
-                for n in out["lanes_per_launch"]]
-        log(f"{p}: grid fill per window (128 threads per block, {sms} SMs): {json.dumps(fill)}")
+        fill = [{"lanes": n, "blocks_of_128_lanes": -(-n // 128),
+                 "blocks_of_32_lanes": -(-n // 32)} for n in out["lanes_per_launch"]]
+        log(f"{p}: grid fill per window (ed, preps, finish: 128 lanes a block; kes, "
+            f"vrf_ladders: 32; {sms} SMs): {json.dumps(fill)}")
         log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows')})}")
     log(f"fe_bench rows: {json.dumps(tools['fe_rows'])}")
     log(f"total {time.monotonic() - t_all:.1f} s; sms {sms}, max sm clock {clock / 1e6:.0f} MHz")

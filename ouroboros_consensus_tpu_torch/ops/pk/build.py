@@ -24,6 +24,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -70,6 +71,8 @@ ARGTYPES = {
 }
 
 _LIBS: dict = {}
+# wall seconds from the start of the parallel build to each source's nvcc exit
+BUILD_SECONDS: dict = {}
 
 
 def render_consts() -> str:
@@ -144,23 +147,30 @@ def build_cuda() -> dict:
     todo = [k for k in KERNELS
             if not (os.path.exists(out[k]) and os.path.exists(ptxas_report(k)))]
     procs = {}
+    t0 = time.monotonic()
     for k in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
                os.path.join(CSRC, f"{k}.cu")]
-        procs[k] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        log = open(ptxas_report(k), "w")
+        procs[k] = (tmp, log, subprocess.Popen(
+            cmd, stdout=log, stderr=subprocess.STDOUT, text=True))
     failed = []
-    for k, (tmp, p) in procs.items():
-        log, _ = p.communicate()
-        with open(ptxas_report(k), "w") as f:
-            f.write(log)
-        if p.returncode != 0:
-            failed.append(f"--- {k} ---\n{log}")
-            os.remove(tmp)
-        else:
-            os.replace(tmp, out[k])
+    while procs:
+        for k, (tmp, log, p) in list(procs.items()):
+            if p.poll() is None:
+                continue
+            BUILD_SECONDS[k] = time.monotonic() - t0
+            log.close()
+            del procs[k]
+            if p.returncode != 0:
+                with open(ptxas_report(k)) as f:
+                    failed.append(f"--- {k} ---\n{f.read()}")
+                os.remove(tmp)
+            else:
+                os.replace(tmp, out[k])
+        time.sleep(0.1)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return out
@@ -192,9 +202,10 @@ def kernel_lib(name: str, entry: str | None = None):
 
 
 def blocks_per_sm(name: str) -> int:
-    """Resident blocks per SM of one kernel source at its 128-thread
-    launch, from the CUDA occupancy API (registers, stack and shared
-    memory); for a source with several kernels, its heaviest."""
+    """Resident blocks per SM of one kernel source at its launch geometry
+    (128 threads; vrf_ladders 256), with its dynamic shared memory,
+    from the CUDA occupancy API (registers, stack and shared memory); for
+    a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]

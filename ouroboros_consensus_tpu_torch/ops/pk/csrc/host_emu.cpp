@@ -1,7 +1,10 @@
 // Host build of the stage and tool lane bodies (g++ -DPK_HOST): each
-// entry point loops the CUDA kernel's per-lane body over the lanes. Used
-// only to cross-check the device code against the plain PyTorch twins on
-// a machine without nvcc; the replay never calls it.
+// entry point loops the CUDA kernel's per-lane body over the lanes; a
+// role-split kernel (kes, vrf_ladders) runs, for each group of 32 lanes,
+// every role of phase 1 over the group's lanes, one role after another,
+// then phase 2, over one scratch struct, as the kernel's barrier orders
+// them. Used only to cross-check the device code against the plain
+// PyTorch twins on a machine without nvcc; the replay never calls it.
 #include "tools.cuh"
 
 typedef const int32_t *CI;
@@ -17,16 +20,31 @@ extern "C" int pk_ed(int B, const void *base8, const void *pk, const void *s,
   return 0;
 }
 
+// one group's phase-1 roles, one after another
+static void kes_phase1(int g, int n, int B, int depth, const u32 *base8,
+                       CI vk, CI period, CI s, CI leaf, CI sib, CI hb, int nb,
+                       CI hnb, KesScratch &sc) {
+  for (int l = 0; l < n; l++) kes_role_hash(g + l, B, l, hb, nb, hnb, sc);
+  for (int l = 0; l < n; l++) kes_role_table(g + l, B, l, leaf, sc);
+  for (int l = 0; l < n; l++) kes_role_base(g + l, B, l, base8, s, sc);
+  for (int l = 0; l < n; l++)
+    kes_role_merkle(g + l, B, l, depth, vk, period, leaf, sib, sc);
+}
+
 extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
                       const void *period, const void *s, const void *leaf,
                       const void *sib, const void *hb, int nb,
                       const void *hnb, void *ok, void *pt, void *) {
-  for (int i = 0; i < B; i++)
-    kes_lane(i, B, depth, (const u32 *)base8, (const int32_t *)vk,
-             (const int32_t *)period, (const int32_t *)s,
-             (const int32_t *)leaf, (const int32_t *)sib,
-             (const int32_t *)hb, nb, (const int32_t *)hnb, (int32_t *)ok,
-             (int32_t *)pt);
+  KesScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    kes_phase1(g, n, B, depth, (const u32 *)base8, (CI)vk, (CI)period, (CI)s,
+               (CI)leaf, (CI)sib, (CI)hb, nb, (CI)hnb, sc);
+    for (int l = 0; l < n; l++) {
+      Quad qd{sc.qx, -1, l, 0, 0};
+      kes_quad_chain(g + l, B, true, sc, qd, (OI)ok, (OI)pt);
+    }
+  }
   return 0;
 }
 
@@ -51,10 +69,39 @@ extern "C" int pk_vrf_bc_prep(int B, const void *pk, const void *gamma,
 extern "C" int pk_vrf_ladders(int B, const void *base8, const void *c16,
                               const void *s, const void *prep, void *pts,
                               void *) {
-  for (int i = 0; i < B; i++)
-    vrf_ladder_lane(i, B, (const u32 *)base8, (const int32_t *)c16,
-                    (const int32_t *)s, (const int32_t *)prep,
-                    (int32_t *)pts);
+  const u32 *t = (const u32 *)base8;
+  CI c = (CI)c16, sp = (CI)s, p = (CI)prep;
+  OI o = (OI)pts;
+  QLadderScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++) {
+      LaneTab th{sc.tab_h, l};
+      ladder_table_h(g + l, B, p, th);
+    }
+    for (int l = 0; l < n; l++) {
+      LaneTab tg{sc.tab_g, l};
+      ladder_table_g(g + l, B, p, tg);
+    }
+    for (int l = 0; l < n; l++) {
+      LaneTab ty{sc.tab_y, l};
+      ladder_table_y(g + l, B, p, ty);
+    }
+    for (int l = 0; l < n; l++) ladder_passthrough(g + l, B, p, o);
+    for (int l = 0; l < n; l++) {
+      Quad qu{sc.qx, -1, l, 0, 0};
+      ladder_qbase(g + l, B, t, sp, qu, sc.sb);
+    }
+    for (int l = 0; l < n; l++) {
+      Quad qv{sc.qx, -1, l, 0, 0};
+      ladder_qv(g + l, B, true, c, sp, LaneTab{sc.tab_h, l},
+                LaneTab{sc.tab_g, l}, qv, o);
+    }
+    for (int l = 0; l < n; l++) {
+      Quad qu{sc.qx, -1, l, 0, 0};
+      ladder_qu(g + l, B, true, c, LaneTab{sc.tab_y, l}, sc.sb, qu, o);
+    }
+  }
   return 0;
 }
 

@@ -1,8 +1,26 @@
 // Device library of the Praos verifier kernels: GF(2^255-19) in radix
-// 2^25.5, edwards25519 points and ladders, SHA-512, Blake2b and mod-L,
-// one lane per thread. The plain PyTorch twins (ops/pk/field.py,
-// curve.py, hashes.py, verify.py) do the same integer operations in the
-// same order, so kernel and twin agree bit for bit.
+// 2^25.5, edwards25519 points and ladders, SHA-512, Blake2b and mod-L.
+// The plain PyTorch twins (ops/pk/field.py, curve.py, hashes.py,
+// verify.py) do the same integer operations in the same order, so kernel
+// and twin agree bit for bit.
+//
+// What bounds the stages on Hopper is the dependent chain of one lane's
+// field products (a 256-doubling ladder), so the point code spends as few
+// products as that chain allows: squarings are ref10's fe_sq (55 wide
+// products, not 100), a doubling followed by another doubling skips T,
+// w4 ladders use signed digits in [-8, 8) over 8-entry tables of points
+// in cached form (Y+X, Y-X, 2dT, 2Z: 8 products an addition, 7 without
+// T), and the point operations are inlined into the (non-inlined) table
+// and ladder functions, so that a digit loop keeps its points in
+// registers and each ladder is compiled once per source. Tables are a template parameter: per thread
+// in local memory (LocalTab) or lane-minor in shared memory (LaneTab, a
+// warp's 32 lookups of 32 different digits hit 32 banks).
+//
+// Not used, and why: tensor cores (IMMA multiplies int8 pieces into
+// int32; a 25.5-bit limb product would take ~16 of them plus carries,
+// where one IMAD.WIDE does it) and TMA (each lane's inputs are a few
+// hundred bytes of coalesced limb-first columns; the 1.3 MB fixed-base
+// table is read by random gathers, which stay in L2 behind __ldg).
 //
 // The same source compiles as host C++ (PK_HOST) so that the lane code
 // can be cross-checked against the twins on a machine without nvcc.
@@ -12,10 +30,12 @@
 
 #ifdef PK_HOST
 #define PK_DEV static inline
+#define PK_MEMBER inline
 #define PK_NOINLINE static
 #define PK_LDG(p) (*(p))
 #else
 #define PK_DEV __device__ __forceinline__
+#define PK_MEMBER __device__ __forceinline__
 #define PK_NOINLINE __device__ __noinline__
 #define PK_LDG(p) __ldg(p)
 #endif
@@ -122,8 +142,8 @@ PK_DEV fe fe_mul(const fe &f, const fe &g) {
 // same factors, so each cross term i < j is formed once and doubled —
 // 10 squares and 45 cross terms, 55 32x32->64 products. Every column sum
 // h[k] is the same integer as fe_mul(f, f)'s and the carry passes are the
-// same, so the output equals fe_mul(f, f) limb for limb. The stages still
-// square with fe_sqr = fe_mul(a, a); tools/fe_bench.py times the two.
+// same, so the output equals fe_mul(f, f) limb for limb: every squaring
+// of the stages is this one (tools/fe_bench.py times the two).
 PK_DEV fe fe_sq(const fe &f) {
   u32 f2[10], f19[10];
 #pragma unroll
@@ -149,19 +169,17 @@ PK_DEV fe fe_sq(const fe &f) {
   return r;
 }
 
-PK_DEV fe fe_sqr(const fe &a) { return fe_mul(a, a); }
-
 PK_NOINLINE fe fe_pow2k(fe a, int k) {
 #pragma unroll 1
-  for (int i = 0; i < k; i++) a = fe_sqr(a);
+  for (int i = 0; i < k; i++) a = fe_sq(a);
   return a;
 }
 
 PK_DEV void fe_chain_2_250m1(const fe &x, fe &g, fe &x11) {
-  fe t0 = fe_sqr(x);
+  fe t0 = fe_sq(x);
   fe t1 = fe_mul(x, fe_pow2k(t0, 2));
   x11 = fe_mul(t0, t1);
-  fe t31 = fe_mul(t1, fe_sqr(x11));
+  fe t31 = fe_mul(t1, fe_sq(x11));
   fe a = fe_mul(fe_pow2k(t31, 5), t31);
   fe b = fe_mul(fe_pow2k(a, 10), a);
   fe c = fe_mul(fe_pow2k(b, 20), b);
@@ -280,11 +298,11 @@ PK_DEV void fe_to_bytes(u8 *out, const fe &a) {
 
 PK_DEV void fe_sqrt_ratio_ext(const fe &n, const fe &d, fe &rho, bool &good,
                               bool &good_alt, bool &is_pi) {
-  fe d2 = fe_sqr(d);
+  fe d2 = fe_sq(d);
   fe d3 = fe_mul(d, d2);
-  fe d7 = fe_mul(d3, fe_sqr(d2));
+  fe d7 = fe_mul(d3, fe_sq(d2));
   rho = fe_mul(fe_mul(n, d3), fe_pow22523(fe_mul(n, d7)));
-  fe check = fe_mul(d, fe_sqr(rho));
+  fe check = fe_mul(d, fe_sq(rho));
   good = fe_eq(check, n);
   good_alt = fe_eq(check, fe_neg(n));
   is_pi = fe_eq(check, fe_mul(fe_const(PK_SQRT_M1), n));
@@ -307,7 +325,8 @@ PK_DEV ge ge_identity() {
   return p;
 }
 
-PK_NOINLINE ge ge_add(ge p, ge q) {
+// P + Q, both extended: 9 products
+PK_DEV ge ge_add(const ge &p, const ge &q) {
   fe a = fe_mul(fe_sub(p.y, p.x), fe_sub(q.y, q.x));
   fe b = fe_mul(fe_add(p.y, p.x), fe_add(q.y, q.x));
   fe c = fe_mul(fe_mul(p.t, q.t), fe_const(PK_D2));
@@ -319,18 +338,26 @@ PK_NOINLINE ge ge_add(ge p, ge q) {
   return r;
 }
 
-PK_NOINLINE ge ge_dbl(ge p) {
-  fe a = fe_sqr(p.x);
-  fe b = fe_sqr(p.y);
-  fe zz = fe_sqr(p.z);
+// r = 2P: 4 squarings and 3 products, and T's product only when the next
+// operation reads T (an addition, or the result); a doubling reads X, Y,
+// Z alone. r may be p.
+PK_DEV void ge_dbl(ge &r, const ge &p, bool with_t) {
+  fe a = fe_sq(p.x);
+  fe b = fe_sq(p.y);
+  fe zz = fe_sq(p.z);
   fe c = fe_add(zz, zz);
   fe h = fe_add(a, b);
-  fe e = fe_sub(h, fe_sqr(fe_add(p.x, p.y)));
+  fe e = fe_sub(h, fe_sq(fe_add(p.x, p.y)));
   fe g = fe_sub(a, b);
   fe f = fe_add(c, g);
-  ge r;
-  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g); r.t = fe_mul(e, h);
-  return r;
+  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g);
+  if (with_t) r.t = fe_mul(e, h);
+}
+
+// four doublings, T on the last (a w4 digit step)
+PK_DEV void ge_dbl4(ge &q) {
+#pragma unroll 1
+  for (int j = 0; j < 4; j++) ge_dbl(q, q, j == 3);
 }
 
 PK_DEV ge ge_neg(const ge &p) {
@@ -338,7 +365,36 @@ PK_DEV ge ge_neg(const ge &p) {
   return r;
 }
 
-PK_DEV ge ge_mul_cofactor(ge p) { return ge_dbl(ge_dbl(ge_dbl(p))); }
+PK_NOINLINE ge ge_mul_cofactor(const ge &p) {
+  ge q = p;
+  ge_dbl(q, q, false);
+  ge_dbl(q, q, false);
+  ge_dbl(q, q, true);
+  return q;
+}
+
+// A point in cached form for additions: (Y+X, Y-X, 2d·T, 2Z).
+struct gec { fe ypx, ymx, t2d, z2; };
+
+PK_DEV gec ge_cache(const ge &p) {
+  gec c;
+  c.ypx = fe_add(p.y, p.x);
+  c.ymx = fe_sub(p.y, p.x);
+  c.t2d = fe_mul(p.t, fe_const(PK_D2));
+  c.z2 = fe_add(p.z, p.z);
+  return c;
+}
+
+// r = P + Q for Q cached: 8 products, 7 without T. r may be p.
+PK_DEV void ge_add_cached(ge &r, const ge &p, const gec &q, bool with_t) {
+  fe a = fe_mul(fe_sub(p.y, p.x), q.ymx);
+  fe b = fe_mul(fe_add(p.y, p.x), q.ypx);
+  fe c = fe_mul(p.t, q.t2d);
+  fe d = fe_mul(p.z, q.z2);
+  fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
+  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g);
+  if (with_t) r.t = fe_mul(e, h);
+}
 
 // [32] little-endian bytes -> ok; RFC 8032 decoding rules
 PK_NOINLINE bool ge_decompress(ge &out, const u8 *b) {
@@ -346,7 +402,7 @@ PK_NOINLINE bool ge_decompress(ge &out, const u8 *b) {
   fe y = fe_from_bytes(b);
   bool y_ok = !fe_geq_p(y);
   fe one = fe_one();
-  fe y2 = fe_sqr(y);
+  fe y2 = fe_sq(y);
   fe num = fe_sub(y2, one);
   fe den = fe_add(fe_mul(y2, fe_const(PK_D)), one);
   fe x;
@@ -377,42 +433,262 @@ PK_NOINLINE void ge_compress_many(const ge *pts, int k, u8 *out) {
   }
 }
 
-PK_NOINLINE void ge_table16(ge *tbl, ge p) {
-  tbl[0] = ge_identity();
-  tbl[1] = p;
-#pragma unroll 1
-  for (int i = 2; i < 16; i++) tbl[i] = ge_add(tbl[i - 1], p);
+// ---------------------------------------------------------------------------
+// w4 ladders: signed digits over 8-entry cached tables
+// ---------------------------------------------------------------------------
+
+// k base-16 digits (0..15, most significant first) -> k + 1 signed digits
+// in [-8, 8), most significant first, the first 0 or 1: the nibbles of
+// a + 0x88...8 less 8, and its carry out
+PK_DEV void recode_signed(const u8 *d, int k, int8_t *e) {
+  int carry = 0;
+  for (int i = k - 1; i >= 0; i--) {
+    int m = d[i] + 8 + carry;
+    carry = m >> 4;
+    e[i + 1] = (int8_t)((m & 15) - 8);
+  }
+  e[0] = (int8_t)carry;
 }
 
-// sum d_i 16^(k-1-i) · P, digits most significant first
-PK_NOINLINE ge ge_scalar_mul_w4(const u8 *digits, int k, ge p) {
-  ge tbl[16];
-  ge_table16(tbl, p);
+// The table of P: entry j = (j + 1)·P in cached form, j < 8. Per thread
+// in local memory:
+struct LocalTab {
+  gec e[8];
+  PK_MEMBER gec get(int j) const { return e[j]; }
+  PK_MEMBER void put(int j, const gec &v) { e[j] = v; }
+};
+
+// or for the 32 lanes of a warp in shared memory, lane-minor: limb l of
+// coordinate c of entry j of `lane` at w[((40 j + 10 c + l) << 5) + lane].
+#define PK_LANETAB_WORDS (8 * 40 * 32)
+struct LaneTab {
+  u32 *w;
+  int lane;
+  PK_MEMBER u32 &at(int j, int c, int l) const { return w[((40 * j + 10 * c + l) << 5) + lane]; }
+  PK_MEMBER gec get(int j) const {
+    gec q;
+#pragma unroll
+    for (int l = 0; l < 10; l++) {
+      q.ypx.v[l] = at(j, 0, l); q.ymx.v[l] = at(j, 1, l);
+      q.t2d.v[l] = at(j, 2, l); q.z2.v[l] = at(j, 3, l);
+    }
+    return q;
+  }
+  PK_MEMBER void put(int j, const gec &q) const {
+#pragma unroll
+    for (int l = 0; l < 10; l++) {
+      at(j, 0, l) = q.ypx.v[l]; at(j, 1, l) = q.ymx.v[l];
+      at(j, 2, l) = q.t2d.v[l]; at(j, 3, l) = q.z2.v[l];
+    }
+  }
+};
+
+// 1P..8P by 7 cached additions
+template <class Tab>
+PK_NOINLINE void ge_table8(Tab &tab, const ge &p) {
+  gec p1 = ge_cache(p);
+  tab.put(0, p1);
+  ge acc = p;
+#pragma unroll 1
+  for (int j = 1; j < 8; j++) {
+    ge_add_cached(acc, acc, p1, true);
+    tab.put(j, ge_cache(acc));
+  }
+}
+
+// the cached point of signed digit e, |e| <= 8: the identity for 0, and
+// for e < 0 the negation, which swaps Y+X and Y-X and negates 2dT
+template <class Tab>
+PK_DEV gec tab_select(const Tab &tab, int e) {
+  int m = e < 0 ? -e : e;
+  gec q = tab.get(m == 0 ? 0 : m - 1);
+  if (m == 0) {
+    q.ypx = fe_one(); q.ymx = fe_one(); q.t2d = fe_zero();
+    q.z2 = fe_zero(); q.z2.v[0] = 2;
+  }
+  fe nt = fe_neg(q.t2d);
+  gec r;
+  r.ypx = e < 0 ? q.ymx : q.ypx;
+  r.ymx = e < 0 ? q.ypx : q.ymx;
+  r.t2d = e < 0 ? nt : q.t2d;
+  r.z2 = q.z2;
+  return r;
+}
+
+// a·P for k base-16 digits of a (most significant first, k <= 64) over
+// the table of P: k + 1 signed digits, 4k doublings, k + 1 additions
+template <class Tab>
+PK_NOINLINE ge ge_scalar_mul_w4(const u8 *digits, int k, const Tab &tab) {
+  int8_t e[65];
+  recode_signed(digits, k, e);
   ge q = ge_identity();
+  ge_add_cached(q, q, tab_select(tab, e[0]), false);
 #pragma unroll 1
-  for (int i = 0; i < k; i++) {
-#pragma unroll 1
-    for (int j = 0; j < 4; j++) q = ge_dbl(q);
-    q = ge_add(q, tbl[digits[i]]);
+  for (int i = 1; i <= k; i++) {
+    ge_dbl4(q);
+    ge_add_cached(q, q, tab_select(tab, e[i]), i == k);
   }
   return q;
 }
 
-// a·PA + b·PB on one doubling chain (ka >= kb)
-PK_NOINLINE ge ge_double_scalar_mul_w4(const u8 *da, int ka, ge pa,
-                                       const u8 *db, int kb, ge pb) {
-  ge ta[16], tb[16];
-  ge_table16(ta, pa);
-  ge_table16(tb, pb);
+// ---------------------------------------------------------------------------
+// Point operations over four warps (a quad)
+// ---------------------------------------------------------------------------
+//
+// A lane's dependent chain of point operations is what bounds a one-block
+// launch, and the four products of each step of a doubling or an addition
+// are independent. So a quad is four warps of one block over the same 32
+// lanes: in each step warp w computes product w of every lane, and the
+// four products meet in a double-buffered exchange area in shared memory
+// at one named barrier. The cheap sums between the steps run on all four
+// warps. Every product is the same integer operation, on the same
+// operands, as in the one-thread code above, so the results are equal
+// limb for limb (T is always formed: a skipped T is never read). The
+// host build runs the four products of a step one after another.
+
+#define PK_QUAD_WORDS (2 * 4 * 10 * 32)
+
+struct Quad {
+  u32 *x;    // exchange area of PK_QUAD_WORDS words
+  int w;     // this warp's product, 0..3; -1 on the host (all four)
+  int lane;
+  int bar;   // named barrier of the quad's 128 threads
+  int buf;   // the exchange buffer of the next step
+};
+
+// out[k] = f(k) for k < 4: this warp's product, then the other three
+template <class F>
+PK_DEV void quad_step(Quad &qd, fe out[4], F f) {
+#ifdef PK_HOST
+  for (int k = 0; k < 4; k++) out[k] = f(k);
+#else
+  fe mine = f(qd.w);
+  u32 *x = qd.x + qd.buf * (4 * 10 * 32);
+#pragma unroll
+  for (int l = 0; l < 10; l++) x[((qd.w * 10 + l) << 5) + qd.lane] = mine.v[l];
+  asm volatile("bar.sync %0, 128;" ::"r"(qd.bar) : "memory");
+#pragma unroll
+  for (int k = 0; k < 4; k++)
+#pragma unroll
+    for (int l = 0; l < 10; l++) out[k].v[l] = x[((k * 10 + l) << 5) + qd.lane];
+#endif
+  qd.buf ^= 1;
+}
+
+// the second step of a doubling or an addition: X = e·f, Y = g·h,
+// Z = f·g, T = e·h
+PK_DEV void quad_efgh(Quad &qd, ge &r, const fe &e, const fe &f, const fe &g,
+                      const fe &h) {
+  fe o[4];
+  quad_step(qd, o, [&](int k) {
+    return fe_mul(k == 0 || k == 3 ? e : k == 1 ? g : f, k == 0 ? f : k == 2 ? g : h);
+  });
+  r.x = o[0]; r.y = o[1]; r.z = o[2]; r.t = o[3];
+}
+
+// ge_dbl over a quad: the four squarings, then the four products
+PK_DEV void qdbl(Quad &qd, ge &r, const ge &p) {
+  fe s[4];
+  quad_step(qd, s, [&](int k) {
+    return fe_sq(k == 0 ? p.x : k == 1 ? p.y : k == 2 ? p.z : fe_add(p.x, p.y));
+  });
+  fe c = fe_add(s[2], s[2]);
+  fe h = fe_add(s[0], s[1]);
+  fe e = fe_sub(h, s[3]);
+  fe g = fe_sub(s[0], s[1]);
+  fe f = fe_add(c, g);
+  quad_efgh(qd, r, e, f, g, h);
+}
+
+// ge_add_cached over a quad
+PK_DEV void qadd_cached(Quad &qd, ge &r, const ge &p, const gec &q) {
+  fe s[4];
+  quad_step(qd, s, [&](int k) {
+    fe a = k == 0 ? fe_sub(p.y, p.x) : k == 1 ? fe_add(p.y, p.x) : k == 2 ? p.t : p.z;
+    return fe_mul(a, k == 0 ? q.ymx : k == 1 ? q.ypx : k == 2 ? q.t2d : q.z2);
+  });
+  fe e = fe_sub(s[1], s[0]), f = fe_sub(s[3], s[2]);
+  fe g = fe_add(s[3], s[2]), h = fe_add(s[1], s[0]);
+  quad_efgh(qd, r, e, f, g, h);
+}
+
+// ge_add over a quad (its third product is (T1·T2)·2d, two in a row)
+PK_DEV void qadd(Quad &qd, ge &r, const ge &p, const ge &q) {
+  fe s[4];
+  quad_step(qd, s, [&](int k) {
+    fe a = k == 0 ? fe_sub(p.y, p.x) : k == 1 ? fe_add(p.y, p.x)
+         : k == 2 ? fe_mul(p.t, q.t) : p.z;
+    fe b = k == 0 ? fe_sub(q.y, q.x) : k == 1 ? fe_add(q.y, q.x)
+         : k == 2 ? fe_const(PK_D2) : q.z;
+    return fe_mul(a, b);
+  });
+  fe d = fe_add(s[3], s[3]);
+  fe e = fe_sub(s[1], s[0]), f = fe_sub(d, s[2]);
+  fe g = fe_add(d, s[2]), h = fe_add(s[1], s[0]);
+  quad_efgh(qd, r, e, f, g, h);
+}
+
+// ge_scalar_mul_w4 over a quad (the digit loop of the one-thread version)
+template <class Tab>
+PK_NOINLINE ge qscalar_mul_w4(Quad &qref, const u8 *digits, int k, const Tab &tab) {
+  Quad qd = qref;
+  int8_t e[65];
+  recode_signed(digits, k, e);
+  ge q = ge_identity();
+  qadd_cached(qd, q, q, tab_select(tab, e[0]));
+#pragma unroll 1
+  for (int i = 1; i <= k; i++) {
+#pragma unroll 1
+    for (int j = 0; j < 4; j++) qdbl(qd, q, q);
+    qadd_cached(qd, q, q, tab_select(tab, e[i]));
+  }
+  qref.buf = qd.buf;
+  return q;
+}
+
+// a·PA + b·PB on one doubling chain (ka >= kb), over the two tables, on
+// a quad
+template <class TabA, class TabB>
+PK_NOINLINE ge qdouble_scalar_mul_w4(Quad &qref, const u8 *da, int ka,
+                                     const TabA &ta, const u8 *db, int kb,
+                                     const TabB &tb) {
+  Quad qd = qref;
+  int8_t ea[65], eb[65];
+  recode_signed(da, ka, ea);
+  recode_signed(db, kb, eb);
   ge q = ge_identity();
 #pragma unroll 1
-  for (int i = 0; i < ka; i++) {
+  for (int i = 0; i <= ka; i++) {
+    if (i > 0) {
 #pragma unroll 1
-    for (int j = 0; j < 4; j++) q = ge_dbl(q);
-    q = ge_add(q, ta[da[i]]);
+      for (int j = 0; j < 4; j++) qdbl(qd, q, q);
+    }
     int jb = i - (ka - kb);
-    if (jb >= 0) q = ge_add(q, tb[db[jb]]);
+    qadd_cached(qd, q, q, tab_select(ta, ea[i]));
+    if (jb >= 0) qadd_cached(qd, q, q, tab_select(tb, eb[jb]));
   }
+  qref.buf = qd.buf;
+  return q;
+}
+
+// ge_base_mul_w8 over a quad
+PK_NOINLINE ge qbase_mul_w8(Quad &qref, const u32 *table, const u8 *s) {
+  Quad qd = qref;
+  ge q = ge_identity();
+#pragma unroll 1
+  for (int w = 0; w < 32; w++) {
+    const u32 *e = table + ((size_t)w * 256 + s[w]) * 40;
+    ge p;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      p.x.v[i] = PK_LDG(e + i);
+      p.y.v[i] = PK_LDG(e + 10 + i);
+      p.z.v[i] = PK_LDG(e + 20 + i);
+      p.t.v[i] = PK_LDG(e + 30 + i);
+    }
+    qadd(qd, q, q, p);
+  }
+  qref.buf = qd.buf;
   return q;
 }
 

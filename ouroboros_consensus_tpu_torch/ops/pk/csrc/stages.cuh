@@ -2,8 +2,21 @@
 // limb-first int32 [rows][B]: element (row r, lane i) at r * B + i, so a
 // warp's 32 lanes read 32 neighbouring words of each row. Points cross
 // stages as 40 rows (X, Y, Z, T, 10 limbs each, radix 2^25.5).
+//
+// kes and vrf_ladders run one lane over a group of warps of one block, 32
+// lanes a block: first the independent parts of a lane run on different
+// warps ("roles"; tables, s·B, hashes), meeting in a per-block scratch
+// struct in shared memory (tables lane-minor, see LaneTab) at a barrier;
+// then each long ladder runs on four warps as a quad (pk.cuh), one
+// product of every point operation per warp. Each role is its own
+// function of (lane index, scratch), so the host build runs the roles of
+// a group of 32 lanes one after another (csrc/host_emu.cpp) and the CPU
+// tests hold them to the twins. ed runs one lane per thread.
 #pragma once
 #include "pk.cuh"
+
+// lanes of a role-split block: one warp per role
+#define PK_GROUP 32
 
 PK_DEV void load_bytes(const int32_t *col, int rows, int i, int B, u8 *out) {
   for (int r = 0; r < rows; r++) out[r] = (u8)col[(size_t)r * B + i];
@@ -45,8 +58,9 @@ PK_NOINLINE bool ed_core_lane(const u32 *base8, const u8 *pk, const u8 *s,
   sc_reduce512(dig, h);
   ge sb = ge_base_mul_w8(base8, s);
   nibbles_msb(h, 32, hd);
-  ge nha = ge_scalar_mul_w4(hd, 64, ge_neg(a));
-  out = ge_add(sb, nha);
+  LocalTab tab;
+  ge_table8(tab, ge_neg(a));
+  out = ge_add(sb, ge_scalar_mul_w4(hd, 64, tab));
   return ok_a && s_ok;
 }
 
@@ -62,18 +76,13 @@ PK_DEV void ed_lane(int i, int B, const u32 *base8, const int32_t *pk,
   store_point(pt, i, B, p);
 }
 
-PK_DEV void kes_lane(int i, int B, int depth, const u32 *base8,
-                     const int32_t *vk, const int32_t *period,
-                     const int32_t *s, const int32_t *leaf,
-                     const int32_t *sib, const int32_t *hb, int nb,
-                     const int32_t *hnb, int32_t *ok, int32_t *pt) {
-  u8 leafb[32], sb[32], cur[32], data[64], vkb[32];
-  load_bytes(leaf, 32, i, B, leafb);
-  load_bytes(s, 32, i, B, sb);
-  ge p;
-  bool ok_ed = ed_core_lane(base8, leafb, sb, hb, nb, hnb[i], i, B, p);
-  // Merkle walk: bit l of the period puts the running vk on the right;
-  // siblings are indexed by level, so any period value reads in bounds
+// CompactSum Merkle walk: bit l of the period puts the running vk on the
+// right; siblings are indexed by level, so any period value reads in
+// bounds. -> root == vk and 0 <= period < 2^depth
+PK_NOINLINE bool kes_merkle(int i, int B, int depth, const int32_t *vk,
+                            const int32_t *period, const u8 *leafb,
+                            const int32_t *sib) {
+  u8 cur[32], data[64], vkb[32];
   int32_t per = period[i];
   for (int k = 0; k < 32; k++) cur[k] = leafb[k];
   for (int l = 0; l < depth; l++) {
@@ -88,18 +97,82 @@ PK_DEV void kes_lane(int i, int B, int depth, const u32 *base8,
   load_bytes(vk, 32, i, B, vkb);
   bool root_ok = true;
   for (int k = 0; k < 32; k++) root_ok = root_ok && cur[k] == vkb[k];
-  bool period_ok = per >= 0 && per < (1 << depth);
-  ok[i] = (ok_ed && root_ok && period_ok) ? 1 : 0;
-  store_point(pt, i, B, p);
+  return root_ok && per >= 0 && per < (1 << depth);
+}
+
+// kes over four roles. Phase 1, beside each other: the SHA-512 of
+// R ‖ A ‖ M and its reduction h (role 0), the decompression of the leaf
+// key A and the table of −A (role 1), s·B (role 2), the Merkle walk
+// (role 3). Phase 2: the 65-digit h·(−A) chain and P = s·B − h·A, on the
+// four warps as a quad (kes_quad_chain).
+struct KesScratch {
+  u32 tab[PK_LANETAB_WORDS];  // table of −A
+  int32_t sb[40 * PK_GROUP];  // s·B, as a 32-lane point column
+  u32 h[32 * PK_GROUP];       // h bytes
+  int32_t ok[3 * PK_GROUP];   // A decodes, s < L, root and period
+  u32 qx[PK_QUAD_WORDS];      // the quad's exchange area
+};
+
+PK_DEV void kes_role_hash(int i, int B, int lane, const int32_t *hb, int nb,
+                          const int32_t *hnb, KesScratch &sc) {
+  u8 dig[64], h[32];
+  sha512_columns(hb, nb, hnb[i], i, B, dig);
+  sc_reduce512(dig, h);
+  for (int k = 0; k < 32; k++) sc.h[(k << 5) + lane] = h[k];
+}
+
+PK_DEV void kes_role_table(int i, int B, int lane, const int32_t *leaf,
+                           KesScratch &sc) {
+  u8 leafb[32];
+  load_bytes(leaf, 32, i, B, leafb);
+  ge a;
+  sc.ok[lane] = ge_decompress(a, leafb) ? 1 : 0;
+  LaneTab tab{sc.tab, lane};
+  ge_table8(tab, ge_neg(a));
+}
+
+PK_DEV void kes_role_base(int i, int B, int lane, const u32 *base8,
+                          const int32_t *s, KesScratch &sc) {
+  u8 sb[32];
+  load_bytes(s, 32, i, B, sb);
+  sc.ok[PK_GROUP + lane] = sc_lt_l(sb) ? 1 : 0;
+  store_point(sc.sb, lane, PK_GROUP, ge_base_mul_w8(base8, sb));
+}
+
+PK_DEV void kes_role_merkle(int i, int B, int lane, int depth,
+                            const int32_t *vk, const int32_t *period,
+                            const int32_t *leaf, const int32_t *sib,
+                            KesScratch &sc) {
+  u8 leafb[32];
+  load_bytes(leaf, 32, i, B, leafb);
+  sc.ok[2 * PK_GROUP + lane] = kes_merkle(i, B, depth, vk, period, leafb, sib) ? 1 : 0;
+}
+
+// phase 2 on the quad of the block's four warps; lanes past B (live
+// false) run along for the barriers and store nothing
+PK_DEV void kes_quad_chain(int i, int B, bool live, KesScratch &sc, Quad &qd,
+                           int32_t *ok, int32_t *pt) {
+  int lane = qd.lane;
+  u8 h[32], hd[64];
+  for (int k = 0; k < 32; k++) h[k] = (u8)sc.h[(k << 5) + lane];
+  nibbles_msb(h, 32, hd);
+  LaneTab tab{sc.tab, lane};
+  ge nha = qscalar_mul_w4(qd, hd, 64, tab);
+  ge p;
+  qadd(qd, p, load_point(sc.sb, lane, PK_GROUP), nha);
+  if (live && qd.w <= 0) {
+    store_point(pt, i, B, p);
+    ok[i] = sc.ok[lane] & sc.ok[PK_GROUP + lane] & sc.ok[2 * PK_GROUP + lane];
+  }
 }
 
 // single-chain Elligator2 (one exponentiation), projective output
 PK_NOINLINE ge elligator2(fe r) {
   fe one = fe_one(), zero = fe_zero();
-  fe r2 = fe_sqr(r);
+  fe r2 = fe_sq(r);
   fe w_den = fe_add(fe_add(r2, r2), one);
   fe w = fe_is_zero(w_den) ? one : w_den;
-  fe w2 = fe_sqr(w);
+  fe w2 = fe_sq(w);
   fe a2w = fe_mul(fe_const(PK_A2), w);
   fe n1 = fe_mul(fe_const(PK_NEG_A), fe_add(fe_sub(fe_const(PK_A2), a2w), w2));
   fe num1 = fe_mul(fe_const(PK_C2A2), w);
@@ -178,26 +251,71 @@ PK_DEV void vrf_bc_prep_lane(int i, int B, const int32_t *pk,
   store_point(prep + (size_t)80 * B, i, B, g);
 }
 
-PK_DEV void vrf_ladder_lane(int i, int B, const u32 *base8,
-                            const int32_t *c16, const int32_t *s,
-                            const int32_t *prep, int32_t *pts) {
+// vrf_ladders over eight warps: a V quad (warps 0-3) and a U quad (4-7).
+// Phase 1, beside each other: the tables of H, −Γ and −Y (warps 0, 1, 2),
+// H and Γ through and 8Γ (warp 3), s·B on the U quad. Phase 2: V' =
+// s·H − c·Γ on one doubling chain (the V quad: 256 doublings, the
+// critical path) beside U' = s·B − c·Y (the U quad).
+struct QLadderScratch {
+  u32 tab_h[PK_LANETAB_WORDS];
+  u32 tab_g[PK_LANETAB_WORDS];  // of −Γ
+  u32 tab_y[PK_LANETAB_WORDS];  // of −Y
+  int32_t sb[40 * PK_GROUP];    // s·B, as a 32-lane point column
+  u32 qx[2 * PK_QUAD_WORDS];    // the two quads' exchange areas
+};
+
+PK_DEV void ladder_table_h(int i, int B, const int32_t *prep, LaneTab &tab) {
+  ge_table8(tab, load_point(prep, i, B));
+}
+
+PK_DEV void ladder_table_g(int i, int B, const int32_t *prep, LaneTab &tab) {
+  ge_table8(tab, ge_neg(load_point(prep + (size_t)80 * B, i, B)));
+}
+
+PK_DEV void ladder_table_y(int i, int B, const int32_t *prep, LaneTab &tab) {
+  ge_table8(tab, ge_neg(load_point(prep + (size_t)40 * B, i, B)));
+}
+
+// -> the H, Γ and 8Γ rows of the output
+PK_DEV void ladder_passthrough(int i, int B, const int32_t *prep, int32_t *pts) {
+  for (int r = 0; r < 40; r++) pts[(size_t)r * B + i] = prep[(size_t)r * B + i];
+  ge g = load_point(prep + (size_t)80 * B, i, B);
+  store_point(pts + (size_t)40 * B, i, B, g);
+  store_point(pts + (size_t)160 * B, i, B, ge_mul_cofactor(g));
+}
+
+// s·B on the U quad, into the scratch
+PK_DEV void ladder_qbase(int i, int B, const u32 *base8, const int32_t *s,
+                         Quad &qd, int32_t *sb) {
+  u8 b[32];
+  load_bytes(s, 32, i, B, b);
+  ge p = qbase_mul_w8(qd, base8, b);
+  if (qd.w <= 0) store_point(sb, qd.lane, PK_GROUP, p);
+}
+
+// -> the V' rows, on the V quad
+PK_DEV void ladder_qv(int i, int B, bool live, const int32_t *c16,
+                      const int32_t *s, const LaneTab &th, const LaneTab &tg,
+                      Quad &qd, int32_t *pts) {
   u8 cb[16], sb[32], sd[64], cd[32];
   load_bytes(c16, 16, i, B, cb);
   load_bytes(s, 32, i, B, sb);
-  ge h = load_point(prep, i, B);
-  ge y = load_point(prep + (size_t)40 * B, i, B);
-  ge g = load_point(prep + (size_t)80 * B, i, B);
   nibbles_msb(sb, 32, sd);
   nibbles_msb(cb, 16, cd);
-  ge sbp = ge_base_mul_w8(base8, sb);
-  ge up = ge_add(sbp, ge_scalar_mul_w4(cd, 32, ge_neg(y)));
-  ge vp = ge_double_scalar_mul_w4(sd, 64, h, cd, 32, ge_neg(g));
-  ge g8 = ge_mul_cofactor(g);
-  store_point(pts, i, B, h);
-  store_point(pts + (size_t)40 * B, i, B, g);
-  store_point(pts + (size_t)80 * B, i, B, up);
-  store_point(pts + (size_t)120 * B, i, B, vp);
-  store_point(pts + (size_t)160 * B, i, B, g8);
+  ge vp = qdouble_scalar_mul_w4(qd, sd, 64, th, cd, 32, tg);
+  if (live && qd.w <= 0) store_point(pts + (size_t)120 * B, i, B, vp);
+}
+
+// -> the U' rows, on the U quad
+PK_DEV void ladder_qu(int i, int B, bool live, const int32_t *c16,
+                      const LaneTab &ty, const int32_t *sb, Quad &qd, int32_t *pts) {
+  u8 cb[16], cd[32];
+  load_bytes(c16, 16, i, B, cb);
+  nibbles_msb(cb, 16, cd);
+  ge cy = qscalar_mul_w4(qd, cd, 32, ty);
+  ge up;
+  qadd(qd, up, load_point(sb, qd.lane, PK_GROUP), cy);
+  if (live && qd.w <= 0) store_point(pts + (size_t)80 * B, i, B, up);
 }
 
 PK_DEV void finish_lane(int i, int B, const int32_t *edok,

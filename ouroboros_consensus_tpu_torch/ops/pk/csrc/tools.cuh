@@ -46,7 +46,9 @@ PK_DEV void prim_lad_lane(int i, int B, const int32_t *pt,
                           const int32_t *digits, int32_t *out) {
   u8 d[64];
   load_bytes(digits, 64, i, B, d);
-  store_point(out, i, B, ge_scalar_mul_w4(d, 64, load_point(pt, i, B)));
+  LocalTab tab;
+  ge_table8(tab, load_point(pt, i, B));
+  store_point(out, i, B, ge_scalar_mul_w4(d, 64, tab));
 }
 
 // decompress, then compress: enc [32, B] -> ok [1, B], enc' [32, B]

@@ -2,10 +2,17 @@
 
 Points are extended homogeneous (X, Y, Z, T) coordinates, each a [10, B]
 field element of ops/pk/field.py; the same unified addition law, doubling
-and window walks as the CUDA device library (csrc/pk.cuh):
+and window walks as the CUDA device library (csrc/pk.cuh), operation for
+operation:
 
-* `scalar_mul_w4`: 4-bit windows, most significant first, over a per-lane
-  table [O, P, ..., 15P] (the kernel keeps it in local memory);
+* `double(p, with_t)`: T's product only when the next operation reads T
+  (a doubling reads X, Y, Z alone); a skipped T is None;
+* `cache` / `add_cached`: a point as (Y+X, Y−X, 2d·T, 2Z), added in 8
+  products (7 without T);
+* `scalar_mul_w4`: k base-16 digits recoded into k + 1 signed digits in
+  [−8, 8), most significant first, over an 8-entry table of 1P..8P in
+  cached form (`table8`, 7 additions; a negative digit swaps Y+X and Y−X
+  and negates 2dT); the kernel keeps the table in local or shared memory;
 * `base_mul_w8`: s·B by 32 additions from the fixed-base table
   `base8()` — [32 windows, 256 digits, 40 limbs], entry (w, d) the affine
   d·2^(8w)·B as (x, y, 1, xy) in canonical limbs (the kernel reads the
@@ -62,7 +69,7 @@ def add(p: Point, q: Point) -> Point:
     return Point(fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h))
 
 
-def double(p: Point) -> Point:
+def double(p: Point, with_t: bool = True) -> Point:
     a = fe.sqr(p.x)
     b = fe.sqr(p.y)
     zz = fe.sqr(p.z)
@@ -71,7 +78,14 @@ def double(p: Point) -> Point:
     e = fe.sub(h, fe.sqr(fe.add(p.x, p.y)))
     g = fe.sub(a, b)
     f = fe.add(c, g)
-    return Point(fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h))
+    return Point(fe.mul(e, f), fe.mul(g, h), fe.mul(f, g),
+                 fe.mul(e, h) if with_t else None)
+
+
+def _dbl4(q: Point) -> Point:
+    for j in range(4):
+        q = double(q, j == 3)
+    return q
 
 
 def neg(p: Point) -> Point:
@@ -79,7 +93,7 @@ def neg(p: Point) -> Point:
 
 
 def mul_cofactor(p: Point) -> Point:
-    return double(double(double(p)))
+    return double(double(double(p, False), False), True)
 
 
 def stack(p: Point) -> torch.Tensor:
@@ -91,44 +105,105 @@ def unstack(flat: torch.Tensor) -> Point:
     return Point(*(flat[10 * i: 10 * (i + 1)] for i in range(4)))
 
 
-def _lookup(tbl: torch.Tensor, digit: torch.Tensor) -> Point:
-    """tbl [16, 40, B], digit [B] -> the per-lane entry."""
-    idx = digit.to(torch.int64).reshape(1, 1, -1).expand(1, tbl.shape[1], -1)
-    return unstack(torch.gather(tbl, 0, idx)[0])
+class Cached(NamedTuple):
+    """A point as (Y+X, Y−X, 2d·T, 2Z), each [10, B]."""
+
+    ypx: torch.Tensor
+    ymx: torch.Tensor
+    t2d: torch.Tensor
+    z2: torch.Tensor
 
 
-def _table16(p: Point) -> torch.Tensor:
-    b = p.x.shape[-1]
-    rows = [identity(b, p.x.device), p]
-    for _ in range(14):
-        rows.append(add(rows[-1], p))
-    return torch.stack([stack(r) for r in rows])
+def cache(p: Point) -> Cached:
+    return Cached(fe.add(p.y, p.x), fe.sub(p.y, p.x),
+                  fe.mul(p.t, fe.const(fe.D2, p.x.device)), fe.add(p.z, p.z))
+
+
+def add_cached(p: Point, q: Cached, with_t: bool = True) -> Point:
+    a = fe.mul(fe.sub(p.y, p.x), q.ymx)
+    b = fe.mul(fe.add(p.y, p.x), q.ypx)
+    c = fe.mul(p.t, q.t2d)
+    d = fe.mul(p.z, q.z2)
+    e = fe.sub(b, a)
+    f = fe.sub(d, c)
+    g = fe.add(d, c)
+    h = fe.add(b, a)
+    return Point(fe.mul(e, f), fe.mul(g, h), fe.mul(f, g),
+                 fe.mul(e, h) if with_t else None)
+
+
+def signed_digits(digits_msb: torch.Tensor) -> torch.Tensor:
+    """k base-16 digits [k, B] (most significant first) -> k + 1 signed
+    digits in [−8, 8), most significant first, the first 0 or 1: the
+    nibbles of a + 0x88...8 less 8, and its carry out."""
+    k = digits_msb.shape[0]
+    out = [None] * (k + 1)
+    carry = torch.zeros_like(digits_msb[0], dtype=torch.int64)
+    for i in range(k - 1, -1, -1):
+        m = digits_msb[i].to(torch.int64) + 8 + carry
+        carry = m >> 4
+        out[i + 1] = (m & 15) - 8
+    out[0] = carry
+    return torch.stack(out)
+
+
+def table8(p: Point) -> torch.Tensor:
+    """[8, 40, B]: entry j = (j + 1)·P in cached form, by 7 additions."""
+    p1 = cache(p)
+    rows = [torch.cat(list(p1))]
+    acc = p
+    for _ in range(7):
+        acc = add_cached(acc, p1, True)
+        rows.append(torch.cat(list(cache(acc))))
+    return torch.stack(rows)
+
+
+def select(tbl: torch.Tensor, e: torch.Tensor) -> Cached:
+    """The cached point of signed digit e [B] (|e| <= 8): the identity for
+    0, and for e < 0 the negation (Y+X and Y−X swapped, 2dT negated)."""
+    m = e.abs()
+    idx = (m - 1).clamp(min=0).reshape(1, 1, -1).expand(1, tbl.shape[1], -1)
+    ent = torch.gather(tbl, 0, idx)[0]
+    ypx, ymx, t2d, z2 = (ent[10 * i: 10 * (i + 1)] for i in range(4))
+    b = ent.shape[-1]
+    zero_m = m == 0
+    one = fe.ones(b, ent.device)
+    ypx = fe.select(zero_m, one, ypx)
+    ymx = fe.select(zero_m, one, ymx)
+    t2d = fe.select(zero_m, fe.zeros(b, ent.device), t2d)
+    z2 = fe.select(zero_m, fe.const(2, ent.device).expand(fe.NL, b), z2)
+    nt = fe.neg(t2d)
+    neg_e = e < 0
+    return Cached(fe.select(neg_e, ymx, ypx), fe.select(neg_e, ypx, ymx),
+                  fe.select(neg_e, nt, t2d), z2)
 
 
 def scalar_mul_w4(digits_msb: torch.Tensor, p: Point) -> Point:
     """sum(d_i 16^(k-1-i)) · P for digits [k, B], most significant first."""
-    tbl = _table16(p)
-    q = identity(p.x.shape[-1], p.x.device)
-    for i in range(digits_msb.shape[0]):
-        for _ in range(4):
-            q = double(q)
-        q = add(q, _lookup(tbl, digits_msb[i]))
+    tbl = table8(p)
+    e = signed_digits(digits_msb)
+    k = digits_msb.shape[0]
+    q = add_cached(identity(p.x.shape[-1], p.x.device), select(tbl, e[0]), False)
+    for i in range(1, k + 1):
+        q = add_cached(_dbl4(q), select(tbl, e[i]), i == k)
     return q
 
 
 def double_scalar_mul_w4(da_msb, pa: Point, db_msb, pb: Point) -> Point:
     """a·PA + b·PB on one doubling chain; len(da) >= len(db)."""
     ka, kb = da_msb.shape[0], db_msb.shape[0]
-    ta = _table16(pa)
-    tb = _table16(pb)
+    ta = table8(pa)
+    tb = table8(pb)
+    ea = signed_digits(da_msb)
+    eb = signed_digits(db_msb)
     q = identity(pa.x.shape[-1], pa.x.device)
-    for i in range(ka):
-        for _ in range(4):
-            q = double(q)
-        q = add(q, _lookup(ta, da_msb[i]))
+    for i in range(ka + 1):
+        if i > 0:
+            q = _dbl4(q)
         j = i - (ka - kb)
+        q = add_cached(q, select(ta, ea[i]), j >= 0 or i == ka)
         if j >= 0:
-            q = add(q, _lookup(tb, db_msb[j]))
+            q = add_cached(q, select(tb, eb[j]), i == ka)
     return q
 
 

@@ -167,7 +167,9 @@ def sq(a):
 
 
 def sqr(a):
-    """The stages' squaring: still mul(a, a), as the kernels' fe_sqr."""
+    """The stages' squaring: mul(a, a), which equals the kernels' fe_sq
+    (and `sq`) limb for limb; chip_smoke's bound counts it apart, at 55
+    wide products."""
     return mul(a, a)
 
 

@@ -1,8 +1,13 @@
 """The six Praos stage kernels: wrappers, launch counts, plain twins.
 
 Each stage of ops/pk/verify.py is one hand-written CUDA kernel
-(csrc/<name>.cu, one lane per thread, 128 threads per block, grid sized
-to the lanes), bound with ctypes (build.py). A wrapper checks device,
+(csrc/<name>.cu, grid sized to the lanes), bound with ctypes (build.py):
+ed, the two preps and finish run one lane per thread in 128-thread
+blocks; kes and vrf_ladders run 32 lanes a block over four and eight
+warps: first each warp one independent part of the lanes' work (hashes,
+tables, s·B), then each long ladder on a quad of four warps, one product
+of every point operation a warp, meeting in shared memory
+(csrc/stages.cuh, csrc/pk.cuh). A wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with torch.empty,
 launches on the current stream without synchronising, raises when the
 launcher's cudaGetLastError() is not 0, and adds one to LAUNCHES[name].
@@ -19,16 +24,20 @@ H ‖ Y ‖ Γ [120, B] and the ladder output H ‖ Γ ‖ U' ‖ V' ‖ 8Γ [20
 (the TPU stages used 20 x 13-bit limbs: [80, B] per point).
 
 Bound on the card: every stage is bound by operations — 32x32->64
-integer products in the field work (100 per multiply; 55 per squaring
-is the least a squaring needs, though fe_sqr is still fe_mul(a, a)) —
-not by bytes (a lane moves under 2.5 KB through device memory). The
-design answer is the radix: 10 limbs of 25.5 bits turn the TPU's 400
-13-bit products per multiply into 100 native IMAD.WIDE products, and the loose
-limb form keeps carries to two parallel passes. Per-lane window tables
-(16 points) live in local memory. A bound below is the wide products
-over 132 SMs x 32 per clock (64 32-bit IMADs, two per 64-bit product)
-at 1,980 MHz. PERF.md keeps each kernel's measured time beside its
-bound (scripts of record: chip_smoke.py).
+integer products in the field work (100 per multiply, 55 per squaring:
+the kernels square with ref10's fe_sq) — not by bytes (a lane moves
+under 2.5 KB through device memory); on the main path, where half the
+launches are one block, by the dependent chain of one lane. The design
+answers: the radix (10 limbs of 25.5 bits turn the TPU's 400 13-bit
+products per multiply into 100 native IMAD.WIDE products, and the loose
+limb form keeps carries to two parallel passes); signed-digit w4
+ladders over 8-entry cached tables, doublings that skip T; and for kes
+and vrf_ladders the lane split over warps, which takes everything but
+the one 256-doubling chain off that chain's path and spreads each of
+its point operations over four warps. A bound below is the
+wide products over 132 SMs x 32 per clock (64 32-bit IMADs, two per
+64-bit product) at 1,980 MHz. PERF.md keeps each kernel's measured time
+beside its bound (scripts of record: chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -114,10 +123,11 @@ def ed_points(pk, s, hblocks, hnblocks):
     (csrc/ed.cu). Operations-bound: decompress (one 254-squaring chain),
     SHA-512 over the message blocks, mod-L reduce, a 32-add fixed-base
     walk (table in global memory read through __ldg, resident in L2) and
-    a 64-window variable-base ladder (table in local memory).
-    On an H100 80GB HBM3 at 700 W: 2,044 multiplies and 1,279 squarings a
-    lane (274,745 wide products) bound it at 0.27 ms per 8192 lanes;
-    chip_smoke.py measured 2.11 ms."""
+    a 65-digit signed variable-base ladder (8-entry table in local
+    memory), one lane per thread.
+    On an H100 80GB HBM3 at 700 W: 1,670 multiplies and 1,279 squarings a
+    lane (237,345 wide products) bound it at 0.23 ms per 8192 lanes;
+    chip_smoke.py measured 1.74 ms."""
     dev = pk.device
     b, nb = pk.shape[-1], hblocks.shape[0]
     for n, t, sh in (("pk", pk, (32, b)), ("s", s, (32, b)),
@@ -161,8 +171,12 @@ def kes_points(vk, period, s, vk_leaf, siblings, hblocks, hnblocks, depth):
     signature plus `depth` single-block Blake2b compressions; siblings
     are indexed by level, so an out-of-range period never reads out of
     bounds (its lane fails the period check).
-    On an H100 80GB HBM3 at 700 W: the ed stage's 274,745 wide products a
-    lane bound it at 0.27 ms per 8192 lanes; chip_smoke.py measured 2.32 ms."""
+    One lane runs over four warps (csrc/kes.cu): the hashes, the leaf key's
+    decompression and table, s·B and the Merkle walk beside each other,
+    then the h·(−A) ladder on all four, one product of each point
+    operation a warp.
+    On an H100 80GB HBM3 at 700 W: the ed stage's 237,345 wide products a
+    lane bound it at 0.23 ms per 8192 lanes; chip_smoke.py measured 1.03 ms."""
     dev = vk.device
     b, nb = vk.shape[-1], hblocks.shape[0]
     for n, t, sh in (("vk", vk, (32, b)), ("period", period, (1, b)),
@@ -209,7 +223,7 @@ def vrf_prep(pk, gamma, s, alpha):
     the challenge's SHA-512.
     On an H100 80GB HBM3 at 700 W: 81 multiplies and 778 squarings a lane
     (50,890 wide products) bound it at 0.050 ms per 8192 lanes;
-    chip_smoke.py measured 0.44 ms."""
+    chip_smoke.py measured 0.34 ms."""
     dev = pk.device
     b = pk.shape[-1]
     for n, t in (("pk", pk), ("gamma", gamma), ("s", s), ("alpha", alpha)):
@@ -246,9 +260,9 @@ def vrf_bc_prep(pk, gamma, u, v, s, alpha):
     (csrc/vrf_bc_prep.cu). Operations-bound: three exponentiation chains
     (two decompressions, the single-chain Elligator2), one inversion to
     compress H, and three SHA-512 compressions; no ladders.
-    On an H100 80GB HBM3 at 700 W: 94 multiplies and 1,032 squarings a lane
-    (66,160 wide products) bound it at 0.065 ms per 8192 lanes;
-    chip_smoke.py measured 0.64 ms."""
+    On an H100 80GB HBM3 at 700 W: 92 multiplies and 1,032 squarings a lane
+    (65,960 wide products) bound it at 0.065 ms per 8192 lanes;
+    chip_smoke.py measured 0.46 ms."""
     dev = pk.device
     b = pk.shape[-1]
     for n, t in (("pk", pk), ("gamma", gamma), ("u", u), ("v", v),
@@ -280,10 +294,14 @@ def vrf_ladders(c16, s, prep):
 
     Replaces ouroboros_consensus_tpu/ops/pk/kernels.py:_vrf_ladder_kernel
     (csrc/vrf_ladders.cu). Operations-bound: a fixed-base walk, a
-    32-window ladder and a 64-window double ladder (two local tables).
-    On an H100 80GB HBM3 at 700 W: 3,375 multiplies and 1,548 squarings a
-    lane (422,640 wide products) bound it at 0.41 ms per 8192 lanes;
-    chip_smoke.py measured 3.38 ms."""
+    33-digit signed ladder and a 65-digit double ladder (three tables in
+    shared memory).
+    One lane runs over eight warps (csrc/vrf_ladders.cu): the tables, 8Γ
+    and s·B beside each other, then V' and U' each on a quad of four
+    warps, one product of each point operation a warp.
+    On an H100 80GB HBM3 at 700 W: 2,699 multiplies and 1,548 squarings a
+    lane (355,040 wide products) bound it at 0.35 ms per 8192 lanes;
+    chip_smoke.py measured 1.59 ms."""
     dev = c16.device
     b = c16.shape[-1]
     _check("vrf_ladders.c16", c16, (16, b), dev)
@@ -343,7 +361,7 @@ def finish(ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts,
     compressions.
     On an H100 80GB HBM3 at 700 W: 43 multiplies and 254 squarings a lane
     (18,270 wide products) bound it at 0.018 ms per 8192 lanes;
-    chip_smoke.py measured 0.25 ms."""
+    chip_smoke.py measured 0.22 ms."""
     dev = c.device
     b = c.shape[-1]
     args = (ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts, c,
@@ -452,22 +470,30 @@ def verify_praos_tiles_bc(
                   c16, beta, tlo, thi)
 
 
+def verify_staged(cols, bc: bool, kes_depth: int, n_real: int):
+    """The five stage kernels of one proof format over batch-first staged
+    columns on the card (22 batch-compatible columns with `bc`, else 21
+    draft-03 ones), then the verdict reduction with the nonce fold left to
+    the host (scan off).
+    -> ((masks [5, W] uint32, eta_u8 [B, 32] uint8), flags, eta, lv),
+    the per-lane arrays left on the columns' device."""
+    from ...protocol import batch as pbatch
+
+    if bc:
+        limb = staged_to_limb_first_bc(*cols)
+        flags, eta, lv = verify_praos_tiles_bc(*limb, kes_depth=kes_depth)
+    else:
+        limb = staged_to_limb_first(*cols)
+        flags, eta, lv = verify_praos_tiles(*limb, kes_depth=kes_depth)
+    return pbatch.verdict_reduce(flags, eta.T, n_real), flags, eta, lv
+
+
 def verify_praos_packed_split(layout, packed, n_real: int, device):
     """The packed per-lane dispatch: unpack the packed wire columns on
-    `device`, relayout, run the five stage kernels of the layout's proof
-    format (vrf_prep for 80-byte draft-03 proofs, vrf_bc_prep for 128-byte
-    batch-compatible ones), then the verdict reduction with the nonce fold
-    left to the host (scan off).
-    -> ((masks [5, W] uint32, eta_u8 [B, 32] uint8), flags, eta, lv),
-    the per-lane arrays left on `device`."""
+    `device`, then verify_staged in the layout's proof format (vrf_prep
+    for 80-byte draft-03 proofs, vrf_bc_prep for 128-byte
+    batch-compatible ones)."""
     from ...protocol import batch as pbatch
 
     staged = pbatch.unpack_packed(layout, packed, device)
-    if layout.vrf_proof_len == 128:
-        limb = staged_to_limb_first_bc(*staged)
-        flags, eta, lv = verify_praos_tiles_bc(*limb, kes_depth=layout.kes_depth)
-    else:
-        limb = staged_to_limb_first(*staged)
-        flags, eta, lv = verify_praos_tiles(*limb, kes_depth=layout.kes_depth)
-    red = pbatch.verdict_reduce(flags, eta.T, n_real)
-    return red, flags, eta, lv
+    return verify_staged(staged, layout.vrf_proof_len == 128, layout.kes_depth, n_real)

@@ -13,6 +13,12 @@ the sequential epilogue finds the first failing header and rebuilds the
 exact `PraosValidationError` the reference fold would raise, in its
 order (Praos.hs:441-606: KES checks before VRF checks).
 
+A window the packed staging declines because its bodies do not embed
+the fields or its integers pass int32 (`field-offsets`,
+`field-mismatch`, `int32-range`) goes through the generic staging
+instead (`stage`: per-lane columns padded on the host) and the same
+five stage kernels; the reason is recorded in `DECLINES`.
+
 The nonce fold stays on the host (the reference's scan-off mode):
 `verdict_reduce` packs the verdict rows into u32 words and ships the eta
 column as bytes. The leader threshold is a bracketed device compare;
@@ -36,6 +42,7 @@ import torch
 
 from .. import native
 from ..device import resolve
+from ..ops import stage_np
 from ..ops.pk import hashes as ph
 from ..ops.pk import kernels as pk_kernels
 from . import leader, nonces, praos
@@ -137,8 +144,18 @@ class Packed(NamedTuple):
 
 
 class NotStagedError(NotImplementedError):
-    """A window the packed staging does not take (the reference verifies
-    such a window through its generic staging, which is not ported)."""
+    """A window the packed staging does not take; `reason` names the gate.
+    `dispatch_window` stages the GENERIC_REASONS windows generically; the
+    others (`body-width-mixed`, `kes-sig-len`, `proof-format`) are windows
+    `validate_chain` never hands over."""
+
+    def __init__(self, reason: str):
+        super().__init__(reason)
+        self.reason = reason
+
+
+# the packed-staging declines that the generic staging takes
+GENERIC_REASONS = frozenset({"field-offsets", "field-mismatch", "int32-range"})
 
 
 def stage_packed(params: PraosParams, ledger_view: LedgerView,
@@ -332,6 +349,73 @@ def verdict_reduce(flags: torch.Tensor, eta_bt: torch.Tensor, n_real: int):
     shifts = torch.arange(32, dtype=torch.int64, device=flags.device)
     masks = (bits.reshape(5, w, 32) << shifts).sum(-1)
     return masks, eta_bt[:n_real].to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Generic staging (host): the windows the packed staging declines
+# ---------------------------------------------------------------------------
+
+
+class PraosBatch(NamedTuple):
+    """A window's batch-first host columns (numpy), check by check."""
+
+    ed: stage_np.Ed25519Batch  # OCert cold-key signature
+    kes: stage_np.KesBatch  # header-body KES signature
+    vrf: "stage_np.EcvrfBatch | stage_np.EcvrfBcBatch"  # by proof length
+    beta: np.ndarray  # [B, 64] uint8 — declared VRF output
+    thr_lo: np.ndarray  # [B, 32] uint8 — big-endian leader bound (win)
+    thr_hi: np.ndarray  # [B, 32] uint8 — big-endian leader bound (loss)
+
+
+def stage(params: PraosParams, ledger_view: LedgerView,
+          epoch_nonce: nonces.Nonce, hvs: Sequence[HeaderView],
+          evolution: np.ndarray) -> PraosBatch:
+    """Columnarize a window from the parsed views alone: any body width
+    per lane (per-lane SHA-512 block counts), the KES period t =
+    `evolution` (0 on lanes whose precheck failed), the mkInputVRF alphas
+    and the leader threshold rows; proofs split by their length."""
+    b = len(hvs)
+    ed = stage_np.stage_ed([hv.vk_cold for hv in hvs],
+                           [hv.ocert.sigma for hv in hvs],
+                           [hv.ocert.signable() for hv in hvs])
+    kes = stage_np.stage_kes([hv.ocert.vk_hot for hv in hvs],
+                             [int(t) for t in evolution],
+                             [hv.signed_bytes for hv in hvs],
+                             [hv.kes_sig for hv in hvs], params.kes_depth)
+    vrf = stage_np.stage_vrf([hv.vrf_vk for hv in hvs],
+                             [hv.vrf_proof for hv in hvs],
+                             [nonces.mk_input_vrf(hv.slot, epoch_nonce) for hv in hvs])
+    beta = stage_np.byte_rows([hv.vrf_output for hv in hvs], 64)
+    f = Fraction(params.active_slot_coeff)
+    thr = np.zeros((b, 64), np.uint8)
+    for i, hv in enumerate(hvs):
+        lo, hi = threshold_rows(_sigma(ledger_view, hv), f)
+        thr[i] = np.frombuffer(lo + hi, np.uint8)
+    return PraosBatch(ed, kes, vrf, beta, thr[:, :32].copy(), thr[:, 32:].copy())
+
+
+def pad_batch_to(batch: PraosBatch, size: int) -> PraosBatch:
+    """Pad every column to `size` lanes by replicating lane 0."""
+    b = batch.beta.shape[0]
+    if b == size:
+        return batch
+
+    def pad(x):
+        return np.concatenate([x, np.repeat(x[:1], size - b, axis=0)], axis=0)
+
+    def pad_all(t):
+        return type(t)(*(pad(c) for c in t))
+
+    return PraosBatch(pad_all(batch.ed), pad_all(batch.kes), pad_all(batch.vrf),
+                      pad(batch.beta), pad(batch.thr_lo), pad(batch.thr_hi))
+
+
+def batch_columns(batch: PraosBatch, device) -> tuple:
+    """The staged columns on `device`, in the order of
+    kernels.staged_to_limb_first (21, draft-03) or _bc (22)."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in (*batch.ed, *batch.kes, *batch.vrf, batch.beta,
+                           batch.thr_lo, batch.thr_hi))
 
 
 # ---------------------------------------------------------------------------
@@ -562,15 +646,33 @@ def run_batch_native(params: PraosParams, ledger_view: LedgerView,
     return Verdicts(ok[0], ok[1], ok[2], ok_leader, ambiguous, eta, lv)
 
 
+# packed-staging declines by reason, over the process (the reference's
+# `_LAST_DECLINE` gate, which its window telemetry records)
+DECLINES: dict[str, int] = {}
+
+
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
-                    hvs: Sequence[HeaderView], device: torch.device) -> PackedVerdicts:
-    """Stage -> H2D -> unpack -> the five stage kernels of the window's
-    proof format -> reduce -> D2H."""
+                    hvs: Sequence[HeaderView], pre: HostChecks,
+                    device: torch.device) -> PackedVerdicts:
+    """Stage -> H2D -> (unpack) -> the five stage kernels of the window's
+    proof format -> reduce -> D2H. A window the packed staging declines
+    for one of GENERIC_REASONS is staged generically and runs the same
+    kernels; any other decline raises."""
     b = len(hvs)
-    layout, packed = stage_packed(params, lview, eta0, hvs)
-    packed = pad_packed_to(packed, bucket_size(b))
-    (masks, eta_u8), flags, eta, lv = pk_kernels.verify_praos_packed_split(
-        layout, packed, b, device)
+    try:
+        layout, packed = stage_packed(params, lview, eta0, hvs)
+    except NotStagedError as e:
+        if e.reason not in GENERIC_REASONS:
+            raise
+        DECLINES[e.reason] = DECLINES.get(e.reason, 0) + 1
+        batch = stage(params, lview, eta0, hvs, pre.kes_evolution)
+        cols = batch_columns(pad_batch_to(batch, bucket_size(b)), device)
+        out = pk_kernels.verify_staged(
+            cols, isinstance(batch.vrf, stage_np.EcvrfBcBatch), params.kes_depth, b)
+    else:
+        packed = pad_packed_to(packed, bucket_size(b))
+        out = pk_kernels.verify_praos_packed_split(layout, packed, b, device)
+    (masks, eta_u8), flags, eta, lv = out
     return PackedVerdicts(masks.cpu().numpy(), eta_u8.cpu().numpy(), b,
                           (flags, eta, lv))
 
@@ -585,7 +687,7 @@ def validate_batch(params: PraosParams, ticked: TickedPraosState,
     if backend == "native":
         v = run_batch_native(params, lview, eta0, hvs, pre)
     elif backend == "device":
-        v = dispatch_window(params, lview, eta0, hvs, device)
+        v = dispatch_window(params, lview, eta0, hvs, pre, device)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     return epilogue(params, ticked, hvs, pre, v)

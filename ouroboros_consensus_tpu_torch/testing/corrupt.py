@@ -6,6 +6,11 @@ byte of the VRF proof alone would be caught by the KES check first (the
 proof lies inside the KES-signed header body); given the forging
 credentials, the header body is KES-signed again after the flip, so that
 the VRF check is the one that fails.
+
+`standin_views` rewrites parsed views instead: each view's KES-signed
+body becomes a stand-in that embeds none of the header's fields (as the
+JAX package's fixture views carry), so the packed staging declines the
+window and the generic staging takes it.
 """
 
 from __future__ import annotations
@@ -60,3 +65,16 @@ def flip_header_byte(db_path: str, index: int, field: str, offset: int = 40,
     rows[k][5] = zlib.crc32(bytes(data[e.offset: e.offset + e.size]))
     with open(os.path.join(imm.path, index_name(n)), "wb") as f:
         f.write(b"".join(cbor.encode(r) for r in rows))
+
+
+def standin_views(hvs: list, params, pool, body: bytes = b"") -> list:
+    """`hvs` with every KES-signed body replaced by `body` and KES-signed
+    again by `pool` (the PoolCredentials that forged them); the OCert and
+    the VRF proof stay valid."""
+    out = []
+    for hv in hvs:
+        t = params.kes_period_of(hv.slot) - hv.ocert.kes_period
+        out.append(dataclasses.replace(
+            hv, signed_bytes=body,
+            kes_sig=kes_sign(pool.kes_seed, pool.kes_depth, t, body)))
+    return out

@@ -91,3 +91,74 @@ def test_base_mul_matches_jax_pk_eagerly():
         jlimbs.windows8_from_bytes(jnp.asarray(_col(blobs).numpy(), jnp.int32), 256))))
     got = pc.compress_many([pc.base_mul_w8(_col(blobs))])[0].numpy()
     assert (got == want).all()
+
+
+# edge scalars of the signed-digit ladders: 0, 1, L - 1, all-ones nibbles,
+# all-eights (every recoded digit 0 with a carry), all-sevens (no carry),
+# nibbles 8..15 (negative recoded digits), the top nibble 15 (carry out)
+_EDGE32 = [0, 1, fe.L - 1, 2**256 - 1, int("88" * 32, 16), int("77" * 32, 16),
+           int("fedcba98" * 8, 16), int("f" + "0" * 63, 16), 8, 9]
+
+
+def _int_of_signed(e) -> int:
+    k = e.shape[0] - 1
+    return sum(int(e[i]) * 16 ** (k - i) for i in range(k + 1))
+
+
+def test_signed_digits_recompose():
+    for nbytes in (16, 32):
+        vals = [v % (1 << (8 * nbytes)) for v in _EDGE32]
+        digits = fe.nibbles_msb(_col([v.to_bytes(nbytes, "little") for v in vals]), nbytes)
+        e = pc.signed_digits(digits)
+        assert e.shape == (2 * nbytes + 1, len(vals))
+        assert bool((e[1:] >= -8).all()) and bool((e[1:] < 8).all())
+        assert set(e[0].tolist()) <= {0, 1}
+        assert bool((e[1:] < 0).any())
+        for i, v in enumerate(vals):
+            assert _int_of_signed(e[:, i]) == v
+
+
+def test_table8_and_signed_select_match_python_ints():
+    """Entry j of the cached table is (j + 1)·P, and the signed lookup of
+    e in [-8, 8] added to the identity is e·P (negative digits included)."""
+    base = [he.base_point_mul(k) for k in (3, 11)]
+    ok, p = pc.decompress(_col([he.point_compress(q) for q in base]))
+    assert ok.all()
+    tbl = pc.table8(p)
+    ident = pc.identity(2)
+    for e in range(-8, 9):
+        q = pc.add_cached(ident, pc.select(tbl, torch.full((2,), e)))
+        enc = pc.compress_many([q])[0]
+        for i, b in enumerate(base):
+            assert bytes(enc[:, i].tolist()) == he.point_compress(he.point_mul(e % fe.L, b)), e
+
+
+def test_signed_ladders_match_python_ints_on_edge_scalars():
+    n = len(_EDGE32)
+    base = [he.point_decompress(he.point_compress(he.base_point_mul(k + 2))) for k in range(n)]
+    ok, p = pc.decompress(_col([he.point_compress(q) for q in base]))
+    assert ok.all()
+    s_col = _col([v.to_bytes(32, "little") for v in _EDGE32])
+    c_vals = [v % (1 << 128) for v in _EDGE32]
+    c_col = _col([v.to_bytes(16, "little") for v in c_vals])
+    sm = pc.compress_many([pc.scalar_mul_w4(fe.nibbles_msb(s_col, 32), p)])[0]
+    q = pc.neg(p)
+    dd = pc.double_scalar_mul_w4(fe.nibbles_msb(s_col, 32), p, fe.nibbles_msb(c_col, 16), q)
+    dm = pc.compress_many([dd])[0]
+    for i, s in enumerate(_EDGE32):
+        assert bytes(sm[:, i].tolist()) == he.point_compress(he.point_mul(s % fe.L, base[i])), i
+        want = he.point_mul((s - c_vals[i]) % fe.L, base[i])
+        assert bytes(dm[:, i].tolist()) == he.point_compress(want), i
+
+
+def test_doubling_skips_only_t():
+    """A doubling without T has the same X, Y, Z as with it; the cofactor
+    chain (two doublings without T, one with) is 8·P."""
+    base = [he.base_point_mul(k) for k in (5, 77)]
+    ok, p = pc.decompress(_col([he.point_compress(q) for q in base]))
+    full, short = pc.double(p), pc.double(p, False)
+    assert short.t is None
+    assert all(torch.equal(a, b) for a, b in zip(full[:3], short[:3]))
+    enc = pc.compress_many([pc.mul_cofactor(p)])[0]
+    for i, b in enumerate(base):
+        assert bytes(enc[:, i].tolist()) == he.point_compress(he.point_mul(8, b))

@@ -162,6 +162,46 @@ def test_device_lane_code_matches_plain_twins(batch, outputs):
     assert all(torch.equal(a, b) for a, b in zip(got, fin))
 
 
+def _tile(t: torch.Tensor, n: int) -> torch.Tensor:
+    """Lanes (the last dim) repeated to n lanes."""
+    reps = -(-n // t.shape[-1])
+    return torch.cat([t] * reps, dim=-1)[..., :n].contiguous()
+
+
+# one lane, a partial group, a full group of 32, one and a half groups,
+# two groups and one lane past them
+GROUP_WIDTHS = [1, 31, 32, 40, 65]
+
+
+@pytest.mark.parametrize("lanes", GROUP_WIDTHS)
+def test_kes_geometries_match_plain_twin(batch, outputs, lanes):
+    """kes over `lanes` lanes of every corrupt kind around its 32-lane
+    block, compiled as host C++ (its four phase-1 roles one after another
+    over each group's scratch, then the chain on a quad, the four products
+    of each step in order), equals the twin."""
+    _, _, c = batch
+    emu = build.build_host_emu()
+    cols = [_tile(c[k], lanes) for k in (5, 6, 8, 9, 10, 11, 12)]
+    got = K._kes_launch(emu.pk_kes, None, *cols, DEPTH)
+    want = K.kes_points(*cols, DEPTH)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, _tile(b, lanes)) for a, b in zip(got, outputs[1]))
+
+
+@pytest.mark.parametrize("lanes", GROUP_WIDTHS)
+def test_ladder_geometries_match_plain_twin(batch, outputs, lanes):
+    """vrf_ladders over `lanes` lanes around its 32-lane block, compiled as
+    host C++ (the three tables, 8Γ and s·B, then V' and U' on two quads,
+    role after role), equals the twin."""
+    emu = build.build_host_emu()
+    _, _, c = batch
+    _, c16, prep = outputs[2]
+    c16, s, prep = _tile(c16, lanes), _tile(c[17], lanes), _tile(prep, lanes)
+    got = K._vrf_ladders_launch(emu.pk_vrf_ladders, None, c16, s, prep)
+    assert torch.equal(got, K.vrf_ladders(c16, s, prep))
+    assert torch.equal(got, _tile(outputs[3], lanes))
+
+
 def test_device_constants_match_rendering():
     with open(f"{build.CSRC}/consts.cuh") as f:
         assert f.read() == build.render_consts()

@@ -159,6 +159,16 @@ def test_device_lane_code_matches_plain_twin(batch, outputs):
     assert all(torch.equal(a, b) for a, b in zip(got, outputs[0]))
 
 
+def test_ladder_lane_code_matches_plain_twin(batch, outputs):
+    """vrf_ladders on the draft-03 window (the proof's own c), compiled as
+    host C++ (role after role, the quads' products in order), equals the
+    plain twin."""
+    _, _, c = batch
+    emu = build.build_host_emu()
+    (_, prep), (_, pts), _ = outputs
+    assert torch.equal(K._vrf_ladders_launch(emu.pk_vrf_ladders, None, c[VRF_C], c[VRF_S], prep), pts)
+
+
 def test_limb_first_relayout_matches_reference_staging(batch):
     """staged_to_limb_first over the batch-first columns equals the JAX
     package's limb-first pk_arrays, column for column."""
