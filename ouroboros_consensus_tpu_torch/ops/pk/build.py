@@ -203,7 +203,7 @@ def kernel_lib(name: str, entry: str | None = None):
 
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
-    (128 threads; vrf_ladders 256), with its dynamic shared memory,
+    (128 threads; vrf_bc_prep 96, vrf_ladders 256), with its shared memory,
     from the CUDA occupancy API (registers, stack and shared memory); for
     a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")

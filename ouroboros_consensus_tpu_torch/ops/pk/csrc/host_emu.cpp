@@ -1,6 +1,7 @@
 // Host build of the stage and tool lane bodies (g++ -DPK_HOST): each
 // entry point loops the CUDA kernel's per-lane body over the lanes; a
-// role-split kernel (kes, vrf_ladders) runs, for each group of 32 lanes,
+// role-split kernel (ed, kes, vrf_bc_prep, vrf_ladders) runs, for each
+// group of 32 lanes,
 // every role of phase 1 over the group's lanes, one role after another,
 // then phase 2, over one scratch struct, as the kernel's barrier orders
 // them. Used only to cross-check the device code against the plain
@@ -10,40 +11,45 @@
 typedef const int32_t *CI;
 typedef int32_t *OI;
 
+// ed's and kes's chain on a quad, the four products of each step in order
+static void ed_phase2(int g, int n, int B, int flags, EdScratch &sc, OI ok,
+                      OI pt) {
+  for (int l = 0; l < n; l++) {
+    Quad qd{sc.qx, -1, l, 0, 0};
+    ed_quad_chain(g + l, B, true, flags, sc, qd, ok, pt);
+  }
+}
+
 extern "C" int pk_ed(int B, const void *base8, const void *pk, const void *s,
                      const void *hb, int nb, const void *hnb, void *ok,
                      void *pt, void *) {
-  for (int i = 0; i < B; i++)
-    ed_lane(i, B, (const u32 *)base8, (const int32_t *)pk, (const int32_t *)s,
-            (const int32_t *)hb, nb, (const int32_t *)hnb, (int32_t *)ok,
-            (int32_t *)pt);
+  EdScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++) ed_role_hash(g + l, B, l, (CI)hb, nb, (CI)hnb, sc);
+    for (int l = 0; l < n; l++) ed_role_table(g + l, B, l, (CI)pk, sc);
+    for (int l = 0; l < n; l++)
+      ed_role_base(g + l, B, l, (const u32 *)base8, (CI)s, sc);
+    ed_phase2(g, n, B, 2, sc, (OI)ok, (OI)pt);
+  }
   return 0;
-}
-
-// one group's phase-1 roles, one after another
-static void kes_phase1(int g, int n, int B, int depth, const u32 *base8,
-                       CI vk, CI period, CI s, CI leaf, CI sib, CI hb, int nb,
-                       CI hnb, KesScratch &sc) {
-  for (int l = 0; l < n; l++) kes_role_hash(g + l, B, l, hb, nb, hnb, sc);
-  for (int l = 0; l < n; l++) kes_role_table(g + l, B, l, leaf, sc);
-  for (int l = 0; l < n; l++) kes_role_base(g + l, B, l, base8, s, sc);
-  for (int l = 0; l < n; l++)
-    kes_role_merkle(g + l, B, l, depth, vk, period, leaf, sib, sc);
 }
 
 extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
                       const void *period, const void *s, const void *leaf,
                       const void *sib, const void *hb, int nb,
                       const void *hnb, void *ok, void *pt, void *) {
-  KesScratch sc;
+  EdScratch sc;
   for (int g = 0; g < B; g += PK_GROUP) {
     int n = B - g < PK_GROUP ? B - g : PK_GROUP;
-    kes_phase1(g, n, B, depth, (const u32 *)base8, (CI)vk, (CI)period, (CI)s,
-               (CI)leaf, (CI)sib, (CI)hb, nb, (CI)hnb, sc);
-    for (int l = 0; l < n; l++) {
-      Quad qd{sc.qx, -1, l, 0, 0};
-      kes_quad_chain(g + l, B, true, sc, qd, (OI)ok, (OI)pt);
-    }
+    for (int l = 0; l < n; l++) ed_role_hash(g + l, B, l, (CI)hb, nb, (CI)hnb, sc);
+    for (int l = 0; l < n; l++) ed_role_table(g + l, B, l, (CI)leaf, sc);
+    for (int l = 0; l < n; l++)
+      ed_role_base(g + l, B, l, (const u32 *)base8, (CI)s, sc);
+    for (int l = 0; l < n; l++)
+      kes_role_merkle(g + l, B, l, depth, (CI)vk, (CI)period, (CI)leaf,
+                      (CI)sib, sc);
+    ed_phase2(g, n, B, 3, sc, (OI)ok, (OI)pt);
   }
   return 0;
 }
@@ -60,9 +66,17 @@ extern "C" int pk_vrf_bc_prep(int B, const void *pk, const void *gamma,
                               const void *u, const void *v, const void *s,
                               const void *alpha, void *ok, void *c16,
                               void *prep, void *) {
-  for (int i = 0; i < B; i++)
-    vrf_bc_prep_lane(i, B, (CI)pk, (CI)gamma, (CI)u, (CI)v, (CI)s, (CI)alpha,
-                     (OI)ok, (OI)c16, (OI)prep);
+  BcPrepScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++)
+      bc_role_h(g + l, B, true, (CI)pk, (CI)gamma, (CI)u, (CI)v, (CI)alpha,
+                (OI)c16, (OI)prep);
+    for (int l = 0; l < n; l++) bc_role_y(g + l, B, true, l, (CI)pk, (OI)prep, sc);
+    for (int l = 0; l < n; l++)
+      bc_role_gamma(g + l, B, true, l, (CI)gamma, (CI)s, (OI)prep, sc);
+    for (int l = 0; l < n; l++) bc_ok(g + l, l, sc, (OI)ok);
+  }
   return 0;
 }
 

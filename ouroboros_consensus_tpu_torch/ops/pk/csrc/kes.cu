@@ -4,9 +4,10 @@
 // Bound: operations, and on the main path the dependent chain of one
 // lane (half the launches are one block), where a lone warp issues an
 // instruction every few cycles. So one lane runs over four warps
-// (stages.cuh, KesScratch): the SHA-512 of the body and its mod-L
-// reduction, the decompression of the leaf key and its table, s·B, and
-// the Merkle walk run beside each other; then the 65-digit h·(−A) chain
+// (stages.cuh, EdScratch: ed's roles and chain, plus the Merkle walk): the
+// SHA-512 of the body and its mod-L reduction, the decompression of the
+// leaf key and its table, s·B, and the Merkle walk run beside each other;
+// then the 65-digit h·(−A) chain
 // runs on the four warps as a quad, each warp one product of every point
 // operation. A block is 32 lanes, 128 threads, 60 KB of shared memory.
 // Not used: tensor cores (IMMA multiplies int8 pieces into int32; a
@@ -22,18 +23,18 @@ __global__ void __launch_bounds__(4 * PK_GROUP) kes_kernel(
     const int32_t *sib, const int32_t *hb, int nb, const int32_t *hnb,
     int32_t *ok, int32_t *pt) {
   extern __shared__ __align__(16) u32 smem[];
-  KesScratch &sc = *reinterpret_cast<KesScratch *>(smem);
+  EdScratch &sc = *reinterpret_cast<EdScratch *>(smem);
   int lane = threadIdx.x % PK_GROUP, role = threadIdx.x / PK_GROUP;
   int i = blockIdx.x * PK_GROUP + lane;
   bool live = i < B;
   int ii = live ? i : B - 1;  // lanes past B run along for the barriers
-  if (role == 0) kes_role_hash(ii, B, lane, hb, nb, hnb, sc);
-  else if (role == 1) kes_role_table(ii, B, lane, leaf, sc);
-  else if (role == 2) kes_role_base(ii, B, lane, base8, s, sc);
+  if (role == 0) ed_role_hash(ii, B, lane, hb, nb, hnb, sc);
+  else if (role == 1) ed_role_table(ii, B, lane, leaf, sc);
+  else if (role == 2) ed_role_base(ii, B, lane, base8, s, sc);
   else kes_role_merkle(ii, B, lane, depth, vk, period, leaf, sib, sc);
   __syncthreads();
   Quad qd{sc.qx, role, lane, 1, 0};
-  kes_quad_chain(ii, B, live, sc, qd, ok, pt);
+  ed_quad_chain(ii, B, live, 3, sc, qd, ok, pt);
 }
 
 extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
@@ -41,7 +42,7 @@ extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
                       const void *sib, const void *hb, int nb,
                       const void *hnb, void *ok, void *pt, void *stream) {
   typedef const int32_t *CI;
-  int smem = (int)sizeof(KesScratch);
+  int smem = (int)sizeof(EdScratch);
   cudaError_t e = cudaFuncSetAttribute(
       kes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -54,7 +55,7 @@ extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
 
 // Resident blocks per SM of the kernel the wrapper launches.
 extern "C" int pk_kes_occupancy(int *blocks) {
-  int smem = (int)sizeof(KesScratch);
+  int smem = (int)sizeof(EdScratch);
   cudaError_t e = cudaFuncSetAttribute(
       kes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;

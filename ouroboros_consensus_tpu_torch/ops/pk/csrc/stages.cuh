@@ -3,15 +3,16 @@
 // warp's 32 lanes read 32 neighbouring words of each row. Points cross
 // stages as 40 rows (X, Y, Z, T, 10 limbs each, radix 2^25.5).
 //
-// kes and vrf_ladders run one lane over a group of warps of one block, 32
-// lanes a block: first the independent parts of a lane run on different
-// warps ("roles"; tables, s·B, hashes), meeting in a per-block scratch
-// struct in shared memory (tables lane-minor, see LaneTab) at a barrier;
-// then each long ladder runs on four warps as a quad (pk.cuh), one
-// product of every point operation per warp. Each role is its own
-// function of (lane index, scratch), so the host build runs the roles of
-// a group of 32 lanes one after another (csrc/host_emu.cpp) and the CPU
-// tests hold them to the twins. ed runs one lane per thread.
+// ed, kes, vrf_bc_prep and vrf_ladders run one lane over a group of warps
+// of one block, 32 lanes a block: first the independent parts of a lane
+// run on different warps ("roles"; tables, s·B, hashes, decompressions),
+// meeting in a per-block scratch struct in shared memory (tables
+// lane-minor, see LaneTab) at a barrier; then each long ladder runs on
+// four warps as a quad (pk.cuh), one product of every point operation per
+// warp. Each role is its own function of (lane index, scratch), so the
+// host build runs the roles of a group of 32 lanes one after another
+// (csrc/host_emu.cpp) and the CPU tests hold them to the twins. vrf_prep
+// and finish run one lane per thread.
 #pragma once
 #include "pk.cuh"
 
@@ -46,36 +47,6 @@ PK_DEV void store_point(int32_t *col, int i, int B, const ge &p) {
   }
 }
 
-// P = s·B − h·A with h = SHA-512(R ‖ A ‖ M) mod L; -> ok_pre
-PK_NOINLINE bool ed_core_lane(const u32 *base8, const u8 *pk, const u8 *s,
-                              const int32_t *hb, int nb, int nblocks, int i,
-                              int B, ge &out) {
-  ge a;
-  bool ok_a = ge_decompress(a, pk);
-  bool s_ok = sc_lt_l(s);
-  u8 dig[64], h[32], hd[64];
-  sha512_columns(hb, nb, nblocks, i, B, dig);
-  sc_reduce512(dig, h);
-  ge sb = ge_base_mul_w8(base8, s);
-  nibbles_msb(h, 32, hd);
-  LocalTab tab;
-  ge_table8(tab, ge_neg(a));
-  out = ge_add(sb, ge_scalar_mul_w4(hd, 64, tab));
-  return ok_a && s_ok;
-}
-
-PK_DEV void ed_lane(int i, int B, const u32 *base8, const int32_t *pk,
-                    const int32_t *s, const int32_t *hb, int nb,
-                    const int32_t *hnb, int32_t *ok, int32_t *pt) {
-  u8 pkb[32], sb[32];
-  load_bytes(pk, 32, i, B, pkb);
-  load_bytes(s, 32, i, B, sb);
-  ge p;
-  bool o = ed_core_lane(base8, pkb, sb, hb, nb, hnb[i], i, B, p);
-  ok[i] = o ? 1 : 0;
-  store_point(pt, i, B, p);
-}
-
 // CompactSum Merkle walk: bit l of the period puts the running vk on the
 // right; siblings are indexed by level, so any period value reads in
 // bounds. -> root == vk and 0 <= period < 2^depth
@@ -100,39 +71,41 @@ PK_NOINLINE bool kes_merkle(int i, int B, int depth, const int32_t *vk,
   return root_ok && per >= 0 && per < (1 << depth);
 }
 
-// kes over four roles. Phase 1, beside each other: the SHA-512 of
-// R ‖ A ‖ M and its reduction h (role 0), the decompression of the leaf
-// key A and the table of −A (role 1), s·B (role 2), the Merkle walk
-// (role 3). Phase 2: the 65-digit h·(−A) chain and P = s·B − h·A, on the
-// four warps as a quad (kes_quad_chain).
-struct KesScratch {
+// The Ed25519 verify-point P = s·B − h·A, h = SHA-512(R ‖ A ‖ M) mod L,
+// over the four warps of a block, shared by ed and kes (whose A is the
+// leaf key). Phase 1, beside each other: the SHA-512 and its reduction h
+// (role 0), the decompression of A and the table of −A (role 1), s·B
+// (role 2); kes adds its Merkle walk (role 3), ed leaves the warp idle.
+// Phase 2: the 65-digit h·(−A) chain and P = s·B − h·A, on the four warps
+// as a quad (ed_quad_chain).
+struct EdScratch {
   u32 tab[PK_LANETAB_WORDS];  // table of −A
   int32_t sb[40 * PK_GROUP];  // s·B, as a 32-lane point column
   u32 h[32 * PK_GROUP];       // h bytes
-  int32_t ok[3 * PK_GROUP];   // A decodes, s < L, root and period
+  int32_t ok[3 * PK_GROUP];   // A decodes, s < L; kes: root and period
   u32 qx[PK_QUAD_WORDS];      // the quad's exchange area
 };
 
-PK_DEV void kes_role_hash(int i, int B, int lane, const int32_t *hb, int nb,
-                          const int32_t *hnb, KesScratch &sc) {
+PK_DEV void ed_role_hash(int i, int B, int lane, const int32_t *hb, int nb,
+                         const int32_t *hnb, EdScratch &sc) {
   u8 dig[64], h[32];
   sha512_columns(hb, nb, hnb[i], i, B, dig);
   sc_reduce512(dig, h);
   for (int k = 0; k < 32; k++) sc.h[(k << 5) + lane] = h[k];
 }
 
-PK_DEV void kes_role_table(int i, int B, int lane, const int32_t *leaf,
-                           KesScratch &sc) {
-  u8 leafb[32];
-  load_bytes(leaf, 32, i, B, leafb);
+PK_DEV void ed_role_table(int i, int B, int lane, const int32_t *key,
+                          EdScratch &sc) {
+  u8 kb[32];
+  load_bytes(key, 32, i, B, kb);
   ge a;
-  sc.ok[lane] = ge_decompress(a, leafb) ? 1 : 0;
+  sc.ok[lane] = ge_decompress(a, kb) ? 1 : 0;
   LaneTab tab{sc.tab, lane};
   ge_table8(tab, ge_neg(a));
 }
 
-PK_DEV void kes_role_base(int i, int B, int lane, const u32 *base8,
-                          const int32_t *s, KesScratch &sc) {
+PK_DEV void ed_role_base(int i, int B, int lane, const u32 *base8,
+                         const int32_t *s, EdScratch &sc) {
   u8 sb[32];
   load_bytes(s, 32, i, B, sb);
   sc.ok[PK_GROUP + lane] = sc_lt_l(sb) ? 1 : 0;
@@ -142,16 +115,17 @@ PK_DEV void kes_role_base(int i, int B, int lane, const u32 *base8,
 PK_DEV void kes_role_merkle(int i, int B, int lane, int depth,
                             const int32_t *vk, const int32_t *period,
                             const int32_t *leaf, const int32_t *sib,
-                            KesScratch &sc) {
+                            EdScratch &sc) {
   u8 leafb[32];
   load_bytes(leaf, 32, i, B, leafb);
   sc.ok[2 * PK_GROUP + lane] = kes_merkle(i, B, depth, vk, period, leafb, sib) ? 1 : 0;
 }
 
-// phase 2 on the quad of the block's four warps; lanes past B (live
-// false) run along for the barriers and store nothing
-PK_DEV void kes_quad_chain(int i, int B, bool live, KesScratch &sc, Quad &qd,
-                           int32_t *ok, int32_t *pt) {
+// phase 2 on the quad of the block's four warps; ok ANDs the first
+// `flags` rows of sc.ok (ed 2, kes 3); lanes past B (live false) run
+// along for the barriers and store nothing
+PK_DEV void ed_quad_chain(int i, int B, bool live, int flags, EdScratch &sc,
+                          Quad &qd, int32_t *ok, int32_t *pt) {
   int lane = qd.lane;
   u8 h[32], hd[64];
   for (int k = 0; k < 32; k++) h[k] = (u8)sc.h[(k << 5) + lane];
@@ -162,7 +136,9 @@ PK_DEV void kes_quad_chain(int i, int B, bool live, KesScratch &sc, Quad &qd,
   qadd(qd, p, load_point(sc.sb, lane, PK_GROUP), nha);
   if (live && qd.w <= 0) {
     store_point(pt, i, B, p);
-    ok[i] = sc.ok[lane] & sc.ok[PK_GROUP + lane] & sc.ok[2 * PK_GROUP + lane];
+    int32_t o = 1;
+    for (int f = 0; f < flags; f++) o &= sc.ok[f * PK_GROUP + lane];
+    ok[i] = o;
   }
 }
 
@@ -194,61 +170,92 @@ PK_NOINLINE ge elligator2(fe r) {
   return p;
 }
 
-// ECVRF stage A, shared by both proof formats: decode Y and Γ, check s,
-// H = 8 · Elligator2(SHA-512(suite ‖ 1 ‖ Y ‖ alpha) mod 2^255); -> ok_pre
-PK_DEV bool vrf_decode_hash(int i, int B, const int32_t *pk,
-                            const int32_t *gamma, const int32_t *s,
-                            const int32_t *alpha, u8 *gb, ge &h, ge &y,
-                            ge &g) {
-  u8 pkb[32], sb[32], buf[66], dg[64];
+// ECVRF stage A, shared by both proof formats, as three independent
+// parts: decode Y, decode Γ and check s, and H = 8 · Elligator2(SHA-512(
+// suite ‖ 1 ‖ Y ‖ alpha) mod 2^255) (from Y's bytes, not its point).
+PK_DEV bool vrf_decode_y(int i, int B, const int32_t *pk, ge &y) {
+  u8 pkb[32];
   load_bytes(pk, 32, i, B, pkb);
-  load_bytes(gamma, 32, i, B, gb);
-  load_bytes(s, 32, i, B, sb);
-  bool ok_y = ge_decompress(y, pkb);
-  bool ok_g = ge_decompress(g, gb);
-  bool s_ok = sc_lt_l(sb);
-  buf[0] = 0x04; buf[1] = 0x01;
-  for (int k = 0; k < 32; k++) buf[2 + k] = pkb[k];
-  load_bytes(alpha, 32, i, B, buf + 34);
-  sha512_msg(buf, 66, dg);
-  h = ge_mul_cofactor(elligator2(fe_freeze(fe_from_bytes(dg))));
-  return ok_y && ok_g && s_ok;
+  return ge_decompress(y, pkb);
 }
 
-// draft-03 (80-byte proof): the challenge is the proof's own c
+PK_DEV bool vrf_decode_gamma(int i, int B, const int32_t *gamma,
+                             const int32_t *s, ge &g) {
+  u8 gb[32], sb[32];
+  load_bytes(gamma, 32, i, B, gb);
+  load_bytes(s, 32, i, B, sb);
+  bool ok_g = ge_decompress(g, gb);
+  return ok_g && sc_lt_l(sb);
+}
+
+PK_DEV ge vrf_hash_h(int i, int B, const int32_t *pk, const int32_t *alpha) {
+  u8 buf[66], dg[64];
+  buf[0] = 0x04; buf[1] = 0x01;
+  load_bytes(pk, 32, i, B, buf + 2);
+  load_bytes(alpha, 32, i, B, buf + 34);
+  sha512_msg(buf, 66, dg);
+  return ge_mul_cofactor(elligator2(fe_freeze(fe_from_bytes(dg))));
+}
+
+// draft-03 (80-byte proof), one lane per thread: the challenge is the
+// proof's own c
 PK_DEV void vrf_prep_lane(int i, int B, const int32_t *pk,
                           const int32_t *gamma, const int32_t *s,
                           const int32_t *alpha, int32_t *ok, int32_t *prep) {
-  u8 gb[32];
-  ge h, y, g;
-  bool o = vrf_decode_hash(i, B, pk, gamma, s, alpha, gb, h, y, g);
-  ok[i] = o ? 1 : 0;
+  ge y, g;
+  bool ok_y = vrf_decode_y(i, B, pk, y);
+  bool ok_g = vrf_decode_gamma(i, B, gamma, s, g);
+  ge h = vrf_hash_h(i, B, pk, alpha);
+  ok[i] = ok_y && ok_g ? 1 : 0;
   store_point(prep, i, B, h);
   store_point(prep + (size_t)40 * B, i, B, y);
   store_point(prep + (size_t)80 * B, i, B, g);
 }
 
-// batch-compatible (128-byte proof): c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖
-// V)[:16] over the announced U, V
-PK_DEV void vrf_bc_prep_lane(int i, int B, const int32_t *pk,
-                             const int32_t *gamma, const int32_t *u,
-                             const int32_t *v, const int32_t *s,
-                             const int32_t *alpha, int32_t *ok,
-                             int32_t *c16, int32_t *prep) {
-  u8 gb[32], buf[130], dg[64];
-  ge h, y, g;
-  bool o = vrf_decode_hash(i, B, pk, gamma, s, alpha, gb, h, y, g);
+// batch-compatible (128-byte proof) over the three warps of a block, 32
+// lanes: H, its compression and c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖
+// V)[:16] over the announced U, V (role 0: two exponentiation chains, the
+// critical path), Y (role 1), Γ and s (role 2), each storing its own rows;
+// after the barrier role 1 ANDs the two flags. Lanes past B (live false)
+// run along and store nothing.
+struct BcPrepScratch {
+  int32_t ok[2 * PK_GROUP];  // Y decodes; Γ decodes and s < L
+};
+
+PK_DEV void bc_role_h(int i, int B, bool live, const int32_t *pk,
+                      const int32_t *gamma, const int32_t *u,
+                      const int32_t *v, const int32_t *alpha, int32_t *c16,
+                      int32_t *prep) {
+  ge h = vrf_hash_h(i, B, pk, alpha);
+  u8 buf[130], dg[64];
   buf[0] = 0x04; buf[1] = 0x02;
   ge_compress_many(&h, 1, buf + 2);
-  for (int k = 0; k < 32; k++) buf[34 + k] = gb[k];
+  load_bytes(gamma, 32, i, B, buf + 34);
   load_bytes(u, 32, i, B, buf + 66);
   load_bytes(v, 32, i, B, buf + 98);
   sha512_msg(buf, 130, dg);
-  ok[i] = o ? 1 : 0;
+  if (!live) return;
   store_bytes(c16, 16, i, B, dg);
   store_point(prep, i, B, h);
-  store_point(prep + (size_t)40 * B, i, B, y);
-  store_point(prep + (size_t)80 * B, i, B, g);
+}
+
+PK_DEV void bc_role_y(int i, int B, bool live, int lane, const int32_t *pk,
+                      int32_t *prep, BcPrepScratch &sc) {
+  ge y;
+  sc.ok[lane] = vrf_decode_y(i, B, pk, y) ? 1 : 0;
+  if (live) store_point(prep + (size_t)40 * B, i, B, y);
+}
+
+PK_DEV void bc_role_gamma(int i, int B, bool live, int lane,
+                          const int32_t *gamma, const int32_t *s,
+                          int32_t *prep, BcPrepScratch &sc) {
+  ge g;
+  sc.ok[PK_GROUP + lane] = vrf_decode_gamma(i, B, gamma, s, g) ? 1 : 0;
+  if (live) store_point(prep + (size_t)80 * B, i, B, g);
+}
+
+PK_DEV void bc_ok(int i, int lane, const BcPrepScratch &sc, int32_t *ok) {
+  ok[i] = sc.ok[lane] & sc.ok[PK_GROUP + lane];
 }
 
 // vrf_ladders over eight warps: a V quad (warps 0-3) and a U quad (4-7).

@@ -2,12 +2,12 @@
 
 Each stage of ops/pk/verify.py is one hand-written CUDA kernel
 (csrc/<name>.cu, grid sized to the lanes), bound with ctypes (build.py):
-ed, the two preps and finish run one lane per thread in 128-thread
-blocks; kes and vrf_ladders run 32 lanes a block over four and eight
-warps: first each warp one independent part of the lanes' work (hashes,
-tables, s·B), then each long ladder on a quad of four warps, one product
-of every point operation a warp, meeting in shared memory
-(csrc/stages.cuh, csrc/pk.cuh). A wrapper checks device,
+vrf_prep and finish run one lane per thread in 128-thread blocks; ed,
+kes, vrf_bc_prep and vrf_ladders run 32 lanes a block over four, four,
+three and eight warps: first each warp one independent part of the
+lanes' work (hashes, tables, s·B, decompressions), then each long ladder
+on a quad of four warps, one product of every point operation a warp,
+meeting in shared memory (csrc/stages.cuh, csrc/pk.cuh). A wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with torch.empty,
 launches on the current stream without synchronising, raises when the
 launcher's cudaGetLastError() is not 0, and adds one to LAUNCHES[name].
@@ -31,10 +31,11 @@ launches are one block, by the dependent chain of one lane. The design
 answers: the radix (10 limbs of 25.5 bits turn the TPU's 400 13-bit
 products per multiply into 100 native IMAD.WIDE products, and the loose
 limb form keeps carries to two parallel passes); signed-digit w4
-ladders over 8-entry cached tables, doublings that skip T; and for kes
-and vrf_ladders the lane split over warps, which takes everything but
-the one 256-doubling chain off that chain's path and spreads each of
-its point operations over four warps. A bound below is the
+ladders over 8-entry cached tables, doublings that skip T; and for ed,
+kes and vrf_ladders the lane split over warps, which takes everything
+but the one 256-doubling chain off that chain's path and spreads each
+of its point operations over four warps; for vrf_bc_prep the split that
+runs its four exponentiations as two chains beside two. A bound below is the
 wide products over 132 SMs x 32 per clock (64 32-bit IMADs, two per
 64-bit product) at 1,980 MHz. PERF.md keeps each kernel's measured time
 beside its bound (scripts of record: chip_smoke.py).
@@ -123,11 +124,14 @@ def ed_points(pk, s, hblocks, hnblocks):
     (csrc/ed.cu). Operations-bound: decompress (one 254-squaring chain),
     SHA-512 over the message blocks, mod-L reduce, a 32-add fixed-base
     walk (table in global memory read through __ldg, resident in L2) and
-    a 65-digit signed variable-base ladder (8-entry table in local
-    memory), one lane per thread.
+    a 65-digit signed variable-base ladder.
+    One lane runs over four warps, kes's design without the Merkle walk
+    (csrc/ed.cu): the hash, the key's decompression and table, and s·B
+    beside each other, then the h·(−A) ladder on all four, one product of
+    each point operation a warp.
     On an H100 80GB HBM3 at 700 W: 1,670 multiplies and 1,279 squarings a
-    lane (237,345 wide products) bound it at 0.23 ms per 8192 lanes;
-    chip_smoke.py measured 1.74 ms."""
+    lane (237,345 wide products) bound it at 0.23 ms per 8192 lanes
+    (PERF.md has chip_smoke.py's times)."""
     dev = pk.device
     b, nb = pk.shape[-1], hblocks.shape[0]
     for n, t, sh in (("pk", pk, (32, b)), ("s", s, (32, b)),
@@ -260,9 +264,12 @@ def vrf_bc_prep(pk, gamma, u, v, s, alpha):
     (csrc/vrf_bc_prep.cu). Operations-bound: three exponentiation chains
     (two decompressions, the single-chain Elligator2), one inversion to
     compress H, and three SHA-512 compressions; no ladders.
+    One lane runs over three warps (csrc/vrf_bc_prep.cu): H, its
+    compression and the challenge on one, the decompressions of Y and Γ
+    on the others, so two of the four exponentiations lie on the path.
     On an H100 80GB HBM3 at 700 W: 92 multiplies and 1,032 squarings a lane
-    (65,960 wide products) bound it at 0.065 ms per 8192 lanes;
-    chip_smoke.py measured 0.46 ms."""
+    (65,960 wide products) bound it at 0.065 ms per 8192 lanes
+    (PERF.md has chip_smoke.py's times)."""
     dev = pk.device
     b = pk.shape[-1]
     for n, t in (("pk", pk), ("gamma", gamma), ("u", u), ("v", v),

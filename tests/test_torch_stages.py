@@ -174,6 +174,52 @@ GROUP_WIDTHS = [1, 31, 32, 40, 65]
 
 
 @pytest.mark.parametrize("lanes", GROUP_WIDTHS)
+def test_ed_geometries_match_plain_twin(batch, outputs, lanes):
+    """ed over `lanes` lanes of every corrupt kind around its 32-lane
+    block, compiled as host C++ (its three phase-1 roles one after another
+    over each group's scratch, then the chain on a quad, the four products
+    of each step in order), equals the twin."""
+    _, _, c = batch
+    emu = build.build_host_emu()
+    cols = [_tile(c[k], lanes) for k in (0, 2, 3, 4)]
+    got = K._ed_launch(emu.pk_ed, None, *cols)
+    want = K.ed_points(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, _tile(b, lanes)) for a, b in zip(got, outputs[0]))
+
+
+@pytest.mark.parametrize("lanes", GROUP_WIDTHS)
+def test_bc_prep_geometries_match_plain_twin(batch, outputs, lanes):
+    """vrf_bc_prep over `lanes` lanes of every corrupt kind around its
+    32-lane block, compiled as host C++ (H and the challenge, Y, then Γ and
+    s, role after role over each group, then the flags), equals the twin;
+    also with an off-curve Y, an off-curve Γ and a VRF s + L on lanes 2, 4
+    and 6 of every 7, so that each role's flag decides some lanes."""
+    _, _, c = batch
+    emu = build.build_host_emu()
+    cols = [_tile(c[k], lanes) for k in range(13, 19)]
+    got = K._vrf_bc_prep_launch(emu.pk_vrf_bc_prep, None, *cols)
+    want = K.vrf_bc_prep(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, _tile(b, lanes)) for a, b in zip(got, outputs[2]))
+    pk, gamma, s = cols[0], cols[1], cols[4]
+    off = torch.tensor(list(_off_curve()), dtype=torch.int32)
+    bad = [j for j in range(lanes) if j % 7 in (2, 4, 6)]
+    for j in bad:
+        if j % 7 == 2:
+            pk[:, j] = off
+        elif j % 7 == 4:
+            gamma[:, j] = off
+        else:
+            big = int.from_bytes(bytes(s[:, j].tolist()), "little") + fe.L
+            s[:, j] = torch.tensor(list(big.to_bytes(32, "little")), dtype=torch.int32)
+    got = K._vrf_bc_prep_launch(emu.pk_vrf_bc_prep, None, *cols)
+    want = K.vrf_bc_prep(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not bool(got[0][0, bad].any())
+
+
+@pytest.mark.parametrize("lanes", GROUP_WIDTHS)
 def test_kes_geometries_match_plain_twin(batch, outputs, lanes):
     """kes over `lanes` lanes of every corrupt kind around its 32-lane
     block, compiled as host C++ (its four phase-1 roles one after another
