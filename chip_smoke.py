@@ -1000,10 +1000,10 @@ def main(argv=None) -> int:
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
         })
     for p, out in paths.items():
-        fill = [{"lanes": n, "blocks_of_128_lanes": -(-n // 128),
-                 "blocks_of_32_lanes": -(-n // 32)} for n in out["lanes_per_launch"]]
-        log(f"{p}: grid fill per window (vrf_prep, finish: 128 lanes a block; ed, kes, "
-            f"vrf_bc_prep, vrf_ladders: 32; {sms} SMs): {json.dumps(fill)}")
+        fill = [{"lanes": n, "blocks": -(-n // 32)} for n in out["lanes_per_launch"]]
+        log(f"{p}: grid fill per window (32 lanes a block in every stage kernel: ed, "
+            f"kes 4 warps, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; {sms} SMs): "
+            f"{json.dumps(fill)}")
         log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows')})}")
     log(f"fe_bench rows: {json.dumps(tools['fe_rows'])}")
     log(f"total {time.monotonic() - t_all:.1f} s; sms {sms}, max sm clock {clock / 1e6:.0f} MHz")

@@ -203,9 +203,9 @@ def kernel_lib(name: str, entry: str | None = None):
 
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
-    (128 threads; vrf_bc_prep 96, vrf_ladders 256), with its shared memory,
-    from the CUDA occupancy API (registers, stack and shared memory); for
-    a source with several kernels, its heaviest."""
+    (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders 256),
+    with its shared memory, from the CUDA occupancy API (registers, stack
+    and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]

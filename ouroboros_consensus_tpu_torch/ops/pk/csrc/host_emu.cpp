@@ -1,11 +1,10 @@
-// Host build of the stage and tool lane bodies (g++ -DPK_HOST): each
-// entry point loops the CUDA kernel's per-lane body over the lanes; a
-// role-split kernel (ed, kes, vrf_bc_prep, vrf_ladders) runs, for each
-// group of 32 lanes,
-// every role of phase 1 over the group's lanes, one role after another,
-// then phase 2, over one scratch struct, as the kernel's barrier orders
-// them. Used only to cross-check the device code against the plain
-// PyTorch twins on a machine without nvcc; the replay never calls it.
+// Host build of the stage and tool lane bodies (g++ -DPK_HOST): a stage
+// kernel's entry point runs, for each group of 32 lanes, every role of
+// phase 1 over the group's lanes, one role after another, then phase 2,
+// over one scratch struct, as the kernel's barriers order them; a tool
+// kernel's loops its per-lane body over the lanes. Used only to
+// cross-check the device code against the plain PyTorch twins on a
+// machine without nvcc; the replay never calls it.
 #include "tools.cuh"
 
 typedef const int32_t *CI;
@@ -57,8 +56,15 @@ extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
 extern "C" int pk_vrf_prep(int B, const void *pk, const void *gamma,
                            const void *s, const void *alpha, void *ok,
                            void *prep, void *) {
-  for (int i = 0; i < B; i++)
-    vrf_prep_lane(i, B, (CI)pk, (CI)gamma, (CI)s, (CI)alpha, (OI)ok, (OI)prep);
+  BcPrepScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++) d3_role_h(g + l, B, true, (CI)pk, (CI)alpha, (OI)prep);
+    for (int l = 0; l < n; l++) bc_role_y(g + l, B, true, l, (CI)pk, (OI)prep, sc);
+    for (int l = 0; l < n; l++)
+      bc_role_gamma(g + l, B, true, l, (CI)gamma, (CI)s, (OI)prep, sc);
+    for (int l = 0; l < n; l++) bc_ok(g + l, l, sc, (OI)ok);
+  }
   return 0;
 }
 
@@ -126,14 +132,17 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
                          const void *c, const void *beta, const void *tlo,
                          const void *thi, void *out, void *eta, void *lv,
                          void *) {
-  for (int i = 0; i < B; i++)
-    finish_lane(i, B, (const int32_t *)edok, (const int32_t *)edpt,
-                (const int32_t *)edr, (const int32_t *)kesok,
-                (const int32_t *)kespt, (const int32_t *)kesr,
-                (const int32_t *)vrfok, (const int32_t *)vrfpts,
-                (const int32_t *)c, (const int32_t *)beta,
-                (const int32_t *)tlo, (const int32_t *)thi, (int32_t *)out,
-                (int32_t *)eta, (int32_t *)lv);
+  FinishScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++) finish_role_vrf(g + l, B, l, (CI)vrfpts, (CI)c, sc);
+    for (int l = 0; l < n; l++) finish_role_beta(g + l, B, l, (CI)vrfpts, (CI)beta, sc);
+    for (int l = 0; l < n; l++)
+      finish_role_sig(g + l, B, true, (CI)edok, (CI)edpt, (CI)edr, (CI)kesok,
+                      (CI)kespt, (CI)kesr, (CI)beta, (CI)tlo, (CI)thi, (OI)out,
+                      (OI)eta, (OI)lv);
+    for (int l = 0; l < n; l++) finish_vrf_ok(g + l, B, l, (CI)vrfok, sc, (OI)out);
+  }
   return 0;
 }
 

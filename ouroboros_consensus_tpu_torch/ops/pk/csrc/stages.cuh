@@ -3,16 +3,16 @@
 // warp's 32 lanes read 32 neighbouring words of each row. Points cross
 // stages as 40 rows (X, Y, Z, T, 10 limbs each, radix 2^25.5).
 //
-// ed, kes, vrf_bc_prep and vrf_ladders run one lane over a group of warps
-// of one block, 32 lanes a block: first the independent parts of a lane
-// run on different warps ("roles"; tables, s·B, hashes, decompressions),
+// Every stage kernel runs one lane over a group of warps of one block, 32
+// lanes a block: first the independent parts of a lane run on different
+// warps ("roles"; tables, s·B, hashes, decompressions, compressions),
 // meeting in a per-block scratch struct in shared memory (tables
-// lane-minor, see LaneTab) at a barrier; then each long ladder runs on
-// four warps as a quad (pk.cuh), one product of every point operation per
-// warp. Each role is its own function of (lane index, scratch), so the
-// host build runs the roles of a group of 32 lanes one after another
-// (csrc/host_emu.cpp) and the CPU tests hold them to the twins. vrf_prep
-// and finish run one lane per thread.
+// lane-minor, see LaneTab) at a barrier; then in ed, kes and
+// vrf_ladders each long ladder runs on four warps as a quad (pk.cuh), one
+// product of every point operation per warp. Each role is its own function
+// of (lane index, scratch), so the host build runs the roles of a group of
+// 32 lanes one after another (csrc/host_emu.cpp) and the CPU tests hold
+// them to the twins.
 #pragma once
 #include "pk.cuh"
 
@@ -197,30 +197,23 @@ PK_DEV ge vrf_hash_h(int i, int B, const int32_t *pk, const int32_t *alpha) {
   return ge_mul_cofactor(elligator2(fe_freeze(fe_from_bytes(dg))));
 }
 
-// draft-03 (80-byte proof), one lane per thread: the challenge is the
-// proof's own c
-PK_DEV void vrf_prep_lane(int i, int B, const int32_t *pk,
-                          const int32_t *gamma, const int32_t *s,
-                          const int32_t *alpha, int32_t *ok, int32_t *prep) {
-  ge y, g;
-  bool ok_y = vrf_decode_y(i, B, pk, y);
-  bool ok_g = vrf_decode_gamma(i, B, gamma, s, g);
-  ge h = vrf_hash_h(i, B, pk, alpha);
-  ok[i] = ok_y && ok_g ? 1 : 0;
-  store_point(prep, i, B, h);
-  store_point(prep + (size_t)40 * B, i, B, y);
-  store_point(prep + (size_t)80 * B, i, B, g);
-}
-
-// batch-compatible (128-byte proof) over the three warps of a block, 32
-// lanes: H, its compression and c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖
-// V)[:16] over the announced U, V (role 0: two exponentiation chains, the
-// critical path), Y (role 1), Γ and s (role 2), each storing its own rows;
-// after the barrier role 1 ANDs the two flags. Lanes past B (live false)
-// run along and store nothing.
+// The two VRF preps over the three warps of a block, 32 lanes. H (role
+// 0: its exponentiation chain is the critical path), Y (role 1), Γ and s
+// (role 2), each storing its own rows; after the barrier role 1 ANDs the
+// two flags. Batch-compatible (128-byte proof): role 0 also compresses H
+// and derives c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖ V)[:16] over the
+// announced U, V (two chains on its path). Draft-03 (80-byte proof): the
+// challenge is the proof's own c, so role 0 only hashes to the curve.
+// Lanes past B (live false) run along and store nothing.
 struct BcPrepScratch {
   int32_t ok[2 * PK_GROUP];  // Y decodes; Γ decodes and s < L
 };
+
+PK_DEV void d3_role_h(int i, int B, bool live, const int32_t *pk,
+                      const int32_t *alpha, int32_t *prep) {
+  ge h = vrf_hash_h(i, B, pk, alpha);
+  if (live) store_point(prep, i, B, h);
+}
 
 PK_DEV void bc_role_h(int i, int B, bool live, const int32_t *pk,
                       const int32_t *gamma, const int32_t *u,
@@ -325,42 +318,51 @@ PK_DEV void ladder_qu(int i, int B, bool live, const int32_t *c16,
   if (live && qd.w <= 0) store_point(pts + (size_t)80 * B, i, B, up);
 }
 
-PK_DEV void finish_lane(int i, int B, const int32_t *edok,
-                        const int32_t *edpt, const int32_t *edr,
-                        const int32_t *kesok, const int32_t *kespt,
-                        const int32_t *kesr, const int32_t *vrfok,
-                        const int32_t *vrfpts, const int32_t *c,
-                        const int32_t *beta, const int32_t *tlo,
-                        const int32_t *thi, int32_t *out, int32_t *eta,
-                        int32_t *lv) {
-  ge pts[7];
-  pts[0] = load_point(edpt, i, B);
-  pts[1] = load_point(kespt, i, B);
-  for (int k = 0; k < 5; k++) pts[2 + k] = load_point(vrfpts + (size_t)40 * k * B, i, B);
-  u8 enc[224], ref[64], buf[130], dg[64];
-  ge_compress_many(pts, 7, enc);
-  load_bytes(edr, 32, i, B, ref);
-  load_bytes(kesr, 32, i, B, ref + 32);
-  bool ok_ed = edok[i] != 0, ok_kes = kesok[i] != 0;
-  for (int k = 0; k < 32; k++) {
-    ok_ed = ok_ed && enc[k] == ref[k];
-    ok_kes = ok_kes && enc[32 + k] == ref[32 + k];
-  }
-  // c' = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U' ‖ V')[:16]
+// finish over the three warps of a block, 32 lanes, each compressing
+// its own points on an inversion of its own (Montgomery's trick): H, Γ,
+// U' and V', then c' = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U' ‖ V')[:16] against c
+// (role 0, the critical path); 8Γ, then β' = SHA-512(suite ‖ 3 ‖ 8Γ)
+// against the declared β (role 1); the ed and KES points and their R-byte
+// compares, then the leader value Blake2b("L" ‖ β), the nonce Blake2b(
+// Blake2b("N" ‖ β)) and the two threshold compares, which read only the
+// declared β (role 2). After the barrier role 0 ANDs the VRF flags. Lanes
+// past B (live false) run along and store nothing.
+struct FinishScratch {
+  int32_t ok[2 * PK_GROUP];  // c' == c; β' == β
+};
+
+PK_DEV void finish_role_vrf(int i, int B, int lane, const int32_t *vrfpts,
+                            const int32_t *c, FinishScratch &sc) {
+  ge pts[4];
+  for (int k = 0; k < 4; k++) pts[k] = load_point(vrfpts + (size_t)40 * k * B, i, B);
+  u8 buf[130], dg[64], cb[16];
   buf[0] = 0x04; buf[1] = 0x02;
-  for (int k = 0; k < 128; k++) buf[2 + k] = enc[64 + k];
+  ge_compress_many(pts, 4, buf + 2);
   sha512_msg(buf, 130, dg);
-  load_bytes(c, 16, i, B, ref);
-  bool ok_vrf = vrfok[i] != 0;
-  for (int k = 0; k < 16; k++) ok_vrf = ok_vrf && dg[k] == ref[k];
-  // beta = SHA-512(suite ‖ 3 ‖ 8Γ) against the declared output
+  load_bytes(c, 16, i, B, cb);
+  bool ok = true;
+  for (int k = 0; k < 16; k++) ok = ok && dg[k] == cb[k];
+  sc.ok[lane] = ok ? 1 : 0;
+}
+
+PK_DEV void finish_role_beta(int i, int B, int lane, const int32_t *vrfpts,
+                             const int32_t *beta, FinishScratch &sc) {
+  ge g8 = load_point(vrfpts + (size_t)160 * B, i, B);
+  u8 buf[34], dg[64], bb[64];
   buf[0] = 0x04; buf[1] = 0x03;
-  for (int k = 0; k < 32; k++) buf[2 + k] = enc[192 + k];
+  ge_compress_many(&g8, 1, buf + 2);
   sha512_msg(buf, 34, dg);
+  load_bytes(beta, 64, i, B, bb);
+  bool ok = true;
+  for (int k = 0; k < 64; k++) ok = ok && dg[k] == bb[k];
+  sc.ok[PK_GROUP + lane] = ok ? 1 : 0;
+}
+
+PK_DEV void finish_role_leader(int i, int B, bool live, const int32_t *beta,
+                               const int32_t *tlo, const int32_t *thi,
+                               int32_t *out, int32_t *eta, int32_t *lv) {
+  u8 buf[65], lvb[32], e1[32], e2[32], tl[32], th[32];
   load_bytes(beta, 64, i, B, buf + 1);
-  for (int k = 0; k < 64; k++) ok_vrf = ok_vrf && dg[k] == buf[1 + k];
-  // leader value Blake2b("L" ‖ beta), nonce Blake2b(Blake2b("N" ‖ beta))
-  u8 lvb[32], e1[32], e2[32], tl[32], th[32];
   buf[0] = 'L';
   blake2b_256(buf, 65, lvb);
   buf[0] = 'N';
@@ -370,11 +372,39 @@ PK_DEV void finish_lane(int i, int B, const int32_t *edok,
   load_bytes(thi, 32, i, B, th);
   bool win = lt_be32(lvb, tl);
   bool loss = !lt_be32(lvb, th);
-  out[i] = ok_ed ? 1 : 0;
-  out[(size_t)B + i] = ok_kes ? 1 : 0;
-  out[(size_t)2 * B + i] = ok_vrf ? 1 : 0;
+  if (!live) return;
   out[(size_t)3 * B + i] = win ? 1 : 0;
   out[(size_t)4 * B + i] = (!win && !loss) ? 1 : 0;
   store_bytes(eta, 32, i, B, e2);
   store_bytes(lv, 32, i, B, lvb);
+}
+
+PK_DEV void finish_role_sig(int i, int B, bool live, const int32_t *edok,
+                            const int32_t *edpt, const int32_t *edr,
+                            const int32_t *kesok, const int32_t *kespt,
+                            const int32_t *kesr, const int32_t *beta,
+                            const int32_t *tlo, const int32_t *thi,
+                            int32_t *out, int32_t *eta, int32_t *lv) {
+  ge pts[2];
+  pts[0] = load_point(edpt, i, B);
+  pts[1] = load_point(kespt, i, B);
+  u8 enc[64], ref[64];
+  ge_compress_many(pts, 2, enc);
+  load_bytes(edr, 32, i, B, ref);
+  load_bytes(kesr, 32, i, B, ref + 32);
+  bool ok_ed = edok[i] != 0, ok_kes = kesok[i] != 0;
+  for (int k = 0; k < 32; k++) {
+    ok_ed = ok_ed && enc[k] == ref[k];
+    ok_kes = ok_kes && enc[32 + k] == ref[32 + k];
+  }
+  if (live) {
+    out[i] = ok_ed ? 1 : 0;
+    out[(size_t)B + i] = ok_kes ? 1 : 0;
+  }
+  finish_role_leader(i, B, live, beta, tlo, thi, out, eta, lv);
+}
+
+PK_DEV void finish_vrf_ok(int i, int B, int lane, const int32_t *vrfok,
+                          const FinishScratch &sc, int32_t *out) {
+  out[(size_t)2 * B + i] = (vrfok[i] != 0 ? 1 : 0) & sc.ok[lane] & sc.ok[PK_GROUP + lane];
 }

@@ -1,13 +1,14 @@
 """The six Praos stage kernels: wrappers, launch counts, plain twins.
 
 Each stage of ops/pk/verify.py is one hand-written CUDA kernel
-(csrc/<name>.cu, grid sized to the lanes), bound with ctypes (build.py):
-vrf_prep and finish run one lane per thread in 128-thread blocks; ed,
-kes, vrf_bc_prep and vrf_ladders run 32 lanes a block over four, four,
-three and eight warps: first each warp one independent part of the
-lanes' work (hashes, tables, s·B, decompressions), then each long ladder
-on a quad of four warps, one product of every point operation a warp,
-meeting in shared memory (csrc/stages.cuh, csrc/pk.cuh). A wrapper checks device,
+(csrc/<name>.cu, grid sized to the lanes), bound with ctypes (build.py).
+Each runs 32 lanes a block, ed and kes over four warps, vrf_prep,
+vrf_bc_prep and finish three, vrf_ladders eight: first each warp one
+independent part of the lanes' work (hashes, tables, s·B,
+decompressions, compressions), meeting in shared memory,
+then in ed, kes and vrf_ladders each long ladder on a quad of four warps,
+one product of every point operation a warp (csrc/stages.cuh,
+csrc/pk.cuh). A wrapper checks device,
 dtype, shape and contiguity, allocates its outputs with torch.empty,
 launches on the current stream without synchronising, raises when the
 launcher's cudaGetLastError() is not 0, and adds one to LAUNCHES[name].
@@ -34,8 +35,11 @@ limb form keeps carries to two parallel passes); signed-digit w4
 ladders over 8-entry cached tables, doublings that skip T; and for ed,
 kes and vrf_ladders the lane split over warps, which takes everything
 but the one 256-doubling chain off that chain's path and spreads each
-of its point operations over four warps; for vrf_bc_prep the split that
-runs its four exponentiations as two chains beside two. A bound below is the
+of its point operations over four warps; for the two preps the split
+that leaves one warp's exponentiations on the path (vrf_bc_prep two of
+four, vrf_prep one of three), and for finish the one that compresses
+four of its seven points on the path's warp and the other three, with
+the Blake2b work and β's SHA-512, on two more. A bound below is the
 wide products over 132 SMs x 32 per clock (64 32-bit IMADs, two per
 64-bit product) at 1,980 MHz. PERF.md keeps each kernel's measured time
 beside its bound (scripts of record: chip_smoke.py).
@@ -225,9 +229,13 @@ def vrf_prep(pk, gamma, s, alpha):
     single-chain Elligator2 (three exponentiation chains) and one SHA-512
     compression — vrf_bc_prep without the inversion that compresses H and
     the challenge's SHA-512.
-    On an H100 80GB HBM3 at 700 W: 81 multiplies and 778 squarings a lane
-    (50,890 wide products) bound it at 0.050 ms per 8192 lanes;
-    chip_smoke.py measured 0.34 ms."""
+    One lane runs over three warps (csrc/vrf_prep.cu, vrf_bc_prep's Y and
+    Γ roles): the hash and H's exponentiation on one, the decompressions
+    of Y and Γ on the others, so one of the three exponentiations lies on
+    the path.
+    On an H100 80GB HBM3 at 700 W: 79 multiplies and 778 squarings a lane
+    (50,690 wide products) bound it at 0.050 ms per 8192 lanes;
+    chip_smoke.py measured 0.14 ms at 8 lanes and 0.18 ms at 8192."""
     dev = pk.device
     b = pk.shape[-1]
     for n, t in (("pk", pk), ("gamma", gamma), ("s", s), ("alpha", alpha)):
@@ -366,9 +374,14 @@ def finish(ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts,
     (csrc/finish.cu). Operations-bound: one inversion shared by the seven
     compressions (Montgomery's trick), three SHA-512 and three Blake2b
     compressions.
-    On an H100 80GB HBM3 at 700 W: 43 multiplies and 254 squarings a lane
-    (18,270 wide products) bound it at 0.018 ms per 8192 lanes;
-    chip_smoke.py measured 0.22 ms."""
+    One lane runs over three warps (csrc/finish.cu), each compressing its
+    own points on an inversion of its own: H, Γ, U', V' and the challenge
+    hash on one, 8Γ and β's hash on another, the ed and KES points and
+    the Blake2b work on the third.
+    On an H100 80GB HBM3 at 700 W: the twin's 43 multiplies and 254
+    squarings a lane (18,270 wide products, one inversion) bound it at
+    0.018 ms per 8192 lanes; chip_smoke.py measured 0.12 ms at 8 lanes
+    and 0.17 ms at 8192."""
     dev = c.device
     b = c.shape[-1]
     args = (ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts, c,

@@ -219,6 +219,49 @@ def test_bc_prep_geometries_match_plain_twin(batch, outputs, lanes):
     assert not bool(got[0][0, bad].any())
 
 
+def _finish_inputs(c, outputs, lanes):
+    """finish's twelve inputs from the fixture batch's stage outputs, tiled
+    to `lanes` lanes (the tensors are copies: a test may edit them)."""
+    (ed_ok, ed_pt), (kes_ok, kes_pt), (vrf_ok, c16, _), pts, _ = outputs
+    return [_tile(t, lanes) for t in (ed_ok, ed_pt, c[1], kes_ok, kes_pt, c[7],
+                                      vrf_ok, pts, c16, c[19], c[20], c[21])]
+
+
+@pytest.mark.parametrize("lanes", GROUP_WIDTHS)
+def test_finish_geometries_match_plain_twin(batch, outputs, lanes):
+    """finish over `lanes` lanes around its 32-lane block, compiled as host
+    C++ (c', β', then the R compares and the leader hashes, role after role
+    over each group, then the VRF flag), equals the twin; also with
+    one byte flipped of ed R, KES R, c and the declared β on lanes 1, 2, 3
+    and 4 of every 7, and thresholds that make lanes 0, 1 and 2 of every 3
+    win, stay ambiguous and lose, so that every output a role writes
+    decides some lanes."""
+    _, _, c = batch
+    emu = build.build_host_emu()
+    cols = _finish_inputs(c, outputs, lanes)
+    got = K._finish_launch(emu.pk_finish, None, *cols)
+    want = K.finish(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, _tile(b, lanes)) for a, b in zip(got, outputs[4]))
+    ed_r, kes_r, c16, beta, tlo, thi = (cols[k] for k in (2, 5, 8, 9, 10, 11))
+    for j in range(lanes):
+        if j % 7 in (1, 2, 3, 4):
+            (ed_r, kes_r, c16, beta)[j % 7 - 1][j % 5, j] ^= 1
+        tlo[:, j] = 0xFF if j % 3 == 0 else 0
+        thi[:, j] = 0 if j % 3 == 2 else 0xFF
+    got = K._finish_launch(emu.pk_finish, None, *cols)
+    want = K.finish(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    flags = got[0]
+    for j in range(lanes):
+        if j % 7 in (1, 2, 3, 4):
+            assert not bool(flags[(0, 1, 2, 2)[j % 7 - 1], j]), j
+        assert [bool(flags[3, j]), bool(flags[4, j])] == [j % 3 == 0, j % 3 == 1], j
+    clean = [j for j in range(lanes) if j % 7 in (0, 5, 6) and j % B not in
+             (OCERT_SIG, KES_SIG, VRF_PROOF, VRF_OUT, NONCANON_S, OFFCURVE_VK, KES_PERIOD)]
+    assert bool(flags[:3, clean].all())
+
+
 @pytest.mark.parametrize("lanes", GROUP_WIDTHS)
 def test_kes_geometries_match_plain_twin(batch, outputs, lanes):
     """kes over `lanes` lanes of every corrupt kind around its 32-lane

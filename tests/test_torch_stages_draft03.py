@@ -25,6 +25,7 @@ from ouroboros_consensus_tpu_torch.ops.pk import build
 from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
 from ouroboros_consensus_tpu_torch.ops.pk import field as fe
 from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+from tests.test_torch_stages import GROUP_WIDTHS, _tile
 
 torch.set_num_threads(1)
 
@@ -157,6 +158,37 @@ def test_device_lane_code_matches_plain_twin(batch, outputs):
     emu = build.build_host_emu()
     got = K._vrf_prep_launch(emu.pk_vrf_prep, None, c[VRF_PK], c[VRF_G], c[VRF_S], c[VRF_AL])
     assert all(torch.equal(a, b) for a, b in zip(got, outputs[0]))
+
+
+@pytest.mark.parametrize("lanes", GROUP_WIDTHS)
+def test_vrf_prep_geometries_match_plain_twin(batch, outputs, lanes):
+    """vrf_prep over `lanes` lanes of every draft-03 corrupt kind around
+    its 32-lane block, compiled as host C++ (H, Y, then Γ and s, role after
+    role over each group, then the flags), equals the twin; also with an
+    off-curve Y, an off-curve Γ and a VRF s + L on lanes 2, 4 and 6 of
+    every 7, so that each role's flag decides some lanes."""
+    _, _, c = batch
+    emu = build.build_host_emu()
+    cols = [_tile(c[k], lanes) for k in (VRF_PK, VRF_G, VRF_S, VRF_AL)]
+    got = K._vrf_prep_launch(emu.pk_vrf_prep, None, *cols)
+    want = K.vrf_prep(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert all(torch.equal(a, _tile(b, lanes)) for a, b in zip(got, outputs[0]))
+    pk, gamma, s = cols[0], cols[1], cols[2]
+    off = torch.tensor(list(_off_curve()), dtype=torch.int32)
+    bad = [j for j in range(lanes) if j % 7 in (2, 4, 6)]
+    for j in bad:
+        if j % 7 == 2:
+            pk[:, j] = off
+        elif j % 7 == 4:
+            gamma[:, j] = off
+        else:
+            big = int.from_bytes(bytes(s[:, j].tolist()), "little") + fe.L
+            s[:, j] = torch.tensor(list(big.to_bytes(32, "little")), dtype=torch.int32)
+    got = K._vrf_prep_launch(emu.pk_vrf_prep, None, *cols)
+    want = K.vrf_prep(*cols)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert not bool(got[0][0, bad].any())
 
 
 def test_ladder_lane_code_matches_plain_twin(batch, outputs):
