@@ -7,7 +7,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the eight kernel sources (one nvcc per source, in
+   the build of the ten kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -21,9 +21,19 @@ Phases (any failure raises and the script exits non-zero):
    off-curve Γ, a wrong alpha). Each kernel and its plain PyTorch
    version (run on the card, same inputs) must agree byte for byte; both
    are timed with CUDA events; the verdict rows must flag exactly the
-   corrupted lanes.
+   corrupted lanes. Then the two wire kernels at 8, 128 and 8,192 lanes
+   (`phase_wire`): `unpack` on bc and draft-03 packed windows under the
+   neutral and a set epoch nonce, every wire corruption (a flipped bit in
+   each body field, the KES R ‖ s, int32-extreme counter and slot, a c0
+   past the slot's KES period, new KES-tail and threshold rows) and
+   bucket-padding lanes; `nonce_fold` from neutral and set carry-ins over
+   all lanes and all but the last three. Both are timed around their
+   wrappers and, alone, in a CUDA graph of 20 launches (the kernel's own
+   device time, which the kernels line reports as `ms`).
 3. The main paths, each with the launch counts zeroed just before its
-   device replay and read just after. Chains are forged with bench.py's
+   device replay and read just after: every packed window launches
+   `unpack`, the five stage kernels and `nonce_fold`, the carry chained
+   from window to window on the card. Chains are forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
    43200-slot epochs), replayed through
    `tools.db_analyser.revalidate(backend="device")` and through the C++
@@ -43,11 +53,16 @@ Phases (any failure raises and the script exits non-zero):
       packed staging declines the window (`field-offsets`, which must be
       recorded) and `protocol/batch.stage` feeds the same kernels;
       replayed by `validate_chain` on the card and by the C++ verifier,
-      then a copy with one VRF-proof byte flipped two thirds of the way in.
+      then a copy with one VRF-proof byte flipped two thirds of the way in,
+      then the chain with only its middle third on stand-in bodies: the
+      packed window after the generic ones must seed the nonce carry from
+      the host state again, and every packed window launch unpack and
+      nonce_fold.
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
-5. A `kernels` JSON line, the card line, and the final status line.
+5. A `kernels` JSON line (ten kernels), the card line, and the final
+   status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
 widths (8 and 128 lanes), and phase 1 prints ptxas's registers, stack
@@ -57,7 +72,8 @@ and spill stores of each launched kernel with its resident blocks per SM.
 
 runs, on one card and in turns (parent, this tree, this tree, parent),
 one process per turn: each tree's own phase 1 and phase 2 and the six
-stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`); one
+stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), and
+the two wire kernels alone where the tree has them (`wire_times`); one
 `AB {...}` JSON line per turn.
 
 It needs no network and no JAX; it imports nothing of the JAX package.
@@ -93,19 +109,25 @@ KERNEL_ROWS = (
      "ouroboros_consensus_tpu/ops/pk/kernels.py:163"),
     ("finish", "ouroboros_consensus_tpu_torch/ops/pk/csrc/finish.cu",
      "ouroboros_consensus_tpu/ops/pk/kernels.py:245"),
+    ("unpack", "ouroboros_consensus_tpu_torch/ops/pk/csrc/unpack.cu",
+     "ouroboros_consensus_tpu/protocol/batch.py:1221"),
+    ("nonce_fold", "ouroboros_consensus_tpu_torch/ops/pk/csrc/nonce_fold.cu",
+     "ouroboros_consensus_tpu/ops/blake2b.py:271"),
     ("primitives", "ouroboros_consensus_tpu_torch/ops/pk/csrc/primitives.cu",
      "scripts/debug_pk_tpu.py:27"),
     ("fe_bench", "ouroboros_consensus_tpu_torch/ops/pk/csrc/fe_bench.cu",
      "scripts/exp_sqr.py:116"),
 )
 # the kernels each path must launch (and the replay kernels it must not)
+WIRE = {"unpack", "nonce_fold"}  # every packed window's, around the stages
 PATH_KERNELS = {
-    "bc": {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"},
-    "draft03": {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"},
-    "mixed": {"ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish"},
+    "bc": {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"} | WIRE,
+    "draft03": {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"} | WIRE,
+    "mixed": {"ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish"} | WIRE,
+    # generically staged windows: no unpack, and the nonces fold on the host
+    "generic": {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"},
     "tools": {"primitives", "fe_bench"},
 }
-PATH_KERNELS["generic"] = PATH_KERNELS["bc"]
 REPLAY_KERNELS = PATH_KERNELS["mixed"]
 STAGES = ("ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish")
 
@@ -177,15 +199,14 @@ def phase_build() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def tiled_window(lanes: int, distinct: int, seed: int, workdir: str,
-                 proof_format: str):
+def packed_window(lanes: int, distinct: int, seed: int, workdir: str,
+                  proof_format: str, nonce: bytes | None = None):
     """`distinct` port-forged headers (one pool, bench-shaped params, KES
-    depth 7) of one body width, tiled to `lanes` lanes, packed, unpacked
-    and relaid as the stage kernels' limb-first columns (on the CPU).
-    -> (limb-first columns, the seeded generator)."""
-    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    depth 7) of one body width, tiled to `lanes` lanes and packed (on the
+    CPU) under the epoch nonce `nonce` (None: the neutral nonce the
+    chain's first epoch has). -> (layout, packed numpy columns, the
+    seeded generator)."""
     from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
-    from ouroboros_consensus_tpu_torch.protocol import praos
     from ouroboros_consensus_tpu_torch.testing import synth
     from ouroboros_consensus_tpu_torch.tools import db_analyser
 
@@ -202,8 +223,19 @@ def tiled_window(lanes: int, distinct: int, seed: int, workdir: str,
     rng = np.random.default_rng(seed)
     pick = rng.integers(len(hvs), size=lanes)
     window = [hvs[i] for i in pick.tolist()]
-    eta0 = praos.tick(params, lview, window[0].slot, praos.PraosState()).state.epoch_nonce
-    layout, packed = pbatch.stage_packed(params, lview, eta0, window)
+    layout, packed = pbatch.stage_packed(params, lview, nonce, window)
+    return layout, packed, rng
+
+
+def tiled_window(lanes: int, distinct: int, seed: int, workdir: str,
+                 proof_format: str):
+    """packed_window's headers under the neutral nonce, unpacked and
+    relaid as the stage kernels' limb-first columns (on the CPU).
+    -> (limb-first columns, the seeded generator)."""
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+
+    layout, packed, rng = packed_window(lanes, distinct, seed, workdir, proof_format)
     staged = pbatch.unpack_packed(layout, packed, "cpu")
     relayout = K.staged_to_limb_first_bc if proof_format == "bc" else K.staged_to_limb_first
     return list(relayout(*staged)), rng
@@ -557,6 +589,166 @@ def phase_vrf_prep(dev, lanes: int = 8192, distinct: int = 256, seed: int = 11,
     return rec
 
 
+def graph_ms(launch, reps: int) -> float:
+    """Device time of one call of `launch(stream)` without the host's
+    share of it: `reps` calls captured in one CUDA graph, the graph
+    replayed once to warm up and once between CUDA events; over `reps`."""
+    import torch
+
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(reps):
+            launch(stream)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def wire_window(fmt: str, nonce, lanes: int, distinct: int, seed: int, workdir):
+    """A packed window of `lanes` lanes: lanes - 5 port-forged headers of
+    proof format `fmt` under the epoch nonce `nonce`, five bucket-padding
+    lanes, and every testing.corrupt.WIRE_KINDS corruption.
+    -> (layout, packed numpy columns, the seeded generator)"""
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.testing.corrupt import corrupt_packed
+
+    layout, packed, rng = packed_window(lanes - 5, distinct, seed, workdir, fmt, nonce)
+    return layout, corrupt_packed(layout, pbatch.pad_packed_to(packed, lanes), rng), rng
+
+
+def hold_unpack(tag: str, layout, packed, n: int, dev, reps: int):
+    """`unpack` on the first n lanes of a packed window, held to its plain
+    version (hold). -> (the record, the uploaded columns)"""
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.testing.corrupt import first_lanes
+
+    cols = pbatch.upload_packed(first_lanes(packed, n), dev)
+    rec = hold(f"unpack ({tag}) at {n} lanes", lambda: K.unpack_limb_first(layout, cols, dev),
+               lambda: K._limb_first(pbatch.unpack_packed(layout, cols, dev)),
+               tuple(cols[:10]), n, dev, reps)
+    return rec, cols
+
+
+def hold_fold(tag: str, eta, within, n_real: int, cin, dev, reps: int) -> dict:
+    """`nonce_fold` over the first n_real lanes of eta from the carry-in
+    `cin`, held to its plain version (hold)."""
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    return hold(f"nonce_fold ({tag}, {n_real} of {eta.shape[-1]} lanes)",
+                lambda: K.nonce_fold(eta, within, n_real, cin),
+                lambda: K.nonce_fold_plain(eta, within, n_real, cin),
+                (eta[:, :n_real], within[:n_real], cin), eta.shape[-1], dev, reps)
+
+
+def seeded_fold_inputs(rng: np.random.Generator, n: int, dev):
+    """A seeded eta column [32, n] int32 and stability flags [n] uint8."""
+    import torch
+
+    eta = torch.from_numpy(rng.integers(0, 256, (32, n)).astype(np.int32)).to(dev)
+    within = torch.from_numpy((rng.random(n) < 0.7).astype(np.uint8)).to(dev)
+    return eta, within
+
+
+def wire_records(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 13,
+                 reps: int = 5, workdir: str | None = None) -> dict:
+    """The two wire kernels timed at each width of `lanes_list`: `unpack`
+    on the first lanes of a corrupted bc window (wire_window) under a set
+    epoch nonce, `nonce_fold` over all lanes of a seeded eta column from a
+    set carry-in. Each is held to its plain version (hold: CUDA events
+    around `reps` wrapper calls, `ms`), then on the card its launch alone
+    is timed in a CUDA graph of 20 launches (graph_ms, `kernel_ms`: no
+    host work of the wrapper). Empty for a package without them, so that
+    `--ab` runs it on an older tree. -> {kernel: {lanes: record}}"""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    if not hasattr(K, "nonce_fold"):
+        return {}
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+    from ouroboros_consensus_tpu_torch.protocol import nonces
+
+    layout, packed, rng = wire_window("bc", bytes(range(32)), max(lanes_list), distinct,
+                                      seed, workdir)
+    cin = torch.from_numpy(nonces.pack_carry(rng.bytes(32), rng.bytes(32))).to(dev)
+    recs: dict = {"unpack": {}, "nonce_fold": {}}
+    for n in lanes_list:
+        unpack, cols = hold_unpack("bc, set nonce", layout, packed, n, dev, reps)
+        eta, within = seeded_fold_inputs(rng, n, dev)
+        fold = hold_fold("set carry-in", eta, within, n, cin, dev, reps)
+        if dev.type == "cuda":
+            lib_u, lib_f = build.kernel_lib("unpack"), build.kernel_lib("nonce_fold")
+            unpack["kernel_ms"] = graph_ms(
+                lambda st: K._unpack_launch(lib_u, st, layout, cols), 20)
+            fold["kernel_ms"] = graph_ms(
+                lambda st: K._nonce_fold_launch(lib_f, st, eta, within, n, cin), 20)
+            log(f"wire kernels alone at {n} lanes (CUDA graph): unpack "
+                f"{unpack['kernel_ms']:.4f} ms, nonce_fold {fold['kernel_ms']:.4f} ms")
+        recs["unpack"][n], recs["nonce_fold"][n] = unpack, fold
+    return recs
+
+
+def wire_times(dev, lanes_list=(8, 128, 8192), workdir: str | None = None) -> dict:
+    """wire_records' kernel times, for `--ab`. -> {kernel: {lanes: ms}}"""
+    recs = wire_records(dev, lanes_list, workdir=workdir)
+    return {k: {n: r["kernel_ms"] for n, r in by.items()} for k, by in recs.items()}
+
+
+def phase_wire(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 13,
+               reps: int = 5, workdir: str | None = None) -> dict:
+    """The two wire kernels against their plain versions on the card, at
+    each width of `lanes_list`: `unpack` on corrupted bc and draft-03
+    windows (wire_window) under the neutral and a set epoch nonce;
+    `nonce_fold` on seeded eta columns and stability flags from neutral
+    and set carry-ins, over every lane and over all but the last three.
+    The bc, set-nonce window and the set carry-in over every lane are
+    wire_records' timed ones; the rest are held once. -> {unpack: rec,
+    nonce_fold: rec} at the widest, with `ms` the kernel's own time
+    (`wrapper_ms` the wrapper's) and the bound."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import nonces
+
+    top = max(lanes_list)
+    recs = wire_records(dev, lanes_list, distinct, seed, reps, workdir)
+    for fmt, nonce in (("bc", None), ("draft03", None), ("draft03", bytes(range(32)))):
+        layout, packed, _ = wire_window(fmt, nonce, top, distinct, seed, workdir)
+        for n in lanes_list:
+            hold_unpack(f"{fmt}, {'set' if nonce else 'neutral'} nonce", layout, packed,
+                        n, dev, 1)
+    rng = np.random.default_rng(seed)
+    seeds = {"neutral": nonces.pack_carry(None, None),
+             "set": nonces.pack_carry(rng.bytes(32), rng.bytes(32))}
+    for n in lanes_list:
+        eta, within = seeded_fold_inputs(rng, n, dev)
+        for mode, c in seeds.items():
+            cin = torch.from_numpy(c).to(dev)
+            for n_real in (n, max(n - 3, 1)):
+                if mode == "neutral" or n_real < n:
+                    hold_fold(f"{mode} carry-in", eta, within, n_real, cin, dev, 1)
+    out = {key: {**recs[key][top]} for key in ("unpack", "nonce_fold")}
+    for key, rec in out.items():
+        if dev.type == "cuda":
+            rec["wrapper_ms"], rec["ms"] = rec["ms"], rec["kernel_ms"]
+            rec["ms_by_lanes"] = {n: r["kernel_ms"] for n, r in recs[key].items()}
+            rec["wrapper_ms_by_lanes"] = {n: r["ms"] for n, r in recs[key].items()}
+            # the least time: bytes over 3.35 TB/s; top dependent compressions
+            # (the set carry-in: every lane hashes)
+            rec["bound_ms"] = (rec["bytes"] / 3.35e12 * 1e3 if key == "unpack"
+                               else K.nonce_fold_bound_ms(top))
+        rec["bound_by"] = "bytes" if key == "unpack" else "operations"
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -581,7 +773,8 @@ def compare(tag: str, dres, nres) -> None:
         f"error {carry.error_to_plain(dres.error)}")
 
 
-STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish")
+STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish",
+                  "unpack_limb_first", "nonce_fold")
 
 
 def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
@@ -673,10 +866,23 @@ def corrupted_replay(tag: str, db: str, headers: int, field: str, expect: str,
                              f"got {dres.n_valid} {dres.error!r}")
 
 
+LAYERS = (  # (module, function, layer) timed by layer_breakdown
+    ("batch", "host_prechecks", "host_prechecks"), ("batch", "stage_packed", "stage_packed"),
+    ("batch", "pad_packed_to", "pad_packed_to"), ("batch", "upload_packed", "h2d"),
+    ("K", "unpack_limb_first", "unpack"), ("K", "_tiles", "stages"),
+    ("batch", "verdict_reduce", "reduce"), ("batch", "dispatch_window", "device_step"),
+    ("batch", "epilogue", "epilogue"),
+)
+
+
 def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
-    """Host wall per layer of one more device replay: the packed device
-    step (unpack, five kernels, reduce) is synchronised so that its wall
-    is its own, which is why this is not the timed replay."""
+    """Host wall per layer of one more device replay, each layer's device
+    work synchronised so that its wall is its own (which is why this is
+    not the timed replay): the host stages, and the packed device step
+    (`dispatch_window`) split into the H2D of the packed columns, the
+    unpack kernel, the five stage kernels, the reduce (mask words and
+    the nonce fold) and the D2H of the words and the carry (the step's
+    rest, with `stage_packed` and `pad_packed_to` taken out)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -685,12 +891,13 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
 
     spent: dict = {}
     saved = []
-    for mod, name in ((pbatch, "host_prechecks"), (pbatch, "stage_packed"),
-                      (pbatch, "pad_packed_to"), (K, "verify_praos_packed_split"),
-                      (pbatch, "epilogue")):
+    mods = {"batch": pbatch, "K": K}
+    for mod, name, layer in ((mods[m], n, y) for m, n, y in LAYERS):
         fn = getattr(mod, name)
 
-        def wrapper(*args, _fn=fn, _name=name, **kw):
+        def wrapper(*args, _fn=fn, _name=layer, **kw):
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = _fn(*args, **kw)
             if dev.type == "cuda":
@@ -706,7 +913,11 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
-    spent["other"] = res.validate_s - sum(spent.values())
+    step = spent.pop("device_step")
+    spent["d2h"] = step - sum(spent.get(k, 0.0) for k in (
+        "stage_packed", "pad_packed_to", "h2d", "unpack", "stages", "reduce"))
+    spent["other"] = res.validate_s - step - sum(spent.get(k, 0.0) for k in (
+        "host_prechecks", "epilogue"))
     spent["validate_s"] = res.validate_s
     return spent
 
@@ -814,8 +1025,38 @@ def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
         raise AssertionError(f"generic corrupted: expected VRFKeyBadProof at {target}, "
                              f"got {dbad.n_valid} {dbad.error!r}")
     log(f"generic: device {device_s:.3f} s, native {native_s:.3f} s for {headers} headers")
+    # the carry chain broken and seeded again: the middle third on
+    # stand-in bodies, packed windows on both sides of it
+    real = db_analyser.read_header_views(db)
+    third = headers // 3
+    views = real[:third] + hvs[third: 2 * third] + real[2 * third:]
+    K.reset_launches()
+    seeded = []
+    dispatch = pbatch.dispatch_window
+
+    def spy(*args):
+        v = dispatch(*args)
+        seeded.append((isinstance(args[6], np.ndarray), v.carried))
+        return v
+
+    pbatch.dispatch_window = spy
+    try:
+        dmid = replay(views, "device")
+    finally:
+        pbatch.dispatch_window = dispatch
+    torch.cuda.synchronize()
+    compare("stand-in middle third (carry seeded again)", dmid, replay(views, "native"))
+    mid = dict(K.LAUNCHES)
+    packed = sum(c for _s, c in seeded)
+    cut = [k for k in range(1, len(seeded)) if seeded[k][1] and not seeded[k - 1][1]]
+    if (dmid.n_valid != headers or not cut or any(not seeded[k][0] for k in cut)
+            or dev.type == "cuda" and not mid["unpack"] == mid["nonce_fold"] == packed):
+        raise AssertionError(f"stand-in middle third: {dmid.n_valid}/{headers}, "
+                             f"windows (host seed, carried) {seeded}, launches {mid}")
+    log(f"generic: stand-in middle third device == native; windows (host seed, "
+        f"carried) {seeded}; launches {json.dumps(mid)}")
     return {"launches": launches, "declines": declined, "n_valid": dres.n_valid,
-            "device_s": device_s, "native_s": native_s}
+            "device_s": device_s, "native_s": native_s, "middle_launches": mid}
 
 
 # ---------------------------------------------------------------------------
@@ -893,6 +1134,7 @@ st = own.phase_kernels(dev, workdir=w)
 st["vrf_prep"] = own.phase_vrf_prep(dev, workdir=w)
 rec["phase2_ms"] = {k: v["ms"] for k, v in st.items()}
 rec["stage_ms"] = new.stage_times(dev, lanes, workdir=w)
+rec["stage_ms"].update(new.wire_times(dev, lanes, workdir=w))
 print("AB " + json.dumps(rec), flush=True)
 """
 
@@ -913,7 +1155,9 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
             raise RuntimeError(f"A/B turn for {root} failed (exit {p.returncode})")
         recs.append(json.loads(line[0][3:]))
         print(line[0], flush=True)
-    for key in STAGES:
+    for key in (*STAGES, *sorted(WIRE)):
+        if not all(key in r["stage_ms"] for r in recs):
+            continue
         row = []
         for n in lanes:
             par = [r["stage_ms"][key][str(n)] for r in (recs[0], recs[3])]
@@ -957,6 +1201,7 @@ def main(argv=None) -> int:
     try:
         stages = phase_kernels(dev, workdir=work)
         stages["vrf_prep"] = phase_vrf_prep(dev, workdir=work)
+        stages.update(phase_wire(dev, workdir=work))
         for key, by_lanes in stage_times(dev, workdir=work).items():
             stages[key]["ms_by_lanes"] = {**by_lanes, stages[key]["lanes"]: stages[key]["ms"]}
         paths = phase_main(dev, a.headers, a.headers // 8, 8192, work)
@@ -983,20 +1228,26 @@ def main(argv=None) -> int:
     kernels = []
     for name, src, rep in KERNEL_ROWS:
         st = stages[name]
-        per_lane = st.get("products_per_lane") or wide_products(st["field_ops"])
-        ops_ms = per_lane * st["lanes"] / wide_rate * 1e3
-        bytes_ms = st["bytes"] / 3.35e12 * 1e3
+        if "bound_ms" in st:  # the wire kernels: phase_wire's bound
+            per_lane = None
+            bound, bound_by = st["bound_ms"], st["bound_by"]
+        else:
+            per_lane = st.get("products_per_lane") or wide_products(st["field_ops"])
+            ops_ms = per_lane * st["lanes"] / wide_rate * 1e3
+            bytes_ms = st["bytes"] / 3.35e12 * 1e3
+            bound = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         used = [p for p, ks in PATH_KERNELS.items() if name in ks]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(by_path[p][name] for p in used),
             "launches_by_path": {p: by_path[p][name] for p in used},
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
-            "plain_ms": st["plain_ms"], "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "plain_ms": st["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "field_ops_per_lane": st.get("field_ops"),
             "wide_products_per_lane": per_lane,
-            "ms_by_lanes": st.get("ms_by_lanes"),
+            "ms_by_lanes": st.get("ms_by_lanes"), "wrapper_ms": st.get("wrapper_ms"),
+            "wrapper_ms_by_lanes": st.get("wrapper_ms_by_lanes"),
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
         })
     for p, out in paths.items():

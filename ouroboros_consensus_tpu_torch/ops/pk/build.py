@@ -1,4 +1,4 @@
-"""Build and bind the stage and tool kernels (csrc/*.cu).
+"""Build and bind the stage, wire and tool kernels (csrc/*.cu).
 
 Each kernel source is compiled by its own `nvcc` process, all started
 together, into a shared library with a plain C interface:
@@ -39,6 +39,8 @@ ENTRIES = {
     "vrf_bc_prep": ("pk_vrf_bc_prep",),
     "vrf_ladders": ("pk_vrf_ladders",),
     "finish": ("pk_finish",),
+    "unpack": ("pk_unpack",),
+    "nonce_fold": ("pk_nonce_fold",),
     "primitives": ("pk_prim_sha", "pk_prim_shav", "pk_prim_b2b", "pk_prim_base",
                    "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
     "fe_bench": ("pk_fe_bench",),
@@ -58,6 +60,8 @@ ARGTYPES = {
     "pk_vrf_bc_prep": [_I] + [_P] * 10,
     "pk_vrf_ladders": [_I] + [_P] * 6,
     "pk_finish": [_I] + [_P] * 16,
+    "pk_unpack": [_I, ctypes.POINTER(_I)] + [_P] * 12,
+    "pk_nonce_fold": [_I, _I] + [_P] * 5,
     "pk_prim_sha": [_I] + [_P] * 3,
     "pk_prim_shav": [_I, _P, _I, _P, _P, _P],
     "pk_prim_b2b": [_I] + [_P] * 3,
@@ -121,6 +125,9 @@ def render_consts() -> str:
     for row in ph.B2B_SIGMA:
         lines.append("    {" + ", ".join(str(v) for v in row) + "},")
     lines.append("};")
+    lines.append("// the same rows as compile-time constants: index k in nibble 15 - k")
+    for r, row in enumerate(ph.B2B_SIGMA):
+        lines.append(f"#define PK_B2B_SIGMA_NIB{r} 0x{''.join(f'{v:x}' for v in row)}ull")
     return "\n".join(lines) + "\n"
 
 
@@ -203,7 +210,8 @@ def kernel_lib(name: str, entry: str | None = None):
 
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
-    (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders 256),
+    (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders 256,
+    nonce_fold 1),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")

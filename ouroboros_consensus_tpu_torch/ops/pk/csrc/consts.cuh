@@ -52,3 +52,14 @@ PK_CONST uint8_t PK_B2B_SIGMA[10][16] = {
     {6, 15, 14, 9, 11, 3, 0, 8, 12, 2, 13, 7, 1, 4, 10, 5},
     {10, 2, 8, 4, 7, 6, 1, 5, 15, 11, 9, 14, 3, 12, 13, 0},
 };
+// the same rows as compile-time constants: index k in nibble 15 - k
+#define PK_B2B_SIGMA_NIB0 0x0123456789abcdefull
+#define PK_B2B_SIGMA_NIB1 0xea489fd61c02b753ull
+#define PK_B2B_SIGMA_NIB2 0xb8c052fdae367194ull
+#define PK_B2B_SIGMA_NIB3 0x7931dcbe265a40f8ull
+#define PK_B2B_SIGMA_NIB4 0x905724afe1bc683dull
+#define PK_B2B_SIGMA_NIB5 0x2c6a0b834d75fe19ull
+#define PK_B2B_SIGMA_NIB6 0xc51fed4a0763928bull
+#define PK_B2B_SIGMA_NIB7 0xdb7ec13950f4862aull
+#define PK_B2B_SIGMA_NIB8 0x6fe9b308c2d714a5ull
+#define PK_B2B_SIGMA_NIB9 0xa2847615fb9e3cd0ull

@@ -1,4 +1,4 @@
-// Host build of the stage and tool lane bodies (g++ -DPK_HOST): a stage
+// Host build of the stage, wire and tool lane bodies (g++ -DPK_HOST): a stage
 // kernel's entry point runs, for each group of 32 lanes, every role of
 // phase 1 over the group's lanes, one role after another, then phase 2,
 // over one scratch struct, as the kernel's barriers order them; a tool
@@ -6,6 +6,7 @@
 // cross-check the device code against the plain PyTorch twins on a
 // machine without nvcc; the replay never calls it.
 #include "tools.cuh"
+#include "wire.cuh"
 
 typedef const int32_t *CI;
 typedef int32_t *OI;
@@ -143,6 +144,33 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
                       (OI)eta, (OI)lv);
     for (int l = 0; l < n; l++) finish_vrf_ok(g + l, B, l, (CI)vrfok, sc, (OI)out);
   }
+  return 0;
+}
+
+// the wire kernels: every (row, lane) of unpack, the fold's one chain
+extern "C" int pk_unpack(int B, const int *lay, const void *body,
+                         const void *kes_rs, const void *tail_idx,
+                         const void *tail_tab, const void *slot,
+                         const void *counter, const void *c0,
+                         const void *thr_idx, const void *thr_tab,
+                         const void *nonce, void *out, void *) {
+  WireLayout L{lay[0], lay[1], lay[2], lay[3], lay[4], lay[5],
+               lay[6], lay[7], lay[8], lay[9], lay[10]};
+  WireIn in{(const u8 *)body, (const u8 *)kes_rs, (CI)tail_idx,
+            (const u8 *)tail_tab, (CI)slot, (CI)counter, (CI)c0, (CI)thr_idx,
+            (const u8 *)thr_tab, (const u8 *)nonce};
+  int start[W_NSEG + 1];
+  wire_rows(L, start);
+  for (int r = 0; r < start[W_NSEG]; r++)
+    for (int i = 0; i < B; i++) unpack_row_lane(L, in, start, r, i, B, (OI)out);
+  return 0;
+}
+
+extern "C" int pk_nonce_fold(int B, int n_real, const void *eta,
+                             const void *within, const void *cin, void *cout,
+                             void *) {
+  nonce_fold_chain(B, n_real, (CI)eta, (const u8 *)within, (const u8 *)cin,
+                   (u8 *)cout, 0);
   return 0;
 }
 

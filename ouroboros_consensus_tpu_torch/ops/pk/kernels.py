@@ -1,4 +1,7 @@
-"""The six Praos stage kernels: wrappers, launch counts, plain twins.
+"""The Praos kernels of a packed window: wrappers, launch counts, plain
+twins. `unpack` writes the stage kernels' limb-first columns from the
+packed wire, the six stage kernels verify, `nonce_fold` folds the
+window's nonces (at the end of this module).
 
 Each stage of ops/pk/verify.py is one hand-written CUDA kernel
 (csrc/<name>.cu, grid sized to the lanes), bound with ctypes (build.py).
@@ -47,15 +50,20 @@ beside its bound (scripts of record: chip_smoke.py).
 
 from __future__ import annotations
 
+import ctypes
+import math
+
 import torch
 
+from ...protocol import nonces as pn
 from . import curve as pc
 from . import verify as pv
 
 # kernel source -> launches on the card (the plain twins do not count);
 # the two tool kernels (tools/debug_pk.py, tools/fe_bench.py) count here too
 LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
-            "vrf_ladders": 0, "finish": 0, "primitives": 0, "fe_bench": 0}
+            "vrf_ladders": 0, "finish": 0, "unpack": 0, "nonce_fold": 0,
+            "primitives": 0, "fe_bench": 0}
 
 _BASE8: dict = {}
 
@@ -73,9 +81,10 @@ def _base8(device: torch.device) -> torch.Tensor:
     return _BASE8[key]
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name}: expected int32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape: tuple, device,
+           dtype=torch.int32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -490,30 +499,244 @@ def verify_praos_tiles_bc(
                   c16, beta, tlo, thi)
 
 
+def _tiles(limb, bc: bool, kes_depth: int):
+    tiles = verify_praos_tiles_bc if bc else verify_praos_tiles
+    return tiles(*limb, kes_depth=kes_depth)
+
+
 def verify_staged(cols, bc: bool, kes_depth: int, n_real: int):
     """The five stage kernels of one proof format over batch-first staged
     columns on the card (22 batch-compatible columns with `bc`, else 21
     draft-03 ones), then the verdict reduction with the nonce fold left to
     the host (scan off).
-    -> ((masks [5, W] uint32, eta_u8 [B, 32] uint8), flags, eta, lv),
+    -> ((masks [5, W] int64, eta_u8 [n_real, 32] uint8), flags, eta, lv),
     the per-lane arrays left on the columns' device."""
     from ...protocol import batch as pbatch
 
-    if bc:
-        limb = staged_to_limb_first_bc(*cols)
-        flags, eta, lv = verify_praos_tiles_bc(*limb, kes_depth=kes_depth)
-    else:
-        limb = staged_to_limb_first(*cols)
-        flags, eta, lv = verify_praos_tiles(*limb, kes_depth=kes_depth)
-    return pbatch.verdict_reduce(flags, eta.T, n_real), flags, eta, lv
+    limb = (staged_to_limb_first_bc if bc else staged_to_limb_first)(*cols)
+    flags, eta, lv = _tiles(limb, bc, kes_depth)
+    return pbatch.verdict_reduce(flags, eta, n_real, scan=False), flags, eta, lv
 
 
-def verify_praos_packed_split(layout, packed, n_real: int, device):
-    """The packed per-lane dispatch: unpack the packed wire columns on
-    `device`, then verify_staged in the layout's proof format (vrf_prep
-    for 80-byte draft-03 proofs, vrf_bc_prep for 128-byte
-    batch-compatible ones)."""
+def verify_praos_packed_split(layout, packed, n_real: int, device, carry):
+    """The packed per-lane dispatch on `device`: the packed columns up
+    (`upload_packed`), the `unpack` kernel, the five stage kernels of the
+    layout's proof format (vrf_prep for 80-byte draft-03 proofs,
+    vrf_bc_prep for 128-byte batch-compatible ones), then the verdict
+    reduction with the `nonce_fold` kernel from `carry` ([66] uint8 on
+    `device`). -> ((masks [5, W] int64, carry-out [66] uint8), flags,
+    eta, lv), all on `device`."""
     from ...protocol import batch as pbatch
 
-    staged = pbatch.unpack_packed(layout, packed, device)
-    return verify_staged(staged, layout.vrf_proof_len == 128, layout.kes_depth, n_real)
+    cols = pbatch.upload_packed(packed, device)
+    limb = unpack_limb_first(layout, cols, device)
+    flags, eta, lv = _tiles(limb, layout.vrf_proof_len == 128, layout.kes_depth)
+    red = pbatch.verdict_reduce(flags, eta, n_real, cols.within, carry, scan=True)
+    return red, flags, eta, lv
+
+
+# ---------------------------------------------------------------------------
+# unpack: the packed wire -> the stage kernels' limb-first columns
+# ---------------------------------------------------------------------------
+
+ED_MSG_BYTES = 112  # R ‖ issuer ‖ vk_hot ‖ counter_be8 ‖ c0_be8
+
+
+def sha512_blocks_of(n: int) -> int:
+    """SHA-512 blocks of an n-byte message (0x80 and the 16-byte length)."""
+    return (n + 17 + 127) // 128
+
+
+def unpack_segments(layout) -> tuple:
+    """The rows of the `unpack` kernel's one int32 output [R, B], segment
+    by segment (as csrc/wire.cuh's wire_rows orders them) -> ((name,
+    shape without B), ...); the limb-first arrays are views of
+    consecutive rows."""
+    return (
+        ("issuer", (32,)), ("sigma", (64,)),
+        ("ed_hb", (sha512_blocks_of(ED_MSG_BYTES), 128)), ("ed_hnb", (1,)),
+        ("vk_hot", (32,)), ("period", (1,)), ("kes_rs", (64,)),
+        ("tail", (32 + 32 * layout.kes_depth,)),
+        ("kes_hb", (sha512_blocks_of(64 + layout.body_len), 128)), ("kes_hnb", (1,)),
+        ("vrf_vk", (32,)), ("proof", (layout.vrf_proof_len,)), ("alpha", (32,)),
+        ("beta", (64,)), ("thr", (64,)),
+    )
+
+
+def _unpack_views(layout, out: torch.Tensor) -> tuple:
+    """The [R, B] buffer -> the 22 (bc) or 21 (draft-03) limb-first
+    arrays of staged_to_limb_first(_bc), as views."""
+    b = out.shape[-1]
+    seg, r = {}, 0
+    for name, shape in unpack_segments(layout):
+        n = math.prod(shape)
+        seg[name] = out[r: r + n].view(*shape, b)
+        r += n
+    d = layout.kes_depth
+
+    def rows(name, lo, hi):
+        return seg[name][lo:hi]
+
+    splits = (0, 32, 64, 96, 128) if layout.vrf_proof_len == 128 else (0, 32, 48, 80)
+    proof = [rows("proof", lo, hi) for lo, hi in zip(splits, splits[1:])]
+    return (
+        seg["issuer"], rows("sigma", 0, 32), rows("sigma", 32, 64), seg["ed_hb"],
+        seg["ed_hnb"], seg["vk_hot"], seg["period"], rows("kes_rs", 0, 32),
+        rows("kes_rs", 32, 64), rows("tail", 0, 32),
+        rows("tail", 32, 32 + 32 * d).view(d, 32, b), seg["kes_hb"], seg["kes_hnb"],
+        seg["vrf_vk"], *proof, seg["alpha"], seg["beta"], rows("thr", 0, 32),
+        rows("thr", 32, 64),
+    )
+
+
+def _layout_ints(layout):
+    """PackedLayout as csrc/wire.cuh's WireLayout (11 ints)."""
+    vals = (layout.body_len, layout.o_issuer, layout.o_vrf_vk, layout.o_vrf_out,
+            layout.o_vrf_proof, layout.o_vk_hot, layout.o_sigma, layout.kes_depth,
+            layout.slots_per_kes, int(layout.has_nonce), layout.vrf_proof_len)
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _unpack_launch(fn, stream, layout, cols):
+    b = cols.body.shape[0]
+    rows = sum(math.prod(shape) for _n, shape in unpack_segments(layout))
+    out = torch.empty((rows, b), dtype=torch.int32, device=cols.body.device)
+    rc = fn(b, _layout_ints(layout), *(_p(c) for c in cols[:10]), _p(out), stream)
+    _raise_on(rc, "unpack")
+    return _unpack_views(layout, out)
+
+
+def unpack_limb_first(layout, cols, device):
+    """The packed window's columns as tensors on `device` (a batch.Packed
+    from batch.upload_packed) -> the limb-first int32 arrays the five
+    stage kernels read: the 22 of staged_to_limb_first_bc for a 128-byte
+    proof, the 21 of staged_to_limb_first for an 80-byte one, in their
+    order.
+
+    Replaces the plain-XLA `unpack_packed` + `staged_to_limb_first(_bc)`
+    of ouroboros_consensus_tpu/protocol/batch.py:1221 and
+    ops/pk/kernels.py:344, :371 (the unpack stage `_mk_packed_unpack`,
+    kernels.py:578), in one launch (csrc/unpack.cu): field slices of the
+    body, the KES tail and threshold gathers, the OCert and KES SHA-512
+    messages padded into blocks, the VRF alpha (one Blake2b a lane) and
+    the KES evolution. Plain version: batch.unpack_packed, then
+    _limb_first.
+    Bound: bytes (a lane reads its body and table rows and writes R int32
+    rows; a lane's one Blake2b compression is ~2,100 instructions, under
+    the byte time at any width). One thread a (lane, row), lanes
+    fastest, so the [R, B] writes coalesce; the byte reads of a row
+    stride by the body width and are left to L1 and L2."""
+    from ...protocol import batch as pbatch
+
+    if not all(isinstance(c, torch.Tensor) for c in cols):
+        raise TypeError("unpack_limb_first: the packed columns must be tensors "
+                        "(batch.upload_packed)")
+    if cols.body.device.type != torch.device(device).type:
+        raise ValueError(f"unpack_limb_first: columns on {cols.body.device}, "
+                         f"expected {device}")
+    device = cols.body.device  # the index too: cuda -> cuda:0
+    b = cols.body.shape[0]
+    for n, t, sh, dt in (
+            ("body", cols.body, (b, layout.body_len), torch.uint8),
+            ("kes_rs", cols.kes_rs, (b, 64), torch.uint8),
+            ("kes_tail_idx", cols.kes_tail_idx, (b,), torch.int32),
+            ("kes_tail_tab", cols.kes_tail_tab,
+             (cols.kes_tail_tab.shape[0], 32 + 32 * layout.kes_depth), torch.uint8),
+            ("slot", cols.slot, (b,), torch.int32),
+            ("counter", cols.counter, (b,), torch.int32),
+            ("c0", cols.c0, (b,), torch.int32),
+            ("thr_idx", cols.thr_idx, (b,), torch.int32),
+            ("thr_tab", cols.thr_tab, (cols.thr_tab.shape[0], 64), torch.uint8),
+            ("nonce", cols.nonce, (32,), torch.uint8)):
+        _check(f"unpack_limb_first.{n}", t, sh, device, dt)
+    if _route(device) == "plain":
+        return _limb_first(pbatch.unpack_packed(layout, cols, device))
+    from . import build
+
+    out = _unpack_launch(build.kernel_lib("unpack"), _stream(device), layout, cols)
+    LAUNCHES["unpack"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# nonce_fold: the window's sequential nonce fold
+# ---------------------------------------------------------------------------
+
+# The instructions on a Blake2b-256 compression's critical path. A G is
+# four 64-bit three- or two-operand additions (two 32-bit instructions
+# each), four 64-bit xors (two each) and three 64-bit rotations by 24, 16
+# and 63 (two funnel shifts each; by 32 is a swap of halves): 22. A
+# round's eight G are four independent columns, then four independent
+# diagonals, so its chain is two G deep whatever the design: twelve
+# rounds, then the output word (two 64-bit xors). The function's cost,
+# not a kernel's: csrc/nonce_fold.cu issues 772 a lane, the 64-bit
+# shuffles that spread a compression over four lanes included.
+B2B_CHAIN_INSTRUCTIONS = 12 * 2 * 22 + 2 * 2
+
+
+def nonce_fold_bound_ms(n_real: int) -> float:
+    """The least time of one fold: n_real dependent compressions (each
+    hashes the nonce the one before produced), each a chain of
+    B2B_CHAIN_INSTRUCTIONS issued at one a cycle at the card's maximum SM
+    clock."""
+    from ...device import max_sm_clock_hz
+
+    return n_real * B2B_CHAIN_INSTRUCTIONS / max_sm_clock_hz() * 1e3
+
+
+def nonce_fold_plain(eta, within, n_real: int, carry):
+    """The fold with the host's nonces.combine over the real lanes, in
+    order: evolving <- evolving ⭒ eta_i, then candidate <- evolving where
+    within_i. Tensors of any device; -> the carry-out [66] uint8 on
+    carry's device."""
+    etas = eta[:, :n_real].T.to(torch.uint8).cpu().numpy()
+    win = within[:n_real].cpu().numpy()
+    evolving, candidate = pn.unpack_carry(carry.cpu().numpy())
+    for i in range(n_real):
+        evolving = pn.combine(evolving, etas[i].tobytes())
+        if win[i]:
+            candidate = evolving
+    return torch.from_numpy(pn.pack_carry(evolving, candidate)).to(carry.device)
+
+
+def _nonce_fold_launch(fn, stream, eta, within, n_real, carry):
+    out = torch.empty((pn.CARRY_BYTES,), dtype=torch.uint8, device=carry.device)
+    rc = fn(eta.shape[-1], n_real, _p(eta), _p(within), _p(carry), _p(out), stream)
+    _raise_on(rc, "nonce_fold")
+    return out
+
+
+def nonce_fold(eta, within, n_real: int, carry):
+    """The window's nonce fold: eta [32, B] int32 (finish's), within [B]
+    uint8, the carry-in [66] uint8 (protocol/nonces.pack_carry) -> the
+    carry-out after the real lanes 0 .. n_real - 1 (bucket padding does
+    not fold): per lane evolving <- Blake2b-256(evolving ‖ eta_i), or
+    eta_i while it is neutral, and candidate <- evolving where within_i.
+
+    Replaces the plain-XLA `nonce_fold_scan` in `verdict_reduce` of
+    ouroboros_consensus_tpu/ops/blake2b.py:271 and protocol/batch.py:1326
+    (the reduce stage `_mk_reduce`, ops/pk/kernels.py:602), in one launch
+    (csrc/nonce_fold.cu). Plain version: nonce_fold_plain.
+    Bound: operations, and the chain of them: each compression needs the
+    one before, so one warp runs the window; four of its lanes run a
+    compression, a G column (then a diagonal) each, with shuffles between
+    (the bound: B2B_CHAIN_INSTRUCTIONS a compression, nonce_fold_bound_ms,
+    which the shuffles do not count). The rounds are
+    unrolled with compile-time message indices so the state stays in
+    registers, and the next lane's eta is loaded while the current one is
+    hashed."""
+    dev = carry.device
+    b = eta.shape[-1]
+    _check("nonce_fold.eta", eta, (32, b), dev)
+    _check("nonce_fold.within", within, (b,), dev, torch.uint8)
+    _check("nonce_fold.carry", carry, (pn.CARRY_BYTES,), dev, torch.uint8)
+    if not 0 <= n_real <= b:
+        raise ValueError(f"nonce_fold: n_real {n_real} outside [0, {b}]")
+    if _route(dev) == "plain":
+        return nonce_fold_plain(eta, within, n_real, carry)
+    from . import build
+
+    out = _nonce_fold_launch(build.kernel_lib("nonce_fold"), _stream(dev), eta,
+                             within, n_real, carry)
+    LAUNCHES["nonce_fold"] += 1
+    return out

@@ -4,30 +4,34 @@ A within-epoch window of header views is validated as one batch: the
 cheap non-crypto checks run on the host (`host_prechecks`), the window
 stages into the packed wire format (`stage_packed` — the KES-signed body
 is the single copy of every field it embeds, verified lane for lane),
-the device unpacks it (`unpack_packed`: field slices, SHA-512 padding,
-the VRF alpha), five stage kernels return per-lane verdict bits (ed,
-kes, the VRF prep of the window's proof format — `vrf_prep` for 80-byte
-draft-03 proofs, `vrf_bc_prep` for 128-byte batch-compatible ones — the
-VRF ladders and finish), and
-the sequential epilogue finds the first failing header and rebuilds the
-exact `PraosValidationError` the reference fold would raise, in its
-order (Praos.hs:441-606: KES checks before VRF checks).
+the `unpack` kernel writes the stage kernels' limb-first columns from it
+(field slices, SHA-512 padding, the VRF alpha), five stage kernels
+return per-lane verdict bits (ed, kes, the VRF prep of the window's
+proof format — `vrf_prep` for 80-byte draft-03 proofs, `vrf_bc_prep`
+for 128-byte batch-compatible ones — the VRF ladders and finish), and
+`verdict_reduce` packs the verdict bits into u32 words and folds the
+window's nonces on the card (the `nonce_fold` kernel). The fold's carry
+goes from each packed window to the next on the card; the host reads
+the mask words and the 66 carry bytes. The sequential epilogue finds
+the first failing header and rebuilds the exact `PraosValidationError`
+the reference fold would raise, in its order (Praos.hs:441-606: KES
+checks before VRF checks).
 
 A window the packed staging declines because its bodies do not embed
 the fields or its integers pass int32 (`field-offsets`,
 `field-mismatch`, `int32-range`) goes through the generic staging
 instead (`stage`: per-lane columns padded on the host) and the same
-five stage kernels; the reason is recorded in `DECLINES`.
+five stage kernels; the reason is recorded in `DECLINES`. Such a window
+ships its eta column and folds on the host, which breaks the carry
+chain: the next packed window seeds it again from the host state.
 
-The nonce fold stays on the host (the reference's scan-off mode):
-`verdict_reduce` packs the verdict rows into u32 words and ships the eta
-column as bytes. The leader threshold is a bracketed device compare;
-the measure-zero band between the brackets takes the exact host check.
+The leader threshold is a bracketed device compare; the measure-zero
+band between the brackets takes the exact host check.
 
 `validate_chain` segments a run of headers at epoch boundaries, at
 `max_batch`, and where the signed-body width or the proof format
 changes (a packed window has one of each; segmentation never changes a
-verdict), threading the PraosState between windows.
+verdict), threading the PraosState and the nonce carry between windows.
 """
 
 from __future__ import annotations
@@ -129,25 +133,30 @@ class PackedLayout(NamedTuple):
 
 
 class Packed(NamedTuple):
-    """Packed window columns (numpy on the host)."""
+    """Packed window columns: numpy on the host (`stage_packed`), torch
+    tensors of the same dtypes on the card (`upload_packed`)."""
 
     body: np.ndarray  # [B, body_len] uint8
     kes_rs: np.ndarray  # [B, 64] uint8 — KES leaf signature R ‖ s
-    kes_tail_idx: np.ndarray  # [B] int64 into kes_tail_tab
+    kes_tail_idx: np.ndarray  # [B] int32 into kes_tail_tab
     kes_tail_tab: np.ndarray  # [Kt, 32 + 32 depth] uint8 — leaf vk ‖ siblings
-    slot: np.ndarray  # [B] int64
-    counter: np.ndarray  # [B] int64 — OCert issue number
-    c0: np.ndarray  # [B] int64 — OCert start KES period
-    thr_idx: np.ndarray  # [B] int64 into thr_tab
+    slot: np.ndarray  # [B] int32
+    counter: np.ndarray  # [B] int32 — OCert issue number
+    c0: np.ndarray  # [B] int32 — OCert start KES period
+    thr_idx: np.ndarray  # [B] int32 into thr_tab
     thr_tab: np.ndarray  # [Kr, 64] uint8 — thr_lo ‖ thr_hi per stake
     nonce: np.ndarray  # [32] uint8 — epoch nonce bytes (zeros if neutral)
+    within: np.ndarray  # [B] uint8 — slot inside the stability window
 
 
 class NotStagedError(NotImplementedError):
     """A window the packed staging does not take; `reason` names the gate.
-    `dispatch_window` stages the GENERIC_REASONS windows generically; the
-    others (`body-width-mixed`, `kes-sig-len`, `proof-format`) are windows
-    `validate_chain` never hands over."""
+    `dispatch_window` stages the GENERIC_REASONS windows generically and
+    raises on the others. `validate_chain` never hands over a
+    `body-width-mixed` or `proof-format` window (it cuts at both), but it
+    does hand over a `kes-sig-len` one (a KES signature whose length does
+    not match the parameters' depth), so a chain with such a header
+    raises, as the reference's device path does."""
 
     def __init__(self, reason: str):
         super().__init__(reason)
@@ -209,24 +218,27 @@ def stage_packed(params: PraosParams, ledger_view: LedgerView,
             raise NotStagedError("int32-range")
     sigs = col([hv.kes_sig for hv in hvs], sig_len)
     tails: dict[bytes, int] = {}
-    kt_idx = np.empty(b, np.int64)
+    kt_idx = np.empty(b, np.int32)
     for i, hv in enumerate(hvs):
         kt_idx[i] = tails.setdefault(hv.kes_sig[64:], len(tails))
     kt_tab = np.stack([np.frombuffer(t, np.uint8) for t in tails])
     f = Fraction(params.active_slot_coeff)
     rows: dict = {}
-    thr_idx = np.empty(b, np.int64)
+    thr_idx = np.empty(b, np.int32)
     for i, hv in enumerate(hvs):
         lo, hi = threshold_rows(_sigma(ledger_view, hv), f)
         thr_idx[i] = rows.setdefault(lo + hi, len(rows))
     thr_tab = np.stack([np.frombuffer(r, np.uint8) for r in rows])
+    first_next = (slot // params.epoch_length + 1) * params.epoch_length
     layout = PackedLayout(lb, *offs, depth, params.slots_per_kes_period,
                           epoch_nonce is not None, plen)
     packed = Packed(
         body=body.copy(), kes_rs=np.ascontiguousarray(sigs[:, :64]),
-        kes_tail_idx=kt_idx, kes_tail_tab=kt_tab, slot=slot,
-        counter=counter, c0=c0, thr_idx=thr_idx, thr_tab=thr_tab,
+        kes_tail_idx=kt_idx, kes_tail_tab=kt_tab, slot=slot.astype(np.int32),
+        counter=counter.astype(np.int32), c0=c0.astype(np.int32),
+        thr_idx=thr_idx, thr_tab=thr_tab,
         nonce=np.frombuffer(epoch_nonce or bytes(32), np.uint8).copy(),
+        within=(slot + params.stability_window < first_next).astype(np.uint8),
     )
     return layout, packed
 
@@ -257,12 +269,18 @@ def pad_packed_to(packed: Packed, size: int) -> Packed:
         body=pad(packed.body), kes_rs=pad(packed.kes_rs),
         kes_tail_idx=pad(packed.kes_tail_idx), slot=pad(packed.slot),
         counter=pad(packed.counter), c0=pad(packed.c0),
-        thr_idx=pad(packed.thr_idx),
+        thr_idx=pad(packed.thr_idx), within=pad(packed.within),
     )
 
 
+def upload_packed(packed: Packed, device) -> Packed:
+    """The packed columns on `device`, dtypes as they are (uint8 bytes,
+    int32 integers); columns already there are not copied."""
+    return Packed(*(torch.as_tensor(a, device=device) for a in packed))
+
+
 def _be8(x: torch.Tensor) -> torch.Tensor:
-    """[B] int64 (< 2^31) -> [B, 8] big-endian bytes."""
+    """[B] int64 in [0, 2^31) -> [B, 8] big-endian bytes."""
     sh = torch.tensor([56, 48, 40, 32, 24, 16, 8, 0], device=x.device)
     return (x.unsqueeze(1) >> sh) & 0xFF
 
@@ -286,16 +304,17 @@ def alpha_from_slots(slot: torch.Tensor, nonce: torch.Tensor | None) -> torch.Te
 
 
 def unpack_packed(layout: PackedLayout, packed: Packed, device) -> tuple:
-    """Packed columns -> the batch-first staged columns on `device`: the
-    21 of kernels.staged_to_limb_first for an 80-byte draft-03 proof
-    (gamma ‖ c ‖ s split at 32 / 48), the 22 of staged_to_limb_first_bc
-    for a 128-byte one (gamma ‖ u ‖ v ‖ s). Field slices of the body, the
-    Ed25519 and KES SHA-512 inputs padded into blocks, the VRF alpha, the
-    KES evolution t = kes_period_of(slot) - c0 and the per-lane threshold
-    rows."""
+    """Packed columns (numpy, or tensors) -> the batch-first staged
+    columns on `device`: the 21 of kernels.staged_to_limb_first for an
+    80-byte draft-03 proof (gamma ‖ c ‖ s split at 32 / 48), the 22 of
+    staged_to_limb_first_bc for a 128-byte one (gamma ‖ u ‖ v ‖ s). Field
+    slices of the body, the Ed25519 and KES SHA-512 inputs padded into
+    blocks, the VRF alpha, the KES evolution t = kes_period_of(slot) - c0
+    and the per-lane threshold rows. The plain version of the `unpack`
+    kernel (with kernels._limb_first; kernels.unpack_limb_first)."""
 
     def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(torch.int64)
+        return torch.as_tensor(a, device=device).to(torch.int64)
 
     body = dev(packed.body)
 
@@ -336,10 +355,17 @@ def unpack_packed(layout: PackedLayout, packed: Packed, device) -> tuple:
     )
 
 
-def verdict_reduce(flags: torch.Tensor, eta_bt: torch.Tensor, n_real: int):
-    """Pack the five verdict rows into u32 words (lane i -> word i // 32,
-    bit i % 32) and the eta column into bytes; the nonce fold stays on
-    the host. -> (masks [5, W] int64 holding u32 values, eta_u8 [b, 32])."""
+def verdict_reduce(flags: torch.Tensor, eta: torch.Tensor, n_real: int,
+                   within: torch.Tensor | None = None,
+                   carry: torch.Tensor | None = None, *, scan: bool):
+    """The device-side reduction of a window: pack the five verdict rows
+    [5, B] into u32 words (lane i -> word i // 32, bit i % 32), then
+    with `scan` fold the real lanes' eta [32, B] into the nonce carry on
+    the card (`nonce_fold`: within [B] uint8, carry [66] uint8 in) so
+    that the host reads one nonce pair, else cut the eta column to bytes
+    for the host fold.
+    -> (masks [5, W] int64 holding u32 values, carry-out [66] uint8) with
+    `scan`, else (masks, eta_u8 [n_real, 32] uint8)."""
     b = flags.shape[-1]
     w = -(-b // 32)
     bits = (flags != 0).to(torch.int64)
@@ -348,7 +374,15 @@ def verdict_reduce(flags: torch.Tensor, eta_bt: torch.Tensor, n_real: int):
                                             device=flags.device)], 1)
     shifts = torch.arange(32, dtype=torch.int64, device=flags.device)
     masks = (bits.reshape(5, w, 32) << shifts).sum(-1)
-    return masks, eta_bt[:n_real].to(torch.uint8)
+    if scan:
+        return masks, pk_kernels.nonce_fold(eta, within, n_real, carry)
+    return masks, eta[:, :n_real].T.to(torch.uint8)
+
+
+def state_carry(state: PraosState) -> np.ndarray:
+    """The nonce-fold carry that seeds a chain from a host state:
+    [66] uint8 (nonces.pack_carry)."""
+    return nonces.pack_carry(state.evolving_nonce, state.candidate_nonce)
 
 
 # ---------------------------------------------------------------------------
@@ -434,15 +468,22 @@ class Verdicts(NamedTuple):
 
 
 class PackedVerdicts:
-    """A dispatched window's result: u32 verdict words and the eta bytes
-    on the host; the per-lane flags / leader values stay on the device
-    until `full()` (only a failing or ambiguous window needs them)."""
+    """A dispatched window's result: u32 verdict words on the host, and
+    either the window's nonce carry-out (`carried`: the device tensor
+    that seeds the next window, and its two nonces read back) or the eta
+    bytes (a generically staged window). The per-lane flags, eta and
+    leader values stay on the device until `full()` (only a failing or
+    ambiguous window needs them)."""
 
-    def __init__(self, masks, eta_u8, b, handles):
+    def __init__(self, masks, b, handles, *, carry=None, eta_u8=None):
         self.masks = masks.astype(np.uint32)
-        self.eta_u8 = eta_u8
         self.b = b
         self._handles = handles  # (flags [5, B], eta [32, B], lv [32, B])
+        self.carry = carry  # [66] uint8 on the device, or None
+        self.carried = carry is not None
+        # (evolving, candidate) after the window's last lane
+        self.nonces = nonces.unpack_carry(carry.cpu().numpy()) if self.carried else None
+        self.eta_u8 = eta_u8  # [b, 32] uint8, or None (left on the device)
         self._full = None
 
     def _row(self, r: int) -> np.ndarray:
@@ -453,6 +494,12 @@ class PackedVerdicts:
     def clean(self) -> bool:
         """Every real lane passed every check outright."""
         return all(self._row(r).all() for r in range(4)) and not self._row(4).any()
+
+    def eta_bytes(self) -> np.ndarray:
+        """The [b, 32] uint8 eta column a window without a carry shipped;
+        None for a carried window (its column stays on the device for
+        `full()`)."""
+        return self.eta_u8
 
     def full(self) -> Verdicts:
         if self._full is None:
@@ -472,6 +519,9 @@ class BatchResult:
     state: PraosState  # state after the last VALID header
     n_valid: int  # length of the valid prefix
     error: praos.PraosValidationError | None  # error at position n_valid
+    # the device nonce carry after a valid packed window (None: the next
+    # packed window seeds the fold from `state`)
+    carry: torch.Tensor | None = None
 
 
 def _counter_m(hk, counters, pool_distr):
@@ -525,10 +575,11 @@ def lane_error(params: PraosParams, ledger_view: LedgerView,
     return praos.VRFLeaderValueTooBig(lv_val, sigma, params.active_slot_coeff)
 
 
-def _fold_clean(params, ticked, hvs, pre, v: PackedVerdicts):
+def _epilogue_packed_fast(params, ticked, hvs, pre, v: PackedVerdicts):
     """All-clean fast path: no precheck error, every verdict bit set and
-    the counters monotone -> the final state from one host nonce fold of
-    the eta bytes, no per-lane error reconstruction. None when any gate
+    the counters monotone -> the final state with the nonces of the
+    window's device fold (or, for a window without one, a host fold of
+    its eta bytes), no per-lane error reconstruction. None when any gate
     trips (the exact slow path then runs)."""
     if not v.clean():
         return None
@@ -544,12 +595,16 @@ def _fold_clean(params, ticked, hvs, pre, v: PackedVerdicts):
                            hv.ocert.counter):
             return None
         counters[hk] = hv.ocert.counter
-    evolving, candidate = st.evolving_nonce, st.candidate_nonce
-    for i, hv in enumerate(hvs):
-        evolving = nonces.combine(evolving, v.eta_u8[i].tobytes())
-        if hv.slot + params.stability_window < params.first_slot_of(
-                params.epoch_of(hv.slot) + 1):
-            candidate = evolving
+    if v.carried:
+        evolving, candidate = v.nonces
+    else:
+        evolving, candidate = st.evolving_nonce, st.candidate_nonce
+        etas = v.eta_bytes()
+        for i, hv in enumerate(hvs):
+            evolving = nonces.combine(evolving, etas[i].tobytes())
+            if hv.slot + params.stability_window < params.first_slot_of(
+                    params.epoch_of(hv.slot) + 1):
+                candidate = evolving
     state = PraosState(
         last_slot=hvs[-1].slot, ocert_counters=counters,
         evolving_nonce=evolving, candidate_nonce=candidate,
@@ -565,7 +620,7 @@ def epilogue(params: PraosParams, ticked: TickedPraosState,
     """Sequential epilogue: counters + nonce fold, stop at the first
     failure with the reference's error."""
     if isinstance(v, PackedVerdicts):
-        res = _fold_clean(params, ticked, hvs, pre, v)
+        res = _epilogue_packed_fast(params, ticked, hvs, pre, v)
         if res is not None:
             return res
         v = v.full()
@@ -653,11 +708,14 @@ DECLINES: dict[str, int] = {}
 
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
                     hvs: Sequence[HeaderView], pre: HostChecks,
-                    device: torch.device) -> PackedVerdicts:
-    """Stage -> H2D -> (unpack) -> the five stage kernels of the window's
-    proof format -> reduce -> D2H. A window the packed staging declines
-    for one of GENERIC_REASONS is staged generically and runs the same
-    kernels; any other decline raises."""
+                    device: torch.device, carry=None) -> PackedVerdicts:
+    """Stage -> H2D -> unpack -> the five stage kernels of the window's
+    proof format -> reduce with the nonce fold -> D2H of the mask words
+    and the carry. `carry` is the fold's carry-in: the previous packed
+    window's device carry-out, or a host seed (`state_carry`); None is
+    the neutral one. A window the packed staging declines for one of
+    GENERIC_REASONS is staged generically, runs the same kernels and
+    ships its eta bytes (no fold, no carry); any other decline raises."""
     b = len(hvs)
     try:
         layout, packed = stage_packed(params, lview, eta0, hvs)
@@ -667,30 +725,39 @@ def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
         DECLINES[e.reason] = DECLINES.get(e.reason, 0) + 1
         batch = stage(params, lview, eta0, hvs, pre.kes_evolution)
         cols = batch_columns(pad_batch_to(batch, bucket_size(b)), device)
-        out = pk_kernels.verify_staged(
+        (masks, eta_u8), flags, eta, lv = pk_kernels.verify_staged(
             cols, isinstance(batch.vrf, stage_np.EcvrfBcBatch), params.kes_depth, b)
-    else:
-        packed = pad_packed_to(packed, bucket_size(b))
-        out = pk_kernels.verify_praos_packed_split(layout, packed, b, device)
-    (masks, eta_u8), flags, eta, lv = out
-    return PackedVerdicts(masks.cpu().numpy(), eta_u8.cpu().numpy(), b,
-                          (flags, eta, lv))
+        return PackedVerdicts(masks.cpu().numpy(), b, (flags, eta, lv),
+                              eta_u8=eta_u8.cpu().numpy())
+    packed = pad_packed_to(packed, bucket_size(b))
+    if carry is None:
+        carry = nonces.pack_carry(None, None)
+    (masks, carry_out), flags, eta, lv = pk_kernels.verify_praos_packed_split(
+        layout, packed, b, device, torch.as_tensor(carry, device=device))
+    return PackedVerdicts(masks.cpu().numpy(), b, (flags, eta, lv), carry=carry_out)
 
 
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
                    hvs: Sequence[HeaderView], backend: str,
-                   device: torch.device | None) -> BatchResult:
-    """One within-epoch window of one body width and proof format."""
+                   device: torch.device | None, carry=None) -> BatchResult:
+    """One within-epoch window of one body width and proof format.
+    `carry`: the device nonce carry of the previous packed window, None
+    to seed the fold from the ticked state (tick only rotates the epoch
+    nonce, so a carry stays valid across an epoch boundary)."""
     lview = ticked.ledger_view
     eta0 = ticked.state.epoch_nonce
     pre = host_prechecks(params, lview, hvs)
     if backend == "native":
         v = run_batch_native(params, lview, eta0, hvs, pre)
     elif backend == "device":
-        v = dispatch_window(params, lview, eta0, hvs, pre, device)
+        seed = state_carry(ticked.state) if carry is None else carry
+        v = dispatch_window(params, lview, eta0, hvs, pre, device, seed)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    return epilogue(params, ticked, hvs, pre, v)
+    res = epilogue(params, ticked, hvs, pre, v)
+    if isinstance(v, PackedVerdicts) and v.carried and res.error is None:
+        res.carry = v.carry
+    return res
 
 
 def _shape_key(hv: HeaderView):
@@ -702,11 +769,15 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
                    backend: str = "device", device=None) -> BatchResult:
     """Validate a run of headers: windows cut at epoch boundaries, at
     `max_batch`, and where the body width or proof format changes; the
-    state threads through `tick` between windows. Equivalent to folding
-    the reference's `update` over `hvs` (same final state, same first
-    error). backend="device" runs on `device` (None -> CUDA, raising
-    when it is absent); backend="native" runs the C++ verifier."""
+    state threads through `tick` between windows, and the device nonce
+    carry from each packed window to the next (a generically staged
+    window breaks it; the next packed window seeds it from the state).
+    Equivalent to folding the reference's `update` over `hvs` (same
+    final state, same first error). backend="device" runs on `device`
+    (None -> CUDA, raising when it is absent); backend="native" runs the
+    C++ verifier."""
     dev = resolve(device) if backend == "device" else None
+    carry = None
     total = 0
     n = len(hvs)
     i = 0
@@ -719,8 +790,8 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
             j += 1
         lview = ledger_view_for_epoch(epoch)
         ticked = praos.tick(params, lview, hvs[i].slot, state)
-        res = validate_batch(params, ticked, hvs[i:j], backend, dev)
-        state = res.state
+        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry)
+        state, carry = res.state, res.carry
         total += res.n_valid
         if res.error is not None:
             return BatchResult(state, total, res.error)

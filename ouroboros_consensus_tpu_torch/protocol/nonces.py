@@ -10,6 +10,8 @@ A `Nonce` is `bytes` (32) or `None` for the neutral nonce:
 
 from __future__ import annotations
 
+import numpy as np
+
 from ..utils.hashes import blake2b_256
 
 Nonce = bytes | None
@@ -22,6 +24,27 @@ def combine(a: Nonce, b: Nonce) -> Nonce:
     if b is None:
         return a
     return blake2b_256(a + b)
+
+
+# the nonce fold's carry as bytes: evolving ‖ set ‖ candidate ‖ set, a
+# nonce's 32 bytes zero and its set byte 0 when it is neutral
+CARRY_BYTES = 66
+
+
+def pack_carry(evolving: Nonce, candidate: Nonce) -> np.ndarray:
+    """(evolving, candidate) -> the [66] uint8 carry."""
+    out = np.zeros(CARRY_BYTES, np.uint8)
+    for o, n in ((0, evolving), (33, candidate)):
+        if n is not None:
+            out[o: o + 32] = np.frombuffer(n, np.uint8)
+            out[o + 32] = 1
+    return out
+
+
+def unpack_carry(c: np.ndarray) -> tuple[Nonce, Nonce]:
+    """The [66] uint8 carry -> (evolving, candidate)."""
+    c = np.asarray(c, np.uint8)
+    return tuple(c[o: o + 32].tobytes() if c[o + 32] else None for o in (0, 33))
 
 
 def prev_hash_to_nonce(prev_hash: bytes | None) -> Nonce:

@@ -11,6 +11,9 @@ the VRF check is the one that fails.
 body becomes a stand-in that embeds none of the header's fields (as the
 JAX package's fixture views carry), so the packed staging declines the
 window and the generic staging takes it.
+
+`corrupt_packed` corrupts a staged packed window (the `unpack` kernel's
+input) lane by lane, one WIRE_KINDS kind on 4 lanes each.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from __future__ import annotations
 import dataclasses
 import os
 import zlib
+
+import numpy as np
 
 from ..block.praos_block import Block, Header
 from ..storage.immutable import ImmutableDB, chunk_name, index_name
@@ -78,3 +83,54 @@ def standin_views(hvs: list, params, pool, body: bytes = b"") -> list:
             hv, signed_bytes=body,
             kes_sig=kes_sign(pool.kes_seed, pool.kes_depth, t, body)))
     return out
+
+
+WIRE_KINDS = ("issuer", "sigma", "vk_hot", "vrf_vk", "proof", "beta", "kes_rs",
+              "counter_max", "slot_max", "c0_ahead", "tail_row", "thr_row")
+
+
+def corrupt_packed(layout, packed, rng: np.random.Generator):
+    """Every wire corrupt kind on 4 seeded lanes each of a numpy packed
+    window: a flipped bit in each body field the stages read and in the
+    KES signature's R ‖ s, the int32 extremes of counter and slot, a c0
+    past the slot's KES period (a negative period), and lanes pointed at
+    a new KES-tail and a new threshold row. -> the corrupted window."""
+    p = packed._replace(**{k: getattr(packed, k).copy() for k in (
+        "body", "kes_rs", "slot", "counter", "c0", "kes_tail_idx", "thr_idx")})
+    b = p.body.shape[0]
+    lanes = rng.choice(b, size=(len(WIRE_KINDS), 4), replace=False)
+    field = {"issuer": (layout.o_issuer, 32), "sigma": (layout.o_sigma, 64),
+             "vk_hot": (layout.o_vk_hot, 32), "vrf_vk": (layout.o_vrf_vk, 32),
+             "proof": (layout.o_vrf_proof, layout.vrf_proof_len),
+             "beta": (layout.o_vrf_out, 64)}
+    tail = p.kes_tail_tab[:1].copy()
+    tail[0, int(rng.integers(tail.shape[1]))] ^= 0x10
+    thr = p.thr_tab[:1].copy()
+    thr[0, int(rng.integers(64))] ^= 0x01
+    p = p._replace(kes_tail_tab=np.concatenate([p.kes_tail_tab, tail]),
+                   thr_tab=np.concatenate([p.thr_tab, thr]))
+    for kind, ls in zip(WIRE_KINDS, lanes.tolist()):
+        for i in ls:
+            if kind in field:
+                o, n = field[kind]
+                p.body[i, o + int(rng.integers(n))] ^= 1 << int(rng.integers(8))
+            elif kind == "kes_rs":
+                p.kes_rs[i, int(rng.integers(64))] ^= 1 << int(rng.integers(8))
+            elif kind == "counter_max":
+                p.counter[i] = 2**31 - 1
+            elif kind == "slot_max":
+                p.slot[i] = 2**31 - 1
+            elif kind == "c0_ahead":
+                p.c0[i] = p.slot[i] // layout.slots_per_kes + 5
+            elif kind == "tail_row":
+                p.kes_tail_idx[i] = p.kes_tail_tab.shape[0] - 1
+            elif kind == "thr_row":
+                p.thr_idx[i] = p.thr_tab.shape[0] - 1
+    return p
+
+
+def first_lanes(packed, n: int):
+    """A packed window's first n lanes (the tables and nonce shared)."""
+    per_lane = ("body", "kes_rs", "kes_tail_idx", "slot", "counter", "c0",
+                "thr_idx", "within")
+    return packed._replace(**{k: getattr(packed, k)[:n] for k in per_lane})

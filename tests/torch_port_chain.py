@@ -9,6 +9,7 @@ from fractions import Fraction
 
 import pytest
 
+from ouroboros_consensus_tpu.protocol import views as rviews
 from ouroboros_consensus_tpu.protocol.praos import PraosParams
 from ouroboros_consensus_tpu.tools import db_analyser as jda
 from ouroboros_consensus_tpu.tools import db_synthesizer as jds
@@ -62,6 +63,16 @@ def port(path: str, lview, backend: str = "device"):
     return pda.revalidate(path, carry.params_from_reference(PARAMS),
                           carry.lview_from_reference(lview), backend=backend,
                           max_batch=16, device="cpu" if backend == "device" else None)
+
+
+def ref_view(hv) -> rviews.HeaderView:
+    """A port HeaderView as the JAX package's."""
+    oc = hv.ocert
+    return rviews.HeaderView(
+        prev_hash=hv.prev_hash, vk_cold=hv.vk_cold, vrf_vk=hv.vrf_vk,
+        vrf_output=hv.vrf_output, vrf_proof=hv.vrf_proof,
+        ocert=rviews.OCert(oc.vk_hot, oc.counter, oc.kes_period, oc.sigma),
+        slot=hv.slot, signed_bytes=hv.signed_bytes, kes_sig=hv.kes_sig)
 
 
 def assert_same(ref, got) -> None:
