@@ -26,13 +26,18 @@ Phases (any failure raises and the script exits non-zero):
    neutral and a set epoch nonce, every wire corruption (a flipped bit in
    each body field, the KES R ‖ s, int32-extreme counter and slot, a c0
    past the slot's KES period, new KES-tail and threshold rows) and
-   bucket-padding lanes; `nonce_fold` from neutral and set carry-ins over
-   all lanes and all but the last three. Both are timed around their
-   wrappers and, alone, in a CUDA graph of 20 launches (the kernel's own
-   device time, which the kernels line reports as `ms`).
+   bucket-padding lanes; `nonce_fold` over seeded declared VRF outputs β
+   from neutral and set carry-ins over all lanes and all but the last
+   three. Both are timed around their wrappers and, alone, in a CUDA
+   graph of 20 launches (the kernel's own device time, which the kernels
+   line reports as `ms`). Then one Blake2b compression on one warp
+   (`b2b_bench`: cycles a compression on one thread, through pk.cuh's
+   looped hash and on four lanes, the four-lane chain's G steps and
+   exchanges alone, and each loop's SASS instructions).
 3. The main paths, each with the launch counts zeroed just before its
    device replay and read just after: every packed window launches
-   `unpack`, the five stage kernels and `nonce_fold`, the carry chained
+   `unpack`, the five stage kernels and `nonce_fold`, the fold on a
+   stream of its own (checked) beside the stages, the carry chained
    from window to window on the card. Chains are forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
    43200-slot epochs), replayed through
@@ -637,32 +642,46 @@ def hold_unpack(tag: str, layout, packed, n: int, dev, reps: int):
     return rec, cols
 
 
-def hold_fold(tag: str, eta, within, n_real: int, cin, dev, reps: int) -> dict:
-    """`nonce_fold` over the first n_real lanes of eta from the carry-in
-    `cin`, held to its plain version (hold)."""
+def hold_fold(tag: str, beta, within, n_real: int, cin, dev, reps: int) -> dict:
+    """`nonce_fold` over the first n_real lanes of its input column (the
+    β rows of this tree's fold, or an eta column for an older tree's)
+    from the carry-in `cin`, held to its plain version (hold)."""
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
 
-    return hold(f"nonce_fold ({tag}, {n_real} of {eta.shape[-1]} lanes)",
-                lambda: K.nonce_fold(eta, within, n_real, cin),
-                lambda: K.nonce_fold_plain(eta, within, n_real, cin),
-                (eta[:, :n_real], within[:n_real], cin), eta.shape[-1], dev, reps)
+    return hold(f"nonce_fold ({tag}, {n_real} of {beta.shape[-1]} lanes)",
+                lambda: K.nonce_fold(beta, within, n_real, cin),
+                lambda: K.nonce_fold_plain(beta, within, n_real, cin),
+                (beta[:, :n_real], within[:n_real], cin), beta.shape[-1], dev, reps)
 
 
-def seeded_fold_inputs(rng: np.random.Generator, n: int, dev):
-    """A seeded eta column [32, n] int32 and stability flags [n] uint8."""
+def fold_rows() -> int:
+    """The rows of the fold's input column in the tree on sys.path: 64
+    for a fold fed the declared VRF outputs β, 32 for one fed finish's
+    eta (the wrapper's first parameter names it)."""
+    import inspect
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    return 64 if next(iter(inspect.signature(K.nonce_fold).parameters)) == "beta" else 32
+
+
+def seeded_fold_inputs(rng: np.random.Generator, n: int, dev, rows: int = 64):
+    """A seeded byte column [rows, n] int32 (β rows, or eta rows) and
+    stability flags [n] uint8."""
     import torch
 
-    eta = torch.from_numpy(rng.integers(0, 256, (32, n)).astype(np.int32)).to(dev)
+    col = torch.from_numpy(rng.integers(0, 256, (rows, n)).astype(np.int32)).to(dev)
     within = torch.from_numpy((rng.random(n) < 0.7).astype(np.uint8)).to(dev)
-    return eta, within
+    return col, within
 
 
 def wire_records(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 13,
                  reps: int = 5, workdir: str | None = None) -> dict:
     """The two wire kernels timed at each width of `lanes_list`: `unpack`
     on the first lanes of a corrupted bc window (wire_window) under a set
-    epoch nonce, `nonce_fold` over all lanes of a seeded eta column from a
-    set carry-in. Each is held to its plain version (hold: CUDA events
+    epoch nonce, `nonce_fold` over all lanes of a seeded input column
+    (fold_rows: β for this tree, eta for an older one) from a set
+    carry-in. Each is held to its plain version (hold: CUDA events
     around `reps` wrapper calls, `ms`), then on the card its launch alone
     is timed in a CUDA graph of 20 launches (graph_ms, `kernel_ms`: no
     host work of the wrapper). Empty for a package without them, so that
@@ -682,14 +701,14 @@ def wire_records(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int 
     recs: dict = {"unpack": {}, "nonce_fold": {}}
     for n in lanes_list:
         unpack, cols = hold_unpack("bc, set nonce", layout, packed, n, dev, reps)
-        eta, within = seeded_fold_inputs(rng, n, dev)
-        fold = hold_fold("set carry-in", eta, within, n, cin, dev, reps)
+        col, within = seeded_fold_inputs(rng, n, dev, fold_rows())
+        fold = hold_fold("set carry-in", col, within, n, cin, dev, reps)
         if dev.type == "cuda":
             lib_u, lib_f = build.kernel_lib("unpack"), build.kernel_lib("nonce_fold")
             unpack["kernel_ms"] = graph_ms(
                 lambda st: K._unpack_launch(lib_u, st, layout, cols), 20)
             fold["kernel_ms"] = graph_ms(
-                lambda st: K._nonce_fold_launch(lib_f, st, eta, within, n, cin), 20)
+                lambda st: K._nonce_fold_launch(lib_f, st, col, within, n, cin), 20)
             log(f"wire kernels alone at {n} lanes (CUDA graph): unpack "
                 f"{unpack['kernel_ms']:.4f} ms, nonce_fold {fold['kernel_ms']:.4f} ms")
         recs["unpack"][n], recs["nonce_fold"][n] = unpack, fold
@@ -702,13 +721,100 @@ def wire_times(dev, lanes_list=(8, 128, 8192), workdir: str | None = None) -> di
     return {k: {n: r["kernel_ms"] for n, r in by.items()} for k, by in recs.items()}
 
 
+def sass_loops(path: str, fn: str) -> dict:
+    """The instructions of the longest backward-branch loop of each kernel
+    whose name holds `fn`, as cuobjdump -sass shows them in the built
+    library `path` (branch targets are addresses) -> {kernel name:
+    {"instructions": n, "opcodes": {op: count}}}; empty when cuobjdump is
+    missing."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    text = subprocess.run([tool, "-sass", path], capture_output=True, text=True).stdout
+    return sass_loops_of(text, fn)
+
+
+def sass_loops_of(text: str, fn: str) -> dict:
+    """sass_loops over cuobjdump's text."""
+    out = {}
+    for part in re.split(r"\n\s*Function : ", text)[1:]:
+        name = part.split("\n", 1)[0].strip()
+        if fn not in name:
+            continue
+        instrs = [(int(a, 16), ins) for a, ins in
+                  re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", part)]
+        best = []
+        for k, (addr, ins) in enumerate(instrs):
+            tgt = re.search(r"BRA\s+(0x[0-9a-f]+)", ins)
+            if tgt and int(tgt.group(1), 16) <= addr:
+                body = [i for a, i in instrs[: k + 1] if a >= int(tgt.group(1), 16)]
+                best = max(best, body, key=len)
+        if best:
+            ops: dict = {}
+            for ins in best:
+                op = (ins.split()[1] if ins.startswith("@") else ins.split()[0]).split(".")[0]
+                ops[op] = ops.get(op, 0) + 1
+            out[name] = {"instructions": len(best),
+                         "opcodes": dict(sorted(ops.items(), key=lambda kv: -kv[1]))}
+    return out
+
+
+def b2b_bench(dev, reps: int = 2048) -> dict:
+    """One compression on one warp (nonce_fold.cu's instrument
+    b2b_bench_kernel), each mode a chain of `reps` dependent steps timed
+    in SM cycles a step (clock64) and in ms a step (a CUDA graph of 3
+    launches), beside the launch alone (reps = 0). Modes: ev <-
+    Blake2b-256(ev ‖ e) on one thread with the unrolled b2b_256_1
+    (the etas' and the alpha's), on one thread with pk.cuh's looped
+    blake2b_256 (the stage kernels' hash), on four lanes (b2b_compress4, the fold's
+    chain), each held to hashlib; then the four-lane compression's 24
+    dependent G steps alone on one lane, and its 24 exchanges alone (a
+    chain of 64-bit shuffles). The SASS instructions of each mode's loop
+    are counted (cuobjdump). -> {mode name: record, "launch_ms": ms,
+    "sass": sass_loops}"""
+    import hashlib
+
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+
+    lib = build.kernel_lib("nonce_fold", "pk_b2b_bench")
+    words = np.random.default_rng(29).integers(0, 2**63, 8, dtype=np.uint64)
+    inp = torch.from_numpy(words.view(np.int64).copy()).to(dev)
+    out = torch.empty(4, dtype=torch.int64, device=dev)
+    cyc = torch.empty(1, dtype=torch.int64, device=dev)
+    ev, e = words[:4].tobytes(), words[4:].tobytes()
+    for _ in range(reps):
+        ev = hashlib.blake2b(ev + e, digest_size=32).digest()
+
+    def launch(st, mode, n=reps):
+        rc = lib(n, mode, inp.data_ptr(), out.data_ptr(), cyc.data_ptr(), st)
+        if rc != 0:
+            raise RuntimeError(f"b2b_bench launch failed: cudaError {rc}")
+
+    rec: dict = {}
+    for mode, name in enumerate(("b2b_256_1", "looped_blake2b_256", "four_lane",
+                                 "four_lane_g_chain", "four_lane_exchanges")):
+        launch(torch.cuda.current_stream().cuda_stream, mode)
+        torch.cuda.synchronize()
+        if mode < 3 and out.cpu().numpy().view(np.uint64).tobytes() != ev:
+            raise AssertionError(f"b2b_bench {name}: chain disagrees with hashlib")
+        rec[name] = {"cycles": int(cyc.item()) / reps,
+                     "ms": graph_ms(lambda st, m=mode: launch(st, m), 3) / reps}
+    rec["launch_ms"] = graph_ms(lambda st: launch(st, 0, 0), 20)
+    rec["sass"] = sass_loops(build.build_cuda()["nonce_fold"], "b2b_bench_kernel")
+    log(f"b2b_bench (one warp, {reps} dependent steps): " + json.dumps(rec))
+    return rec
+
+
 def phase_wire(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 13,
                reps: int = 5, workdir: str | None = None) -> dict:
     """The two wire kernels against their plain versions on the card, at
     each width of `lanes_list`: `unpack` on corrupted bc and draft-03
     windows (wire_window) under the neutral and a set epoch nonce;
-    `nonce_fold` on seeded eta columns and stability flags from neutral
-    and set carry-ins, over every lane and over all but the last three.
+    `nonce_fold` on seeded β columns and stability flags from neutral
+    and set carry-ins, over every lane and over all but the last three;
+    then one compression on one thread (b2b_bench).
     The bc, set-nonce window and the set carry-in over every lane are
     wire_records' timed ones; the rest are held once. -> {unpack: rec,
     nonce_fold: rec} at the widest, with `ms` the kernel's own time
@@ -729,13 +835,15 @@ def phase_wire(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 
     seeds = {"neutral": nonces.pack_carry(None, None),
              "set": nonces.pack_carry(rng.bytes(32), rng.bytes(32))}
     for n in lanes_list:
-        eta, within = seeded_fold_inputs(rng, n, dev)
+        beta, within = seeded_fold_inputs(rng, n, dev)
         for mode, c in seeds.items():
             cin = torch.from_numpy(c).to(dev)
             for n_real in (n, max(n - 3, 1)):
                 if mode == "neutral" or n_real < n:
-                    hold_fold(f"{mode} carry-in", eta, within, n_real, cin, dev, 1)
+                    hold_fold(f"{mode} carry-in", beta, within, n_real, cin, dev, 1)
     out = {key: {**recs[key][top]} for key in ("unpack", "nonce_fold")}
+    if dev.type == "cuda":
+        out["nonce_fold"]["b2b_bench"] = b2b_bench(dev)
     for key, rec in out.items():
         if dev.type == "cuda":
             rec["wrapper_ms"], rec["ms"] = rec["ms"], rec["kernel_ms"]
@@ -788,6 +896,7 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
     from ouroboros_consensus_tpu_torch.tools import db_analyser
 
     events: dict = {}
+    streams: dict = {}
     lanes: list = []
     windows: list = []
     saved = [(K, name, getattr(K, name)) for name in STAGE_WRAPPERS]
@@ -800,6 +909,7 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
         res = _fn(*args, **kw)
         b.record()
         events.setdefault(_name, []).append((a, b))
+        streams.setdefault(_name, set()).add(torch.cuda.current_stream().cuda_stream)
         if _name == "ed_points":
             lanes.append(res[0].shape[-1])
         return res
@@ -831,6 +941,13 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
         "lanes_per_launch": lanes,
         "windows": windows,
     }
+    if dev.type == "cuda" and launches["nonce_fold"]:
+        # the fold on a stream of its own, the stage kernels on another
+        staged = set().union(*(streams.get(k, set()) for k in STAGE_WRAPPERS[:6]))
+        if streams["nonce_fold"] & staged or len(streams["nonce_fold"]) != 1:
+            raise AssertionError(f"{tag}: nonce_fold streams {streams['nonce_fold']} "
+                                 f"against the stages' {staged}")
+        out["fold_stream_apart"] = True
     log(f"{tag}: launches {json.dumps(launches)}")
     log(f"{tag}: device time per stage (ms): {json.dumps(out['stage_device_ms'])}")
     log(f"{tag}: windows (headers, proof bytes): {windows}")
@@ -876,13 +993,17 @@ LAYERS = (  # (module, function, layer) timed by layer_breakdown
 
 
 def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
-    """Host wall per layer of one more device replay, each layer's device
-    work synchronised so that its wall is its own (which is why this is
-    not the timed replay): the host stages, and the packed device step
+    """Host wall per layer of one more device replay, each layer's work
+    on the current stream synchronised (that stream alone, so that the
+    fold's side stream keeps running beside the stages; which is why this
+    is not the timed replay): the host stages, and the packed device step
     (`dispatch_window`) split into the H2D of the packed columns, the
     unpack kernel, the five stage kernels, the reduce (mask words and
-    the nonce fold) and the D2H of the words and the carry (the step's
-    rest, with `stage_packed` and `pad_packed_to` taken out)."""
+    the wait for the fold) and the D2H of the words and the carry (the
+    step's rest, with `stage_packed` and `pad_packed_to` taken out). The
+    fold itself is read by an event pair on its side stream around each
+    launch (`fold_side`): it overlaps the stages, so it is not one of the
+    step's parts, which still sum to the step's wall."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -892,24 +1013,44 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     spent: dict = {}
     saved = []
     mods = {"batch": pbatch, "K": K}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.current_stream().synchronize()
+
     for mod, name, layer in ((mods[m], n, y) for m, n, y in LAYERS):
         fn = getattr(mod, name)
 
         def wrapper(*args, _fn=fn, _name=layer, **kw):
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
+            sync()
             t0 = time.perf_counter()
             res = _fn(*args, **kw)
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
+            sync()
             spent[_name] = spent.get(_name, 0.0) + time.perf_counter() - t0
             return res
 
         saved.append((mod, name, fn))
         setattr(mod, name, wrapper)
+    folds = []
+    if dev.type == "cuda":
+        fold = K.nonce_fold
+
+        def fold_events(*args, _fn=fold, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            res = _fn(*args, **kw)
+            b.record()
+            folds.append((a, b))
+            return res
+
+        saved.append((K, "nonce_fold", fold))
+        K.nonce_fold = fold_events
     try:
         res = db_analyser.revalidate(db, params, lview, backend="device",
                                      max_batch=max_batch, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -919,6 +1060,8 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     spent["other"] = res.validate_s - step - sum(spent.get(k, 0.0) for k in (
         "host_prechecks", "epilogue"))
     spent["validate_s"] = res.validate_s
+    spent["device_step"] = step
+    spent["fold_side"] = sum(a.elapsed_time(b) for a, b in folds) / 1e3
     return spent
 
 
@@ -956,8 +1099,9 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
                 f"{out['windows'][cut - 1]} | {out['windows'][cut]}")
         else:
             out["layers_s"] = layer_breakdown(db, params, lview, max_batch, dev)
-            log(f"{tag}: host wall per layer, one more device replay (s): "
-                f"{json.dumps(out['layers_s'])}")
+            log(f"{tag}: host wall per layer, one more device replay (s; fold_side, "
+                f"the fold's own time on its stream, overlaps the stages and is not "
+                f"one of device_step's parts): {json.dumps(out['layers_s'])}")
         if tag == "bc":
             corrupted_replay(tag, db, n, "kes_sig", "InvalidKesSignatureOCERT",
                              params, lview, max_batch, dev)

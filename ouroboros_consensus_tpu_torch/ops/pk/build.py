@@ -40,7 +40,7 @@ ENTRIES = {
     "vrf_ladders": ("pk_vrf_ladders",),
     "finish": ("pk_finish",),
     "unpack": ("pk_unpack",),
-    "nonce_fold": ("pk_nonce_fold",),
+    "nonce_fold": ("pk_nonce_fold", "pk_b2b_bench"),
     "primitives": ("pk_prim_sha", "pk_prim_shav", "pk_prim_b2b", "pk_prim_base",
                    "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
     "fe_bench": ("pk_fe_bench",),
@@ -62,6 +62,7 @@ ARGTYPES = {
     "pk_finish": [_I] + [_P] * 16,
     "pk_unpack": [_I, ctypes.POINTER(_I)] + [_P] * 12,
     "pk_nonce_fold": [_I, _I] + [_P] * 5,
+    "pk_b2b_bench": [_I, _I] + [_P] * 4,
     "pk_prim_sha": [_I] + [_P] * 3,
     "pk_prim_shav": [_I, _P, _I, _P, _P, _P],
     "pk_prim_b2b": [_I] + [_P] * 3,
@@ -70,8 +71,10 @@ ARGTYPES = {
     "pk_prim_dec": [_I] + [_P] * 4,
     "pk_prim_red": [_I] + [_P] * 4,
     "pk_fe_bench": [_I, _I, _I, _P, _P, _P],
-    # host build only: fe_sq over [10, B] limb columns
+    # host build only: fe_sq over [10, B] limb columns, the one-thread
+    # Blake2b-256 over [B, 128] messages
     "pk_fe_sq": [_I] + [_P] * 3,
+    "pk_b2b_one": [_I] + [_P] * 3,
 }
 
 _LIBS: dict = {}
@@ -210,8 +213,8 @@ def kernel_lib(name: str, entry: str | None = None):
 
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
-    (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders 256,
-    nonce_fold 1),
+    (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
+    unpack 256),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")

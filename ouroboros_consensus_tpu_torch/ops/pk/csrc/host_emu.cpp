@@ -147,7 +147,9 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
   return 0;
 }
 
-// the wire kernels: every (row, lane) of unpack, the fold's one chain
+// the wire kernels: unpack block by block (the tile's staging, then its
+// rows, each over every thread of the block in turn); the fold chunk by
+// chunk (the producers fill the chunk's ring slot, then the chain folds it)
 extern "C" int pk_unpack(int B, const int *lay, const void *body,
                          const void *kes_rs, const void *tail_idx,
                          const void *tail_tab, const void *slot,
@@ -159,18 +161,79 @@ extern "C" int pk_unpack(int B, const int *lay, const void *body,
   WireIn in{(const u8 *)body, (const u8 *)kes_rs, (CI)tail_idx,
             (const u8 *)tail_tab, (CI)slot, (CI)counter, (CI)c0, (CI)thr_idx,
             (const u8 *)thr_tab, (const u8 *)nonce};
-  int start[W_NSEG + 1];
-  wire_rows(L, start);
-  for (int r = 0; r < start[W_NSEG]; r++)
-    for (int i = 0; i < B; i++) unpack_row_lane(L, in, start, r, i, B, (OI)out);
+  const UnpackGrid g = unpack_grid(L, in, B);
+  u8 *sm = new u8[g.smem];
+  const WireTile t = wire_tile(sm, L, g.tl, g.lt);
+  for (int l0 = 0; l0 < B; l0 += g.tl)
+    for (int y = 0; y < g.groups; y++) {
+      int rb, re, n = B - l0 < g.tl ? B - l0 : g.tl;
+      unpack_group_rows(g, y, rb, re);
+      unpack_stage(L, in, t, l0, n, g.vec, 0, 1);
+      if (unpack_has_alpha(L, rb, re)) unpack_alphas(L, in, t, l0, n, 0, 1);
+      unpack_rows(L, t, rb, re, l0, n, B, (OI)out, g.v4, 0, 1);
+    }
+  delete[] sm;
   return 0;
 }
 
-extern "C" int pk_nonce_fold(int B, int n_real, const void *eta,
+extern "C" int pk_nonce_fold(int B, int n_real, const void *beta,
                              const void *within, const void *cin, void *cout,
                              void *) {
-  nonce_fold_chain(B, n_real, (CI)eta, (const u8 *)within, (const u8 *)cin,
-                   (u8 *)cout, 0);
+  static FoldRing ring;
+  const B2bCols init = b2b_init4(0);
+  FoldState st = fold_load((const u8 *)cin, 0);
+  for (int c = 0; c * FOLD_CHUNK < n_real; c++) {
+    int s = c % FOLD_SLOTS;
+    for (int l = 0; l < FOLD_CHUNK && c * FOLD_CHUNK + l < n_real; l++)
+      fold_produce((CI)beta, (const u8 *)within, B, c * FOLD_CHUNK + l, ring, s, l);
+    for (int l = 0; l < FOLD_CHUNK && c * FOLD_CHUNK + l < n_real; l++)
+      fold_step(st, init, ring, s, l, 0);
+  }
+  fold_store(st, (u8 *)cout);
+  return 0;
+}
+
+// the compression instrument's chains (nonce_fold.cu, b2b_bench_kernel):
+// mode 0 b2b_256_1, mode 1 pk.cuh's blake2b_256, mode 2 b2b_compress4
+// (its four columns in one thread); no cycles on the host
+extern "C" int pk_b2b_bench(int reps, int mode, const void *in, void *out,
+                            void *cycles, void *) {
+  const u64 *w = (const u64 *)in;
+  u64 ev[4] = {w[0], w[1], w[2], w[3]}, e[4] = {w[4], w[5], w[6], w[7]};
+  const B2bCols init = b2b_init4(0);
+  for (int r = 0; r < reps; r++) {
+    if (mode == 0) {
+      b2b_combine(ev, e);
+    } else if (mode == 1) {
+      u8 msg[64], dg[32];
+      for (int j = 0; j < 4; j++) {
+        word_bytes(msg, j, ev[j]);
+        word_bytes(msg + 32, j, e[j]);
+      }
+      blake2b_256(msg, 64, dg);
+      for (int j = 0; j < 4; j++) ev[j] = bytes_word(dg, j);
+    } else if (mode == 2) {
+      u64 m[16] = {ev[0], ev[1], ev[2], ev[3], e[0], e[1], e[2], e[3]};
+      b2b_compress4(init, m, 0, ev);
+    } else {
+      return -1;
+    }
+  }
+  for (int j = 0; j < 4; j++) ((u64 *)out)[j] = ev[j];
+  ((long long *)cycles)[0] = 0;
+  return 0;
+}
+
+// host only: b2b_256_1 over B messages of up to 128 bytes: msg [B, 128]
+// uint8 (zero past each length), len [B] int32 -> digests [B, 32] uint8
+extern "C" int pk_b2b_one(int B, const void *msg, const void *len, void *out) {
+  for (int i = 0; i < B; i++) {
+    const u8 *b = (const u8 *)msg + (size_t)i * 128;
+    u64 m[16], h[4];
+    for (int j = 0; j < 16; j++) m[j] = bytes_word(b, j);
+    b2b_256_1(m, (u64)((CI)len)[i], h);
+    for (int j = 0; j < 4; j++) word_bytes((u8 *)out + (size_t)i * 32, j, h[j]);
+  }
   return 0;
 }
 

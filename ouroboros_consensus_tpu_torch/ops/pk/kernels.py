@@ -1,7 +1,8 @@
 """The Praos kernels of a packed window: wrappers, launch counts, plain
 twins. `unpack` writes the stage kernels' limb-first columns from the
 packed wire, the six stage kernels verify, `nonce_fold` folds the
-window's nonces (at the end of this module).
+window's nonces from the VRF outputs on a side stream beside them (at the
+end of this module).
 
 Each stage of ops/pk/verify.py is one hand-written CUDA kernel
 (csrc/<name>.cu, grid sized to the lanes), bound with ctypes (build.py).
@@ -508,31 +509,33 @@ def verify_staged(cols, bc: bool, kes_depth: int, n_real: int):
     """The five stage kernels of one proof format over batch-first staged
     columns on the card (22 batch-compatible columns with `bc`, else 21
     draft-03 ones), then the verdict reduction with the nonce fold left to
-    the host (scan off).
+    the host (no fold).
     -> ((masks [5, W] int64, eta_u8 [n_real, 32] uint8), flags, eta, lv),
     the per-lane arrays left on the columns' device."""
     from ...protocol import batch as pbatch
 
     limb = (staged_to_limb_first_bc if bc else staged_to_limb_first)(*cols)
     flags, eta, lv = _tiles(limb, bc, kes_depth)
-    return pbatch.verdict_reduce(flags, eta, n_real, scan=False), flags, eta, lv
+    return pbatch.verdict_reduce(flags, eta, n_real), flags, eta, lv
 
 
 def verify_praos_packed_split(layout, packed, n_real: int, device, carry):
     """The packed per-lane dispatch on `device`: the packed columns up
-    (`upload_packed`), the `unpack` kernel, the five stage kernels of the
+    (`upload_packed`), the `unpack` kernel, then the `nonce_fold` kernel
+    from `carry` ([66] uint8 on `device`) over unpack's beta rows on a
+    side stream (nonce_fold_beside), beside the five stage kernels of the
     layout's proof format (vrf_prep for 80-byte draft-03 proofs,
-    vrf_bc_prep for 128-byte batch-compatible ones), then the verdict
-    reduction with the `nonce_fold` kernel from `carry` ([66] uint8 on
-    `device`). -> ((masks [5, W] int64, carry-out [66] uint8), flags,
-    eta, lv), all on `device`."""
+    vrf_bc_prep for 128-byte batch-compatible ones) and the verdict words
+    on the current stream, which then waits for the fold.
+    -> ((masks [5, W] int64, carry-out [66] uint8), flags, eta, lv), all on
+    `device`."""
     from ...protocol import batch as pbatch
 
     cols = pbatch.upload_packed(packed, device)
     limb = unpack_limb_first(layout, cols, device)
+    fold = nonce_fold_beside(limb[UNPACK_BETA], cols.within, n_real, carry)
     flags, eta, lv = _tiles(limb, layout.vrf_proof_len == 128, layout.kes_depth)
-    red = pbatch.verdict_reduce(flags, eta, n_real, cols.within, carry, scan=True)
-    return red, flags, eta, lv
+    return pbatch.verdict_reduce(flags, eta, n_real, fold), flags, eta, lv
 
 
 # ---------------------------------------------------------------------------
@@ -540,6 +543,7 @@ def verify_praos_packed_split(layout, packed, n_real: int, device, carry):
 # ---------------------------------------------------------------------------
 
 ED_MSG_BYTES = 112  # R ‖ issuer ‖ vk_hot ‖ counter_be8 ‖ c0_be8
+UNPACK_BETA = -3  # the beta rows' place among unpack's arrays
 
 
 def sha512_blocks_of(n: int) -> int:
@@ -622,10 +626,11 @@ def unpack_limb_first(layout, cols, device):
     the KES evolution. Plain version: batch.unpack_packed, then
     _limb_first.
     Bound: bytes (a lane reads its body and table rows and writes R int32
-    rows; a lane's one Blake2b compression is ~2,100 instructions, under
-    the byte time at any width). One thread a (lane, row), lanes
-    fastest, so the [R, B] writes coalesce; the byte reads of a row
-    stride by the body width and are left to L1 and L2."""
+    rows). A block stages a tile of 32 lanes' sources in shared memory
+    (bodies, KES signatures, table rows, transposed; the alphas hashed on
+    a warp of its own), then writes a group of the rows, 4 lanes a
+    16-byte store, so reads and writes both coalesce; a small window's
+    rows are cut into groups so that it still spreads over the SMs."""
     from ...protocol import batch as pbatch
 
     if not all(isinstance(c, torch.Tensor) for c in cols):
@@ -669,8 +674,8 @@ def unpack_limb_first(layout, cols, device):
 # round's eight G are four independent columns, then four independent
 # diagonals, so its chain is two G deep whatever the design: twelve
 # rounds, then the output word (two 64-bit xors). The function's cost,
-# not a kernel's: csrc/nonce_fold.cu issues 772 a lane, the 64-bit
-# shuffles that spread a compression over four lanes included.
+# not a kernel's: csrc/nonce_fold.cu's four-lane chain issues 753 SASS
+# instructions a compression, its shuffles included (chip_smoke.b2b_bench).
 B2B_CHAIN_INSTRUCTIONS = 12 * 2 * 22 + 2 * 2
 
 
@@ -678,65 +683,118 @@ def nonce_fold_bound_ms(n_real: int) -> float:
     """The least time of one fold: n_real dependent compressions (each
     hashes the nonce the one before produced), each a chain of
     B2B_CHAIN_INSTRUCTIONS issued at one a cycle at the card's maximum SM
-    clock."""
+    clock. The etas' own two compressions a lane are independent across
+    lanes and are not counted."""
     from ...device import max_sm_clock_hz
 
     return n_real * B2B_CHAIN_INSTRUCTIONS / max_sm_clock_hz() * 1e3
 
 
-def nonce_fold_plain(eta, within, n_real: int, carry):
-    """The fold with the host's nonces.combine over the real lanes, in
-    order: evolving <- evolving ⭒ eta_i, then candidate <- evolving where
-    within_i. Tensors of any device; -> the carry-out [66] uint8 on
-    carry's device."""
-    etas = eta[:, :n_real].T.to(torch.uint8).cpu().numpy()
+def nonce_fold_plain(beta, within, n_real: int, carry):
+    """The fold with the host's hashes over the real lanes, in order:
+    eta_i = nonces.vrf_nonce_value(beta_i), evolving <- evolving ⭒ eta_i,
+    then candidate <- evolving where within_i. Tensors of any device;
+    -> the carry-out [66] uint8 on carry's device."""
+    betas = beta[:, :n_real].T.to(torch.uint8).cpu().numpy()
     win = within[:n_real].cpu().numpy()
     evolving, candidate = pn.unpack_carry(carry.cpu().numpy())
     for i in range(n_real):
-        evolving = pn.combine(evolving, etas[i].tobytes())
+        evolving = pn.combine(evolving, pn.vrf_nonce_value(betas[i].tobytes()))
         if win[i]:
             candidate = evolving
     return torch.from_numpy(pn.pack_carry(evolving, candidate)).to(carry.device)
 
 
-def _nonce_fold_launch(fn, stream, eta, within, n_real, carry):
+def _nonce_fold_launch(fn, stream, beta, within, n_real, carry):
     out = torch.empty((pn.CARRY_BYTES,), dtype=torch.uint8, device=carry.device)
-    rc = fn(eta.shape[-1], n_real, _p(eta), _p(within), _p(carry), _p(out), stream)
+    rc = fn(beta.shape[-1], n_real, _p(beta), _p(within), _p(carry), _p(out), stream)
     _raise_on(rc, "nonce_fold")
     return out
 
 
-def nonce_fold(eta, within, n_real: int, carry):
-    """The window's nonce fold: eta [32, B] int32 (finish's), within [B]
-    uint8, the carry-in [66] uint8 (protocol/nonces.pack_carry) -> the
-    carry-out after the real lanes 0 .. n_real - 1 (bucket padding does
-    not fold): per lane evolving <- Blake2b-256(evolving ‖ eta_i), or
-    eta_i while it is neutral, and candidate <- evolving where within_i.
+def nonce_fold(beta, within, n_real: int, carry):
+    """The window's nonce fold: beta [64, B] int32 (the declared VRF
+    outputs' bytes, unpack's `beta` rows), within [B] uint8, the carry-in
+    [66] uint8 (protocol/nonces.pack_carry) -> the carry-out after the
+    real lanes 0 .. n_real - 1 (bucket padding does not fold): per lane
+    eta_i = Blake2b-256(Blake2b-256("N" ‖ beta_i)), evolving <-
+    Blake2b-256(evolving ‖ eta_i), or eta_i while it is neutral, and
+    candidate <- evolving where within_i. Launches on the current stream
+    (nonce_fold_beside puts it on a side stream).
 
     Replaces the plain-XLA `nonce_fold_scan` in `verdict_reduce` of
     ouroboros_consensus_tpu/ops/blake2b.py:271 and protocol/batch.py:1326
-    (the reduce stage `_mk_reduce`, ops/pk/kernels.py:602), in one launch
-    (csrc/nonce_fold.cu). Plain version: nonce_fold_plain.
+    (the reduce stage `_mk_reduce`, ops/pk/kernels.py:602), which folds
+    finish's eta; finish derives that eta from the same beta rows, so the
+    carry is the same byte for byte and the fold need not wait for the
+    stages. One launch (csrc/nonce_fold.cu). Plain version:
+    nonce_fold_plain.
     Bound: operations, and the chain of them: each compression needs the
-    one before, so one warp runs the window; four of its lanes run a
-    compression, a G column (then a diagonal) each, with shuffles between
-    (the bound: B2B_CHAIN_INSTRUCTIONS a compression, nonce_fold_bound_ms,
-    which the shuffles do not count). The rounds are
-    unrolled with compile-time message indices so the state stays in
-    registers, and the next lane's eta is loaded while the current one is
-    hashed."""
+    one before (B2B_CHAIN_INSTRUCTIONS a compression, nonce_fold_bound_ms).
+    One block: warp 0 runs the chain, a compression's four G columns on
+    four lanes with shuffles between; three warps on the SM's other
+    schedulers derive the etas, a thread a lane, into a ring of
+    shared-memory slots guarded by mbarriers."""
     dev = carry.device
-    b = eta.shape[-1]
-    _check("nonce_fold.eta", eta, (32, b), dev)
+    b = beta.shape[-1]
+    _check("nonce_fold.beta", beta, (64, b), dev)
     _check("nonce_fold.within", within, (b,), dev, torch.uint8)
     _check("nonce_fold.carry", carry, (pn.CARRY_BYTES,), dev, torch.uint8)
     if not 0 <= n_real <= b:
         raise ValueError(f"nonce_fold: n_real {n_real} outside [0, {b}]")
     if _route(dev) == "plain":
-        return nonce_fold_plain(eta, within, n_real, carry)
+        return nonce_fold_plain(beta, within, n_real, carry)
     from . import build
 
-    out = _nonce_fold_launch(build.kernel_lib("nonce_fold"), _stream(dev), eta,
+    out = _nonce_fold_launch(build.kernel_lib("nonce_fold"), _stream(dev), beta,
                              within, n_real, carry)
     LAUNCHES["nonce_fold"] += 1
+    return out
+
+
+_SIDE: dict = {}
+
+
+def _side_stream(device: torch.device):
+    """The fold's stream on `device`: one per device, of high priority so
+    that its one block is placed before a stage kernel's waiting blocks."""
+    key = str(device)
+    if key not in _SIDE:
+        _SIDE[key] = torch.cuda.Stream(device, priority=-1)
+    return _SIDE[key]
+
+
+def nonce_fold_beside(beta, within, n_real: int, carry):
+    """nonce_fold on a side stream, after the work enqueued so far on the
+    current stream (an event the side stream waits on), so that what the
+    current stream enqueues next (the stage kernels) runs beside it.
+    -> (carry-out, done): `done` is the event recorded after the fold on
+    the side stream (join_fold), or None on the CPU, where the fold ran at
+    once. The inputs are marked as used by the side stream, so the
+    caching allocator keeps their memory until the fold is done."""
+    if carry.device.type != "cuda":
+        return nonce_fold(beta, within, n_real, carry), None
+    main = torch.cuda.current_stream(carry.device)
+    side = _side_stream(carry.device)
+    ready = torch.cuda.Event()
+    ready.record(main)
+    side.wait_event(ready)
+    with torch.cuda.stream(side):
+        out = nonce_fold(beta, within, n_real, carry)
+        done = torch.cuda.Event()
+        done.record(side)
+    for t in (beta, within, carry):
+        t.record_stream(side)
+    return out, done
+
+
+def join_fold(fold):
+    """(carry-out, done) from nonce_fold_beside -> the carry-out, the
+    current stream ordered after the fold (it waits on `done`), so that
+    what reads the carry next on this stream sees it."""
+    out, done = fold
+    if done is not None:
+        main = torch.cuda.current_stream(out.device)
+        main.wait_event(done)
+        out.record_stream(main)
     return out

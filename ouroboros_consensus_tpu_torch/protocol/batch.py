@@ -8,11 +8,12 @@ the `unpack` kernel writes the stage kernels' limb-first columns from it
 (field slices, SHA-512 padding, the VRF alpha), five stage kernels
 return per-lane verdict bits (ed, kes, the VRF prep of the window's
 proof format — `vrf_prep` for 80-byte draft-03 proofs, `vrf_bc_prep`
-for 128-byte batch-compatible ones — the VRF ladders and finish), and
-`verdict_reduce` packs the verdict bits into u32 words and folds the
-window's nonces on the card (the `nonce_fold` kernel). The fold's carry
-goes from each packed window to the next on the card; the host reads
-the mask words and the 66 carry bytes. The sequential epilogue finds
+for 128-byte batch-compatible ones — the VRF ladders and finish), while
+the `nonce_fold` kernel folds the window's nonces from the declared VRF
+outputs on a side stream beside them; `verdict_reduce` packs the verdict
+bits into u32 words and joins the fold. The fold's carry goes from each
+packed window to the next on the card; the host reads the mask words
+and the 66 carry bytes. The sequential epilogue finds
 the first failing header and rebuilds the exact `PraosValidationError`
 the reference fold would raise, in its order (Praos.hs:441-606: KES
 checks before VRF checks).
@@ -356,16 +357,14 @@ def unpack_packed(layout: PackedLayout, packed: Packed, device) -> tuple:
 
 
 def verdict_reduce(flags: torch.Tensor, eta: torch.Tensor, n_real: int,
-                   within: torch.Tensor | None = None,
-                   carry: torch.Tensor | None = None, *, scan: bool):
+                   fold=None):
     """The device-side reduction of a window: pack the five verdict rows
-    [5, B] into u32 words (lane i -> word i // 32, bit i % 32), then
-    with `scan` fold the real lanes' eta [32, B] into the nonce carry on
-    the card (`nonce_fold`: within [B] uint8, carry [66] uint8 in) so
-    that the host reads one nonce pair, else cut the eta column to bytes
-    for the host fold.
+    [5, B] into u32 words (lane i -> word i // 32, bit i % 32), then with
+    `fold` (the window's nonce fold, launched before the stages by
+    kernels.nonce_fold_beside) join it, so that the host reads one nonce
+    pair, else cut the eta column to bytes for the host fold.
     -> (masks [5, W] int64 holding u32 values, carry-out [66] uint8) with
-    `scan`, else (masks, eta_u8 [n_real, 32] uint8)."""
+    `fold`, else (masks, eta_u8 [n_real, 32] uint8)."""
     b = flags.shape[-1]
     w = -(-b // 32)
     bits = (flags != 0).to(torch.int64)
@@ -374,8 +373,8 @@ def verdict_reduce(flags: torch.Tensor, eta: torch.Tensor, n_real: int,
                                             device=flags.device)], 1)
     shifts = torch.arange(32, dtype=torch.int64, device=flags.device)
     masks = (bits.reshape(5, w, 32) << shifts).sum(-1)
-    if scan:
-        return masks, pk_kernels.nonce_fold(eta, within, n_real, carry)
+    if fold is not None:
+        return masks, pk_kernels.join_fold(fold)
     return masks, eta[:, :n_real].T.to(torch.uint8)
 
 

@@ -1,15 +1,19 @@
 """The window nonce fold and its carry across windows.
 
-`nonce_fold` (ouroboros_consensus_tpu_torch ops/pk/kernels.py): its
-lane body (csrc/wire.cuh, compiled as host C++), its plain version, the
-JAX package's `nonce_fold_scan` and a loop of the port's
-`nonces.combine` agree byte for byte from neutral and set carry-ins,
-with `within` set, clear and mixed and bucket-padding lanes that must
-not fold. Then the device path on the CPU: a replay that crosses epoch
-boundaries with a generically staged (stand-in body) window in the
-middle ends in the reference host fold's PraosState, the carry going on
-the card from packed window to packed window and seeded again from the
-host state after the generic one."""
+`nonce_fold` (ouroboros_consensus_tpu_torch ops/pk/kernels.py) folds the
+lanes' eta, which it derives from the declared VRF outputs β: its kernel
+body (csrc/wire.cuh: the producers fill a ring slot, then the chain
+folds it, chunk by chunk, compiled as host C++), its plain version, the
+JAX package's `nonce_fold_scan` over `nonces.vrf_nonce_value(β)` and a
+loop of the port's `nonces.combine` agree byte for byte from neutral and
+set carry-ins, with `within` set, clear and mixed, bucket-padding lanes
+that must not fold, across a ring slot's boundary and around the ring;
+on a forged window it equals the fold over finish's eta column. Then the
+device path on the CPU: a replay that crosses epoch boundaries with a
+generically staged (stand-in body) window in the middle ends in the
+reference host fold's PraosState, the carry going on the card from
+packed window to packed window and seeded again from the host state
+after the generic one."""
 
 import dataclasses
 
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from ouroboros_consensus_tpu.ops import blake2b as rb2b
+from ouroboros_consensus_tpu.protocol import nonces as rnonces
 from ouroboros_consensus_tpu.protocol import praos as rpraos
 from ouroboros_consensus_tpu_torch import carry
 from ouroboros_consensus_tpu_torch.ops.pk import build
@@ -32,19 +37,24 @@ from torch_port_chain import N_BLOCKS, PARAMS, forge, ref_view
 
 torch.set_num_threads(1)
 
-B = 37
+B = 37  # two ring slots of 32 lanes
+RING = 7 * 32 + 5  # past the ring's six slots
 RNG = np.random.default_rng(23)
-ETA = RNG.integers(0, 256, (32, B)).astype(np.int32)
+BETA = RNG.integers(0, 256, (64, RING)).astype(np.int32)
 CARRIES = {
     "neutral": (None, None),
     "evolving": (RNG.bytes(32), None),
     "both": (RNG.bytes(32), RNG.bytes(32)),
 }
+WITHIN_RING = (RNG.random(RING) < 0.5).astype(np.uint8)
 WITHIN = {
     "clear": np.zeros(B, np.uint8),
     "set": np.ones(B, np.uint8),
-    "mixed": (RNG.random(B) < 0.5).astype(np.uint8),
+    "mixed": WITHIN_RING[:B],
 }
+# the reference's eta of every lane: vrfNonceValue of its declared output
+ETA = np.stack([np.frombuffer(rnonces.vrf_nonce_value(bytes(BETA[:, i].astype(np.uint8))),
+                              np.uint8) for i in range(RING)], 1).astype(np.int32)
 
 
 @pytest.fixture(scope="module")
@@ -52,60 +62,81 @@ def jax_scan():
     return jax.jit(rb2b.nonce_fold_scan)
 
 
-def _combine_loop(n_real, within, ev, cand):
+def _combine_loop(n_real, within, ev, cand, eta=ETA):
     for i in range(n_real):
-        ev = nonces.combine(ev, bytes(ETA[:, i].astype(np.uint8)))
+        ev = nonces.combine(ev, bytes(eta[:, i].astype(np.uint8)))
         if within[i]:
             cand = ev
     return ev, cand
 
 
-@pytest.mark.parametrize("n_real", [B, B - 5, 1, 0])
-@pytest.mark.parametrize("w", list(WITHIN))
-@pytest.mark.parametrize("c", list(CARRIES))
-def test_fold_matches_reference_and_twin(jax_scan, c, w, n_real):
-    ev0, cand0 = CARRIES[c]
-    within = WITHIN[w]
+def _emu_fold(beta, within, n_real, cin):
+    return K._nonce_fold_launch(build.build_host_emu().pk_nonce_fold, None, beta,
+                                within, n_real, cin)
+
+
+def _check_fold(jax_scan, b, within, ev0, cand0, n_real):
+    """The β-fed fold over the first b lanes, as plain twin, host-built
+    kernel and the reference's scan over its etas, against the loop."""
     cin = torch.from_numpy(nonces.pack_carry(ev0, cand0))
-    eta, win = torch.from_numpy(ETA), torch.from_numpy(within)
+    beta = torch.from_numpy(np.ascontiguousarray(BETA[:, :b]))
+    win = torch.from_numpy(within)
     want = nonces.pack_carry(*_combine_loop(n_real, within, ev0, cand0))
-    plain = K.nonce_fold(eta, win, n_real, cin)
-    emu = K._nonce_fold_launch(build.build_host_emu().pk_nonce_fold, None, eta, win,
-                               n_real, cin)
-    assert np.array_equal(plain.numpy(), want)
-    assert np.array_equal(emu.numpy(), want)
+    assert np.array_equal(K.nonce_fold(beta, win, n_real, cin).numpy(), want)
+    assert np.array_equal(_emu_fold(beta, win, n_real, cin).numpy(), want)
 
     def arr(n):
         return jnp.asarray(np.frombuffer(n or bytes(32), np.uint8).astype(np.int32))
 
     ev, evs, cand, cands = jax_scan(
-        jnp.asarray(ETA.T), jnp.asarray(within != 0), jnp.arange(B) < n_real,
+        jnp.asarray(ETA[:, :b].T), jnp.asarray(within != 0), jnp.arange(b) < n_real,
         arr(ev0), jnp.asarray(ev0 is not None), arr(cand0), jnp.asarray(cand0 is not None))
     ref = nonces.pack_carry(bytes(np.asarray(ev).astype(np.uint8)) if evs else None,
                             bytes(np.asarray(cand).astype(np.uint8)) if cands else None)
     assert np.array_equal(ref, want)
 
 
+@pytest.mark.parametrize("n_real", [B, B - 5, 1, 0, 31, 33])
+@pytest.mark.parametrize("w", list(WITHIN))
+@pytest.mark.parametrize("c", list(CARRIES))
+def test_fold_matches_reference_and_twin(jax_scan, c, w, n_real):
+    _check_fold(jax_scan, B, WITHIN[w], *CARRIES[c], n_real)
+
+
+@pytest.mark.parametrize("n_real", [6 * 32, 6 * 32 + 1, RING])
+@pytest.mark.parametrize("c", ["neutral", "both"])
+def test_fold_around_the_ring(jax_scan, c, n_real):
+    """Past FOLD_SLOTS ring slots the producers refill slot 0: the host
+    build walks the same slots, and the carry stays the reference's."""
+    _check_fold(jax_scan, RING, WITHIN_RING, *CARRIES[c], n_real)
+
+
 def test_carry_round_trips_and_refuses_bad_inputs():
     for ev, cand in CARRIES.values():
         assert nonces.unpack_carry(nonces.pack_carry(ev, cand)) == (ev, cand)
     cin = torch.from_numpy(nonces.pack_carry(None, None))
-    eta, win = torch.from_numpy(ETA), torch.from_numpy(WITHIN["set"])
+    beta, win = torch.from_numpy(BETA[:, :B].copy()), torch.from_numpy(WITHIN["set"])
     with pytest.raises(ValueError, match="n_real"):
-        K.nonce_fold(eta, win, B + 1, cin)
+        K.nonce_fold(beta, win, B + 1, cin)
     with pytest.raises(TypeError, match="within"):
-        K.nonce_fold(eta, win.to(torch.int32), B, cin)
+        K.nonce_fold(beta, win.to(torch.int32), B, cin)
+    with pytest.raises(ValueError, match="beta"):  # an eta column is not β
+        K.nonce_fold(torch.from_numpy(ETA[:, :B].copy()), win, B, cin)
 
 
 def test_reduce_forms_agree():
-    """verdict_reduce's two forms: the same mask words; the scan's carry
-    is the host fold of the other form's eta bytes."""
+    """verdict_reduce's two forms: the same mask words; the joined fold's
+    carry (launched by nonce_fold_beside from β) is the host fold of the
+    other form's eta bytes."""
     rng = np.random.default_rng(3)
     flags = torch.from_numpy((rng.random((5, B)) < 0.9).astype(np.int32))
-    eta, win = torch.from_numpy(ETA), torch.from_numpy(WITHIN["mixed"])
+    eta, win = torch.from_numpy(ETA[:, :B].copy()), torch.from_numpy(WITHIN["mixed"])
+    beta = torch.from_numpy(BETA[:, :B].copy())
     cin = torch.from_numpy(nonces.pack_carry(*CARRIES["both"]))
-    m1, cout = pbatch.verdict_reduce(flags, eta, B - 2, win, cin, scan=True)
-    m2, eta_u8 = pbatch.verdict_reduce(flags, eta, B - 2, scan=False)
+    fold = K.nonce_fold_beside(beta, win, B - 2, cin)
+    assert fold[1] is None  # on the CPU the fold ran at once
+    m1, cout = pbatch.verdict_reduce(flags, eta, B - 2, fold)
+    m2, eta_u8 = pbatch.verdict_reduce(flags, eta, B - 2)
     assert torch.equal(m1, m2) and eta_u8.shape == (B - 2, 32)
     bits = np.unpackbits(m1.numpy().astype(np.uint32).view(np.uint8), axis=1,
                          bitorder="little")[:, :B]
@@ -211,3 +242,36 @@ def test_packed_verdicts_hold_the_fold_and_the_eta_column(chain):
                 params.epoch_of(hv.slot) + 1):
             cand = ev
     assert v.nonces == (ev, cand) == nonces.unpack_carry(v.carry.numpy())
+
+
+@pytest.fixture(scope="module")
+def forged_window(chain):
+    """The chain's first packed window on the CPU: its β rows (unpack's
+    beta segment), `within`, finish's eta column (the stage twins) and
+    its real lanes."""
+    hvs, lview = chain
+    params = carry.params_from_reference(PARAMS)
+    window = [h for h in hvs[:16] if len(h.signed_bytes) == len(hvs[8].signed_bytes)]
+    layout, packed = pbatch.stage_packed(params, carry.lview_from_reference(lview),
+                                         None, window)
+    packed = pbatch.pad_packed_to(packed, pbatch.bucket_size(len(window)))
+    cols = pbatch.upload_packed(packed, torch.device("cpu"))
+    limb = K.unpack_limb_first(layout, cols, "cpu")
+    _flags, eta, _lv = K._tiles(limb, layout.vrf_proof_len == 128, layout.kes_depth)
+    return limb[K.UNPACK_BETA], cols.within, eta, len(window)
+
+
+@pytest.mark.parametrize("cut", [0, 3, -1], ids=["all", "all_but_3", "one"])
+@pytest.mark.parametrize("c", ["neutral", "both"])
+def test_beta_fold_equals_fold_over_finish_eta(forged_window, c, cut):
+    """On forged headers the β-fed fold (twin and host-built kernel)
+    gives, byte for byte, the carry of the fold over the eta that finish
+    computes, so it can run before the stages."""
+    beta, within, eta, n = forged_window
+    n_real = 1 if cut < 0 else n - cut
+    ev0, cand0 = CARRIES[c]
+    cin = torch.from_numpy(nonces.pack_carry(ev0, cand0))
+    want = nonces.pack_carry(*_combine_loop(n_real, within.numpy(), ev0, cand0,
+                                            eta=eta.numpy()))
+    assert np.array_equal(K.nonce_fold(beta, within, n_real, cin).numpy(), want)
+    assert np.array_equal(_emu_fold(beta, within, n_real, cin).numpy(), want)

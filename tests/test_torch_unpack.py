@@ -2,11 +2,12 @@
 (ouroboros_consensus_tpu_torch protocol/batch.stage_packed and
 unpack_packed) against the JAX package's stage_packed and unpack_packed
 on the CPU, column by column at the byte level, for bc and draft-03
-windows under the neutral and a set epoch nonce; and the kernel's lane
-body (csrc/wire.cuh, compiled as host C++) against the plain version at
-1, 31, 32, 40 and 65 lanes, with every wire corruption of
+windows under the neutral and a set epoch nonce; and the kernel's tile
+path (csrc/wire.cuh: the launch's geometry, each block's tile of lanes
+staged and then its rows stored, compiled as host C++) against the plain version at 1, 31, 32,
+40, 65 and 129 lanes, with every wire corruption of
 testing/corrupt.corrupt_packed (as chip_smoke.py applies them on the
-card)."""
+card), and on a window of bodies too long for a 32-lane tile."""
 
 import numpy as np
 import pytest
@@ -100,20 +101,20 @@ def test_unpack_equals_reference(window, mode):
         assert np.array_equal(g.numpy(), w.astype(np.int64)), k
 
 
-WIDTHS = [1, 31, 32, 40, 65]
+WIDTHS = [1, 31, 32, 40, 65, 129]
 
 
 @pytest.fixture(scope="module")
 def corrupted(window):
-    """Per nonce mode: a 65-lane packed window (60 tiled views, five
+    """Per nonce mode: a 129-lane packed window (124 tiled views, five
     bucket-padding lanes) with every wire corruption (corrupt_packed)."""
     fmt, hvs, lview = window
     rng = np.random.default_rng(5)
     out = {}
     for mode, nonce in NONCES.items():
-        tiled = [hvs[i] for i in rng.integers(len(hvs), size=60).tolist()]
+        tiled = [hvs[i] for i in rng.integers(len(hvs), size=WIDTHS[-1] - 5).tolist()]
         layout, packed = _port_stage(tiled, lview, nonce)
-        packed = corrupt_packed(layout, pbatch.pad_packed_to(packed, 65), rng)
+        packed = corrupt_packed(layout, pbatch.pad_packed_to(packed, WIDTHS[-1]), rng)
         out[mode] = (layout, packed)
     return out
 
@@ -121,9 +122,9 @@ def corrupted(window):
 @pytest.mark.parametrize("mode", list(NONCES))
 @pytest.mark.parametrize("lanes", WIDTHS)
 def test_unpack_lane_code_matches_plain_twin(corrupted, mode, lanes):
-    """pk_unpack (csrc/wire.cuh, every (row, lane) in turn as host C++)
-    writes exactly the plain version's limb-first arrays, as views of one
-    [R, B] buffer of the shapes the stage kernels check."""
+    """pk_unpack (csrc/wire.cuh, block by block as host C++) writes exactly
+    the plain version's limb-first arrays, as views of one [R, B] buffer
+    of the shapes the stage kernels check."""
     layout, packed = corrupted[mode]
     cols = pbatch.upload_packed(first_lanes(packed, lanes), torch.device("cpu"))
     want = K.unpack_limb_first(layout, cols, "cpu")
@@ -132,7 +133,7 @@ def test_unpack_lane_code_matches_plain_twin(corrupted, mode, lanes):
     for k, (g, w) in enumerate(zip(got, want)):
         assert g.dtype == w.dtype == torch.int32 and g.is_contiguous(), k
         assert torch.equal(g, w), k
-    if lanes == 65:
+    if lanes == WIDTHS[-1]:
         assert int(got[6].min()) < 0  # a c0 past its slot's KES period
 
 
@@ -147,3 +148,29 @@ def test_unpack_refuses_wrong_dtypes(window):
                                 torch.device("cpu"))
     with pytest.raises(TypeError, match="slot"):
         K.unpack_limb_first(layout, cols, "cpu")
+
+
+def test_unpack_long_bodies_take_smaller_tiles():
+    """A window of 7,000-byte bodies does not fit a 32-lane tile in
+    shared memory: its tiles take 16 lanes, and the output is still the
+    twin's (seeded columns, 33 lanes: two full tiles and one of a lane)."""
+    rng = np.random.default_rng(17)
+    b, lb, depth = 33, 7000, 7
+    layout = pbatch.PackedLayout(lb, 0, 32, 64, 128, 256, 288, depth, 3600, True, 128)
+
+    def u8(*shape):
+        return rng.integers(0, 256, shape).astype(np.uint8)
+
+    def i32(hi, n=b):
+        return rng.integers(0, hi, n).astype(np.int32)
+
+    packed = pbatch.Packed(u8(b, lb), u8(b, 64), i32(3), u8(3, 32 + 32 * depth),
+                           i32(2**31), i32(2**31), i32(2**20), i32(2), u8(2, 64),
+                           u8(32), u8(b))
+    cols = pbatch.upload_packed(packed, torch.device("cpu"))
+    # a lane's staged bytes: 3 integers, body, KES R ‖ s, tail row, threshold row, alpha
+    assert 32 * (12 + lb + 64 + 32 + 32 * depth + 64 + 32) > 200 * 1024
+    want = K.unpack_limb_first(layout, cols, "cpu")
+    got = K._unpack_launch(build.build_host_emu().pk_unpack, None, layout, cols)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), k
