@@ -41,10 +41,17 @@ Phases (any failure raises and the script exits non-zero):
    from window to window on the card. Chains are forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
    43200-slot epochs), replayed through
-   `tools.db_analyser.revalidate(backend="device")` and through the C++
-   verifier, which must agree on n_valid, error and final state:
-   a. a batch-compatible chain, and a copy with one KES-signature byte
-      flipped two thirds of the way in;
+   `tools.db_analyser.revalidate(backend="device")` on its default
+   columnar path (native chunk scan into ViewColumns, columnar prechecks,
+   packed staging and epilogue) and through the C++ verifier, which must
+   agree on n_valid, error and final state:
+   a. a batch-compatible chain, also on the list path
+      (`revalidate(columnar=False)`: HeaderView lists from the same scan),
+      which must equal the columnar one; then a copy with one
+      KES-signature byte flipped two thirds of the way in; and the port
+      bench's measurement (`tools.bench.measure`: a native replay, a
+      warm-up and the best of two timed device replays) of the same chain,
+      its JSON on a `bench {...}` line;
    b. a draft-03 chain, and a copy with one VRF-proof byte flipped two
       thirds of the way in and the header KES-signed again (both
       backends stop there with VRFKeyBadProof);
@@ -59,10 +66,15 @@ Phases (any failure raises and the script exits non-zero):
       recorded) and `protocol/batch.stage` feeds the same kernels;
       replayed by `validate_chain` on the card and by the C++ verifier,
       then a copy with one VRF-proof byte flipped two thirds of the way in,
-      then the chain with only its middle third on stand-in bodies: the
-      packed window after the generic ones must seed the nonce carry from
-      the host state again, and every packed window launch unpack and
-      nonce_fold.
+      then the chain with only its middle third on stand-in bodies, in
+      64-header windows: the packed window after the generic ones (the
+      stand-ins, and the windows that hold a body-width step) must seed
+      the nonce carry from the host state again, and every packed window
+      launch unpack and nonce_fold.
+   Each main path logs headers/s over `validate_s` (the validate_chain
+   calls) and over `wall_s` (the read as well), and the single-format
+   chains a host wall per layer (`layer_breakdown`: the columnar layers
+   by their own names, and `read`, wall_s - validate_s).
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
@@ -81,6 +93,13 @@ stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), and
 the two wire kernels alone where the tree has them (`wire_times`); one
 `AB {...}` JSON line per turn.
 
+    python3 chip_smoke.py --ab-replay PARENT   # the replay, against PARENT
+
+forges the bc chain once (`--headers`), then in the same turns each
+tree's own replay of it: three device `revalidate`s (the first warms
+up) and the tree's own `layer_breakdown`; one `ABR {...}` JSON line per
+turn and the minimum of each side.
+
 It needs no network and no JAX; it imports nothing of the JAX package.
 """
 
@@ -95,7 +114,6 @@ import subprocess
 import sys
 import tempfile
 import time
-from fractions import Fraction
 
 import numpy as np
 
@@ -150,13 +168,10 @@ def card_line() -> str:
 
 
 def bench_params():
-    from ouroboros_consensus_tpu_torch.protocol.praos import PraosParams
+    """bench.py's chain parameters, as the port's bench forges them."""
+    from ouroboros_consensus_tpu_torch.tools import bench
 
-    return PraosParams(
-        slots_per_kes_period=3600, max_kes_evolutions=62,
-        security_param=2160, active_slot_coeff=Fraction(1, 2),
-        epoch_length=43200, kes_depth=7,
-    )
+    return bench.bench_params()
 
 
 # ---------------------------------------------------------------------------
@@ -885,10 +900,13 @@ STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_lad
                   "unpack_limb_first", "nonce_fold")
 
 
-def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
-    """One main path: the device replay with the launch counts zeroed just
-    before it and read just after (CUDA events around each stage wrapper,
-    and the windows it cut), then the native replay, which must agree."""
+def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
+                columnar: bool = True, native=None) -> dict:
+    """One main path: the device replay (`columnar` or on HeaderView
+    lists) with the launch counts zeroed just before it and read just
+    after (CUDA events around each stage wrapper, and the windows it
+    cut), then the native replay, which must agree (`native`: its result,
+    when already run)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -915,7 +933,8 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
         return res
 
     def window(params_, ticked, hvs, *args, _fn=pbatch.validate_batch, **kw):
-        windows.append((len(hvs), len(hvs[0].vrf_proof)))
+        windows.append((len(hvs), len(hvs[0].vrf_proof),
+                        "cols" if isinstance(hvs, pbatch.ViewColumns) else "list"))
         return _fn(params_, ticked, hvs, *args, **kw)
 
     if dev.type == "cuda":
@@ -928,7 +947,7 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dres = db_analyser.revalidate(db, params, lview, backend="device",
-                                      max_batch=max_batch, device=dev)
+                                      max_batch=max_batch, device=dev, columnar=columnar)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
@@ -950,15 +969,21 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev) -> dict:
         out["fold_stream_apart"] = True
     log(f"{tag}: launches {json.dumps(launches)}")
     log(f"{tag}: device time per stage (ms): {json.dumps(out['stage_device_ms'])}")
-    log(f"{tag}: windows (headers, proof bytes): {windows}")
-    nres = db_analyser.revalidate(db, params, lview, backend="native", max_batch=max_batch)
+    log(f"{tag}: windows (headers, proof bytes, form): {windows}")
+    nres = native or db_analyser.revalidate(db, params, lview, backend="native",
+                                            max_batch=max_batch)
     compare(f"{tag} chain", dres, nres)
     n = dres.n_valid
     out.update(n_valid=n, error=type(dres.error).__name__ if dres.error else None,
                device_hps=n / dres.validate_s, native_hps=n / nres.validate_s,
-               device_validate_s=dres.validate_s, native_validate_s=nres.validate_s)
-    log(f"{tag}: headers/s device {out['device_hps']:.1f} (validate {dres.validate_s:.2f} s), "
-        f"native {out['native_hps']:.1f} (validate {nres.validate_s:.2f} s)")
+               device_wall_hps=n / dres.wall_s, native_wall_hps=n / nres.wall_s,
+               device_validate_s=dres.validate_s, native_validate_s=nres.validate_s,
+               device_wall_s=dres.wall_s, native_wall_s=nres.wall_s,
+               result=dres, native=nres)
+    log(f"{tag}: headers/s over validate_s: device {out['device_hps']:.1f} "
+        f"({dres.validate_s:.4f} s), native {out['native_hps']:.1f} "
+        f"({nres.validate_s:.4f} s); over wall_s: device {out['device_wall_hps']:.1f} "
+        f"({dres.wall_s:.4f} s), native {out['native_wall_hps']:.1f} ({nres.wall_s:.4f} s)")
     return out
 
 
@@ -985,6 +1010,8 @@ def corrupted_replay(tag: str, db: str, headers: int, field: str, expect: str,
 
 LAYERS = (  # (module, function, layer) timed by layer_breakdown
     ("batch", "host_prechecks", "host_prechecks"), ("batch", "stage_packed", "stage_packed"),
+    ("batch", "host_prechecks_columns", "host_prechecks_columns"),
+    ("batch", "stage_packed_columns", "stage_packed_columns"),
     ("batch", "pad_packed_to", "pad_packed_to"), ("batch", "upload_packed", "h2d"),
     ("K", "unpack_limb_first", "unpack"), ("K", "_tiles", "stages"),
     ("batch", "verdict_reduce", "reduce"), ("batch", "dispatch_window", "device_step"),
@@ -1003,7 +1030,10 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     step's rest, with `stage_packed` and `pad_packed_to` taken out). The
     fold itself is read by an event pair on its side stream around each
     launch (`fold_side`): it overlaps the stages, so it is not one of the
-    step's parts, which still sum to the step's wall."""
+    step's parts, which still sum to the step's wall. The columnar host
+    stages are their own layers (`host_prechecks` is then the dispatching
+    wrapper's own time, without `host_prechecks_columns`), and `read` is
+    the replay's wall_s - validate_s (the chunk reads, checks and scan)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -1056,10 +1086,14 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
             setattr(mod, name, fn)
     step = spent.pop("device_step")
     spent["d2h"] = step - sum(spent.get(k, 0.0) for k in (
-        "stage_packed", "pad_packed_to", "h2d", "unpack", "stages", "reduce"))
+        "stage_packed", "stage_packed_columns", "pad_packed_to", "h2d", "unpack",
+        "stages", "reduce"))
+    if "host_prechecks_columns" in spent:  # nested in host_prechecks
+        spent["host_prechecks"] -= spent["host_prechecks_columns"]
     spent["other"] = res.validate_s - step - sum(spent.get(k, 0.0) for k in (
-        "host_prechecks", "epilogue"))
+        "host_prechecks", "host_prechecks_columns", "epilogue"))
     spent["validate_s"] = res.validate_s
+    spent["read"] = res.wall_s - res.validate_s
     spent["device_step"] = step
     spent["fold_side"] = sum(a.elapsed_time(b) for a, b in folds) / 1e3
     return spent
@@ -1069,7 +1103,9 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
                workdir: str) -> dict:
     """The three main paths (bc, draft03, mixed); -> {path: replay_path's
     dict, with the layer split for the two single-format chains}."""
+    from ouroboros_consensus_tpu_torch import carry
     from ouroboros_consensus_tpu_torch.testing import synth
+    from ouroboros_consensus_tpu_torch.tools import bench as port_bench
 
     params = bench_params()
     pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
@@ -1090,7 +1126,7 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
         if out["error"] is not None or out["n_valid"] != n:
             raise AssertionError(f"{tag} chain did not validate: {out['n_valid']}/{n}")
         if tag == "mixed":
-            starts = np.cumsum([0] + [w for w, _ in out["windows"]])
+            starts = np.cumsum([0] + [w for w, *_ in out["windows"]])
             cut = int(np.searchsorted(starts, switch))
             if starts[cut] != switch or out["windows"][cut][1] != 128 \
                     or out["windows"][cut - 1][1] != 80:
@@ -1103,11 +1139,25 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
                 f"the fold's own time on its stream, overlaps the stages and is not "
                 f"one of device_step's parts): {json.dumps(out['layers_s'])}")
         if tag == "bc":
+            listed = replay_path("bc list", db, params, lview, max_batch, dev,
+                                 columnar=False, native=out["native"])
+            cols, lst = out["result"], listed["result"]
+            if (cols.n_blocks, cols.n_valid, carry.error_to_plain(cols.error),
+                    carry.state_to_plain(cols.final_state)) != (
+                    lst.n_blocks, lst.n_valid, carry.error_to_plain(lst.error),
+                    carry.state_to_plain(lst.final_state)):
+                raise AssertionError("bc chain: the columnar replay differs from the list one")
+            log("bc: columnar == list: n_blocks, n_valid, error and final state")
+            out["list"] = {k: v for k, v in listed.items() if k not in ("result", "native")}
             corrupted_replay(tag, db, n, "kes_sig", "InvalidKesSignatureOCERT",
                              params, lview, max_batch, dev)
+            out["bench"] = port_bench.measure(db, device=dev)
+            print("bench " + json.dumps(out["bench"]), flush=True)
         elif tag == "draft03":
             corrupted_replay(tag, db, n, "vrf_proof", "VRFKeyBadProof",
                              params, lview, max_batch, dev, pool=pools[0])
+        out.pop("result")
+        out.pop("native")
         paths[tag] = out
     return paths
 
@@ -1135,9 +1185,9 @@ def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
     synth.synthesize(db, params, pools, lview, headers, proof_format="bc")
     hvs = corrupt.standin_views(db_analyser.read_header_views(db), params, pools[0])
 
-    def replay(views, backend):
+    def replay(views, backend, batch=max_batch):
         return pbatch.validate_chain(params, lambda _e: lview, PraosState(), views,
-                                     max_batch=max_batch, backend=backend,
+                                     max_batch=batch, backend=backend,
                                      device=dev if backend == "device" else None)
 
     before = pbatch.DECLINES.get("field-offsets", 0)
@@ -1170,7 +1220,9 @@ def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
                              f"got {dbad.n_valid} {dbad.error!r}")
     log(f"generic: device {device_s:.3f} s, native {native_s:.3f} s for {headers} headers")
     # the carry chain broken and seeded again: the middle third on
-    # stand-in bodies, packed windows on both sides of it
+    # stand-in bodies, packed windows on both sides of it (64-header
+    # windows: validate_chain does not cut a list at a body-width step, so
+    # a window that holds one, or a stand-in, is staged generically)
     real = db_analyser.read_header_views(db)
     third = headers // 3
     views = real[:third] + hvs[third: 2 * third] + real[2 * third:]
@@ -1185,11 +1237,11 @@ def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
 
     pbatch.dispatch_window = spy
     try:
-        dmid = replay(views, "device")
+        dmid = replay(views, "device", 64)
     finally:
         pbatch.dispatch_window = dispatch
     torch.cuda.synchronize()
-    compare("stand-in middle third (carry seeded again)", dmid, replay(views, "native"))
+    compare("stand-in middle third (carry seeded again)", dmid, replay(views, "native", 64))
     mid = dict(K.LAUNCHES)
     packed = sum(c for _s, c in seeded)
     cut = [k for k in range(1, len(seeded)) if seeded[k][1] and not seeded[k - 1][1]]
@@ -1313,6 +1365,79 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
     return 0
 
 
+AB_REPLAY_CHILD = r"""
+import json, sys
+root, db = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+import torch
+import chip_smoke as own
+from ouroboros_consensus_tpu_torch import native
+from ouroboros_consensus_tpu_torch.ops.pk import build
+from ouroboros_consensus_tpu_torch.testing import synth
+from ouroboros_consensus_tpu_torch.tools import db_analyser
+native.build()
+build.build_cuda()
+params = own.bench_params()
+lview = synth.make_ledger_view([synth.make_pool(0, kes_depth=params.kes_depth)])
+dev = torch.device("cuda")
+runs = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    r = db_analyser.revalidate(db, params, lview, backend="device", max_batch=8192, device=dev)
+    torch.cuda.synchronize()
+    assert r.error is None and r.n_valid > 0, (r.n_valid, r.error)
+    runs.append({"n_valid": r.n_valid, "wall_s": r.wall_s, "validate_s": r.validate_s})
+rec = {"root": root, "runs": runs,
+       "layers_s": own.layer_breakdown(db, params, lview, 8192, dev)}
+print("ABR " + json.dumps(rec), flush=True)
+"""
+
+
+def ab_replay_main(parent: str, headers: int) -> int:
+    """The replay of one forged bc chain by this tree and by `parent`, in
+    turns parent, this, this, parent (one process per turn): each turn's
+    three device revalidates (the first warms up) and the tree's own
+    layer_breakdown. Prints each turn's `ABR {...}` line, each side's
+    minimum over its timed replays and turns, and the card."""
+    from ouroboros_consensus_tpu_torch.testing import synth
+
+    params = bench_params()
+    pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
+    work = tempfile.mkdtemp(prefix="chip_smoke_abr_")
+    try:
+        db = os.path.join(work, "chain_bc")
+        t0 = time.monotonic()
+        synth.synthesize(db, params, pools, synth.make_ledger_view(pools), headers)
+        log(f"ab-replay: forged {headers} headers in {time.monotonic() - t0:.1f} s")
+        recs = []
+        for root in (parent, REPO, REPO, parent):
+            p = subprocess.run([sys.executable, "-c", AB_REPLAY_CHILD,
+                                os.path.abspath(root), db], capture_output=True, text=True)
+            line = [x for x in p.stdout.splitlines() if x.startswith("ABR ")]
+            if p.returncode != 0 or not line:
+                print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"replay A/B turn for {root} failed (exit {p.returncode})")
+            recs.append(json.loads(line[0][4:]))
+            print(line[0], flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    sides = {"parent": (recs[0], recs[3]), "this": (recs[1], recs[2])}
+    summary = {}
+    for side, rs in sides.items():
+        timed = [run for r in rs for run in r["runs"][1:]]
+        layers = {}
+        for r in rs:
+            for k, v in r["layers_s"].items():
+                layers[k] = min(layers.get(k, v), v)
+        wall = min(run["wall_s"] for run in timed)
+        summary[side] = {"wall_s": wall, "validate_s": min(run["validate_s"] for run in timed),
+                         "headers_per_wall_s": timed[0]["n_valid"] / wall,
+                         "layers_s_min": layers}
+    print("ABR-SUMMARY " + json.dumps(summary), flush=True)
+    print(f"card: {card_line()}", flush=True)
+    return 0
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -1324,6 +1449,8 @@ def main(argv=None) -> int:
                          "eighth as many")
     ap.add_argument("--ab", metavar="PARENT",
                     help="time this tree against the checkout PARENT instead")
+    ap.add_argument("--ab-replay", metavar="PARENT",
+                    help="time this tree's replay of one bc chain against PARENT's instead")
     a = ap.parse_args(argv)
 
     import torch
@@ -1334,6 +1461,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     if a.ab:
         return ab_main(a.ab)
+    if a.ab_replay:
+        return ab_replay_main(a.ab_replay, a.headers)
     from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz, resolve, wide_product_rate
 
     dev = resolve(None)
@@ -1399,7 +1528,7 @@ def main(argv=None) -> int:
         log(f"{p}: grid fill per window (32 lanes a block in every stage kernel: ed, "
             f"kes 4 warps, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; {sms} SMs): "
             f"{json.dumps(fill)}")
-        log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows')})}")
+        log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows', 'list')})}")
     log(f"fe_bench rows: {json.dumps(tools['fe_rows'])}")
     log(f"total {time.monotonic() - t_all:.1f} s; sms {sms}, max sm clock {clock / 1e6:.0f} MHz")
     print(json.dumps({"kernels": kernels}), flush=True)

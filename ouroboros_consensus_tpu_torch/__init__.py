@@ -6,7 +6,10 @@ library only. Its device entry points run on a CUDA card unless the caller
 asks for the CPU explicitly (`device="cpu"`), where every kernel wrapper
 takes the plain PyTorch version of its kernel.
 
-Slice 1 covers the per-lane Praos replay: ImmutableDB -> header views ->
-packed staging -> the five stage kernels (ed, kes, vrf-bc prep, vrf
-ladders, finish) -> the sequential epilogue (`tools.db_analyser.revalidate`).
+The replay: ImmutableDB -> a native chunk scan (CRC, header columns,
+body hashes) -> ViewColumns windows -> columnar prechecks and packed
+staging -> the `unpack` kernel, the five stage kernels (ed, kes, the VRF
+prep of the proof format, vrf ladders, finish) and the `nonce_fold`
+kernel beside them -> the columnar epilogue
+(`tools.db_analyser.revalidate`; `tools.bench` times it end to end).
 """

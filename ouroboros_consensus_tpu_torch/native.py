@@ -4,8 +4,9 @@ Built with g++ on first use into the port's build directory (listed in
 .gitignore), through a temporary name and an atomic rename so that
 concurrent first uses never load a half-written library. The slice uses
 the sign side (Ed25519 keys and signatures, draft-03 and
-batch-compatible ECVRF proofs) for the forger, and `validate_praos` as the native replay
-backend.
+batch-compatible ECVRF proofs) for the forger, `validate_praos` as the
+native replay backend and `blake2b_spans` for the reader's body-hash
+sweep.
 """
 
 from __future__ import annotations
@@ -25,23 +26,31 @@ SO = os.path.join(BUILD_DIR, "libhostcrypto.so")
 _lib = None
 
 
-def build() -> str:
-    """Compile the library unless an up-to-date one exists; -> its path."""
-    if os.path.exists(SO) and os.path.getmtime(SO) >= os.path.getmtime(SRC):
-        return SO
+def build_shared(src: str, so: str, opt: str = "-O3") -> str:
+    """Compile `src` into the shared library `so` unless an up-to-date
+    one exists: g++ into a temporary name in BUILD_DIR, then an atomic
+    rename (concurrent first uses never load a half-written library).
+    Raises on a failed build; -> the library's path."""
+    if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
         subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, SRC],
+            ["g++", opt, "-shared", "-fPIC", "-o", tmp, src],
             check=True, capture_output=True,
         )
-        os.replace(tmp, SO)
+        os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
-    return SO
+    return so
+
+
+def build() -> str:
+    """The host crypto library, built on first use; -> its path."""
+    return build_shared(SRC, SO)
 
 
 def lib():
@@ -72,6 +81,11 @@ def lib():
         + [ctypes.c_void_p] * 4 + [ctypes.c_long]
         + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_long)]
     )
+    so.oc_blake2b_spans.restype = None
+    so.oc_blake2b_spans.argtypes = [
+        ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int,
+    ]
     _lib = so
     return _lib
 
@@ -108,6 +122,21 @@ def proof_to_hash(pi: bytes) -> bytes:
     if not lib().oc_ecvrf_proof_to_hash(pi, out):
         raise ValueError("proof Gamma does not decode")
     return out.raw
+
+
+def blake2b_spans(data: bytes, starts, ends, digest_size: int = 32) -> np.ndarray:
+    """Blake2b of every span data[starts[i]:ends[i]) in one C call ->
+    [n, digest_size] uint8."""
+    buf = np.frombuffer(data, np.uint8)
+    s = np.ascontiguousarray(starts, np.int64)
+    e = np.ascontiguousarray(ends, np.int64)
+    if s.shape != e.shape or (len(s) and (s.min() < 0 or e.max() > len(buf))):
+        raise ValueError("spans out of the buffer")
+    out = np.empty((len(s), digest_size), np.uint8)
+    if len(s):
+        lib().oc_blake2b_spans(buf.ctypes.data, len(s), s.ctypes.data,
+                               e.ctypes.data, out.ctypes.data, digest_size)
+    return out
 
 
 def validate_praos(

@@ -45,6 +45,19 @@ def pad_messages_np(msgs: Sequence[bytes]):
     return buf.reshape(n, nb, BLOCK), nblocks
 
 
+def pad_matrix_np(mat: np.ndarray):
+    """pad_messages_np for a [B, n] uint8 matrix of messages of one
+    length (the columnar staging's whole message columns): the same
+    bytes, without a bytes object per row."""
+    b, n = mat.shape
+    k = nblocks_for_len(n)
+    buf = np.zeros((b, k * BLOCK), np.uint8)
+    buf[:, :n] = mat
+    buf[:, n] = 0x80
+    buf[:, k * BLOCK - 16:] = np.frombuffer((8 * n).to_bytes(16, "big"), np.uint8)
+    return buf.reshape(b, k, BLOCK), np.full((b,), k, np.int32)
+
+
 def byte_rows(parts: Sequence[bytes], n: int) -> np.ndarray:
     """Equal-length byte strings -> [B, n] uint8."""
     if any(len(p) != n for p in parts):

@@ -18,21 +18,30 @@ the first failing header and rebuilds the exact `PraosValidationError`
 the reference fold would raise, in its order (Praos.hs:441-606: KES
 checks before VRF checks).
 
-A window the packed staging declines because its bodies do not embed
-the fields or its integers pass int32 (`field-offsets`,
-`field-mismatch`, `int32-range`) goes through the generic staging
-instead (`stage`: per-lane columns padded on the host) and the same
-five stage kernels; the reason is recorded in `DECLINES`. Such a window
-ships its eta column and folds on the host, which breaks the carry
-chain: the next packed window seeds it again from the host state.
+A window comes as a HeaderView list or as `ViewColumns` (the reader's
+columnar windows). A ViewColumns window runs the columnar twin of each
+host stage: `host_prechecks_columns` (whole-column KES window checks,
+one pool lookup per unique (cold key, VRF key) pair), then
+`stage_packed_columns` (the body column is the window's signed-bytes
+matrix; six whole-matrix field compares) and `_epilogue_columns_fast`
+(counters checked per unique pool over column slices); no HeaderView is
+built unless a gate trips, and then the exact per-header path runs.
+
+A window the packed staging declines for one of GENERIC_REASONS (bodies
+that do not embed the fields, integers past int32, bodies of several
+widths) goes through the generic staging instead (`stage_any`: per-lane
+columns padded on the host) and the same five stage kernels; the reason
+is recorded in `DECLINES`. Such a window ships its eta column and folds
+on the host, which breaks the carry chain: the next packed window seeds
+it again from the host state.
 
 The leader threshold is a bracketed device compare; the measure-zero
 band between the brackets takes the exact host check.
 
 `validate_chain` segments a run of headers at epoch boundaries, at
-`max_batch`, and where the signed-body width or the proof format
-changes (a packed window has one of each; segmentation never changes a
-verdict), threading the PraosState and the nonce carry between windows.
+`max_batch` and where the proof format changes (a window stages one
+proof column; segmentation never changes a verdict), threading the
+PraosState and the nonce carry between windows.
 """
 
 from __future__ import annotations
@@ -52,7 +61,7 @@ from ..ops.pk import hashes as ph
 from ..ops.pk import kernels as pk_kernels
 from . import leader, nonces, praos
 from .praos import PraosParams, PraosState, TickedPraosState
-from .views import HeaderView, LedgerView, hash_key, hash_vrf_vk
+from .views import HeaderView, LedgerView, ViewColumns, hash_key, hash_vrf_vk
 
 # ---------------------------------------------------------------------------
 # Host prechecks and leader thresholds
@@ -69,9 +78,34 @@ class HostChecks:
     vrf_lookup_errors: list  # VRFKeyUnknown / WrongVRFKey (Praos.hs:530-540)
     kes_evolution: np.ndarray  # [B] int64 — t = kes_period - c0 (0 on error)
 
+    def any_errors(self) -> bool:
+        return (any(e is not None for e in self.kes_window_errors)
+                or any(e is not None for e in self.vrf_lookup_errors))
+
+
+@dataclass(frozen=True)
+class ColumnChecks(HostChecks):
+    """HostChecks of a ViewColumns window, with its pool dedup, so that
+    the threshold tables, the counter checks and the native leader
+    compare look each pool up once."""
+
+    uniq_inv: np.ndarray  # [B] int32: lane -> unique (cold key, VRF key) pair
+    uniq_hk: tuple  # KeyHash of each unique pair
+    uniq_entry: tuple  # IndividualPoolStake (or None) of each unique pair
+    clean: bool = False  # no precheck error in any lane
+
+    def any_errors(self) -> bool:
+        return not self.clean
+
 
 def host_prechecks(params: PraosParams, ledger_view: LedgerView,
-                   hvs: Sequence[HeaderView]) -> HostChecks:
+                   hvs: "Sequence[HeaderView] | ViewColumns") -> HostChecks:
+    """The non-crypto checks of validateKESSignature (the KES window,
+    Praos.hs:558-574) and validateVRFSignature (the pool lookups,
+    :528-540) over a window; a ViewColumns window takes
+    host_prechecks_columns."""
+    if isinstance(hvs, ViewColumns):
+        return host_prechecks_columns(params, ledger_view, hvs)
     kes_errors: list = [None] * len(hvs)
     vrf_errors: list = [None] * len(hvs)
     evol = np.zeros((len(hvs),), np.int64)
@@ -97,6 +131,72 @@ def host_prechecks(params: PraosParams, ledger_view: LedgerView,
     return HostChecks(kes_errors, vrf_errors, evol)
 
 
+def _dedup_rows(rows: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(unique rows [k, w], inverse [n]) of a [n, w] uint8 matrix, as
+    np.unique(axis=0) groups them but without its byte-wise sort: rows
+    are grouped by a 64-bit Horner fingerprint of their u64 words, and
+    the grouping is verified by one exact gather-compare (a fingerprint
+    collision falls back to np.unique). The unique rows come in
+    fingerprint order."""
+    n, w = rows.shape
+    if n == 0:
+        return rows.copy(), np.zeros(0, np.int64)
+    padded = np.zeros((n, w + (-w) % 8), np.uint8)
+    padded[:, :w] = rows
+    words = padded.view(np.uint64)
+    h = np.zeros(n, np.uint64)
+    mult = np.uint64(0x9E3779B97F4A7C15)
+    with np.errstate(over="ignore"):
+        for c in range(words.shape[1]):
+            h = h * mult + words[:, c]
+    uh, inv = np.unique(h, return_inverse=True)
+    first = np.full(uh.shape[0], -1, np.int64)
+    first[inv[::-1]] = np.arange(n - 1, -1, -1)  # each group's lowest lane
+    uniq = rows[first]
+    if not np.array_equal(uniq[inv], rows):
+        return np.unique(rows, axis=0, return_inverse=True)
+    return uniq, inv
+
+
+def host_prechecks_columns(params: PraosParams, ledger_view: LedgerView,
+                           vc: ViewColumns) -> ColumnChecks:
+    """host_prechecks of a ViewColumns window: the same verdicts and
+    error objects (the KES-window errors built before the pool lookups),
+    the window arithmetic over whole columns and the pool lookups once
+    per unique (cold key, VRF key) pair."""
+    n = len(vc)
+    c0 = vc.ocert_kes_period
+    kp = vc.slot // params.slots_per_kes_period
+    before = c0 > kp
+    after = ~before & (kp >= c0 + params.max_kes_evolutions)
+    bad_window = before | after
+    evol = np.where(bad_window, 0, kp - c0).astype(np.int64)
+    kes_errors: list = [None] * n
+    for i in np.flatnonzero(before).tolist():
+        kes_errors[i] = praos.KESBeforeStartOCERT(int(c0[i]), int(kp[i]))
+    for i in np.flatnonzero(after).tolist():
+        kes_errors[i] = praos.KESAfterEndOCERT(int(kp[i]), int(c0[i]),
+                                               params.max_kes_evolutions)
+    uniq, inv = _dedup_rows(np.concatenate([vc.vk_cold, vc.vrf_vk], axis=1))
+    hks, entries, uerrs = [], [], []
+    for row in uniq:
+        hk = hash_key(row[:32].tobytes())
+        entry = ledger_view.pool_distr.get(hk)
+        hks.append(hk)
+        entries.append(entry)
+        if entry is None:
+            uerrs.append(praos.VRFKeyUnknown(hk))
+            continue
+        header_vrf_hash = hash_vrf_vk(row[32:].tobytes())
+        uerrs.append(None if entry.vrf_key_hash == header_vrf_hash else
+                     praos.VRFKeyWrongVRFKey(hk, entry.vrf_key_hash, header_vrf_hash))
+    lookups_clean = all(e is None for e in uerrs)
+    vrf_errors = [None] * n if lookups_clean else [uerrs[j] for j in inv.tolist()]
+    return ColumnChecks(kes_errors, vrf_errors, evol, inv.astype(np.int32),
+                        tuple(hks), tuple(entries),
+                        not bad_window.any() and lookups_clean)
+
+
 @lru_cache(maxsize=4096)
 def threshold_rows(sigma: Fraction, f: Fraction) -> tuple[bytes, bytes]:
     """Big-endian 32-byte (lo, hi) leader brackets, clamped to the
@@ -109,6 +209,22 @@ def threshold_rows(sigma: Fraction, f: Fraction) -> tuple[bytes, bytes]:
 def _sigma(ledger_view: LedgerView, hv: HeaderView) -> Fraction:
     entry = ledger_view.pool_distr.get(hash_key(hv.vk_cold))
     return entry.stake if entry is not None else Fraction(0)
+
+
+def _uniq_threshold_rows(params: PraosParams, pre: ColumnChecks) -> np.ndarray:
+    """[k, 64] thr_lo ‖ thr_hi of each unique pool of the precheck dedup
+    (an unknown pool has stake 0)."""
+    f = Fraction(params.active_slot_coeff)
+    rows = [b"".join(threshold_rows(e.stake if e is not None else Fraction(0), f))
+            for e in pre.uniq_entry]
+    return np.frombuffer(b"".join(rows), np.uint8).reshape(len(rows), 64).copy()
+
+
+def _uniq_threshold_tables(params: PraosParams,
+                           pre: ColumnChecks) -> tuple[np.ndarray, np.ndarray]:
+    """(thr_lo [B, 32], thr_hi [B, 32]): the unique rows gathered per lane."""
+    t = _uniq_threshold_rows(params, pre)[pre.uniq_inv]
+    return np.ascontiguousarray(t[:, :32]), np.ascontiguousarray(t[:, 32:])
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +268,14 @@ class Packed(NamedTuple):
 
 class NotStagedError(NotImplementedError):
     """A window the packed staging does not take; `reason` names the gate.
-    `dispatch_window` stages the GENERIC_REASONS windows generically and
-    raises on the others. `validate_chain` never hands over a
-    `body-width-mixed` or `proof-format` window (it cuts at both), but it
-    does hand over a `kes-sig-len` one (a KES signature whose length does
-    not match the parameters' depth), so a chain with such a header
-    raises, as the reference's device path does."""
+    `dispatch_window` stages the GENERIC_REASONS windows generically (a
+    list window whose bodies differ in width among them: `validate_chain`
+    does not cut at a width change) and raises on the others.
+    `validate_chain` never hands over a `proof-format` window (it cuts at
+    a format change), but it does hand over a `kes-sig-len` one (a KES
+    signature whose length does not match the parameters' depth), so a
+    chain with such a header raises, as the reference's device path
+    does."""
 
     def __init__(self, reason: str):
         super().__init__(reason)
@@ -165,7 +283,8 @@ class NotStagedError(NotImplementedError):
 
 
 # the packed-staging declines that the generic staging takes
-GENERIC_REASONS = frozenset({"field-offsets", "field-mismatch", "int32-range"})
+GENERIC_REASONS = frozenset({"field-offsets", "field-mismatch", "int32-range",
+                             "body-width-mixed"})
 
 
 def stage_packed(params: PraosParams, ledger_view: LedgerView,
@@ -238,6 +357,64 @@ def stage_packed(params: PraosParams, ledger_view: LedgerView,
         kes_tail_idx=kt_idx, kes_tail_tab=kt_tab, slot=slot.astype(np.int32),
         counter=counter.astype(np.int32), c0=c0.astype(np.int32),
         thr_idx=thr_idx, thr_tab=thr_tab,
+        nonce=np.frombuffer(epoch_nonce or bytes(32), np.uint8).copy(),
+        within=(slot + params.stability_window < first_next).astype(np.uint8),
+    )
+    return layout, packed
+
+
+def _owned(a: np.ndarray) -> np.ndarray:
+    """`a` as a C-contiguous, writable array (a copy of a strided or
+    read-only view into a chunk's bytes), so that the upload takes it
+    as it is."""
+    return a if a.flags.c_contiguous and a.flags.writeable else np.array(a)
+
+
+def _be8_np(a: np.ndarray) -> np.ndarray:
+    """[n] non-negative int64 -> [n, 8] uint8 big-endian rows."""
+    return np.ascontiguousarray(a).astype(">u8").view(np.uint8).reshape(-1, 8)
+
+
+def stage_packed_columns(params: PraosParams, ledger_view: LedgerView,
+                         epoch_nonce: nonces.Nonce, vc: ViewColumns,
+                         pre: ColumnChecks) -> tuple[PackedLayout, Packed]:
+    """stage_packed of a ViewColumns window, on the same gates and with
+    the same reasons: the body column is the window's signed-bytes
+    matrix, the field check six whole-matrix compares, the KES-tail table
+    one `_dedup_rows` and the threshold table the precheck's pool dedup.
+    The lanes equal stage_packed's; the tables may be in another order
+    (each lane's index points at the same row)."""
+    body = vc.signed_bytes
+    depth = params.kes_depth
+    sig_len = 64 + 32 + 32 * depth
+    if vc.kes_sig.shape[1] != sig_len:
+        raise NotStagedError("kes-sig-len")
+    plen = int(vc.vrf_proof_len[0])
+    if plen not in (80, 128) or not (vc.vrf_proof_len == plen).all():
+        raise NotStagedError("proof-format")
+    refs = (vc.vk_cold, vc.vrf_vk, vc.vrf_output, vc.vrf_proof[:, :plen],
+            vc.ocert_vk_hot, vc.ocert_sigma)
+    body0 = body[0].tobytes()
+    offs = tuple(body0.find(r[0].tobytes()) for r in refs)
+    if min(offs) < 0:
+        raise NotStagedError("field-offsets")
+    for o, ref in zip(offs, refs):
+        if not np.array_equal(body[:, o: o + ref.shape[1]], ref):
+            raise NotStagedError("field-mismatch")
+    slot, counter, c0 = vc.slot, vc.ocert_counter, vc.ocert_kes_period
+    for a in (slot, counter, c0):
+        if a.min() < 0 or a.max() >= 2**31:
+            raise NotStagedError("int32-range")
+    kt_tab, kt_idx = _dedup_rows(vc.kes_sig[:, 64:])
+    first_next = (slot // params.epoch_length + 1) * params.epoch_length
+    layout = PackedLayout(int(body.shape[1]), *offs, depth, params.slots_per_kes_period,
+                          epoch_nonce is not None, plen)
+    packed = Packed(
+        body=_owned(body), kes_rs=_owned(vc.kes_sig[:, :64]),
+        kes_tail_idx=kt_idx.astype(np.int32), kes_tail_tab=kt_tab,
+        slot=slot.astype(np.int32), counter=counter.astype(np.int32),
+        c0=c0.astype(np.int32), thr_idx=pre.uniq_inv.astype(np.int32),
+        thr_tab=_uniq_threshold_rows(params, pre),
         nonce=np.frombuffer(epoch_nonce or bytes(32), np.uint8).copy(),
         within=(slot + params.stability_window < first_next).astype(np.uint8),
     )
@@ -427,6 +604,56 @@ def stage(params: PraosParams, ledger_view: LedgerView,
     return PraosBatch(ed, kes, vrf, beta, thr[:, :32].copy(), thr[:, 32:].copy())
 
 
+def _alpha_column(vc: ViewColumns, epoch_nonce: nonces.Nonce) -> np.ndarray:
+    """[B, 32] mkInputVRF of each lane's slot (a Blake2b a header; the
+    packed path computes them on the card instead)."""
+    return np.frombuffer(
+        b"".join(nonces.mk_input_vrf(s, epoch_nonce) for s in vc.slot.tolist()),
+        np.uint8).reshape(len(vc), 32).copy()
+
+
+def stage_columns(params: PraosParams, ledger_view: LedgerView,
+                  epoch_nonce: nonces.Nonce, vc: ViewColumns,
+                  evolution: np.ndarray, pre: ColumnChecks) -> PraosBatch:
+    """`stage` of a ViewColumns window, byte for byte: whole-matrix
+    slices and one SHA-512 padding a hash family, the thresholds from
+    the precheck's pool dedup."""
+    b = len(vc)
+    sigma = vc.ocert_sigma
+    ed_r, ed_s = np.ascontiguousarray(sigma[:, :32]), np.ascontiguousarray(sigma[:, 32:])
+    # the OCert signature's challenge input R ‖ A ‖ vk_hot ‖ n_be8 ‖ c0_be8
+    ed_hb, ed_hnb = stage_np.pad_matrix_np(np.concatenate(
+        [ed_r, vc.vk_cold, vc.ocert_vk_hot, _be8_np(vc.ocert_counter),
+         _be8_np(vc.ocert_kes_period)], axis=1))
+    ed = stage_np.Ed25519Batch(np.ascontiguousarray(vc.vk_cold), ed_r, ed_s, ed_hb, ed_hnb)
+    ks = vc.kes_sig
+    kes_r, kes_s, vk_leaf = (np.ascontiguousarray(ks[:, k: k + 32]) for k in (0, 32, 64))
+    kes_hb, kes_hnb = stage_np.pad_matrix_np(
+        np.concatenate([kes_r, vk_leaf, vc.signed_bytes], axis=1))
+    kes = stage_np.KesBatch(
+        np.ascontiguousarray(vc.ocert_vk_hot), np.asarray(evolution, np.int32),
+        kes_r, kes_s, vk_leaf,
+        np.ascontiguousarray(ks[:, 96:]).reshape(b, params.kes_depth, 32),
+        kes_hb, kes_hnb)
+    plen = int(vc.vrf_proof_len[0])
+    proof = vc.vrf_proof
+    cuts = (0, 32, 64, 96, 128) if plen == 128 else (0, 32, 48, 80)
+    parts = [np.ascontiguousarray(proof[:, lo:hi]) for lo, hi in zip(cuts[:-1], cuts[1:])]
+    vrf_type = stage_np.EcvrfBcBatch if plen == 128 else stage_np.EcvrfBatch
+    vrf = vrf_type(np.ascontiguousarray(vc.vrf_vk), *parts, _alpha_column(vc, epoch_nonce))
+    thr_lo, thr_hi = _uniq_threshold_tables(params, pre)
+    return PraosBatch(ed, kes, vrf, np.ascontiguousarray(vc.vrf_output), thr_lo, thr_hi)
+
+
+def stage_any(params: PraosParams, ledger_view: LedgerView, epoch_nonce: nonces.Nonce,
+              hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks) -> PraosBatch:
+    """The generic staging of either window form: stage_columns for a
+    ViewColumns window, stage for a list."""
+    if isinstance(hvs, ViewColumns):
+        return stage_columns(params, ledger_view, epoch_nonce, hvs, pre.kes_evolution, pre)
+    return stage(params, ledger_view, epoch_nonce, hvs, pre.kes_evolution)
+
+
 def pad_batch_to(batch: PraosBatch, size: int) -> PraosBatch:
     """Pad every column to `size` lanes by replicating lane 0."""
     b = batch.beta.shape[0]
@@ -446,7 +673,7 @@ def pad_batch_to(batch: PraosBatch, size: int) -> PraosBatch:
 def batch_columns(batch: PraosBatch, device) -> tuple:
     """The staged columns on `device`, in the order of
     kernels.staged_to_limb_first (21, draft-03) or _bc (22)."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return tuple(torch.from_numpy(_owned(a)).to(device)
                  for a in (*batch.ed, *batch.kes, *batch.vrf, batch.beta,
                            batch.thr_lo, batch.thr_hi))
 
@@ -580,11 +807,7 @@ def _epilogue_packed_fast(params, ticked, hvs, pre, v: PackedVerdicts):
     window's device fold (or, for a window without one, a host fold of
     its eta bytes), no per-lane error reconstruction. None when any gate
     trips (the exact slow path then runs)."""
-    if not v.clean():
-        return None
-    if any(e is not None for e in pre.kes_window_errors):
-        return None
-    if any(e is not None for e in pre.vrf_lookup_errors):
+    if not v.clean() or pre.any_errors():
         return None
     st = ticked.state
     counters = dict(st.ocert_counters)
@@ -614,14 +837,79 @@ def _epilogue_packed_fast(params, ticked, hvs, pre, v: PackedVerdicts):
     return BatchResult(state, len(hvs), None)
 
 
-def epilogue(params: PraosParams, ticked: TickedPraosState,
-             hvs: Sequence[HeaderView], pre: HostChecks, v) -> BatchResult:
-    """Sequential epilogue: counters + nonce fold, stop at the first
-    failure with the reference's error."""
+def _verdicts_clean(v) -> bool:
+    """Every real lane passed every check outright."""
     if isinstance(v, PackedVerdicts):
-        res = _epilogue_packed_fast(params, ticked, hvs, pre, v)
+        return v.clean()
+    return bool(v.ok_ocert_sig.all() and v.ok_kes_sig.all() and v.ok_vrf.all()
+                and v.ok_leader.all() and not v.leader_ambiguous.any())
+
+
+def _epilogue_columns_fast(params, ticked, vc: ViewColumns, pre: ColumnChecks, v):
+    """The all-clean epilogue of a ViewColumns window, with no
+    HeaderView built: the counters checked per unique pool over column
+    slices, the candidate gate one window compare, the nonces from the
+    window's device fold (or a host fold of its eta bytes). None when
+    any gate trips (the exact per-header path then runs)."""
+    if pre.any_errors() or not _verdicts_clean(v):
+        return None
+    st = ticked.state
+    counters = dict(st.ocert_counters)
+    cnt = vc.ocert_counter
+    for j, hk in enumerate(pre.uniq_hk):
+        m = _counter_m(hk, counters, ticked.ledger_view.pool_distr)
+        if m is None:
+            return None
+        cs = cnt[pre.uniq_inv == j]
+        d = np.diff(cs)
+        if not (m <= cs[0] <= m + 1 and (d >= 0).all() and (d <= 1).all()):
+            return None
+        counters[hk] = int(cs[-1])
+    b = len(vc)
+    if isinstance(v, PackedVerdicts) and v.carried:
+        evolving, candidate = v.nonces
+    else:
+        etas = (v.eta_bytes() if isinstance(v, PackedVerdicts)
+                else np.ascontiguousarray(np.asarray(v.eta).astype(np.uint8))).tobytes()
+        first_next = (vc.slot // params.epoch_length + 1) * params.epoch_length
+        w_idx = np.flatnonzero(vc.slot + params.stability_window < first_next)
+        k = int(w_idx[-1]) if w_idx.size else -1  # the last lane that sets candidate
+        evolving, candidate = st.evolving_nonce, st.candidate_nonce
+        for i in range(b):
+            evolving = nonces.combine(evolving, etas[32 * i: 32 * i + 32])
+            if i == k:
+                candidate = evolving
+    last = b - 1
+    state = PraosState(
+        last_slot=int(vc.slot[last]), ocert_counters=counters,
+        evolving_nonce=evolving, candidate_nonce=candidate,
+        epoch_nonce=st.epoch_nonce,
+        lab_nonce=nonces.prev_hash_to_nonce(
+            vc.prev_hash[last].tobytes() if vc.has_prev[last] else None),
+        last_epoch_block_nonce=st.last_epoch_block_nonce,
+    )
+    return BatchResult(state, b, None)
+
+
+def epilogue(params: PraosParams, ticked: TickedPraosState,
+             hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
+             v) -> BatchResult:
+    """Sequential epilogue: counters + nonce fold, stop at the first
+    failure with the reference's error. A ViewColumns window first tries
+    the columnar fast path; when that declines, the window's HeaderViews
+    take the exact per-header fold (the packed fast path, which checks
+    the same gates, is skipped)."""
+    columns_declined = isinstance(hvs, ViewColumns)
+    if columns_declined:
+        res = _epilogue_columns_fast(params, ticked, hvs, pre, v)
         if res is not None:
             return res
+        hvs = hvs.views()
+    if isinstance(v, PackedVerdicts):
+        if not columns_declined:
+            res = _epilogue_packed_fast(params, ticked, hvs, pre, v)
+            if res is not None:
+                return res
         v = v.full()
     lview = ticked.ledger_view
     st = ticked.state
@@ -661,12 +949,52 @@ def epilogue(params: PraosParams, ticked: TickedPraosState,
 # ---------------------------------------------------------------------------
 
 
+def _lt_be_rows(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Row-wise big-endian a < b of two [n, 32] uint8 matrices."""
+    ne = a != b
+    first = ne.argmax(axis=1)
+    rows = np.arange(a.shape[0])
+    return ne.any(axis=1) & (a[rows, first] < b[rows, first])
+
+
+def _native_columns(params: PraosParams, epoch_nonce, vc: ViewColumns,
+                    pre: ColumnChecks) -> Verdicts:
+    """run_batch_native of a ViewColumns window: the matrices passed as
+    they are, the leader bracket one byte compare against the unique
+    pools' threshold rows."""
+    n = len(vc)
+    sig_len = 96 + 32 * params.kes_depth
+    if vc.kes_sig.shape[1] != sig_len:
+        raise ValueError(f"KES signatures of {vc.kes_sig.shape[1]} bytes, not {sig_len}")
+    lb = vc.signed_bytes.shape[1]
+    plen = int(vc.vrf_proof_len[0])
+    rc, kind, lv, eta = native.validate_praos(
+        vc.vk_cold, vc.ocert_sigma,
+        np.concatenate([vc.ocert_vk_hot, _be8_np(vc.ocert_counter),
+                        _be8_np(vc.ocert_kes_period)], axis=1),
+        vc.ocert_vk_hot, pre.kes_evolution, vc.kes_sig, params.kes_depth,
+        np.ascontiguousarray(vc.signed_bytes).tobytes(),
+        np.arange(n + 1, dtype=np.int64) * lb, vc.vrf_vk, vc.vrf_proof[:, :plen],
+        _alpha_column(vc, epoch_nonce), vc.vrf_output,
+    )
+    ok = [np.ones(n, bool) for _ in range(3)]
+    if rc >= 0:
+        ok[kind - 1][rc] = False
+    live = np.arange(n) < (n if rc < 0 else rc)
+    thr_lo, thr_hi = _uniq_threshold_tables(params, pre)
+    win = _lt_be_rows(lv, thr_lo)
+    return Verdicts(ok[0], ok[1], ok[2], win & live,
+                    ~win & _lt_be_rows(lv, thr_hi) & live, eta, lv)
+
+
 def run_batch_native(params: PraosParams, ledger_view: LedgerView,
-                     epoch_nonce, hvs: Sequence[HeaderView],
+                     epoch_nonce, hvs: "Sequence[HeaderView] | ViewColumns",
                      pre: HostChecks) -> Verdicts:
     """The C++ verifier (native/hostcrypto.cpp) over a window, in the
     same Verdicts shape. It stops at the first failing lane; lanes past
     it carry don't-care verdicts the epilogue never reads."""
+    if isinstance(hvs, ViewColumns):
+        return _native_columns(params, epoch_nonce, hvs, pre)
     n = len(hvs)
 
     def rows(get, w):
@@ -706,7 +1034,7 @@ DECLINES: dict[str, int] = {}
 
 
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
-                    hvs: Sequence[HeaderView], pre: HostChecks,
+                    hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
                     device: torch.device, carry=None) -> PackedVerdicts:
     """Stage -> H2D -> unpack -> the five stage kernels of the window's
     proof format -> reduce with the nonce fold -> D2H of the mask words
@@ -717,12 +1045,15 @@ def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
     ships its eta bytes (no fold, no carry); any other decline raises."""
     b = len(hvs)
     try:
-        layout, packed = stage_packed(params, lview, eta0, hvs)
+        if isinstance(hvs, ViewColumns):
+            layout, packed = stage_packed_columns(params, lview, eta0, hvs, pre)
+        else:
+            layout, packed = stage_packed(params, lview, eta0, hvs)
     except NotStagedError as e:
         if e.reason not in GENERIC_REASONS:
             raise
         DECLINES[e.reason] = DECLINES.get(e.reason, 0) + 1
-        batch = stage(params, lview, eta0, hvs, pre.kes_evolution)
+        batch = stage_any(params, lview, eta0, hvs, pre)
         cols = batch_columns(pad_batch_to(batch, bucket_size(b)), device)
         (masks, eta_u8), flags, eta, lv = pk_kernels.verify_staged(
             cols, isinstance(batch.vrf, stage_np.EcvrfBcBatch), params.kes_depth, b)
@@ -737,9 +1068,9 @@ def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
 
 
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
-                   hvs: Sequence[HeaderView], backend: str,
+                   hvs: "Sequence[HeaderView] | ViewColumns", backend: str,
                    device: torch.device | None, carry=None) -> BatchResult:
-    """One within-epoch window of one body width and proof format.
+    """One within-epoch window of one proof format.
     `carry`: the device nonce carry of the previous packed window, None
     to seed the fold from the ticked state (tick only rotates the epoch
     nonce, so a carry stays valid across an epoch boundary)."""
@@ -759,40 +1090,66 @@ def validate_batch(params: PraosParams, ticked: TickedPraosState,
     return res
 
 
-def _shape_key(hv: HeaderView):
-    return (len(hv.signed_bytes), len(hv.vrf_proof))
-
-
-def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState,
-                   hvs: Sequence[HeaderView], max_batch: int = 8192,
-                   backend: str = "device", device=None) -> BatchResult:
-    """Validate a run of headers: windows cut at epoch boundaries, at
-    `max_batch`, and where the body width or proof format changes; the
-    state threads through `tick` between windows, and the device nonce
-    carry from each packed window to the next (a generically staged
-    window breaks it; the next packed window seeds it from the state).
-    Equivalent to folding the reference's `update` over `hvs` (same
-    final state, same first error). backend="device" runs on `device`
-    (None -> CUDA, raising when it is absent); backend="native" runs the
-    C++ verifier."""
-    dev = resolve(device) if backend == "device" else None
-    carry = None
-    total = 0
+def _epoch_segments_idx(params: PraosParams, hvs) -> list[tuple[int, int, int]]:
+    """[(epoch, start, end)]: the run cut at epoch boundaries (one
+    vectorized pass over a ViewColumns window's slots)."""
     n = len(hvs)
+    if n == 0:
+        return []
+    if isinstance(hvs, ViewColumns):
+        epochs = hvs.slot // params.epoch_length
+        bounds = [0, *(np.flatnonzero(np.diff(epochs)) + 1).tolist(), n]
+        return [(int(epochs[lo]), lo, hi) for lo, hi in zip(bounds[:-1], bounds[1:])]
+    segments = []
     i = 0
     while i < n:
         epoch = params.epoch_of(hvs[i].slot)
-        j = i + 1
-        key = _shape_key(hvs[i])
-        while (j < n and j - i < max_batch and params.epoch_of(hvs[j].slot) == epoch
-               and _shape_key(hvs[j]) == key):
+        j = i
+        while j < n and params.epoch_of(hvs[j].slot) == epoch:
             j += 1
-        lview = ledger_view_for_epoch(epoch)
-        ticked = praos.tick(params, lview, hvs[i].slot, state)
-        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry)
-        state, carry = res.state, res.carry
-        total += res.n_valid
-        if res.error is not None:
-            return BatchResult(state, total, res.error)
+        segments.append((epoch, i, j))
         i = j
+    return segments
+
+
+def _proof_break(hvs, w: int, j: int) -> int:
+    """The first index in (w, j) where the VRF proof format changes, else
+    j (a window stages one proof column)."""
+    if isinstance(hvs, ViewColumns):
+        diff = np.flatnonzero(hvs.vrf_proof_len[w + 1: j] != hvs.vrf_proof_len[w])
+        return w + 1 + int(diff[0]) if diff.size else j
+    plen = len(hvs[w].vrf_proof)
+    return next((k for k in range(w + 1, j) if len(hvs[k].vrf_proof) != plen), j)
+
+
+def _slot_at(hvs, i: int) -> int:
+    return int(hvs.slot[i]) if isinstance(hvs, ViewColumns) else hvs[i].slot
+
+
+def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState,
+                   hvs: "Sequence[HeaderView] | ViewColumns", max_batch: int = 8192,
+                   backend: str = "device", device=None) -> BatchResult:
+    """Validate a run of headers (a HeaderView list or ViewColumns):
+    windows cut at epoch boundaries, at `max_batch` within an epoch and
+    where the proof format changes; the state threads through `tick`
+    between windows, and the device nonce carry from each packed window
+    to the next (a generically staged window breaks it; the next packed
+    window seeds it from the state). Equivalent to folding the
+    reference's `update` over `hvs` (same final state, same first
+    error). backend="device" runs on `device` (None -> CUDA, raising when
+    it is absent); backend="native" runs the C++ verifier."""
+    dev = resolve(device) if backend == "device" else None
+    carry = None
+    total = 0
+    for epoch, i, end in _epoch_segments_idx(params, hvs):
+        lview = ledger_view_for_epoch(epoch)
+        while i < end:
+            j = _proof_break(hvs, i, min(i + max_batch, end))
+            ticked = praos.tick(params, lview, _slot_at(hvs, i), state)
+            res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry)
+            state, carry = res.state, res.carry
+            total += res.n_valid
+            if res.error is not None:
+                return BatchResult(state, total, res.error)
+            i = j
     return BatchResult(state, total, None)

@@ -18,8 +18,11 @@ from __future__ import annotations
 import os
 import zlib
 from dataclasses import dataclass
-from typing import Iterator
+from typing import Callable, Iterator
 
+import numpy as np
+
+from .. import native_scan
 from ..utils import cbor
 
 
@@ -38,10 +41,6 @@ class IndexEntry:
 
     def to_cbor_obj(self):
         return [self.slot, self.block_no, self.hash_, self.offset, self.size, self.crc32]
-
-    @classmethod
-    def from_cbor_obj(cls, o):
-        return cls(o[0], o[1], bytes(o[2]), o[3], o[4], o[5])
 
 
 def chunk_name(n: int) -> str:
@@ -81,24 +80,24 @@ class ImmutableDB:
                 break  # a gap: later chunks are stranded
 
     def _load_index(self, n: int) -> list[IndexEntry]:
+        """The chunk's index entries (one native parse) up to the first
+        torn entry or the first that does not tile the chunk."""
         try:
             with open(os.path.join(self.path, index_name(n)), "rb") as f:
                 data = f.read()
         except OSError:
             return []
-        entries: list[IndexEntry] = []
-        off = end = 0
-        while off < len(data):
-            try:
-                obj, off = cbor.decode_prefix(data, off)
-                e = IndexEntry.from_cbor_obj(obj)
-            except Exception:  # noqa: BLE001 — a torn entry ends the index
-                break
-            if e.offset != end or e.size <= 0:
-                break
-            end = e.offset + e.size
-            entries.append(e)
-        return entries
+        slots, block_nos, hashes, offsets, sizes, crcs = native_scan.parse_index(data)
+        starts = np.concatenate(([0], (offsets + sizes)[:-1]))
+        bad = np.flatnonzero((offsets != starts) | (sizes <= 0))
+        k = int(bad[0]) if bad.size else len(offsets)
+        hb = hashes.tobytes()
+        return [
+            IndexEntry(s, b, hb[32 * i: 32 * i + 32], o, z, c)
+            for i, (s, b, o, z, c) in enumerate(zip(
+                slots[:k].tolist(), block_nos[:k].tolist(), offsets[:k].tolist(),
+                sizes[:k].tolist(), crcs[:k].tolist()))
+        ]
 
     @property
     def is_empty(self) -> bool:
@@ -145,6 +144,32 @@ class ImmutableDB:
                     os.fsync(fd)
                 finally:
                     os.close(fd)
+
+    def chunks(self) -> Iterator[tuple[bytes, list[IndexEntry]]]:
+        """(chunk bytes, index entries) of every chunk that has entries,
+        in slot order."""
+        for n in self._chunks:
+            entries = self._entries[n]
+            if entries:
+                with open(os.path.join(self.path, chunk_name(n)), "rb") as f:
+                    yield f.read(), entries
+
+    @staticmethod
+    def deep_check(data: bytes, entries: list[IndexEntry],
+                   check_batch: Callable[[bytes, list], int]) -> int:
+        """The number of leading entries of a loaded chunk that pass: one
+        native CRC sweep over every entry's span, then `check_batch`
+        (data, entries) -> the index of the first block that fails the
+        integrity check (len(entries) when none does) over the entries
+        before the first CRC failure. The count is that of the per-block
+        walk of `stream_validated`."""
+        rc = native_scan.crc32_first_bad(
+            data, [e.offset for e in entries], [e.size for e in entries],
+            [e.crc32 for e in entries])
+        good = len(entries) if rc < 0 else rc
+        if good == 0:
+            return 0
+        return min(good, check_batch(data, entries[:good]))
 
     def stream_validated(self, decode, check) -> Iterator:
         """Yield decode(blob) for every block in slot order, stopping at

@@ -1,7 +1,8 @@
 """One-byte corruptions of a stored chain, for the replay checks.
 
-A flipped byte is re-sealed in the block's index CRC, so storage
-validation passes and only a protocol check can catch it. Flipping a
+A flipped byte is re-sealed in the block's index CRC, so the CRC check
+passes: a flip in the declared body hash is caught by the integrity
+check on read, any other only by a protocol check. Flipping a
 byte of the VRF proof alone would be caught by the KES check first (the
 proof lies inside the KES-signed header body); given the forging
 credentials, the header body is KES-signed again after the flip, so that
@@ -29,7 +30,7 @@ from ..storage.immutable import ImmutableDB, chunk_name, index_name
 from ..utils import cbor
 from .synth import kes_sign
 
-FIELDS = ("kes_sig", "vrf_proof", "ocert_sigma")
+FIELDS = ("kes_sig", "vrf_proof", "ocert_sigma", "body_hash")
 
 
 def flip_header_byte(db_path: str, index: int, field: str, offset: int = 40,
@@ -49,7 +50,7 @@ def flip_header_byte(db_path: str, index: int, field: str, offset: int = 40,
     block = Block.from_bytes(blob)
     h = block.header
     target = {"kes_sig": h.kes_sig, "vrf_proof": h.body.vrf_proof,
-              "ocert_sigma": h.body.ocert.sigma}[field]
+              "ocert_sigma": h.body.ocert.sigma, "body_hash": h.body.body_hash}[field]
     if pool is None:
         data[e.offset + blob.index(target) + offset] ^= 0x01
     else:

@@ -166,13 +166,18 @@ def test_standin_views_validate_as_reference(standin, field):
 
 
 def test_other_declines_still_raise(standin):
-    """A window validate_chain never hands over (mixed body widths) is not
-    staged generically: dispatch_window raises."""
+    """A window whose proofs differ in length (validate_chain never hands
+    one over: it cuts at a format switch) or whose KES signature does not
+    match the depth is not staged generically: dispatch_window raises.
+    (A window of several body widths is: see
+    test_torch_columnar_replay.py.)"""
     hvs, lview = standin
-    pv = [port_view(h) for h in hvs[:2]]
-    pv[1] = dataclasses.replace(pv[1], signed_bytes=b"x")
     params = carry.params_from_reference(PARAMS)
     plview = carry.lview_from_reference(lview)
-    pre = pbatch.host_prechecks(params, plview, pv)
-    with pytest.raises(pbatch.NotStagedError, match="body-width-mixed"):
-        pbatch.dispatch_window(params, plview, ETA0, pv, pre, torch.device("cpu"))
+    for reason, field, value in (("proof-format", "vrf_proof", bytes(80)),
+                                 ("kes-sig-len", "kes_sig", bytes(64))):
+        pv = [port_view(h) for h in hvs[:2]]
+        pv[1] = dataclasses.replace(pv[1], **{field: value})
+        pre = pbatch.host_prechecks(params, plview, pv)
+        with pytest.raises(pbatch.NotStagedError, match=reason):
+            pbatch.dispatch_window(params, plview, ETA0, pv, pre, torch.device("cpu"))

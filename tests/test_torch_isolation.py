@@ -1,8 +1,10 @@
 """The port stands alone: no module of ouroboros_consensus_tpu_torch and
 not chip_smoke.py imports jax or the JAX package; its CUDA sources
 include nothing from outside their directory but the C and CUDA
-headers; the port replays a chain with jax made unimportable; and its
-device entry point raises without CUDA instead of running on the CPU."""
+headers; the port replays a chain with jax made unimportable (on both
+read paths, the native chunk scan included); and its device entry
+points (the replay and the bench) raise without CUDA instead of running
+on the CPU."""
 
 import ast
 import os
@@ -64,8 +66,9 @@ def test_scan_covers_the_tools_and_every_kernel_source():
     from ouroboros_consensus_tpu_torch.ops.pk import build
 
     scanned = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
-    assert {"tools/debug_pk.py", "tools/fe_bench.py", "testing/corrupt.py",
-            "ops/pk/kernels.py", "ops/pk/build.py"} <= scanned
+    assert {"tools/debug_pk.py", "tools/fe_bench.py", "tools/bench.py",
+            "tools/db_analyser.py", "testing/corrupt.py", "native_scan.py",
+            "protocol/views.py", "ops/pk/kernels.py", "ops/pk/build.py"} <= scanned
     csrc = PORT / "ops" / "pk" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
     assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench"} <= set(build.KERNELS)
@@ -104,7 +107,9 @@ lview = synth.make_ledger_view(pools)
 synth.synthesize(sys.argv[1], params, pools, lview, 8)
 r = db_analyser.revalidate(sys.argv[1], params, lview, backend="device", device="cpu")
 n = db_analyser.revalidate(sys.argv[1], params, lview, backend="native")
-assert r.n_valid == n.n_valid == 8 and r.error is None and r.final_state == n.final_state
+v = db_analyser.revalidate(sys.argv[1], params, lview, backend="native", columnar=False)
+assert r.n_valid == n.n_valid == v.n_valid == 8 and r.error is None
+assert r.final_state == n.final_state == v.final_state
 assert "jax" not in [k for k, v in sys.modules.items() if v is not None]
 print("REPLAYED", r.n_valid)
 """
@@ -132,6 +137,12 @@ def test_device_entry_point_refuses_without_cuda(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         db_analyser.revalidate(str(tmp_path), PraosParams(kes_depth=2),
                                synth.make_ledger_view(pools), backend="device")
+    from ouroboros_consensus_tpu_torch.tools import bench
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench.main(["--db", str(tmp_path)])
+    with pytest.raises(ValueError):
+        bench.measure(str(tmp_path), device="cpu")
     assert device.resolve("cpu").type == "cpu"
 
 

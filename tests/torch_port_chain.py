@@ -1,8 +1,8 @@
 """Shared fixture code of the port's replay tests: a small chain forged
 by the JAX package's synthesizer (bc proofs by default, draft-03 under
 OCT_VRF_BATCH=0), byte corruptions that keep the storage layer's CRCs
-consistent, and the comparison of the port's replay with the JAX
-package's sequential host fold."""
+consistent, the port's replay on either read path, and the comparison
+of the port's replay with the JAX package's sequential host fold."""
 
 import shutil
 from fractions import Fraction
@@ -65,6 +65,14 @@ def port(path: str, lview, backend: str = "device"):
                           max_batch=16, device="cpu" if backend == "device" else None)
 
 
+def replay(path: str, lview, backend: str, columnar: bool):
+    """The port's replay on the columnar or the list read path."""
+    return pda.revalidate(path, carry.params_from_reference(PARAMS),
+                          carry.lview_from_reference(lview), backend=backend,
+                          max_batch=16, columnar=columnar,
+                          device="cpu" if backend == "device" else None)
+
+
 def ref_view(hv) -> rviews.HeaderView:
     """A port HeaderView as the JAX package's."""
     oc = hv.ocert
@@ -79,3 +87,9 @@ def assert_same(ref, got) -> None:
     assert got.n_valid == ref.n_valid
     assert carry.error_to_plain(got.error) == carry.error_to_plain(ref.error)
     assert carry.state_to_plain(got.final_state) == carry.state_to_plain(ref.final_state)
+
+
+def assert_same_replay(ref, got) -> None:
+    """assert_same, and the same storage prefix (blocks read)."""
+    assert got.n_blocks == ref.n_blocks
+    assert_same(ref, got)
