@@ -40,18 +40,29 @@ Phases (any failure raises and the script exits non-zero):
    stream of its own (checked) beside the stages, the carry chained
    from window to window on the card. Chains are forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
-   43200-slot epochs), replayed through
-   `tools.db_analyser.revalidate(backend="device")` on its default
-   columnar path (native chunk scan into ViewColumns, columnar prechecks,
-   packed staging and epilogue) and through the C++ verifier, which must
-   agree on n_valid, error and final state:
+   43200-slot epochs) and sealed at forge time, replayed through
+   `tools.db_analyser.revalidate(backend="device")` on its default path
+   (every chunk's sealed sidecar into ViewColumns, which must be a `hit`
+   on every chunk; columnar prechecks, packed staging and epilogue; the
+   next segment read on a prefetch thread and three windows staged
+   ahead on a staging thread and three in flight) and through the C++
+   verifier, which must agree on n_valid, error and final state:
    a. a batch-compatible chain, also on the list path
       (`revalidate(columnar=False)`: HeaderView lists from the same scan),
-      which must equal the columnar one; then a copy with one
-      KES-signature byte flipped two thirds of the way in; and the port
-      bench's measurement (`tools.bench.measure`: a native replay, a
-      warm-up and the best of two timed device replays) of the same chain,
-      its JSON on a `bench {...}` line;
+      which must equal the columnar one; then (`sidecar_checks`) the scan
+      path (`sidecar=False`) and the serial loop (`pipeline_depth=1`,
+      `prefetch=False`), which must equal the default, a copy with a
+      stale and a torn seal, which must fall back on those two chunks,
+      device == native, the read's parts on both paths
+      (`read_breakdown`), the replay with and without its overlap in
+      turns (`overlap_turns`, each with its garbage-collector pauses) and
+      one default replay's timeline (`pipeline_timeline`: each window's
+      staging, launch, device interval and retire, and the card's busy
+      share of the wall); then a copy with one KES-signature byte flipped
+      two thirds of the way in; and the port bench's measurement
+      (`tools.bench.measure`: a native replay, a warm-up and the best of
+      two timed device replays, every chunk a sidecar hit) of the same
+      chain, its JSON on a `bench {...}` line;
    b. a draft-03 chain, and a copy with one VRF-proof byte flipped two
       thirds of the way in and the header KES-signed again (both
       backends stop there with VRFKeyBadProof);
@@ -72,9 +83,11 @@ Phases (any failure raises and the script exits non-zero):
       the nonce carry from the host state again, and every packed window
       launch unpack and nonce_fold.
    Each main path logs headers/s over `validate_s` (the validate_chain
-   calls) and over `wall_s` (the read as well), and the single-format
-   chains a host wall per layer (`layer_breakdown`: the columnar layers
-   by their own names, and `read`, wall_s - validate_s).
+   calls) and over `wall_s` (the read as well), the read's own time
+   (`read_s`, overlapped) and the time validation waited for it
+   (`wait_s`), and the single-format chains a host wall per layer of a
+   serial replay (`layer_breakdown`: the columnar layers by their own
+   names, and `read`).
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
@@ -903,14 +916,16 @@ STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_lad
 def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
                 columnar: bool = True, native=None) -> dict:
     """One main path: the device replay (`columnar` or on HeaderView
-    lists) with the launch counts zeroed just before it and read just
-    after (CUDA events around each stage wrapper, and the windows it
-    cut), then the native replay, which must agree (`native`: its result,
-    when already run)."""
+    lists) with the launch counts and the sidecar counters zeroed just
+    before it and read just after (CUDA events around each stage wrapper,
+    and the windows it cut), then the native replay, which must agree
+    (`native`: its result, when already run). A columnar replay must read
+    every chunk through its sidecar (the forge sealed them all)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
     from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.storage import sidecar
     from ouroboros_consensus_tpu_torch.tools import db_analyser
 
     events: dict = {}
@@ -918,7 +933,7 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
     lanes: list = []
     windows: list = []
     saved = [(K, name, getattr(K, name)) for name in STAGE_WRAPPERS]
-    saved.append((pbatch, "validate_batch", pbatch.validate_batch))
+    saved.append((pbatch, "prepare_window", pbatch.prepare_window))
 
     def timed(*args, _fn, _name, **kw):
         a = torch.cuda.Event(enable_timing=True)
@@ -932,18 +947,20 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
             lanes.append(res[0].shape[-1])
         return res
 
-    def window(params_, ticked, hvs, *args, _fn=pbatch.validate_batch, **kw):
+    def window(params_, lview_, eta0, hvs, *args, _fn=pbatch.prepare_window, **kw):
+        # on the staging thread, one window at a time in window order
         windows.append((len(hvs), len(hvs[0].vrf_proof),
                         "cols" if isinstance(hvs, pbatch.ViewColumns) else "list"))
-        return _fn(params_, ticked, hvs, *args, **kw)
+        return _fn(params_, lview_, eta0, hvs, *args, **kw)
 
     if dev.type == "cuda":
         for mod, name, fn in saved[:-1]:
             setattr(mod, name, lambda *a, _fn=fn, _name=name, **kw: timed(
                 *a, _fn=_fn, _name=_name, **kw))
-    pbatch.validate_batch = window
+    pbatch.prepare_window = window
     try:
         K.reset_launches()
+        sidecar.reset_counters()
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dres = db_analyser.revalidate(db, params, lview, backend="device",
@@ -951,14 +968,20 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
+        counts = sidecar.counters()
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
+    chunks = chunk_count(db)
+    if columnar and counts != {**dict.fromkeys(counts, 0), "hit": chunks}:
+        raise AssertionError(f"{tag}: not every one of the {chunks} chunks read "
+                             f"through its sidecar: {counts}")
     out = {
         "launches": launches,
         "stage_device_ms": {k: sum(a.elapsed_time(b) for a, b in v) for k, v in events.items()},
         "lanes_per_launch": lanes,
         "windows": windows,
+        "sidecar": counts,
     }
     if dev.type == "cuda" and launches["nonce_fold"]:
         # the fold on a stream of its own, the stage kernels on another
@@ -967,7 +990,7 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
             raise AssertionError(f"{tag}: nonce_fold streams {streams['nonce_fold']} "
                                  f"against the stages' {staged}")
         out["fold_stream_apart"] = True
-    log(f"{tag}: launches {json.dumps(launches)}")
+    log(f"{tag}: launches {json.dumps(launches)}; sidecar {json.dumps(counts)}")
     log(f"{tag}: device time per stage (ms): {json.dumps(out['stage_device_ms'])}")
     log(f"{tag}: windows (headers, proof bytes, form): {windows}")
     nres = native or db_analyser.revalidate(db, params, lview, backend="native",
@@ -979,12 +1002,32 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
                device_wall_hps=n / dres.wall_s, native_wall_hps=n / nres.wall_s,
                device_validate_s=dres.validate_s, native_validate_s=nres.validate_s,
                device_wall_s=dres.wall_s, native_wall_s=nres.wall_s,
+               device_read_s=dres.read_s, device_wait_s=dres.wait_s,
                result=dres, native=nres)
     log(f"{tag}: headers/s over validate_s: device {out['device_hps']:.1f} "
         f"({dres.validate_s:.4f} s), native {out['native_hps']:.1f} "
         f"({nres.validate_s:.4f} s); over wall_s: device {out['device_wall_hps']:.1f} "
-        f"({dres.wall_s:.4f} s), native {out['native_wall_hps']:.1f} ({nres.wall_s:.4f} s)")
+        f"({dres.wall_s:.4f} s), native {out['native_wall_hps']:.1f} ({nres.wall_s:.4f} s); "
+        f"device read_s {dres.read_s:.4f} (overlapped), wait_s {dres.wait_s:.4f}")
     return out
+
+
+def chunk_count(db: str) -> int:
+    from ouroboros_consensus_tpu_torch.storage.immutable import ImmutableDB
+
+    return len(list(ImmutableDB(os.path.join(db, "immutable")).chunk_entries()))
+
+
+def same_replay(a, b) -> bool:
+    """Two revalidate results with the same storage prefix, n_valid, error
+    and final state."""
+    from ouroboros_consensus_tpu_torch import carry
+
+    def key(r):
+        return (r.n_blocks, r.n_valid, carry.error_to_plain(r.error),
+                carry.state_to_plain(r.final_state))
+
+    return key(a) == key(b)
 
 
 def corrupted_replay(tag: str, db: str, headers: int, field: str, expect: str,
@@ -1012,28 +1055,34 @@ LAYERS = (  # (module, function, layer) timed by layer_breakdown
     ("batch", "host_prechecks", "host_prechecks"), ("batch", "stage_packed", "stage_packed"),
     ("batch", "host_prechecks_columns", "host_prechecks_columns"),
     ("batch", "stage_packed_columns", "stage_packed_columns"),
-    ("batch", "pad_packed_to", "pad_packed_to"), ("batch", "upload_packed", "h2d"),
+    ("batch", "staging_buffer", "pin_alloc"), ("batch", "pad_packed_into", "pad_packed_into"),
+    ("batch", "upload_staged", "h2d"),
     ("K", "unpack_limb_first", "unpack"), ("K", "_tiles", "stages"),
     ("batch", "verdict_reduce", "reduce"), ("batch", "dispatch_window", "device_step"),
     ("batch", "epilogue", "epilogue"),
 )
+STEP_PARTS = ("stage_packed", "stage_packed_columns", "pin_alloc", "pad_packed_into", "h2d",
+              "unpack", "stages", "reduce")
 
 
 def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
-    """Host wall per layer of one more device replay, each layer's work
-    on the current stream synchronised (that stream alone, so that the
-    fold's side stream keeps running beside the stages; which is why this
-    is not the timed replay): the host stages, and the packed device step
-    (`dispatch_window`) split into the H2D of the packed columns, the
-    unpack kernel, the five stage kernels, the reduce (mask words and
-    the wait for the fold) and the D2H of the words and the carry (the
-    step's rest, with `stage_packed` and `pad_packed_to` taken out). The
-    fold itself is read by an event pair on its side stream around each
-    launch (`fold_side`): it overlaps the stages, so it is not one of the
-    step's parts, which still sum to the step's wall. The columnar host
-    stages are their own layers (`host_prechecks` is then the dispatching
-    wrapper's own time, without `host_prechecks_columns`), and `read` is
-    the replay's wall_s - validate_s (the chunk reads, checks and scan)."""
+    """Host wall per layer of one more device replay, serial
+    (`pipeline_depth=1`, `prefetch=False`: a layer's timer synchronises,
+    which would serialise the pipeline anyway), each layer's work on the
+    current stream synchronised (that stream alone, so that the fold's
+    side stream keeps running beside the stages; which is why this is not
+    the timed replay): the host stages, and the packed device step
+    (`dispatch_window`) split into the pinned staging buffer's
+    allocation, the padding into it, the H2D of the packed columns, the
+    unpack kernel, the five stage kernels, the reduce (mask words and the
+    wait for the fold) and the D2H of the words and the carry (the step's
+    rest, with `stage_packed` taken out). The fold itself is read by an
+    event pair on its side stream around each launch (`fold_side`): it
+    overlaps the stages, so it is not one of the step's parts, which still
+    sum to the step's wall. The columnar host stages are their own layers
+    (`host_prechecks` is then the dispatching wrapper's own time, without
+    `host_prechecks_columns`), and `read` is the replay's read_s (the
+    chunk reads, checks and pieces, inline)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -1078,25 +1127,289 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
         K.nonce_fold = fold_events
     try:
         res = db_analyser.revalidate(db, params, lview, backend="device",
-                                     max_batch=max_batch, device=dev)
+                                     max_batch=max_batch, device=dev, prefetch=False,
+                                     pipeline_depth=1)
         if dev.type == "cuda":
             torch.cuda.synchronize()
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
     step = spent.pop("device_step")
-    spent["d2h"] = step - sum(spent.get(k, 0.0) for k in (
-        "stage_packed", "stage_packed_columns", "pad_packed_to", "h2d", "unpack",
-        "stages", "reduce"))
+    spent["d2h"] = step - sum(spent.get(k, 0.0) for k in STEP_PARTS)
     if "host_prechecks_columns" in spent:  # nested in host_prechecks
         spent["host_prechecks"] -= spent["host_prechecks_columns"]
     spent["other"] = res.validate_s - step - sum(spent.get(k, 0.0) for k in (
         "host_prechecks", "host_prechecks_columns", "epilogue"))
     spent["validate_s"] = res.validate_s
-    spent["read"] = res.wall_s - res.validate_s
+    spent["read"] = res.read_s
     spent["device_step"] = step
     spent["fold_side"] = sum(a.elapsed_time(b) for a, b in folds) / 1e3
     return spent
+
+
+def read_breakdown(db: str, params, lview, dev, use_sidecar: bool) -> dict:
+    """Host wall per part of the read of one more device replay, inline
+    (`prefetch=False`, `pipeline_depth=1`, so that the reader has the
+    host to itself): the open's index parse (`index_load`), the file
+    reads; on the sidecar's hit path the probe
+    (`load_sidecar`: the map and the seals) with its chunk and payload
+    CRCs, the body-hash sweep (`native.blake2b_spans`) and `pieces`; on
+    the scan path (`use_sidecar=False`) the CRC sweep, the two header
+    scans (`extract_headers`: the integrity check's and the pieces') and
+    the pieces; the epoch merge (`ViewColumns.concat`) on both; `other`
+    is the rest of the replay's read_s."""
+    from ouroboros_consensus_tpu_torch import native, native_scan
+    from ouroboros_consensus_tpu_torch.protocol.views import ViewColumns
+    from ouroboros_consensus_tpu_torch.storage import immutable, sidecar
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+
+    spent: dict = {}
+    crcs = [0]  # load_sidecar's CRC calls: the chunk's, then the payload's
+    targets = [
+        (immutable.ImmutableDB, "_load", "index_load"),
+        (immutable.ImmutableDB, "read_chunk", "file_read"), (sidecar, "load_sidecar", "probe"),
+        (sidecar, "_crc32", None), (native, "blake2b_spans", "body_hash_sweep"),
+        (sidecar.SidecarColumns, "pieces", "pieces"),
+        (native_scan, "crc32_first_bad", "crc_sweep"),
+        (native_scan, "extract_headers", "header_scans"),
+        (ViewColumns, "pieces_from_header_columns", "pieces"),
+        (ViewColumns, "concat", "epoch_merge"),
+    ]
+    saved = []
+    for owner, name, part in targets:
+        fn = owner.__dict__[name]
+        saved.append((owner, name, fn))
+        call = fn.__func__ if isinstance(fn, (classmethod, staticmethod)) else fn
+
+        def wrapper(*args, _fn=call, _part=part, **kw):
+            if _part is None:
+                _part = ("chunk_crc", "payload_crc")[min(crcs[0], 1)]
+                crcs[0] += 1
+            elif _part == "probe":
+                crcs[0] = 0
+            t0 = time.perf_counter()
+            res = _fn(*args, **kw)
+            spent[_part] = spent.get(_part, 0.0) + time.perf_counter() - t0
+            return res
+
+        if isinstance(fn, classmethod):
+            wrapped = classmethod(lambda cls, *a, _w=wrapper, **kw: _w(cls, *a, **kw))
+        elif isinstance(fn, staticmethod):
+            wrapped = staticmethod(wrapper)
+        else:
+            wrapped = wrapper
+        setattr(owner, name, wrapped)
+    try:
+        sidecar.reset_counters()
+        res = db_analyser.revalidate(db, params, lview, backend="device", max_batch=8192,
+                                     device=dev, sidecar=use_sidecar, prefetch=False,
+                                     pipeline_depth=1)
+        counts = sidecar.counters()
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    if use_sidecar:
+        spent["probe"] -= spent.get("chunk_crc", 0.0) + spent.get("payload_crc", 0.0)
+    spent["other"] = res.read_s - sum(spent.values())
+    spent["read_s"] = res.read_s
+    spent["sidecar"] = counts
+    return spent
+
+
+def overlap_turns(db: str, params, lview, dev, pairs: int = 5) -> dict:
+    """The replay with its overlap (the defaults: prefetch, pipeline_depth
+    3) and without (`prefetch=False`, `pipeline_depth=1`), in turns
+    (default, serial, serial, default, ...), each with the time the
+    garbage collector paused it (`gc_s`), the part of that in full
+    (generation 2) collections (`gc2_s`) and their count (`gc2_n`): ->
+    each side's runs and minimum wall."""
+    import gc
+
+    import torch
+
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+
+    pauses = []  # (generation, seconds)
+
+    def on_gc(phase, info, _t=[0.0]):
+        if phase == "start":
+            _t[0] = time.perf_counter()
+        else:
+            pauses.append((info["generation"], time.perf_counter() - _t[0]))
+
+    sides = {"overlap": {}, "serial": {"prefetch": False, "pipeline_depth": 1}}
+    order = [("overlap", "serial")[(k + k // 2) % 2] for k in range(2 * pairs)]
+    runs: dict = {k: [] for k in sides}
+    gc.callbacks.append(on_gc)
+    try:
+        for side in order:
+            pauses.clear()
+            torch.cuda.synchronize()
+            r = db_analyser.revalidate(db, params, lview, backend="device", device=dev,
+                                       **sides[side])
+            torch.cuda.synchronize()
+            full = [t for g, t in pauses if g == 2]
+            runs[side].append({"wall_s": r.wall_s, "validate_s": r.validate_s,
+                               "read_s": r.read_s, "wait_s": r.wait_s,
+                               "gc_s": sum(t for _g, t in pauses), "gc2_s": sum(full),
+                               "gc2_n": len(full)})
+    finally:
+        gc.callbacks.remove(on_gc)
+    return {side: {"runs": rs, "min_wall_s": min(x["wall_s"] for x in rs)}
+            for side, rs in runs.items()}
+
+
+def pipeline_timeline(db: str, params, lview, dev) -> dict:
+    """One default replay's timeline (ms from its start): the open, each
+    validate_chain call (one an epoch segment of one width), each window's
+    staging (on the staging thread), launch and retire (on the caller's),
+    and its device interval (CUDA events: from the stream reaching the
+    launch to the read-back's end; the fold's side stream is inside it);
+    -> the segments, the windows, and the card's busy share of the wall
+    (the union of the device intervals)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.storage.immutable import ImmutableDB
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+
+    t0 = [0.0]
+
+    def now():
+        return (time.perf_counter() - t0[0]) * 1e3
+
+    stage, launch, retire, segments, opened = {}, [], {}, [], []
+    prep, disp, epi = pbatch.prepare_window, pbatch.dispatch_prepared, pbatch.epilogue
+    chain, imm_init = pbatch.validate_chain, ImmutableDB.__init__
+    ref = torch.cuda.Event(enable_timing=True)
+
+    def p_prep(*args, **kw):
+        a = now()
+        sw = prep(*args, **kw)
+        stage[id(sw.hvs)] = (a, now())
+        return sw
+
+    def p_disp(sw, device, carry=None):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        a = now()
+        v = disp(sw, device, carry)
+        b = now()
+        e1.record()
+        launch.append((sw.b, stage.get(id(sw.hvs)), a, b, e0, e1, id(sw.hvs)))
+        return v
+
+    def p_epi(params_, ticked, hvs, pre, v):
+        a = now()
+        res = epi(params_, ticked, hvs, pre, v)
+        retire[id(hvs)] = (a, now())
+        return res
+
+    def p_chain(params_, lv, state, hvs, *args, **kw):
+        a = now()
+        res = chain(params_, lv, state, hvs, *args, **kw)
+        segments.append((len(hvs), round(a, 3), round(now(), 3)))
+        return res
+
+    def p_open(self, *args, **kw):
+        a = now()
+        imm_init(self, *args, **kw)
+        opened.append((round(a, 3), round(now(), 3)))
+
+    saved = [(pbatch, "prepare_window", prep), (pbatch, "dispatch_prepared", disp),
+             (pbatch, "epilogue", epi), (pbatch, "validate_chain", chain),
+             (ImmutableDB, "__init__", imm_init)]
+    pbatch.prepare_window, pbatch.dispatch_prepared, pbatch.epilogue = p_prep, p_disp, p_epi
+    pbatch.validate_chain, ImmutableDB.__init__ = p_chain, p_open
+    try:
+        torch.cuda.synchronize()
+        ref.record()
+        torch.cuda.synchronize()
+        t0[0] = time.perf_counter()
+        res = db_analyser.revalidate(db, params, lview, backend="device", device=dev)
+        torch.cuda.synchronize()
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    windows, busy = [], []
+    for b, st, a, bb, e0, e1, key in launch:
+        d = (ref.elapsed_time(e0), ref.elapsed_time(e1))
+        busy.append(d)
+        windows.append({"lanes": b, "stage": [round(x, 3) for x in st] if st else None,
+                        "launch": [round(a, 3), round(bb, 3)],
+                        "device": [round(x, 3) for x in d],
+                        "retire": [round(x, 3) for x in retire.get(key, ())]})
+    union, end = 0.0, -1.0
+    for a, b in sorted(busy):
+        a = max(a, end)
+        if b > a:
+            union += b - a
+            end = b
+    wall_ms = res.wall_s * 1e3
+    return {"open": opened, "segments": segments, "windows": windows,
+            "wall_ms": wall_ms, "device_busy_ms": union, "device_busy_share": union / wall_ms,
+            "read_s": res.read_s, "wait_s": res.wait_s, "validate_s": res.validate_s}
+
+
+def sidecar_checks(tag: str, db: str, params, lview, max_batch: int, dev, cols) -> dict:
+    """On the bc chain, beside its timed replay `cols` (a sidecar hit on
+    every chunk): the scan path (`sidecar=False`) gives the same verdicts;
+    the serial loop (`pipeline_depth=1`, `prefetch=False`) gives the same
+    as the pipeline; a copy whose first chunk's seal is stale (a payload
+    byte flipped) and whose second chunk's is torn (cut short) falls back
+    to the scan on those two, device == native; and the read's parts on
+    both paths (`read_breakdown`)."""
+    from ouroboros_consensus_tpu_torch.storage import sidecar
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+
+    def replay(path, backend="device", **kw):
+        sidecar.reset_counters()
+        r = db_analyser.revalidate(path, params, lview, backend=backend, max_batch=max_batch,
+                                   device=dev if backend == "device" else None, **kw)
+        return r, {k: v for k, v in sidecar.counters().items() if v}
+
+    scan, counts = replay(db, sidecar=False)
+    if not same_replay(scan, cols) or counts:
+        raise AssertionError(f"{tag}: the scan path differs from the sidecar's ({counts})")
+    serial, _ = replay(db, pipeline_depth=1, prefetch=False)
+    if not same_replay(serial, cols):
+        raise AssertionError(f"{tag}: pipeline_depth 1 differs from 3")
+    log(f"{tag}: sidecar == scan path, pipeline_depth 3 == 1: n_blocks {cols.n_blocks}, "
+        f"n_valid {cols.n_valid}; walls: sidecar {cols.wall_s:.4f} s, scan "
+        f"{scan.wall_s:.4f} s, serial {serial.wall_s:.4f} s")
+    spoiled = db + "_spoiled"
+    shutil.copytree(db, spoiled)
+    chunks = chunk_count(db)
+    try:  # the first chunk's seal stale, the last's torn
+        for n, torn in {0: False, chunks - 1: True}.items():
+            p = os.path.join(spoiled, "immutable", sidecar.sidecar_name(n))
+            raw = bytearray(open(p, "rb").read())
+            if torn:
+                raw = raw[: sidecar.HEADER_SIZE + 3]
+            else:
+                raw[sidecar.HEADER_SIZE + 9] ^= 0x01
+            with open(p, "wb") as f:
+                f.write(bytes(raw))
+        dres, dcounts = replay(spoiled)
+        nres, _ = replay(spoiled, "native")
+    finally:
+        shutil.rmtree(spoiled, ignore_errors=True)
+    compare(f"{tag} chain, a stale and a torn seal", dres, nres)
+    want = {"hit": chunks - 2, "stale": 1, "torn": 1} if chunks > 1 else {"torn": 1}
+    if dcounts != want or not same_replay(dres, cols):
+        raise AssertionError(f"{tag}: stale and torn seals: {dcounts} (want {want})")
+    log(f"{tag}: a stale and a torn seal fall back to the scan: {json.dumps(dcounts)}")
+    parts = {"hit": read_breakdown(db, params, lview, dev, True),
+             "scan": read_breakdown(db, params, lview, dev, False)}
+    log(f"{tag}: the read's parts, inline (s): {json.dumps(parts)}")
+    out = {"scan_wall_s": scan.wall_s, "serial_wall_s": serial.wall_s,
+           "spoiled": dcounts, "read_parts": parts}
+    if dev.type == "cuda":
+        out["overlap"] = overlap_turns(db, params, lview, dev)
+        log(f"{tag}: with and without the overlap, in turns: {json.dumps(out['overlap'])}")
+        out["timeline"] = pipeline_timeline(db, params, lview, dev)
+        log(f"{tag}: one default replay's timeline (ms): {json.dumps(out['timeline'])}")
+    return out
 
 
 def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
@@ -1149,6 +1462,7 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
                 raise AssertionError("bc chain: the columnar replay differs from the list one")
             log("bc: columnar == list: n_blocks, n_valid, error and final state")
             out["list"] = {k: v for k, v in listed.items() if k not in ("result", "native")}
+            out["sidecar_checks"] = sidecar_checks(tag, db, params, lview, max_batch, dev, cols)
             corrupted_replay(tag, db, n, "kes_sig", "InvalidKesSignatureOCERT",
                              params, lview, max_batch, dev)
             out["bench"] = port_bench.measure(db, device=dev)
@@ -1228,18 +1542,18 @@ def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
     views = real[:third] + hvs[third: 2 * third] + real[2 * third:]
     K.reset_launches()
     seeded = []
-    dispatch = pbatch.dispatch_window
+    dispatch = pbatch.dispatch_prepared
 
-    def spy(*args):
-        v = dispatch(*args)
-        seeded.append((isinstance(args[6], np.ndarray), v.carried))
+    def spy(sw, device, carry_in=None):
+        v = dispatch(sw, device, carry_in)
+        seeded.append((isinstance(carry_in, np.ndarray), v.carried))
         return v
 
-    pbatch.dispatch_window = spy
+    pbatch.dispatch_prepared = spy
     try:
         dmid = replay(views, "device", 64)
     finally:
-        pbatch.dispatch_window = dispatch
+        pbatch.dispatch_prepared = dispatch
     torch.cuda.synchronize()
     compare("stand-in middle third (carry seeded again)", dmid, replay(views, "native", 64))
     mid = dict(K.LAUNCHES)
@@ -1386,7 +1700,8 @@ for _ in range(3):
     r = db_analyser.revalidate(db, params, lview, backend="device", max_batch=8192, device=dev)
     torch.cuda.synchronize()
     assert r.error is None and r.n_valid > 0, (r.n_valid, r.error)
-    runs.append({"n_valid": r.n_valid, "wall_s": r.wall_s, "validate_s": r.validate_s})
+    runs.append({"n_valid": r.n_valid, "wall_s": r.wall_s, "validate_s": r.validate_s,
+                 "read_s": getattr(r, "read_s", None), "wait_s": getattr(r, "wait_s", None)})
 rec = {"root": root, "runs": runs,
        "layers_s": own.layer_breakdown(db, params, lview, 8192, dev)}
 print("ABR " + json.dumps(rec), flush=True)

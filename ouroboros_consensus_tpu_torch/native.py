@@ -81,6 +81,8 @@ def lib():
         + [ctypes.c_void_p] * 4 + [ctypes.c_long]
         + [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_long)]
     )
+    so.oc_crc32.restype = ctypes.c_uint32
+    so.oc_crc32.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_uint32]
     so.oc_blake2b_spans.restype = None
     so.oc_blake2b_spans.argtypes = [
         ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
@@ -122,6 +124,14 @@ def proof_to_hash(pi: bytes) -> bytes:
     if not lib().oc_ecvrf_proof_to_hash(pi, out):
         raise ValueError("proof Gamma does not decode")
     return out.raw
+
+
+def crc32(data, value: int = 0) -> int:
+    """CRC-32 of `data` (any buffer) continuing from `value`: zlib's
+    polynomial and result bit for bit, by the library's PCLMULQDQ fold
+    where the CPU has it."""
+    buf = np.frombuffer(data, np.uint8)
+    return int(lib().oc_crc32(buf.ctypes.data, buf.size, value & 0xFFFFFFFF))
 
 
 def blake2b_spans(data: bytes, starts, ends, digest_size: int = 32) -> np.ndarray:

@@ -41,14 +41,22 @@ band between the brackets takes the exact host check.
 `validate_chain` segments a run of headers at epoch boundaries, at
 `max_batch` and where the proof format changes (a window stages one
 proof column; segmentation never changes a verdict), threading the
-PraosState and the nonce carry between windows.
+PraosState and the nonce carry between windows. On the device it runs
+them as a pipeline (the reference's `_device_loop`): a window's host half
+(`prepare_window`: prechecks, staging and padding into a staging buffer,
+pinned on the card) runs on a staging thread up to `pipeline_depth`
+windows ahead, its device half (`dispatch_prepared`: the uploads, kernels
+and the copies of the results back, none of which waits for the card) on
+the calling thread in window order with up to `pipeline_depth` windows in
+flight, and each window retires in order with its epilogue once its
+results are on the host.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from fractions import Fraction
-from functools import lru_cache
+from functools import cached_property, lru_cache
 from typing import Mapping, NamedTuple, Sequence
 
 import numpy as np
@@ -432,29 +440,122 @@ def bucket_size(b: int, minimum: int = 8) -> int:
     return ((b + 2047) // 2048) * 2048
 
 
-def pad_packed_to(packed: Packed, size: int) -> Packed:
-    """Pad the per-lane columns to `size` by replicating lane 0 (tables
-    and the nonce are shared). Padding lanes are computed and ignored:
-    every consumer slices to the real lanes."""
+# the packed columns that have one row a lane (padded to the bucket)
+LANE_COLUMNS = ("body", "kes_rs", "kes_tail_idx", "slot", "counter", "c0", "thr_idx",
+                "within")
+_ALIGN = 16  # each column's offset in a staging buffer
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def _padded_shape(name: str, x: np.ndarray, size: int) -> tuple:
+    return (size, *x.shape[1:]) if name in LANE_COLUMNS else x.shape
+
+
+def packed_bytes_bound(b: int, body_len: int, kes_depth: int) -> int:
+    """Bytes enough for the padded packed columns of a b-header window
+    of `body_len`-byte bodies in one buffer (`pad_packed_into`): the
+    lane columns at the bucket's width, each table at one row a header
+    at most, every column aligned."""
+    lanes = bucket_size(b)
+    row_bytes = {"body": body_len, "kes_rs": 64, "kes_tail_tab": 32 + 32 * kes_depth,
+                 "thr_tab": 64, "nonce": 32, "within": 1}  # the others: one int32
+
+    def rows(name):
+        return lanes if name in LANE_COLUMNS else 1 if name == "nonce" else b
+
+    return sum(_aligned(rows(f) * row_bytes.get(f, 4)) for f in Packed._fields)
+
+
+def pad_packed_into(packed: Packed, size: int, buf: np.ndarray) -> Packed:
+    """Pad the LANE_COLUMNS to `size` lanes by replicating lane 0 (tables
+    and the nonce are shared), written into `buf` (a uint8 staging
+    buffer: `staging_buffer`'s, pinned on the card), each column at an
+    aligned offset. Padding lanes are computed and ignored: every
+    consumer slices to the real lanes. -> the columns as views of
+    `buf`."""
     b = packed.body.shape[0]
-    if b == size:
-        return packed
+    out = []
+    off = 0
+    for name, x in zip(Packed._fields, packed):
+        shape = _padded_shape(name, x, size)
+        n = int(np.prod(shape)) * x.itemsize
+        if off + n > buf.nbytes:
+            raise ValueError(f"staging buffer of {buf.nbytes} bytes is too small")
+        view = buf[off: off + n].view(x.dtype).reshape(shape)
+        view[: len(x)] = x
+        if name in LANE_COLUMNS and size > b:
+            view[b:] = x[:1]
+        out.append(view)
+        off += _aligned(n)
+    return Packed(*out)
 
-    def pad(x):
-        return np.concatenate([x, np.repeat(x[:1], size - b, axis=0)], axis=0)
 
-    return packed._replace(
-        body=pad(packed.body), kes_rs=pad(packed.kes_rs),
-        kes_tail_idx=pad(packed.kes_tail_idx), slot=pad(packed.slot),
-        counter=pad(packed.counter), c0=pad(packed.c0),
-        thr_idx=pad(packed.thr_idx), within=pad(packed.within),
-    )
+def pad_packed_to(packed: Packed, size: int) -> Packed:
+    """pad_packed_into a new host buffer of the bytes the padded columns
+    take."""
+    n = sum(_aligned(int(np.prod(_padded_shape(name, x, size))) * x.itemsize)
+            for name, x in zip(Packed._fields, packed))
+    return pad_packed_into(packed, size, np.empty(n, np.uint8))
+
+
+def staging_buffer(params: PraosParams, hvs, device: torch.device) -> torch.Tensor:
+    """The host buffer a window's packed columns are staged into
+    (`pad_packed_into`): pinned on the card, so that their upload need
+    not wait for it, plain host memory otherwise. Allocated by the
+    thread that launches (the staging thread touches host memory
+    only)."""
+    if isinstance(hvs, ViewColumns):
+        body_len = hvs.signed_bytes.shape[1]
+    else:
+        body_len = max(len(hv.signed_bytes) for hv in hvs)
+    n = packed_bytes_bound(len(hvs), body_len, params.kes_depth)
+    return torch.empty(n, dtype=torch.uint8, pin_memory=device.type == "cuda")
+
+
+_TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int32): torch.int32}
+
+
+def upload_staged(packed: Packed, buf: torch.Tensor, device) -> Packed:
+    """Packed columns that are views of the staging buffer `buf` -> the
+    same columns on `device`, views of one buffer there filled by one
+    copy (from pinned memory on the card: a copy that does not wait for
+    it)."""
+    base = buf.data_ptr()
+    offs = [a.ctypes.data - base for a in packed]
+    used = max(o + a.nbytes for o, a in zip(offs, packed))
+    dev = torch.empty(used, dtype=torch.uint8, device=device)
+    dev.copy_(buf[:used], non_blocking=True)
+    return Packed(*(dev[o: o + a.nbytes].view(_TORCH_DTYPE[a.dtype]).view(a.shape)
+                    for o, a in zip(offs, packed)))
 
 
 def upload_packed(packed: Packed, device) -> Packed:
     """The packed columns on `device`, dtypes as they are (uint8 bytes,
     int32 integers); columns already there are not copied."""
     return Packed(*(torch.as_tensor(a, device=device) for a in packed))
+
+
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on `device`; to the card through pinned memory, by a
+    copy that does not wait for the card."""
+    t = torch.from_numpy(_owned(a))
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's copy on the host: from the card into pinned memory, by
+    a copy that does not wait (read it after an event recorded behind
+    it); a host tensor as it is."""
+    if t.device.type != "cuda":
+        return t
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t, non_blocking=True)
+    return h
 
 
 def _be8(x: torch.Tensor) -> torch.Tensor:
@@ -673,7 +774,7 @@ def pad_batch_to(batch: PraosBatch, size: int) -> PraosBatch:
 def batch_columns(batch: PraosBatch, device) -> tuple:
     """The staged columns on `device`, in the order of
     kernels.staged_to_limb_first (21, draft-03) or _bc (22)."""
-    return tuple(torch.from_numpy(_owned(a)).to(device)
+    return tuple(to_device(a, device)
                  for a in (*batch.ed, *batch.kes, *batch.vrf, batch.beta,
                            batch.thr_lo, batch.thr_hi))
 
@@ -694,23 +795,49 @@ class Verdicts(NamedTuple):
 
 
 class PackedVerdicts:
-    """A dispatched window's result: u32 verdict words on the host, and
-    either the window's nonce carry-out (`carried`: the device tensor
-    that seeds the next window, and its two nonces read back) or the eta
-    bytes (a generically staged window). The per-lane flags, eta and
-    leader values stay on the device until `full()` (only a failing or
-    ambiguous window needs them)."""
+    """A dispatched window's result: u32 verdict words, and either the
+    window's nonce carry-out (`carried`: the device tensor that seeds the
+    next window, and its two nonces) or the eta bytes (a generically
+    staged window). The words, the nonces and the eta bytes are copied to
+    the host behind the window's work without waiting; they are read
+    after the event recorded behind those copies (`masks`, `nonces`,
+    `eta_bytes()`), so that later windows can be launched meanwhile. The
+    per-lane flags, eta and leader values stay on the device until
+    `full()` (only a failing or ambiguous window needs them)."""
 
     def __init__(self, masks, b, handles, *, carry=None, eta_u8=None):
-        self.masks = masks.astype(np.uint32)
         self.b = b
         self._handles = handles  # (flags [5, B], eta [32, B], lv [32, B])
         self.carry = carry  # [66] uint8 on the device, or None
         self.carried = carry is not None
-        # (evolving, candidate) after the window's last lane
-        self.nonces = nonces.unpack_carry(carry.cpu().numpy()) if self.carried else None
-        self.eta_u8 = eta_u8  # [b, 32] uint8, or None (left on the device)
+        self._masks = to_host(masks)
+        self._carry = to_host(carry) if self.carried else None
+        self._eta = to_host(eta_u8) if eta_u8 is not None else None
+        self._ready = None
+        if masks.device.type == "cuda":
+            self._ready = torch.cuda.Event()
+            self._ready.record(torch.cuda.current_stream(masks.device))
         self._full = None
+
+    def _wait(self) -> None:
+        if self._ready is not None:
+            self._ready.synchronize()
+            self._ready = None
+
+    @cached_property
+    def masks(self) -> np.ndarray:
+        """[5, W] uint32 verdict words (lane i -> word i // 32, bit i % 32)."""
+        self._wait()
+        return self._masks.numpy().astype(np.uint32)
+
+    @cached_property
+    def nonces(self):
+        """(evolving, candidate) after the window's last lane; None for a
+        window without a carry."""
+        if not self.carried:
+            return None
+        self._wait()
+        return nonces.unpack_carry(self._carry.numpy())
 
     def _row(self, r: int) -> np.ndarray:
         bits = np.unpackbits(
@@ -721,11 +848,14 @@ class PackedVerdicts:
         """Every real lane passed every check outright."""
         return all(self._row(r).all() for r in range(4)) and not self._row(4).any()
 
-    def eta_bytes(self) -> np.ndarray:
+    def eta_bytes(self) -> np.ndarray | None:
         """The [b, 32] uint8 eta column a window without a carry shipped;
         None for a carried window (its column stays on the device for
         `full()`)."""
-        return self.eta_u8
+        if self._eta is None:
+            return None
+        self._wait()
+        return self._eta.numpy()
 
     def full(self) -> Verdicts:
         if self._full is None:
@@ -1033,16 +1163,33 @@ def run_batch_native(params: PraosParams, ledger_view: LedgerView,
 DECLINES: dict[str, int] = {}
 
 
-def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
-                    hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
-                    device: torch.device, carry=None) -> PackedVerdicts:
-    """Stage -> H2D -> unpack -> the five stage kernels of the window's
-    proof format -> reduce with the nonce fold -> D2H of the mask words
-    and the carry. `carry` is the fold's carry-in: the previous packed
-    window's device carry-out, or a host seed (`state_carry`); None is
-    the neutral one. A window the packed staging declines for one of
-    GENERIC_REASONS is staged generically, runs the same kernels and
-    ships its eta bytes (no fold, no carry); any other decline raises."""
+class StagedWindow(NamedTuple):
+    """prepare_window's output: a window's host half, all that
+    dispatch_prepared needs, so that it can be staged on another thread
+    ahead of the launch."""
+
+    hvs: "Sequence[HeaderView] | ViewColumns"
+    pre: HostChecks
+    b: int  # the window's headers
+    layout: PackedLayout | None  # None: a generically staged window
+    packed: Packed | None  # the padded packed columns, views of `buf`
+    buf: torch.Tensor  # the staging buffer (`staging_buffer`)
+    batch: PraosBatch | None  # a generic window's padded columns
+
+
+def prepare_window(params: PraosParams, lview: LedgerView, eta0,
+                   hvs: "Sequence[HeaderView] | ViewColumns", buf: torch.Tensor,
+                   pre: HostChecks | None = None) -> StagedWindow:
+    """The host half of a window (the reference's prepare_window): the
+    prechecks (unless `pre` is given), the packed staging or, for a
+    window it declines for one of GENERIC_REASONS, the generic one (any
+    other decline raises), and the bucket padding, into the staging
+    buffer `buf` (`staging_buffer`). It does
+    not depend on the nonce fold, only on the epoch nonce `eta0` and the
+    ledger view, and touches host memory only: the window pipeline runs
+    it on its staging thread."""
+    if pre is None:
+        pre = host_prechecks(params, lview, hvs)
     b = len(hvs)
     try:
         if isinstance(hvs, ViewColumns):
@@ -1053,18 +1200,48 @@ def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
         if e.reason not in GENERIC_REASONS:
             raise
         DECLINES[e.reason] = DECLINES.get(e.reason, 0) + 1
-        batch = stage_any(params, lview, eta0, hvs, pre)
-        cols = batch_columns(pad_batch_to(batch, bucket_size(b)), device)
+        batch = pad_batch_to(stage_any(params, lview, eta0, hvs, pre), bucket_size(b))
+        return StagedWindow(hvs, pre, b, None, None, buf, batch)
+    packed = pad_packed_into(packed, bucket_size(b), buf.numpy())
+    return StagedWindow(hvs, pre, b, layout, packed, buf, None)
+
+
+def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> PackedVerdicts:
+    """The device half of a window (the reference's dispatch_prepared),
+    on the launching thread and in window order: H2D of the staged
+    columns (from pinned memory on the card) -> unpack -> the five stage
+    kernels of the window's proof format, the nonce fold beside them on
+    the side stream -> the reduce, then the copies of the mask words and the carry back
+    to the host, none of which waits for the card. `carry` is the fold's
+    carry-in: the previous packed window's device carry-out, or a host
+    seed (`state_carry`); None is the neutral one. A generic window runs
+    the same kernels and ships its eta bytes (no fold, no carry)."""
+    b = sw.b
+    if sw.layout is None:
+        cols = batch_columns(sw.batch, device)
         (masks, eta_u8), flags, eta, lv = pk_kernels.verify_staged(
-            cols, isinstance(batch.vrf, stage_np.EcvrfBcBatch), params.kes_depth, b)
-        return PackedVerdicts(masks.cpu().numpy(), b, (flags, eta, lv),
-                              eta_u8=eta_u8.cpu().numpy())
-    packed = pad_packed_to(packed, bucket_size(b))
+            cols, isinstance(sw.batch.vrf, stage_np.EcvrfBcBatch),
+            sw.batch.kes.siblings.shape[1], b)
+        return PackedVerdicts(masks, b, (flags, eta, lv), eta_u8=eta_u8)
+    packed = upload_staged(sw.packed, sw.buf, device)
     if carry is None:
         carry = nonces.pack_carry(None, None)
+    if not isinstance(carry, torch.Tensor):
+        carry = to_device(carry, device)
     (masks, carry_out), flags, eta, lv = pk_kernels.verify_praos_packed_split(
-        layout, packed, b, device, torch.as_tensor(carry, device=device))
-    return PackedVerdicts(masks.cpu().numpy(), b, (flags, eta, lv), carry=carry_out)
+        sw.layout, packed, b, device, carry)
+    return PackedVerdicts(masks, b, (flags, eta, lv), carry=carry_out)
+
+
+def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
+                    hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
+                    device: torch.device, carry=None) -> PackedVerdicts:
+    """prepare_window then dispatch_prepared, inline: one window's
+    staging (with its prechecks `pre`), kernels, reduce and the copies of
+    its results back (the serial loop's step)."""
+    device = torch.device(device)
+    sw = prepare_window(params, lview, eta0, hvs, staging_buffer(params, hvs, device), pre)
+    return dispatch_prepared(sw, device, carry)
 
 
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
@@ -1126,9 +1303,22 @@ def _slot_at(hvs, i: int) -> int:
     return int(hvs.slot[i]) if isinstance(hvs, ViewColumns) else hvs[i].slot
 
 
+def _windows(params: PraosParams, hvs, max_batch: int) -> list[tuple[int, int, int]]:
+    """[(epoch, start, end)]: the run's windows, cut at epoch boundaries,
+    at `max_batch` within an epoch and where the proof format changes."""
+    out = []
+    for epoch, i, end in _epoch_segments_idx(params, hvs):
+        while i < end:
+            j = _proof_break(hvs, i, min(i + max_batch, end))
+            out.append((epoch, i, j))
+            i = j
+    return out
+
+
 def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", max_batch: int = 8192,
-                   backend: str = "device", device=None) -> BatchResult:
+                   backend: str = "device", device=None,
+                   pipeline_depth: int = 3) -> BatchResult:
     """Validate a run of headers (a HeaderView list or ViewColumns):
     windows cut at epoch boundaries, at `max_batch` within an epoch and
     where the proof format changes; the state threads through `tick`
@@ -1137,19 +1327,110 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
     window seeds it from the state). Equivalent to folding the
     reference's `update` over `hvs` (same final state, same first
     error). backend="device" runs on `device` (None -> CUDA, raising when
-    it is absent); backend="native" runs the C++ verifier."""
+    it is absent), with up to `pipeline_depth` windows staged ahead on a
+    staging thread and as many in flight on the card (`_pipeline`; 1 is
+    the serial loop: stage, launch, wait and fold one window at a time);
+    backend="native" runs the C++ verifier, serially."""
     dev = resolve(device) if backend == "device" else None
+    windows = _windows(params, hvs, max_batch)
+    lviews: dict = {}
+
+    def lview_of(epoch):
+        if epoch not in lviews:
+            lviews[epoch] = ledger_view_for_epoch(epoch)
+        return lviews[epoch]
+
+    if backend == "device" and pipeline_depth > 1:
+        return _pipeline(params, lview_of, state, hvs, windows, dev, pipeline_depth)
     carry = None
     total = 0
-    for epoch, i, end in _epoch_segments_idx(params, hvs):
-        lview = ledger_view_for_epoch(epoch)
-        while i < end:
-            j = _proof_break(hvs, i, min(i + max_batch, end))
-            ticked = praos.tick(params, lview, _slot_at(hvs, i), state)
-            res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry)
-            state, carry = res.state, res.carry
+    for epoch, i, j in windows:
+        ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
+        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry)
+        state, carry = res.state, res.carry
+        total += res.n_valid
+        if res.error is not None:
+            return BatchResult(state, total, res.error)
+    return BatchResult(state, total, None)
+
+
+def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: list,
+              dev: torch.device, depth: int) -> BatchResult:
+    """The device loop of validate_chain (the reference's _device_loop):
+    at most `depth` windows staged ahead (`prepare_window` on one staging
+    thread, into staging buffers allocated here) and at most `depth` in
+    flight (`dispatch_prepared` here, in window order, every CUDA call on
+    this thread); windows retire in order, each with its epilogue here.
+    A window's epoch nonce is known once every window before its epoch
+    has retired, so the pipeline drains at an epoch boundary. After a
+    generic window (no carry) the next packed window waits until it has
+    retired and seeds its carry from the host state. On the first error
+    the windows after it are discarded and their staging cancelled."""
+    from collections import deque
+    from concurrent.futures import ThreadPoolExecutor
+
+    staged: deque = deque()  # (window index, staging future)
+    inflight: deque = deque()  # (window index, StagedWindow, PackedVerdicts)
+    eta: dict = {}  # epoch -> the epoch nonce its windows stage with
+    carry = state_carry(state)  # a host seed, or the last packed window's device carry
+    carry_ok = True
+    k_stage = 0  # the next window to stage
+    retired = 0
+    total = 0
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="validate-stage")
+
+    def stage_ahead() -> None:
+        nonlocal k_stage
+        while k_stage < len(windows) and len(staged) < depth:
+            epoch, i, j = windows[k_stage]
+            if epoch not in eta:
+                if retired < k_stage:
+                    return  # the epoch nonce needs every window before it retired
+                eta[epoch] = praos.tick(params, lview_of(epoch), _slot_at(hvs, i),
+                                        state).state.epoch_nonce
+            whvs = hvs[i:j]
+            staged.append((k_stage, pool.submit(
+                prepare_window, params, lview_of(epoch), eta[epoch], whvs,
+                staging_buffer(params, whvs, dev))))
+            k_stage += 1
+
+    def dispatch_ready() -> None:
+        nonlocal carry, carry_ok
+        while staged and len(inflight) < depth:
+            k, fut = staged[0]
+            if inflight and not fut.done():
+                return  # retire a window while the staging thread works
+            sw = fut.result()
+            if sw.layout is not None and not carry_ok:
+                if inflight:
+                    return  # the generic window that broke the chain retires first
+                carry, carry_ok = state_carry(state), True
+            staged.popleft()
+            v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
+            if v.carried:
+                carry = v.carry
+            else:
+                carry_ok = False
+            inflight.append((k, sw, v))
+
+    try:
+        while retired < len(windows):
+            stage_ahead()
+            dispatch_ready()
+            stage_ahead()  # refill what the launches freed before waiting below
+            k, sw, v = inflight.popleft()
+            epoch, i, _j = windows[k]
+            ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
+            if ticked.state.epoch_nonce != eta[epoch]:
+                raise RuntimeError(f"window {k} was staged with another epoch nonce")
+            res = epilogue(params, ticked, sw.hvs, sw.pre, v)
+            state = res.state
             total += res.n_valid
             if res.error is not None:
                 return BatchResult(state, total, res.error)
-            i = j
-    return BatchResult(state, total, None)
+            retired += 1
+        return BatchResult(state, total, None)
+    finally:
+        for _k, fut in staged:
+            fut.cancel()
+        pool.shutdown(wait=True, cancel_futures=True)

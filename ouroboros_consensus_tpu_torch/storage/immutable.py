@@ -5,6 +5,7 @@ files of concatenated block bytes, and one index per chunk:
 
     NNNNN.chunk      block bytes, concatenated
     NNNNN.index      CBOR [slot, block_no, hash, offset, size, crc32] per block
+    NNNNN.cols       the chunk's sealed header columns (storage/sidecar.py)
 
 The on-disk bytes are the JAX package's byte for byte. Reading validates
 as the reference's ValidateAllChunks does (Impl/Validation.hs:67): index
@@ -49,6 +50,12 @@ def chunk_name(n: int) -> str:
 
 def index_name(n: int) -> str:
     return f"{n:05d}.index"
+
+
+def sidecar_name(n: int) -> str:
+    """Chunk n's columnar sidecar, beside the chunk and index it is
+    derived from."""
+    return f"{n:05d}.cols"
 
 
 class ImmutableDB:
@@ -145,14 +152,17 @@ class ImmutableDB:
                 finally:
                     os.close(fd)
 
-    def chunks(self) -> Iterator[tuple[bytes, list[IndexEntry]]]:
-        """(chunk bytes, index entries) of every chunk that has entries,
-        in slot order."""
+    def chunk_entries(self) -> Iterator[tuple[int, list[IndexEntry]]]:
+        """(chunk number, index entries) of every chunk that has
+        entries, in slot order."""
         for n in self._chunks:
-            entries = self._entries[n]
-            if entries:
-                with open(os.path.join(self.path, chunk_name(n)), "rb") as f:
-                    yield f.read(), entries
+            if self._entries[n]:
+                yield n, self._entries[n]
+
+    def read_chunk(self, n: int) -> bytes:
+        """Chunk n's bytes, in one read."""
+        with open(os.path.join(self.path, chunk_name(n)), "rb") as f:
+            return f.read()
 
     @staticmethod
     def deep_check(data: bytes, entries: list[IndexEntry],
@@ -161,8 +171,10 @@ class ImmutableDB:
         native CRC sweep over every entry's span, then `check_batch`
         (data, entries) -> the index of the first block that fails the
         integrity check (len(entries) when none does) over the entries
-        before the first CRC failure. The count is that of the per-block
-        walk of `stream_validated`."""
+        before the first CRC failure: the header scan of
+        `db_analyser.check_integrity_batch`, or a sidecar's body-hash
+        compare (`sidecar.integrity_batch_hook`). The count is that of
+        the per-block walk of `stream_validated`."""
         rc = native_scan.crc32_first_bad(
             data, [e.offset for e in entries], [e.size for e in entries],
             [e.crc32 for e in entries])

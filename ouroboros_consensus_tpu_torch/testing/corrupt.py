@@ -26,6 +26,7 @@ import zlib
 import numpy as np
 
 from ..block.praos_block import Block, Header
+from ..protocol.batch import LANE_COLUMNS
 from ..storage.immutable import ImmutableDB, chunk_name, index_name
 from ..utils import cbor
 from .synth import kes_sign
@@ -132,6 +133,4 @@ def corrupt_packed(layout, packed, rng: np.random.Generator):
 
 def first_lanes(packed, n: int):
     """A packed window's first n lanes (the tables and nonce shared)."""
-    per_lane = ("body", "kes_rs", "kes_tail_idx", "slot", "counter", "c0",
-                "thr_idx", "within")
-    return packed._replace(**{k: getattr(packed, k)[:n] for k in per_lane})
+    return packed._replace(**{k: getattr(packed, k)[:n] for k in LANE_COLUMNS})

@@ -8,7 +8,8 @@ signing goes through the repo's C++ host crypto (`native.py`). For the
 same seeds, parameters and limit, the chunk and index files are byte for
 byte the JAX package's `tools/db_synthesizer.synthesize(vrf_backend="host")`
 output (its draft-03 output under `OCT_VRF_BATCH=0` for
-`proof_format="draft03"`).
+`proof_format="draft03"`), and so are the walked sidecars (`NNNNN.cols`,
+storage/sidecar.py) sealed for every chunk after the last flush.
 
 The VRF proof format is an argument: "bc" forges 128-byte
 batch-compatible proofs (Gamma ‖ U ‖ V ‖ s), "draft03" 80-byte ECVRF
@@ -35,6 +36,7 @@ from ..protocol import nonces, praos
 from ..protocol.leader import is_leader
 from ..protocol.praos import PraosParams, PraosState
 from ..protocol.views import IndividualPoolStake, LedgerView, OCert, hash_key, hash_vrf_vk
+from ..storage import sidecar
 from ..storage.immutable import ImmutableDB
 from ..utils.hashes import blake2b_256
 
@@ -200,4 +202,5 @@ def synthesize(db_path: str, params: PraosParams, pools: list[PoolCredentials],
             break
         slot += 1
     imm.flush()
+    sidecar.backfill_store(imm, walked=True)
     return st

@@ -54,13 +54,13 @@ def chain(request, tmp_path_factory):
 def test_replay_matches_host_fold(chain, backend, columnar, monkeypatch):
     path, lview, ref = chain
     forms = []
-    validate_batch = pbatch.validate_batch
+    host_prechecks = pbatch.host_prechecks  # once a window, on every backend and loop
 
-    def spy(params, ticked, hvs, *a, **kw):
+    def spy(params, lview_, hvs):
         forms.append(isinstance(hvs, pbatch.ViewColumns))
-        return validate_batch(params, ticked, hvs, *a, **kw)
+        return host_prechecks(params, lview_, hvs)
 
-    monkeypatch.setattr(pbatch, "validate_batch", spy)
+    monkeypatch.setattr(pbatch, "host_prechecks", spy)
     assert_same_replay(ref, replay(path, lview, backend, columnar))
     assert forms and all(f == columnar for f in forms)
 
@@ -88,13 +88,13 @@ def test_list_with_width_steps_is_not_cut(tmp_path, monkeypatch, corrupted):
         sig[-1] ^= 0x01
         hvs[MID] = dataclasses.replace(hvs[MID], kes_sig=bytes(sig))
     widths = []
-    validate_batch = pbatch.validate_batch
+    host_prechecks = pbatch.host_prechecks  # once a window
 
-    def spy(params, ticked, win, *a, **kw):
+    def spy(params, lview_, win):
         widths.append({len(hv.signed_bytes) for hv in win})
-        return validate_batch(params, ticked, win, *a, **kw)
+        return host_prechecks(params, lview_, win)
 
-    monkeypatch.setattr(pbatch, "validate_batch", spy)
+    monkeypatch.setattr(pbatch, "host_prechecks", spy)
     before = pbatch.DECLINES.get("body-width-mixed", 0)
     got = pbatch.validate_chain(PPARAMS, lambda _e: carry.lview_from_reference(lview),
                                 PraosState(), hvs, max_batch=16, device="cpu")

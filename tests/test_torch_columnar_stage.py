@@ -43,7 +43,9 @@ def window(request, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("chain") / "db")
     lview = forge(path, draft03=request.param == "draft03")
     got, ref = [], []
-    for data, entries in ImmutableDB(f"{path}/immutable").chunks():
+    imm = ImmutableDB(f"{path}/immutable")
+    for n, entries in imm.chunk_entries():
+        data = imm.read_chunk(n)
         offs = np.asarray([e.offset for e in entries], np.int64)
         got += pviews.ViewColumns.pieces_from_header_columns(
             native_scan.extract_headers(data, offs))

@@ -25,7 +25,7 @@ def chunks(request, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("chain") / "db")
     forge(path, draft03=request.param == "draft03")
     imm = ImmutableDB(f"{path}/immutable")
-    out = list(imm.chunks())
+    out = [(imm.read_chunk(n), entries) for n, entries in imm.chunk_entries()]
     assert sum(len(e) for _, e in out) == N_BLOCKS and len(out) > 1
     return imm, out
 

@@ -192,14 +192,14 @@ def test_carried_replay_matches_host_fold(chain, monkeypatch, bad):
         sig[-1] ^= 1
         hvs[bad] = dataclasses.replace(hvs[bad], kes_sig=bytes(sig))
     seen = []
-    dispatch = pbatch.dispatch_window
+    dispatch = pbatch.dispatch_prepared  # once a window, in window order
 
-    def spy(params, lv, eta0, whvs, pre, device, carry_in=None):
-        v = dispatch(params, lv, eta0, whvs, pre, device, carry_in)
-        seen.append((whvs[0].slot, type(carry_in).__name__, v.carried))
+    def spy(sw, device, carry_in=None):
+        v = dispatch(sw, device, carry_in)
+        seen.append((sw.hvs[0].slot, type(carry_in).__name__, v.carried))
         return v
 
-    monkeypatch.setattr(pbatch, "dispatch_window", spy)
+    monkeypatch.setattr(pbatch, "dispatch_prepared", spy)
     params = carry.params_from_reference(PARAMS)
     plview = carry.lview_from_reference(lview)
     got = pbatch.validate_chain(params, lambda _e: plview, pbatch.PraosState(), hvs,

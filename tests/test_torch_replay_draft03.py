@@ -57,13 +57,13 @@ def test_mixed_chain_matches_host_fold_and_cuts_at_the_switch(tmp_path, monkeypa
                      carry.lview_from_reference(lview), N_BLOCKS, chunk_size=CHUNK,
                      proof_format=lambda n: 80 if n < SWITCH else 128)
     windows = []
-    validate_batch = pbatch.validate_batch
+    host_prechecks = pbatch.host_prechecks  # once a window
 
-    def spy(params, ticked, hvs, *a, **kw):
+    def spy(params, lview_, hvs):
         windows.append([len(hv.vrf_proof) for hv in hvs])
-        return validate_batch(params, ticked, hvs, *a, **kw)
+        return host_prechecks(params, lview_, hvs)
 
-    monkeypatch.setattr(pbatch, "validate_batch", spy)
+    monkeypatch.setattr(pbatch, "host_prechecks", spy)
     ref = reference(path, lview)
     assert ref.n_valid == N_BLOCKS and ref.error is None
     assert_same(ref, port(path, lview, "device"))

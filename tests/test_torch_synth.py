@@ -1,7 +1,8 @@
 """The port's forger (ouroboros_consensus_tpu_torch/testing/synth.py)
-writes byte for byte the chunk and index files of the JAX package's
-synthesizer, for the same seeds, parameters and block limit, in both
-proof formats (the JAX side forges draft-03 under OCT_VRF_BATCH=0)."""
+writes byte for byte the chunk, index and sidecar files of the JAX
+package's synthesizer, for the same seeds, parameters and block limit,
+in both proof formats (the JAX side forges draft-03 under
+OCT_VRF_BATCH=0)."""
 
 import filecmp
 import os
@@ -25,9 +26,9 @@ def test_chain_files_byte_identical(tmp_path, proof_format):
     synth.synthesize(out, carry.params_from_reference(PARAMS), pools, plview,
                      N_BLOCKS, chunk_size=CHUNK, proof_format=proof_format)
     want = sorted(f for f in os.listdir(os.path.join(ref, "immutable"))
-                  if f.endswith((".chunk", ".index")))
+                  if f.endswith((".chunk", ".index", ".cols")))
     got = sorted(os.listdir(os.path.join(out, "immutable")))
-    assert got == want and len(got) >= 6  # several chunks
+    assert got == want and len(got) >= 9  # several chunks, each with its sidecar
     for f in got:
         assert filecmp.cmp(os.path.join(ref, "immutable", f),
                            os.path.join(out, "immutable", f), shallow=False), f

@@ -29,7 +29,9 @@ def scans(request, tmp_path_factory):
     path = str(tmp_path_factory.mktemp("chain") / "db")
     forge(path, draft03=request.param == "draft03")
     out = []
-    for data, entries in ImmutableDB(f"{path}/immutable").chunks():
+    imm = ImmutableDB(f"{path}/immutable")
+    for n, entries in imm.chunk_entries():
+        data = imm.read_chunk(n)
         offs = np.asarray([e.offset for e in entries], np.int64)
         out.append((data, entries, native_scan.extract_headers(data, offs),
                     rnl.extract_headers(data, offs)))
