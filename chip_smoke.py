@@ -7,7 +7,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the ten kernel sources (one nvcc per source, in
+   the build of the thirteen kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -33,14 +33,32 @@ Phases (any failure raises and the script exits non-zero):
    line reports as `ms`). Then one Blake2b compression on one warp
    (`b2b_bench`: cycles a compression on one thread, through pk.cuh's
    looped hash and on four lanes, the four-lane chain's G steps and
-   exchanges alone, and each loop's SASS instructions).
+   exchanges alone, and each loop's SASS instructions). Then the window
+   aggregate (`phase_agg`) at 8, 128 and 8,192 lanes of a tiled bc
+   window, clean and with a torsion-offset R_k, a flipped OCert s and a
+   wrong β: `agg_prep` and `agg_tables` byte for byte against their
+   plain versions, the dedupe (torch) on the card against the CPU (and
+   its cap-2 overflow), `msm` against its plain version as points
+   (compressed total, identity flag; not on the widest dirty window),
+   and `aggregate_window`: the identity and the five stages' verdicts on
+   the clean window, agg_ok false on the dirty one; then the same on a
+   full 8,192-lane window of the forged bc chain (`phase_agg_chain`: the
+   bucket shape the replay gives msm, which the tiled window's repeated
+   scalars do not), whose times the kernels line reports, each kernel
+   beside its bound (msm's from this run's bucket entries, `msm_work`).
 3. The main paths, each with the launch counts zeroed just before its
    device replay and read just after: every packed window launches
    `unpack`, the five stage kernels and `nonce_fold`, the fold on a
    stream of its own (checked) beside the stages, the carry chained
-   from window to window on the card. Chains are forged with bench.py's
+   from window to window on the card; a batch-compatible packed window
+   takes the window aggregate (`agg_prep`, the dedupe, `agg_tables`,
+   `msm`) in place of the five stages, and none of a clean chain's
+   windows may be re-dispatched (`batch.AGG_REDISPATCH`). Chains are
+   forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
-   43200-slot epochs) and sealed at forge time, replayed through
+   43200-slot epochs) and sealed at forge time, each in a process of its
+   own that starts after the build and runs beside phase 2 (`Forges`),
+   replayed through
    `tools.db_analyser.revalidate(backend="device")` on its default path
    (every chunk's sealed sidecar into ViewColumns, which must be a `hit`
    on every chunk; columnar prechecks, packed staging and epilogue; the
@@ -58,11 +76,17 @@ Phases (any failure raises and the script exits non-zero):
       turns (`overlap_turns`, each with its garbage-collector pauses) and
       one default replay's timeline (`pipeline_timeline`: each window's
       staging, launch, device interval and retire, and the card's busy
-      share of the wall); then a copy with one KES-signature byte flipped
-      two thirds of the way in; and the port bench's measurement
-      (`tools.bench.measure`: a native replay, a warm-up and the best of
-      two timed device replays, every chunk a sidecar hit) of the same
-      chain, its JSON on a `bench {...}` line;
+      share of the wall); the replay with `aggregate=False` (the five
+      stages on every window, `bc_lanes`) and its serial layer split;
+      three corrupted copies through the aggregate (a KES-signature byte
+      two thirds of the way in, an OCert-signature byte and a VRF-proof
+      byte, KES-signed again, an eighth of the way in), each
+      re-dispatching its dirty window to the stages (`bc_dirty`); and the
+      port bench's measurement (`tools.bench.measure`: a native replay, a
+      warm-up and the best of two timed device replays, every chunk a
+      sidecar hit; the native replay is the bc path's own) of the same
+      chain with the aggregate on and off, on `bench {...}` and
+      `bench_lanes {...}` lines;
    b. a draft-03 chain, and a copy with one VRF-proof byte flipped two
       thirds of the way in and the header KES-signed again (both
       backends stop there with VRFKeyBadProof);
@@ -91,8 +115,8 @@ Phases (any failure raises and the script exits non-zero):
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
-5. A `kernels` JSON line (ten kernels), the card line, and the final
-   status line.
+5. A `kernels` JSON line (thirteen kernels), the card line, and the
+   final status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
 widths (8 and 128 lanes), and phase 1 prints ptxas's registers, stack
@@ -153,18 +177,32 @@ KERNEL_ROWS = (
      "scripts/debug_pk_tpu.py:27"),
     ("fe_bench", "ouroboros_consensus_tpu_torch/ops/pk/csrc/fe_bench.cu",
      "scripts/exp_sqr.py:116"),
+    ("agg_prep", "ouroboros_consensus_tpu_torch/ops/pk/csrc/agg_prep.cu",
+     "ouroboros_consensus_tpu/ops/pk/aggregate.py:232"),
+    ("agg_tables", "ouroboros_consensus_tpu_torch/ops/pk/csrc/agg_tables.cu",
+     "ouroboros_consensus_tpu/ops/pk/limbs.py:489"),
+    ("msm", "ouroboros_consensus_tpu_torch/ops/pk/csrc/msm.cu",
+     "ouroboros_consensus_tpu/ops/pk/msm.py:381"),
 )
 # the kernels each path must launch (and the replay kernels it must not)
 WIRE = {"unpack", "nonce_fold"}  # every packed window's, around the stages
+AGG = {"agg_prep", "agg_tables", "msm"}  # the window aggregate's
+BC_STAGES = {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"}
+D3_STAGES = {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"}
 PATH_KERNELS = {
-    "bc": {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"} | WIRE,
-    "draft03": {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"} | WIRE,
-    "mixed": {"ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish"} | WIRE,
+    # batch-compatible packed windows take the aggregate (the default)
+    "bc": AGG | WIRE,
+    # the same chain with aggregate=False: the five per-lane stages
+    "bc_lanes": BC_STAGES | WIRE,
+    # corrupted bc copies: the aggregate, then the stages on the dirty window
+    "bc_dirty": AGG | BC_STAGES | WIRE,
+    "draft03": D3_STAGES | WIRE,
+    "mixed": D3_STAGES | AGG | WIRE,
     # generically staged windows: no unpack, and the nonces fold on the host
-    "generic": {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"},
+    "generic": BC_STAGES,
     "tools": {"primitives", "fe_bench"},
 }
-REPLAY_KERNELS = PATH_KERNELS["mixed"]
+REPLAY_KERNELS = BC_STAGES | D3_STAGES | AGG | WIRE
 STAGES = ("ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish")
 
 
@@ -379,7 +417,8 @@ def wide_products(ops: dict) -> int:
 
 def hold(key: str, kern, plain, inputs, lanes: int, dev, reps: int) -> dict:
     """One kernel against its plain version on the same inputs: byte-equal
-    outputs or AssertionError; on the card both are timed with CUDA events.
+    outputs or AssertionError; on the card both are timed with CUDA events
+    (`reps` launches of the kernel; none with reps 0).
     -> dict(max_abs_err, lanes, bytes[, ms, plain_ms])."""
     import torch
 
@@ -395,7 +434,7 @@ def hold(key: str, kern, plain, inputs, lanes: int, dev, reps: int) -> dict:
     # each input read once, each output written once
     moved = sum(t.numel() * t.element_size() for t in (*inputs, *got))
     rec = {"max_abs_err": float(err), "lanes": lanes, "bytes": moved}
-    if dev.type == "cuda":
+    if dev.type == "cuda" and reps:  # reps 0: held, not timed
         from ouroboros_consensus_tpu_torch.device import time_ms
 
         rec["ms"] = time_ms(kern, reps)
@@ -886,8 +925,363 @@ def phase_wire(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the window aggregate's kernels
+# ---------------------------------------------------------------------------
+
+
+def torsion8():
+    """A point of exact order 8 (the port's torch curve code, on the CPU):
+    L·Q for the first decodable encoding Q = (b0, 0, ...) whose
+    small-order part has full order."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
+    from ouroboros_consensus_tpu_torch.ops.pk import field as fe
+    from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
+    digits = fe.nibbles_msb(torch.tensor(list(fe.L.to_bytes(32, "little"))).reshape(32, 1), 32)
+    for b0 in range(256):
+        enc = torch.tensor([b0] + [0] * 31).reshape(32, 1)
+        ok, q = pc.decompress(enc)
+        if not bool(ok[0]):
+            continue
+        t = pc.scalar_mul_w4(digits, q)
+        t4 = pc.double(pc.double(t, False), True)
+        if not bool(pm.is_identity(t4)[0]):
+            return t
+    raise AssertionError("no order-8 point")
+
+
+def add_to_encoding(col, lane: int, pt) -> None:
+    """Column `col` ([32, B] int32 bytes) at `lane`: the encoding of the
+    point it encodes plus `pt` (in place, on the CPU)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
+
+    ok, p = pc.decompress(col[:, lane: lane + 1].to(torch.int64))
+    assert bool(ok[0])
+    (enc,) = pc.compress_many([pc.add(p, pt)])
+    col[:, lane] = enc[:, 0].to(torch.int32)
+
+
+def msm_work(scalars, n_small: int) -> dict:
+    """The point operations one `msm` launch does on these scalars ([N,
+    32] uint8): a bucket addition per nonzero digit past each nonempty
+    bucket's first, the segments' two additions a bucket, each window's
+    joins (three additions a segment and six doublings), the Horner
+    chain (twelve doublings and one addition a window), the B term's 32
+    additions and the final one. -> {adds, dbls, entries, buckets}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
+    s = scalars.cpu().T.to(torch.int64)
+    ww = pm.signed_digit_windows(pm.WIDE_BITS)
+    keys = []
+    for part, bits in ((s[:, :n_small], pm.SMALL_BITS), (s[:, n_small:], pm.WIDE_BITS)):
+        d = pm.recode_signed(part, bits)
+        w = torch.arange(d.shape[0]).reshape(-1, 1).expand_as(d)
+        keys.append((w * pm.NBUCKETS + d.abs())[d != 0])
+    keys = torch.cat(keys)
+    entries, buckets = keys.numel(), torch.unique(keys).numel()
+    adds = (entries - buckets) + ww * pm.NSEG * pm.SEG * 2 + ww * (3 * pm.NSEG - 1) \
+        + (ww - 1) + 32 + 1
+    dbls = ww * 6 + (ww - 1) * 12
+    return {"adds": adds, "dbls": dbls, "entries": entries, "buckets": buckets}
+
+
+def hold_points(key: str, kern, plain, inputs, lanes: int, dev) -> dict:
+    """`msm` against its plain version: the totals equal as points
+    (compressed bytes: the bucket sums' order differs, so the projective
+    limbs may) and the identity flags equal. -> hold's record, untimed."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
+
+    def enc(out):
+        total, ident = out
+        (e,) = pc.compress_many([pc.unstack(total.to(torch.int64).reshape(40, 1))])
+        return e.to(torch.int32), ident
+
+    return hold(key, lambda: enc(kern()), lambda: enc(plain()), inputs, lanes, dev, 0)
+
+
+def held(key: str, kern, plain, inputs, lanes: int, dev, reps: int, points: bool = False):
+    """hold (or hold_points) without its timings; then, with `reps`, the
+    kernel's time over `reps` launches and the plain version's over the
+    one call the comparison made (the twins of the aggregate take seconds
+    a call on the card, mostly launches). -> the record."""
+    import torch
+
+    box = {}
+
+    def plain_timed():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        box["ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    if points:
+        rec = hold_points(key, kern, plain_timed, inputs, lanes, dev)
+    else:
+        rec = hold(key, kern, plain_timed, inputs, lanes, dev, 0)
+    if dev.type == "cuda" and reps:
+        from ouroboros_consensus_tpu_torch.device import time_ms
+
+        rec["ms"] = time_ms(kern, reps)
+        rec["plain_ms"] = box["ms"]
+        log(f"kernel {key}: {rec['ms']:.4f} ms/launch, plain {rec['plain_ms']:.1f} ms "
+            f"(one call)")
+    return rec
+
+
+def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool = True):
+    """The aggregate's kernels on one window's limb-first columns (on
+    `dev`) against their plain versions: `agg_prep` and `agg_tables` byte
+    for byte, the dedupe (torch) on the card against the CPU, `msm` as
+    points (`msm_twin` False: not held; its plain version takes seconds
+    on a tiled window's crowded buckets); with `reps`, each kernel and
+    the dedupe timed. -> ({agg_prep, agg_tables[, msm]: records,
+    msm_work, dedupe_ms}, aggregate_window's verdicts)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
+    def prep():
+        return pa.agg_prep(*cols, kes_depth=depth)
+
+    recs = {"agg_prep": held(f"agg_prep ({tag}, {n} lanes)", prep,
+                             lambda: pa.agg_prep_plain(*cols, kes_depth=depth),
+                             cols, n, dev, reps)}
+    pts, scal, _flags, _eta, _lv = prep()
+
+    def dedupe(dv):
+        return pa.window_tables([c.to(dv) for c in cols], pts.to(dv), scal.to(dv))
+
+    raw, tpts, _ok = dedupe(dev)
+    if not all(torch.equal(a.cpu(), b) for a, b in zip((raw, tpts, _ok), dedupe("cpu"))):
+        raise AssertionError(f"the dedupe of the {n}-lane {tag} window differs on the card")
+    recs["agg_tables"] = held(f"agg_tables ({tag}, {n} lanes)", lambda: pa.agg_tables(raw),
+                              lambda: pa.agg_tables_plain(raw), (raw,), n, dev, reps)
+    points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, pa.agg_tables(raw))
+    if msm_twin:
+        recs["msm"] = held(f"msm ({tag}, {n} lanes)",
+                           lambda: pm.msm(points, scalars, n_small, base),
+                           lambda: pm.msm_plain(points, scalars, n_small, base),
+                           (points, scalars, base), n, dev, reps, points=True)
+    if reps:
+        recs["msm_work"] = msm_work(scalars, n_small)
+        if dev.type == "cuda":
+            from ouroboros_consensus_tpu_torch.device import time_ms
+
+            recs["dedupe_ms"] = time_ms(lambda: dedupe(dev), reps)
+    return recs, pa.aggregate_window(*cols, kes_depth=depth)
+
+
+def agg_matches_stages(tag: str, av, cols, depth: int) -> None:
+    """A clean window's aggregate: the identity (agg_ok), and flags, eta
+    and leader value equal to the five stage kernels' on the same
+    columns."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    f, e, lv = K.verify_praos_tiles_bc(*cols, kes_depth=depth)
+    if not (bool(av.agg_ok) and torch.equal(av.flags, f) and torch.equal(av.eta, e)
+            and torch.equal(av.leader_value, lv)):
+        raise AssertionError(f"the {tag} window's aggregate is not the identity or its "
+                             "verdicts differ from the stage kernels'")
+
+
+def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 17,
+              reps: int = 5, workdir: str | None = None) -> dict:
+    """The window aggregate's three kernels against their plain versions
+    on the card, at each width of `lanes_list` (the first lanes of a
+    tiled bc window; `hold_agg`), clean and on a copy with a
+    torsion-offset R_k, an OCert s flipped and a wrong β in three lanes
+    (at the widest, msm is not held on that copy); the dedupe's cap 2 on
+    a key column of three groups. The whole aggregate_window: the
+    identity on the clean window (agg_ok, flags, eta and leader value
+    equal to the five stage kernels'), not on the dirty one (agg_ok
+    false; the cheap checks flag the β lane). Each kernel is timed on
+    the clean window at each width. -> {agg_prep, agg_tables, msm:
+    records at the widest; dedupe_ms}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+
+    depth = 7
+    top = max(lanes_list)
+    clean, _ = tiled_window(top, distinct, seed, workdir, "bc")
+    dirty = [c.clone() for c in clean]
+    add_to_encoding(dirty[7], 3, torsion8())  # R_k + T8
+    dirty[2][0, 5] ^= 1  # an OCert s
+    dirty[19][0, 6] ^= 1  # a declared β
+    recs: dict = {"agg_prep": {}, "agg_tables": {}, "msm": {}, "dedupe_ms": {}}
+    for n in lanes_list:
+        for tag, src in (("clean", clean), ("dirty", dirty)):
+            cols = [c[..., :n].contiguous().to(dev) for c in src]
+            got, av = hold_agg(tag, cols, n, dev, reps if tag == "clean" else 0, depth,
+                               msm_twin=tag == "clean" or n < top)
+            if tag == "clean":
+                agg_matches_stages(f"clean {n}-lane", av, cols, depth)
+                got["msm"]["work"] = got["msm_work"]
+                for key in ("agg_prep", "agg_tables", "msm"):
+                    recs[key][n] = got[key]
+                if "dedupe_ms" in got:
+                    recs["dedupe_ms"][n] = got["dedupe_ms"]
+            elif bool(av.agg_ok) or n > 6 and int(av.flags[2, 6]) != 0:
+                raise AssertionError(f"the dirty {n}-lane window's aggregate passed")
+    # the dedupe's cap: three groups in two slots overflow
+    key = clean[13][:, :12].clone()
+    key[0, 4:8] ^= 1
+    key[31, 8:] ^= 2
+    coeff = torch.arange(12 * 32, dtype=torch.int64).reshape(12, 32).remainder(251).to(torch.uint8)
+    ptsk = torch.arange(12 * 40, dtype=torch.int32).reshape(12, 40)
+    got = pa.dedupe_column(key.to(dev), coeff.to(dev), ptsk.to(dev), cap=2)
+    want = pa.dedupe_column(key, coeff, ptsk, cap=2)
+    if bool(got[2]) or not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
+        raise AssertionError("the dedupe's cap-2 overflow differs on the card")
+    log(f"aggregate: dedupe ms by lanes {json.dumps(recs['dedupe_ms'])}; cap-2 overflow "
+        "equal on the card")
+    out = {}
+    for key in ("agg_prep", "agg_tables", "msm"):
+        out[key] = {**recs[key][top]}
+        if dev.type == "cuda":
+            out[key]["ms_by_lanes"] = {n: r["ms"] for n, r in recs[key].items()}
+    one = [c[..., :1].clone() for c in clean]
+    out["agg_prep"]["field_ops"] = count_field_ops(
+        lambda: pa.agg_prep_plain(*one, kes_depth=depth))
+    w = out["msm"]["work"]
+    out["msm"]["products"] = w["adds"] * 900 + w["dbls"] * 620
+    out["dedupe_ms"] = recs["dedupe_ms"]
+    return out
+
+
+def chain_window(db: str, lanes: int):
+    """The first `lanes` consecutive headers of one body width in the
+    forged chain's first epoch (a full window as the replay cuts it:
+    distinct R_k, U, V, Γ and H in every lane, the OCert and KES keys
+    repeated), staged packed under that epoch's neutral nonce, unpacked
+    and relaid as limb-first columns (on the CPU)."""
+    from ouroboros_consensus_tpu_torch.block.praos_block import Block
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.storage.immutable import ImmutableDB
+    from ouroboros_consensus_tpu_torch.testing import synth
+
+    params = bench_params()
+    lview = synth.make_ledger_view([synth.make_pool(0, kes_depth=params.kes_depth)])
+    run: list = []
+    imm = ImmutableDB(os.path.join(db, "immutable"))
+    for blk in imm.stream_validated(Block.from_bytes, Block.check_integrity):
+        hv = blk.header.to_view()
+        if hv.slot >= params.epoch_length:
+            break
+        if run and len(hv.signed_bytes) != len(run[0].signed_bytes):
+            run = []  # a CBOR width step: the replay cuts the window here
+        run.append(hv)
+        if len(run) == lanes:
+            break
+    if len(run) < lanes:
+        raise AssertionError(f"no run of {lanes} headers of one width in the first epoch")
+    layout, packed = pbatch.stage_packed(params, lview, None, run)
+    return list(K.staged_to_limb_first_bc(*pbatch.unpack_packed(layout, packed, "cpu")))
+
+
+def phase_agg_chain(dev, db: str, stages: dict, lanes: int = 8192, reps: int = 5) -> None:
+    """The aggregate's kernels on a full window of the forged bc chain
+    (`chain_window`), the bucket shape the replay gives msm (about ten
+    entries a bucket, where the tiled window crowds 32 copies of each
+    scalar into few): held against their plain versions and timed
+    (`hold_agg`), and the window's aggregate the identity with the stage
+    kernels' verdicts. The records replace phase_agg's in `stages` (the
+    kernels line's ms and bound are this window's); phase_agg's stay
+    beside them under `tiled`."""
+    cols = [c.contiguous().to(dev) for c in chain_window(db, lanes)]
+    depth = bench_params().kes_depth
+    got, av = hold_agg("chain window", cols, lanes, dev, reps, depth)
+    agg_matches_stages(f"chain {lanes}-lane", av, cols, depth)
+    got["msm"]["work"] = got["msm_work"]
+    for key in ("agg_prep", "agg_tables", "msm"):
+        tiled = stages[key]
+        rec = got[key]
+        rec["tiled"] = {k: tiled[k] for k in ("ms", "plain_ms", "lanes", "bytes", "work",
+                                              "products") if k in tiled}
+        rec["ms_by_lanes"] = tiled.get("ms_by_lanes")  # the tiled windows'
+        if "field_ops" in tiled:
+            rec["field_ops"] = tiled["field_ops"]
+        stages[key] = rec
+    w = stages["msm"]["work"]
+    stages["msm"]["products"] = w["adds"] * 900 + w["dbls"] * 620
+    if "dedupe_ms" in got:
+        stages["dedupe_ms"]["chain"] = got["dedupe_ms"]
+    log(f"aggregate on a {lanes}-lane chain window: msm work {json.dumps(w)} "
+        f"(tiled {json.dumps(stages['msm']['tiled'].get('work'))})")
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
+
+
+def forge_chain(db: str, headers: int, proof_format: str, switch: int) -> None:
+    """Forge one main-path chain at `db` with bench.py's parameters (one
+    pool, made from seed 0 as every phase makes it): `proof_format`'s
+    proofs, or with `switch` > 0 draft-03 proofs below block `switch` and
+    batch-compatible ones from there. Runs in a worker process."""
+    from ouroboros_consensus_tpu_torch.testing import synth
+
+    params = bench_params()
+    pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
+    fmt = (lambda k: 80 if k < switch else 128) if switch else proof_format
+    t0 = time.monotonic()
+    synth.synthesize(db, params, pools, synth.make_ledger_view(pools), headers,
+                     proof_format=fmt)
+    log(f"forged {headers} headers at {os.path.basename(db)} in "
+        f"{time.monotonic() - t0:.1f} s (worker process)")
+
+
+class Forges:
+    """The main paths' four chains (bc and draft-03 of `headers` headers,
+    the mixed chain and the stand-in-body chain of an eighth as many),
+    each forged in a process of its own (spawned: the parent holds a CUDA
+    context) while phase 2 runs; `get` waits for one, `close` stops any
+    still running."""
+
+    def __init__(self, workdir: str, headers: int):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        small = headers // 8
+        self.jobs = {}
+        for tag, n, fmt, switch in (("bc", headers, "bc", 0), ("draft03", headers, "draft03", 0),
+                                    ("mixed", small, "bc", small // 2),
+                                    ("generic", small, "bc", 0)):
+            db = os.path.join(workdir, f"chain_{tag}")
+            proc = ctx.Process(target=forge_chain, args=(db, n, fmt, switch), daemon=True)
+            proc.start()
+            self.jobs[tag] = (db, n, proc)
+
+    def get(self, tag: str) -> tuple[str, int]:
+        """-> (the chain's directory, its headers), once forged."""
+        db, n, proc = self.jobs[tag]
+        proc.join()
+        if proc.exitcode != 0:
+            raise RuntimeError(f"forging the {tag} chain failed: exit code {proc.exitcode}")
+        return db, n
+
+    def close(self) -> None:
+        for _db, _n, proc in self.jobs.values():
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
 
 
 def compare(tag: str, dres, nres) -> None:
@@ -911,16 +1305,20 @@ def compare(tag: str, dres, nres) -> None:
 
 STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish",
                   "unpack_limb_first", "nonce_fold")
+AGG_WRAPPERS = (("aggregate", "agg_prep"), ("aggregate", "agg_tables"), ("msm", "msm"))
 
 
 def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
-                columnar: bool = True, native=None) -> dict:
+                columnar: bool = True, native=None, aggregate: bool = True) -> dict:
     """One main path: the device replay (`columnar` or on HeaderView
-    lists) with the launch counts and the sidecar counters zeroed just
-    before it and read just after (CUDA events around each stage wrapper,
-    and the windows it cut), then the native replay, which must agree
-    (`native`: its result, when already run). A columnar replay must read
-    every chunk through its sidecar (the forge sealed them all)."""
+    lists; `aggregate` revalidate's) with the launch counts, the sidecar
+    counters and AGG_REDISPATCH zeroed just before it and read just
+    after (CUDA events around each stage and aggregate wrapper, and the
+    windows it cut), then the native replay, which must agree (`native`:
+    its result, when already run). A columnar replay must read every
+    chunk through its sidecar (the forge sealed them all)."""
+    import importlib
+
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -933,6 +1331,9 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
     lanes: list = []
     windows: list = []
     saved = [(K, name, getattr(K, name)) for name in STAGE_WRAPPERS]
+    for mod, name in AGG_WRAPPERS:
+        m = importlib.import_module(f"ouroboros_consensus_tpu_torch.ops.pk.{mod}")
+        saved.append((m, name, getattr(m, name)))
     saved.append((pbatch, "prepare_window", pbatch.prepare_window))
 
     def timed(*args, _fn, _name, **kw):
@@ -943,8 +1344,8 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
         b.record()
         events.setdefault(_name, []).append((a, b))
         streams.setdefault(_name, set()).add(torch.cuda.current_stream().cuda_stream)
-        if _name == "ed_points":
-            lanes.append(res[0].shape[-1])
+        if _name in ("ed_points", "agg_prep"):
+            lanes.append((_name, res[0].shape[-1] if _name == "ed_points" else res[0].shape[1]))
         return res
 
     def window(params_, lview_, eta0, hvs, *args, _fn=pbatch.prepare_window, **kw):
@@ -961,14 +1362,17 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
     try:
         K.reset_launches()
         sidecar.reset_counters()
+        pbatch.AGG_REDISPATCH = 0
         if dev.type == "cuda":
             torch.cuda.synchronize()
         dres = db_analyser.revalidate(db, params, lview, backend="device",
-                                      max_batch=max_batch, device=dev, columnar=columnar)
+                                      max_batch=max_batch, device=dev, columnar=columnar,
+                                      aggregate=aggregate)
         if dev.type == "cuda":
             torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         counts = sidecar.counters()
+        redispatched = pbatch.AGG_REDISPATCH
     finally:
         for mod, name, fn in saved:
             setattr(mod, name, fn)
@@ -982,15 +1386,19 @@ def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
         "lanes_per_launch": lanes,
         "windows": windows,
         "sidecar": counts,
+        "aggregate": aggregate,
+        "agg_redispatch": redispatched,
     }
     if dev.type == "cuda" and launches["nonce_fold"]:
-        # the fold on a stream of its own, the stage kernels on another
-        staged = set().union(*(streams.get(k, set()) for k in STAGE_WRAPPERS[:6]))
+        # the fold on a stream of its own, the stage and aggregate kernels on another
+        staged = set().union(*(streams.get(k, set()) for k in
+                               (*STAGE_WRAPPERS[:6], *(n for _m, n in AGG_WRAPPERS))))
         if streams["nonce_fold"] & staged or len(streams["nonce_fold"]) != 1:
             raise AssertionError(f"{tag}: nonce_fold streams {streams['nonce_fold']} "
                                  f"against the stages' {staged}")
         out["fold_stream_apart"] = True
-    log(f"{tag}: launches {json.dumps(launches)}; sidecar {json.dumps(counts)}")
+    log(f"{tag}: launches {json.dumps(launches)}; sidecar {json.dumps(counts)}; "
+        f"aggregate {aggregate}, windows re-dispatched {redispatched}")
     log(f"{tag}: device time per stage (ms): {json.dumps(out['stage_device_ms'])}")
     log(f"{tag}: windows (headers, proof bytes, form): {windows}")
     nres = native or db_analyser.revalidate(db, params, lview, backend="native",
@@ -1031,24 +1439,35 @@ def same_replay(a, b) -> bool:
 
 
 def corrupted_replay(tag: str, db: str, headers: int, field: str, expect: str,
-                     params, lview, max_batch: int, dev, pool=None) -> None:
-    """Copy the chain, flip one byte of `field` in the header two thirds
-    of the way in (KES-signing the header again when `pool` is given),
-    and require both backends to stop there with `expect`."""
+                     params, lview, max_batch: int, dev, pool=None,
+                     at: float = 2 / 3) -> dict:
+    """Copy the chain, flip one byte of `field` in the header a fraction
+    `at` of the way in (KES-signing the header again when `pool` is
+    given), and require both backends to stop there with `expect`.
+    -> the device replay's launches and re-dispatched windows."""
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
     from ouroboros_consensus_tpu_torch.testing import corrupt
     from ouroboros_consensus_tpu_torch.tools import db_analyser
 
-    bad = db + "_bad"
+    bad = f"{db}_bad_{field}"
     shutil.copytree(db, bad)
-    target = int(headers * 2 / 3)
+    target = int(headers * at)
     corrupt.flip_header_byte(bad, target, field, params=params if pool else None, pool=pool)
+    K.reset_launches()
+    pbatch.AGG_REDISPATCH = 0
     dres = db_analyser.revalidate(bad, params, lview, backend="device",
                                   max_batch=max_batch, device=dev)
+    out = {"launches": dict(K.LAUNCHES), "agg_redispatch": pbatch.AGG_REDISPATCH}
     nres = db_analyser.revalidate(bad, params, lview, backend="native", max_batch=max_batch)
     compare(f"{tag} chain, {field} byte flipped", dres, nres)
     if dres.n_valid != target or type(dres.error).__name__ != expect:
         raise AssertionError(f"{tag} corrupted chain: expected {expect} at {target}, "
                              f"got {dres.n_valid} {dres.error!r}")
+    shutil.rmtree(bad, ignore_errors=True)
+    log(f"{tag} chain, {field} byte flipped at {target}: windows re-dispatched "
+        f"{out['agg_redispatch']}")
+    return out
 
 
 LAYERS = (  # (module, function, layer) timed by layer_breakdown
@@ -1058,14 +1477,17 @@ LAYERS = (  # (module, function, layer) timed by layer_breakdown
     ("batch", "staging_buffer", "pin_alloc"), ("batch", "pad_packed_into", "pad_packed_into"),
     ("batch", "upload_staged", "h2d"),
     ("K", "unpack_limb_first", "unpack"), ("K", "_tiles", "stages"),
+    ("pa", "agg_prep", "agg_prep"), ("pa", "dedupe_columns", "dedupe"),
+    ("pa", "agg_tables", "agg_tables"), ("pm", "msm", "msm"),
     ("batch", "verdict_reduce", "reduce"), ("batch", "dispatch_window", "device_step"),
-    ("batch", "epilogue", "epilogue"),
+    ("batch", "materialize", "redispatch"), ("batch", "epilogue", "epilogue"),
 )
 STEP_PARTS = ("stage_packed", "stage_packed_columns", "pin_alloc", "pad_packed_into", "h2d",
-              "unpack", "stages", "reduce")
+              "unpack", "stages", "agg_prep", "dedupe", "agg_tables", "msm", "reduce")
 
 
-def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
+def layer_breakdown(db: str, params, lview, max_batch: int, dev,
+                    aggregate: bool = True) -> dict:
     """Host wall per layer of one more device replay, serial
     (`pipeline_depth=1`, `prefetch=False`: a layer's timer synchronises,
     which would serialise the pipeline anyway), each layer's work on the
@@ -1089,9 +1511,12 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
     from ouroboros_consensus_tpu_torch.tools import db_analyser
 
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
     spent: dict = {}
     saved = []
-    mods = {"batch": pbatch, "K": K}
+    mods = {"batch": pbatch, "K": K, "pa": pa, "pm": pm}
 
     def sync():
         if dev.type == "cuda":
@@ -1128,7 +1553,7 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     try:
         res = db_analyser.revalidate(db, params, lview, backend="device",
                                      max_batch=max_batch, device=dev, prefetch=False,
-                                     pipeline_depth=1)
+                                     pipeline_depth=1, aggregate=aggregate)
         if dev.type == "cuda":
             torch.cuda.synchronize()
     finally:
@@ -1139,7 +1564,7 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev) -> dict:
     if "host_prechecks_columns" in spent:  # nested in host_prechecks
         spent["host_prechecks"] -= spent["host_prechecks_columns"]
     spent["other"] = res.validate_s - step - sum(spent.get(k, 0.0) for k in (
-        "host_prechecks", "host_prechecks_columns", "epilogue"))
+        "host_prechecks", "host_prechecks_columns", "redispatch", "epilogue"))
     spent["validate_s"] = res.validate_s
     spent["read"] = res.read_s
     spent["device_step"] = step
@@ -1412,10 +1837,10 @@ def sidecar_checks(tag: str, db: str, params, lview, max_batch: int, dev, cols) 
     return out
 
 
-def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
-               workdir: str) -> dict:
-    """The three main paths (bc, draft03, mixed); -> {path: replay_path's
-    dict, with the layer split for the two single-format chains}."""
+def phase_main(dev, forges: Forges, max_batch: int) -> dict:
+    """The three main paths (bc, draft03, mixed) on the chains `forges`
+    makes; -> {path: replay_path's dict, with the layer split for the two
+    single-format chains}."""
     from ouroboros_consensus_tpu_torch import carry
     from ouroboros_consensus_tpu_torch.testing import synth
     from ouroboros_consensus_tpu_torch.tools import bench as port_bench
@@ -1423,21 +1848,17 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
     params = bench_params()
     pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
     lview = synth.make_ledger_view(pools)
-    switch = mixed_headers // 2
-    chains = (
-        ("bc", headers, "bc"),
-        ("draft03", headers, "draft03"),
-        ("mixed", mixed_headers, lambda n: 80 if n < switch else 128),
-    )
     paths = {}
-    for tag, n, fmt in chains:
-        db = os.path.join(workdir, f"chain_{tag}")
+    for tag in ("bc", "draft03", "mixed"):
         t0 = time.monotonic()
-        synth.synthesize(db, params, pools, lview, n, proof_format=fmt)
-        log(f"{tag}: forged {n} headers in {time.monotonic() - t0:.1f} s")
+        db, n = forges.get(tag)
+        switch = n // 2
+        log(f"{tag}: {n} headers forged; waited {time.monotonic() - t0:.1f} s for them")
         out = replay_path(tag, db, params, lview, max_batch, dev)
         if out["error"] is not None or out["n_valid"] != n:
             raise AssertionError(f"{tag} chain did not validate: {out['n_valid']}/{n}")
+        if out["agg_redispatch"]:
+            raise AssertionError(f"{tag}: {out['agg_redispatch']} clean windows re-dispatched")
         if tag == "mixed":
             starts = np.cumsum([0] + [w for w, *_ in out["windows"]])
             cut = int(np.searchsorted(starts, switch))
@@ -1452,6 +1873,11 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
                 f"the fold's own time on its stream, overlaps the stages and is not "
                 f"one of device_step's parts): {json.dumps(out['layers_s'])}")
         if tag == "bc":
+            out["layers_s_lanes"] = layer_breakdown(db, params, lview, max_batch, dev,
+                                                    aggregate=False)
+            log(f"bc, aggregate off: host wall per layer, one more device replay (s): "
+                f"{json.dumps(out['layers_s_lanes'])}")
+        if tag == "bc":
             listed = replay_path("bc list", db, params, lview, max_batch, dev,
                                  columnar=False, native=out["native"])
             cols, lst = out["result"], listed["result"]
@@ -1463,10 +1889,29 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
             log("bc: columnar == list: n_blocks, n_valid, error and final state")
             out["list"] = {k: v for k, v in listed.items() if k not in ("result", "native")}
             out["sidecar_checks"] = sidecar_checks(tag, db, params, lview, max_batch, dev, cols)
-            corrupted_replay(tag, db, n, "kes_sig", "InvalidKesSignatureOCERT",
-                             params, lview, max_batch, dev)
-            out["bench"] = port_bench.measure(db, device=dev)
+            lanes = replay_path("bc lanes", db, params, lview, max_batch, dev,
+                                native=out["native"], aggregate=False)
+            paths["bc_lanes"] = {k: v for k, v in lanes.items() if k not in ("result", "native")}
+            # one corrupted copy a kind through the aggregate: each dirty
+            # window is re-dispatched to the per-lane stages
+            dirty = [corrupted_replay(tag, db, n, field, expect, params, lview, max_batch,
+                                      dev, pool=pool, at=at)
+                     for field, expect, pool, at in (
+                         ("kes_sig", "InvalidKesSignatureOCERT", None, 2 / 3),
+                         ("ocert_sigma", "InvalidSignatureOCERT", None, 1 / 8),
+                         ("vrf_proof", "VRFKeyBadProof", pools[0], 1 / 8))]
+            if any(d["agg_redispatch"] < 1 for d in dirty):
+                raise AssertionError("a corrupted bc copy re-dispatched no window")
+            paths["bc_dirty"] = {
+                "launches": {k: sum(d["launches"][k] for d in dirty) for k in dirty[0]["launches"]},
+                "agg_redispatch": [d["agg_redispatch"] for d in dirty]}
+            out["bench"] = port_bench.measure(db, device=dev, native=out["native"])
             print("bench " + json.dumps(out["bench"]), flush=True)
+            out["bench_lanes"] = port_bench.measure(db, device=dev, aggregate=False,
+                                                    native=out["native"])
+            print("bench_lanes " + json.dumps(out["bench_lanes"]), flush=True)
+            if out["bench"]["agg_redispatch"] or not out["bench"]["aggregate"]:
+                raise AssertionError("the bench's aggregated replays re-dispatched a window")
         elif tag == "draft03":
             corrupted_replay(tag, db, n, "vrf_proof", "VRFKeyBadProof",
                              params, lview, max_batch, dev, pool=pools[0])
@@ -1476,7 +1921,7 @@ def phase_main(dev, headers: int, mixed_headers: int, max_batch: int,
     return paths
 
 
-def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
+def phase_generic(dev, forges: Forges, max_batch: int) -> dict:
     """The generic staging on the card (phase 3d): stand-in-body views
     replayed on the card with the launch counts zeroed just before and
     read just after, and by the C++ verifier; the packed staging's decline
@@ -1495,8 +1940,7 @@ def phase_generic(dev, headers: int, max_batch: int, workdir: str) -> dict:
     params = bench_params()
     pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
     lview = synth.make_ledger_view(pools)
-    db = os.path.join(workdir, "chain_generic")
-    synth.synthesize(db, params, pools, lview, headers, proof_format="bc")
+    db, headers = forges.get("generic")
     hvs = corrupt.standin_views(db_analyser.read_header_views(db), params, pools[0])
 
     def replay(views, backend, batch=max_batch):
@@ -1786,15 +2230,19 @@ def main(argv=None) -> int:
     t_all = time.monotonic()
     ptxas = phase_build()
     work = tempfile.mkdtemp(prefix="chip_smoke_")
+    forges = Forges(work, a.headers)
     try:
         stages = phase_kernels(dev, workdir=work)
         stages["vrf_prep"] = phase_vrf_prep(dev, workdir=work)
         stages.update(phase_wire(dev, workdir=work))
+        stages.update(phase_agg(dev, workdir=work))
         for key, by_lanes in stage_times(dev, workdir=work).items():
             stages[key]["ms_by_lanes"] = {**by_lanes, stages[key]["lanes"]: stages[key]["ms"]}
-        paths = phase_main(dev, a.headers, a.headers // 8, 8192, work)
-        generic = phase_generic(dev, a.headers // 8, 8192, work)
+        phase_agg_chain(dev, forges.get("bc")[0], stages)
+        paths = phase_main(dev, forges, 8192)
+        generic = phase_generic(dev, forges, 8192)
     finally:
+        forges.close()
         shutil.rmtree(work, ignore_errors=True)
     tools = phase_tools(dev)
     stages.update(tools["records"])
@@ -1819,6 +2267,13 @@ def main(argv=None) -> int:
         if "bound_ms" in st:  # the wire kernels: phase_wire's bound
             per_lane = None
             bound, bound_by = st["bound_ms"], st["bound_by"]
+        elif name in ("msm", "agg_tables"):
+            # msm: this run's point operations (msm_work); agg_tables: its bytes
+            per_lane = None
+            ops_ms = st.get("products", 0) / wide_rate * 1e3
+            bytes_ms = st["bytes"] / 3.35e12 * 1e3
+            bound = max(ops_ms, bytes_ms)
+            bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
         else:
             per_lane = st.get("products_per_lane") or wide_products(st["field_ops"])
             ops_ms = per_lane * st["lanes"] / wide_rate * 1e3
@@ -1837,13 +2292,16 @@ def main(argv=None) -> int:
             "ms_by_lanes": st.get("ms_by_lanes"), "wrapper_ms": st.get("wrapper_ms"),
             "wrapper_ms_by_lanes": st.get("wrapper_ms_by_lanes"),
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
+            "msm_work": st.get("work"), "tiled": st.get("tiled"),
         })
     for p, out in paths.items():
-        fill = [{"lanes": n, "blocks": -(-n // 32)} for n in out["lanes_per_launch"]]
+        fill = [{"kernel": k, "lanes": n, "blocks": -(-n // 32)}
+                for k, n in out.get("lanes_per_launch", [])]
         log(f"{p}: grid fill per window (32 lanes a block in every stage kernel: ed, "
-            f"kes 4 warps, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; {sms} SMs): "
-            f"{json.dumps(fill)}")
-        log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows', 'list')})}")
+            f"kes, agg_prep 4 warps, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; "
+            f"{sms} SMs): {json.dumps(fill)}")
+        log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows', 'list', 'lanes_per_launch')})}")
+    log(f"aggregate dedupe (torch) ms by lanes: {json.dumps(stages['dedupe_ms'])}")
     log(f"fe_bench rows: {json.dumps(tools['fe_rows'])}")
     log(f"total {time.monotonic() - t_all:.1f} s; sms {sms}, max sm clock {clock / 1e6:.0f} MHz")
     print(json.dumps({"kernels": kernels}), flush=True)

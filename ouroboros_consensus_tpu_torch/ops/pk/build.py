@@ -1,4 +1,4 @@
-"""Build and bind the stage, wire and tool kernels (csrc/*.cu).
+"""Build and bind the stage, wire, aggregate and tool kernels (csrc/*.cu).
 
 Each kernel source is compiled by its own `nvcc` process, all started
 together, into a shared library with a plain C interface:
@@ -44,6 +44,9 @@ ENTRIES = {
     "primitives": ("pk_prim_sha", "pk_prim_shav", "pk_prim_b2b", "pk_prim_base",
                    "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
     "fe_bench": ("pk_fe_bench",),
+    "agg_prep": ("pk_agg_prep",),
+    "agg_tables": ("pk_agg_tables",),
+    "msm": ("pk_msm",),
 }
 KERNELS = tuple(ENTRIES)
 NVCC_FLAGS = [
@@ -71,10 +74,16 @@ ARGTYPES = {
     "pk_prim_dec": [_I] + [_P] * 4,
     "pk_prim_red": [_I] + [_P] * 4,
     "pk_fe_bench": [_I, _I, _I, _P, _P, _P],
+    "pk_agg_prep": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 6,
+    "pk_agg_tables": [_I, _P, _P, _P],
+    "pk_msm": [_I, _I, _I, _I] + [_P] * 15,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
     "pk_fe_sq": [_I] + [_P] * 3,
     "pk_b2b_one": [_I] + [_P] * 3,
+    # host build only: sc_mul and sc_add over [B, 32] byte rows
+    "pk_sc_mul": [_I] + [_P] * 3,
+    "pk_sc_add": [_I] + [_P] * 3,
 }
 
 _LIBS: dict = {}
@@ -214,7 +223,7 @@ def kernel_lib(name: str, entry: str | None = None):
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
-    unpack 256),
+    unpack 256; msm's bucket phase 128),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")

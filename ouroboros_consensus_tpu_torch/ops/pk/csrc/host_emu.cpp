@@ -5,6 +5,7 @@
 // kernel's loops its per-lane body over the lanes. Used only to
 // cross-check the device code against the plain PyTorch twins on a
 // machine without nvcc; the replay never calls it.
+#include "agg.cuh"
 #include "tools.cuh"
 #include "wire.cuh"
 
@@ -144,6 +145,96 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
                       (OI)eta, (OI)lv);
     for (int l = 0; l < n; l++) finish_vrf_ok(g + l, B, l, (CI)vrfok, sc, (OI)out);
   }
+  return 0;
+}
+
+// the window aggregate: agg_prep group by group (each role over the
+// group's lanes, then the transcript hashes, then each role's products);
+// agg_tables row by row; the msm phase by phase, each phase's threads in
+// turn (the atomics' places are then in point order), the scan
+// sequential, a big bucket's tree round by round, the quads' four
+// products in order
+extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
+                           void *const *cols, void *pts, void *scal,
+                           void *flags, void *eta, void *lv, void *) {
+  AggShape s{B, depth, nb_ed, nb_kes};
+  AggIn in;
+  for (int k = 0; k < AI_N; k++) in.c[k] = (CI)cols[k];
+  AggOut o{(OI)pts, (u8 *)scal, (OI)flags, (OI)eta, (OI)lv};
+  static AggScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++) agg_role_ed(g + l, true, l, s, in, o, sc);
+    for (int l = 0; l < n; l++) agg_role_kes(g + l, true, l, s, in, o, sc);
+    for (int l = 0; l < n; l++) agg_role_h(g + l, true, l, s, in, o, sc);
+    for (int l = 0; l < n; l++) agg_role_gamma(g + l, true, l, s, in, o, sc);
+    for (int l = 0; l < n; l++) agg_fs(g + l, l, s, in, sc);
+    for (int r = 0; r < 4; r++)
+      for (int l = 0; l < n; l++) agg_products(r, g + l, true, l, s, in, o, sc);
+  }
+  return 0;
+}
+
+// host only: sc_mul and sc_add over [B, 32] little-endian byte rows
+extern "C" int pk_sc_mul(int B, const void *a, const void *b, void *out) {
+  for (int i = 0; i < B; i++)
+    sc_mul((const u8 *)a + 32 * i, 32, (const u8 *)b + 32 * i, 32, (u8 *)out + 32 * i);
+  return 0;
+}
+
+extern "C" int pk_sc_add(int B, const void *a, const void *b, void *out) {
+  for (int i = 0; i < B; i++)
+    sc_add((const u8 *)a + 32 * i, (const u8 *)b + 32 * i, (u8 *)out + 32 * i);
+  return 0;
+}
+
+extern "C" int pk_agg_tables(int R, const void *raw, void *out, void *) {
+  for (int r = 0; r < R; r++) agg_table_row(r, (const int64_t *)raw, (u8 *)out);
+  return 0;
+}
+
+extern "C" int pk_msm(int n, int n_small, int ws, int ww, const void *base8,
+                      const void *points, const void *scalars, const void *base,
+                      void *digits, void *counts, void *offsets, void *cursor,
+                      void *big, void *ent, void *buckets, void *segs, void *total,
+                      void *ident, void *) {
+  if (ww > MSM_WMAX || ws > ww) return -1;
+  MsmShape s{n, n_small, ws, ww};
+  int m = ww * MSM_D, nb = ww * MSM_HALF, nseg = ww * MSM_NSEG;
+  int *cnt = (int *)counts, *off = (int *)offsets, *cur = (int *)cursor, *bg = (int *)big;
+  for (int p = 0; p < n; p++) msm_recode(p, s, (const u8 *)scalars, (OI)digits, cnt);
+  int acc = 0;
+  for (int i = 0; i < m; i++) {
+    off[i] = cur[i] = acc;
+    acc += cnt[i];
+    if (cnt[i] > MSM_SMALL) bg[1 + bg[0]++] = i;
+  }
+  off[m] = acc;
+  for (int p = 0; p < n; p++) msm_scatter(p, s, (CI)digits, cur, (u32 *)ent);
+  for (int t = 0; t < nb; t++) msm_bucket(t, (CI)points, off, (const u32 *)ent, (OI)buckets);
+  static int32_t tree[MSM_BIG * 40];
+  for (int k = 0; k < bg[0]; k++) {
+    int key = bg[1 + k];
+    for (int j = 0; j < MSM_BIG; j++)
+      msm_big_partial(key, j, (CI)points, off, (const u32 *)ent, tree);
+    for (int half = MSM_BIG / 2; half > 0; half >>= 1)
+      for (int j = 0; j < MSM_BIG; j++) msm_big_round(j, half, tree);
+    msm_big_store(key, tree, (OI)buckets);
+  }
+  static u32 qx[PK_QUAD_WORDS];
+  for (int t = 0; t < nseg; t++) {
+    Quad qd{qx, -1, 0, 0, 0};
+    msm_segment(t, true, nseg, (CI)buckets, (OI)segs, qd);
+  }
+  static int32_t sums[MSM_WMAX * 40];
+  Quad qd{qx, -1, 0, 0, 0};
+  for (int w = 0; w < ww; w++) msm_store(sums, w, msm_window(w, nseg, (CI)segs, qd));
+  u8 b[32];
+  for (int k = 0; k < 32; k++) b[k] = ((const u8 *)base)[k];
+  ge tot;
+  bool id = msm_horner(sums, ww, qbase_mul_w8(qd, (const u32 *)base8, b), tot, qd);
+  msm_store((OI)total, 0, tot);
+  ((OI)ident)[0] = id ? 1 : 0;
   return 0;
 }
 

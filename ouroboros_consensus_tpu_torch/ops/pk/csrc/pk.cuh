@@ -770,6 +770,24 @@ PK_NOINLINE void sha512_msg(const u8 *msg, int n, u8 *out) {
   sha512_digest(st, out);
 }
 
+// SHA-512 of a local message of any length: its whole blocks in place,
+// then the padded tail (one or two blocks)
+PK_NOINLINE void sha512_long(const u8 *msg, int n, u8 *out) {
+  u64 st[8];
+  sha512_init(st);
+  int whole = n / 128;
+#pragma unroll 1
+  for (int i = 0; i < whole; i++) sha512_compress(st, msg + 128 * i);
+  u8 buf[256];
+  int rem = n - 128 * whole, nb = (rem + 17 + 127) / 128;
+  for (int i = 0; i < nb * 128; i++) buf[i] = i < rem ? msg[128 * whole + i] : 0;
+  buf[rem] = 0x80;
+  u64 bits = (u64)n * 8;
+  for (int j = 0; j < 8; j++) buf[nb * 128 - 1 - j] = (u8)(bits >> (8 * j));
+  for (int i = 0; i < nb; i++) sha512_compress(st, buf + 128 * i);
+  sha512_digest(st, out);
+}
+
 // SHA-512 over pre-padded column blocks [nb][128][B] of lane `lane`,
 // predicated per lane on its own block count (block 0 always applies)
 PK_NOINLINE void sha512_columns(const int32_t *blocks, int nb, int nblocks,
@@ -863,6 +881,40 @@ PK_NOINLINE void sc_reduce512(const u8 *in, u8 *out) {
     if (i + 1 < 32) x[i + 1] += x[i] >> 8;
     out[i] = (u8)(x[i] & 255);
   }
+}
+
+// n >= 0 little-endian column sums (the value < 2^512) -> its 64 bytes
+// (one sequential carry)
+PK_DEV void sc_carry64(const u64 *cols, int n, u8 *out) {
+  u64 c = 0;
+  for (int i = 0; i < 64; i++) {
+    u64 v = c + (i < n ? cols[i] : 0);
+    out[i] = (u8)(v & 255);
+    c = v >> 8;
+  }
+}
+
+// a·b mod L for na- and nb-byte little-endian scalars (na, nb <= 32): the
+// byte convolution (each column < 32 · 255² < 2^21), carried to 64 bytes,
+// then sc_reduce512 (ops/pk/scalar.py: mul_mod_l, the same sums)
+PK_NOINLINE void sc_mul(const u8 *a, int na, const u8 *b, int nb, u8 *out) {
+  u64 cols[64];
+  for (int k = 0; k < 64; k++) cols[k] = 0;
+  for (int j = 0; j < nb; j++)
+    for (int i = 0; i < na; i++) cols[i + j] += (u64)a[i] * b[j];
+  u8 wide[64];
+  sc_carry64(cols, 64, wide);
+  sc_reduce512(wide, out);
+}
+
+// a + b mod L for 32-byte little-endian scalars (no kernel calls it: the
+// host build's pk_sc_add holds it for a later kernel that needs it)
+PK_NOINLINE void sc_add(const u8 *a, const u8 *b, u8 *out) {
+  u64 cols[32];
+  for (int k = 0; k < 32; k++) cols[k] = (u64)a[k] + b[k];
+  u8 wide[64];
+  sc_carry64(cols, 32, wide);
+  sc_reduce512(wide, out);
 }
 
 // s < L for 32 little-endian bytes

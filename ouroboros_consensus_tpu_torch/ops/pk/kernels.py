@@ -61,10 +61,11 @@ from . import curve as pc
 from . import verify as pv
 
 # kernel source -> launches on the card (the plain twins do not count);
-# the two tool kernels (tools/debug_pk.py, tools/fe_bench.py) count here too
+# the two tool kernels (tools/debug_pk.py, tools/fe_bench.py) and the
+# window aggregate's three (ops/pk/aggregate.py, msm.py) count here too
 LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
             "vrf_ladders": 0, "finish": 0, "unpack": 0, "nonce_fold": 0,
-            "primitives": 0, "fe_bench": 0}
+            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "agg_tables": 0, "msm": 0}
 
 _BASE8: dict = {}
 
@@ -531,11 +532,35 @@ def verify_praos_packed_split(layout, packed, n_real: int, device, carry):
     `device`."""
     from ...protocol import batch as pbatch
 
-    cols = pbatch.upload_packed(packed, device)
-    limb = unpack_limb_first(layout, cols, device)
-    fold = nonce_fold_beside(limb[UNPACK_BETA], cols.within, n_real, carry)
+    limb, fold = _unpack_and_fold(layout, packed, n_real, device, carry)
     flags, eta, lv = _tiles(limb, layout.vrf_proof_len == 128, layout.kes_depth)
     return pbatch.verdict_reduce(flags, eta, n_real, fold), flags, eta, lv
+
+
+def _unpack_and_fold(layout, packed, n_real: int, device, carry):
+    """The packed columns up, `unpack`, and the fold launched beside what
+    comes next -> (the limb-first columns, the fold's (carry-out, done))."""
+    from ...protocol import batch as pbatch
+
+    cols = pbatch.upload_packed(packed, device)
+    limb = unpack_limb_first(layout, cols, device)
+    return limb, nonce_fold_beside(limb[UNPACK_BETA], cols.within, n_real, carry)
+
+
+def verify_praos_packed_agg(layout, packed, n_real: int, device, carry):
+    """The aggregated dispatch of a batch-compatible packed window on
+    `device`: as verify_praos_packed_split up to the fold, then the window
+    aggregate (aggregate.aggregate_window: agg_prep, the dedupe,
+    agg_tables, msm) in place of the five stage kernels, and the verdict
+    words over its flags. -> ((masks, carry-out), AggregateVerdicts, the
+    limb-first columns, which a dirty window's per-lane re-dispatch
+    reads)."""
+    from ...protocol import batch as pbatch
+    from . import aggregate as pa
+
+    limb, fold = _unpack_and_fold(layout, packed, n_real, device, carry)
+    av = pa.aggregate_window(*limb, kes_depth=layout.kes_depth)
+    return pbatch.verdict_reduce(av.flags, av.eta, n_real, fold), av, limb
 
 
 # ---------------------------------------------------------------------------

@@ -803,10 +803,14 @@ class PackedVerdicts:
     after the event recorded behind those copies (`masks`, `nonces`,
     `eta_bytes()`), so that later windows can be launched meanwhile. The
     per-lane flags, eta and leader values stay on the device until
-    `full()` (only a failing or ambiguous window needs them)."""
+    `full()` (only a failing or ambiguous window needs them). An
+    aggregated window (`agg`: its layout and the unpacked limb-first
+    device columns, which its per-lane re-dispatch reads; `materialize`)
+    holds the aggregate's verdicts until it retires."""
 
-    def __init__(self, masks, b, handles, *, carry=None, eta_u8=None):
+    def __init__(self, masks, b, handles, *, carry=None, eta_u8=None, agg=None):
         self.b = b
+        self.agg = agg  # (layout, limb-first columns) of an aggregated window
         self._handles = handles  # (flags [5, B], eta [32, B], lv [32, B])
         self.carry = carry  # [66] uint8 on the device, or None
         self.carried = carry is not None
@@ -1161,6 +1165,9 @@ def run_batch_native(params: PraosParams, ledger_view: LedgerView,
 # packed-staging declines by reason, over the process (the reference's
 # `_LAST_DECLINE` gate, which its window telemetry records)
 DECLINES: dict[str, int] = {}
+# aggregated windows whose verdicts were not clean, verified again by the
+# per-lane stage kernels (`materialize`), over the process
+AGG_REDISPATCH = 0
 
 
 class StagedWindow(NamedTuple):
@@ -1175,6 +1182,9 @@ class StagedWindow(NamedTuple):
     packed: Packed | None  # the padded packed columns, views of `buf`
     buf: torch.Tensor  # the staging buffer (`staging_buffer`)
     batch: PraosBatch | None  # a generic window's padded columns
+    # a batch-compatible packed window takes the window aggregate
+    # (dispatch_prepared; validate_chain's `aggregate`)
+    aggregate: bool = True
 
 
 def prepare_window(params: PraosParams, lview: LedgerView, eta0,
@@ -1212,10 +1222,14 @@ def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> Pac
     columns (from pinned memory on the card) -> unpack -> the five stage
     kernels of the window's proof format, the nonce fold beside them on
     the side stream -> the reduce, then the copies of the mask words and the carry back
-    to the host, none of which waits for the card. `carry` is the fold's
+    to the host, none of which waits for the card. With `sw.aggregate`, a
+    batch-compatible packed window (128-byte proofs) takes the window
+    aggregate (ops/pk/aggregate.py) in place of the five stage kernels,
+    and `materialize` verifies it again lane by lane when it retires
+    dirty (the reference's default, OCT_VRF_AGG=1). `carry` is the fold's
     carry-in: the previous packed window's device carry-out, or a host
     seed (`state_carry`); None is the neutral one. A generic window runs
-    the same kernels and ships its eta bytes (no fold, no carry)."""
+    the five stage kernels and ships its eta bytes (no fold, no carry)."""
     b = sw.b
     if sw.layout is None:
         cols = batch_columns(sw.batch, device)
@@ -1228,29 +1242,56 @@ def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> Pac
         carry = nonces.pack_carry(None, None)
     if not isinstance(carry, torch.Tensor):
         carry = to_device(carry, device)
+    if sw.aggregate and sw.layout.vrf_proof_len == 128:
+        (masks, carry_out), av, limb = pk_kernels.verify_praos_packed_agg(
+            sw.layout, packed, b, device, carry)
+        return PackedVerdicts(masks, b, (av.flags, av.eta, av.leader_value),
+                              carry=carry_out, agg=(sw.layout, limb))
     (masks, carry_out), flags, eta, lv = pk_kernels.verify_praos_packed_split(
         sw.layout, packed, b, device, carry)
     return PackedVerdicts(masks, b, (flags, eta, lv), carry=carry_out)
 
 
+def materialize(v: PackedVerdicts) -> PackedVerdicts:
+    """A retiring window's verdicts (the reference's materialize_verdicts):
+    an aggregated window that is not clean (a lane failed a cheap check,
+    the combination was not the identity, a dedupe table overflowed, or a
+    leader lane is not a certain win) runs the five per-lane stage
+    kernels on its own device columns and the verdict reduce; their
+    verdicts replace the aggregate's. The fold is not run again: it read
+    unpack's β rows, so the window's carry-out stays valid, and later
+    windows, already in flight on it, are not touched. Counts
+    AGG_REDISPATCH."""
+    global AGG_REDISPATCH
+    if v.agg is None or v.clean():
+        return v
+    AGG_REDISPATCH += 1
+    layout, limb = v.agg
+    flags, eta, lv = pk_kernels._tiles(limb, True, layout.kes_depth)
+    masks, _ = verdict_reduce(flags, eta, v.b)
+    return PackedVerdicts(masks, v.b, (flags, eta, lv), carry=v.carry)
+
+
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
                     hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
-                    device: torch.device, carry=None) -> PackedVerdicts:
+                    device: torch.device, carry=None, aggregate: bool = True) -> PackedVerdicts:
     """prepare_window then dispatch_prepared, inline: one window's
     staging (with its prechecks `pre`), kernels, reduce and the copies of
     its results back (the serial loop's step)."""
     device = torch.device(device)
     sw = prepare_window(params, lview, eta0, hvs, staging_buffer(params, hvs, device), pre)
-    return dispatch_prepared(sw, device, carry)
+    return dispatch_prepared(sw._replace(aggregate=aggregate), device, carry)
 
 
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", backend: str,
-                   device: torch.device | None, carry=None) -> BatchResult:
+                   device: torch.device | None, carry=None,
+                   aggregate: bool = True) -> BatchResult:
     """One within-epoch window of one proof format.
     `carry`: the device nonce carry of the previous packed window, None
     to seed the fold from the ticked state (tick only rotates the epoch
-    nonce, so a carry stays valid across an epoch boundary)."""
+    nonce, so a carry stays valid across an epoch boundary). `aggregate`:
+    dispatch_prepared's."""
     lview = ticked.ledger_view
     eta0 = ticked.state.epoch_nonce
     pre = host_prechecks(params, lview, hvs)
@@ -1258,7 +1299,8 @@ def validate_batch(params: PraosParams, ticked: TickedPraosState,
         v = run_batch_native(params, lview, eta0, hvs, pre)
     elif backend == "device":
         seed = state_carry(ticked.state) if carry is None else carry
-        v = dispatch_window(params, lview, eta0, hvs, pre, device, seed)
+        v = materialize(dispatch_window(params, lview, eta0, hvs, pre, device, seed,
+                                        aggregate))
     else:
         raise ValueError(f"unknown backend {backend!r}")
     res = epilogue(params, ticked, hvs, pre, v)
@@ -1318,7 +1360,7 @@ def _windows(params: PraosParams, hvs, max_batch: int) -> list[tuple[int, int, i
 def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", max_batch: int = 8192,
                    backend: str = "device", device=None,
-                   pipeline_depth: int = 3) -> BatchResult:
+                   pipeline_depth: int = 3, aggregate: bool = True) -> BatchResult:
     """Validate a run of headers (a HeaderView list or ViewColumns):
     windows cut at epoch boundaries, at `max_batch` within an epoch and
     where the proof format changes; the state threads through `tick`
@@ -1330,7 +1372,11 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
     it is absent), with up to `pipeline_depth` windows staged ahead on a
     staging thread and as many in flight on the card (`_pipeline`; 1 is
     the serial loop: stage, launch, wait and fold one window at a time);
-    backend="native" runs the C++ verifier, serially."""
+    backend="native" runs the C++ verifier, serially. `aggregate` (the
+    device backend): batch-compatible packed windows take the window
+    aggregate, and a dirty one the per-lane stages again (the
+    reference's default); False runs the per-lane stages on every
+    window."""
     dev = resolve(device) if backend == "device" else None
     windows = _windows(params, hvs, max_batch)
     lviews: dict = {}
@@ -1341,12 +1387,13 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
         return lviews[epoch]
 
     if backend == "device" and pipeline_depth > 1:
-        return _pipeline(params, lview_of, state, hvs, windows, dev, pipeline_depth)
+        return _pipeline(params, lview_of, state, hvs, windows, dev, pipeline_depth,
+                         aggregate)
     carry = None
     total = 0
     for epoch, i, j in windows:
         ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
-        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry)
+        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate)
         state, carry = res.state, res.carry
         total += res.n_valid
         if res.error is not None:
@@ -1355,12 +1402,14 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
 
 
 def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: list,
-              dev: torch.device, depth: int) -> BatchResult:
+              dev: torch.device, depth: int, aggregate: bool = True) -> BatchResult:
     """The device loop of validate_chain (the reference's _device_loop):
     at most `depth` windows staged ahead (`prepare_window` on one staging
     thread, into staging buffers allocated here) and at most `depth` in
     flight (`dispatch_prepared` here, in window order, every CUDA call on
-    this thread); windows retire in order, each with its epilogue here.
+    this thread); windows retire in order, each with its epilogue here
+    (an aggregated window that is not clean first runs its per-lane
+    stages, `materialize`, behind the windows already in flight).
     A window's epoch nonce is known once every window before its epoch
     has retired, so the pipeline drains at an epoch boundary. After a
     generic window (no carry) the next packed window waits until it has
@@ -1400,7 +1449,7 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
             k, fut = staged[0]
             if inflight and not fut.done():
                 return  # retire a window while the staging thread works
-            sw = fut.result()
+            sw = fut.result()._replace(aggregate=aggregate)
             if sw.layout is not None and not carry_ok:
                 if inflight:
                     return  # the generic window that broke the chain retires first
@@ -1423,7 +1472,7 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
             ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
             if ticked.state.epoch_nonce != eta[epoch]:
                 raise RuntimeError(f"window {k} was staged with another epoch nonce")
-            res = epilogue(params, ticked, sw.hvs, sw.pre, v)
+            res = epilogue(params, ticked, sw.hvs, sw.pre, materialize(v))
             state = res.state
             total += res.n_valid
             if res.error is not None:

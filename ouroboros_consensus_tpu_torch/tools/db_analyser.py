@@ -314,14 +314,18 @@ def _timed_segments(params: PraosParams, db_path: str, tally: ValidationResult,
 def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
                backend: str = "device", max_batch: int = 8192,
                device=None, columnar: bool = True, sidecar: bool = True,
-               prefetch: bool = True, pipeline_depth: int = 3) -> ValidationResult:
+               prefetch: bool = True, pipeline_depth: int = 3,
+               aggregate: bool = True) -> ValidationResult:
     """Full-chain revalidation from genesis against a constant ledger
     view; -> n_valid, the first error (or None) and the final state.
     `sidecar`: read a chunk's sealed columns where they hold (tier 1;
     `columnar=False` reads none). `prefetch` (device backend): read the
     next epoch segment on a thread while this one validates.
     `pipeline_depth`: windows staged ahead and in flight in each
-    validate_chain (1 is the serial loop). Read-only: it writes nothing
+    validate_chain (1 is the serial loop). `aggregate` (device backend):
+    batch-compatible packed windows through the window aggregate, a
+    dirty one through the per-lane stages again (validate_chain's).
+    Read-only: it writes nothing
     to disk. `validate_s` sums the validate_chain calls (one an epoch
     segment), `read_s` the read's own time, `wait_s` the time validation
     waited for it, and `wall_s` is the whole call."""
@@ -349,7 +353,8 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
             ts = time.monotonic()
             out = pbatch.validate_chain(params, lambda _e: lview, st, seg,
                                         max_batch=max_batch, backend=backend,
-                                        device=device, pipeline_depth=pipeline_depth)
+                                        device=device, pipeline_depth=pipeline_depth,
+                                        aggregate=aggregate)
             res.validate_s += time.monotonic() - ts
             st = out.state
             res.n_valid += out.n_valid
