@@ -7,7 +7,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the thirteen kernel sources (one nvcc per source, in
+   the build of the fourteen kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -35,13 +35,17 @@ Phases (any failure raises and the script exits non-zero):
    looped hash and on four lanes, the four-lane chain's G steps and
    exchanges alone, and each loop's SASS instructions). Then the window
    aggregate (`phase_agg`) at 8, 128 and 8,192 lanes of a tiled bc
-   window, clean and with a torsion-offset R_k, a flipped OCert s and a
-   wrong β: `agg_prep` and `agg_tables` byte for byte against their
-   plain versions, the dedupe (torch) on the card against the CPU (and
-   its cap-2 overflow), `msm` against its plain version as points
-   (compressed total, identity flag; not on the widest dirty window),
-   and `aggregate_window`: the identity and the five stages' verdicts on
-   the clean window, agg_ok false on the dirty one; then the same on a
+   window of 256 distinct headers, clean and with a torsion-offset R_k, a
+   flipped OCert s and a wrong β: `agg_prep`, `dedupe` and `agg_tables`
+   byte for byte against their plain versions, `msm` against its plain
+   version as points (compressed total, identity flag; not on the widest
+   dirty window), and `aggregate_window`: the identity and the five
+   stages' verdicts on the clean window, agg_ok false on the dirty one;
+   `dedupe` also on columns of 256 distinct keys (the cap exactly), of
+   300 (ok_cap false), of keys sharing their first 8, 16, 24 and 31
+   bytes, and three groups in two slots (`dedupe_windows`); msm's
+   launches split by kernel (`msm_split`, torch.profiler) at 8 lanes;
+   then the same on a
    full 8,192-lane window of the forged bc chain (`phase_agg_chain`: the
    bucket shape the replay gives msm, which the tiled window's repeated
    scalars do not), whose times the kernels line reports, each kernel
@@ -51,7 +55,7 @@ Phases (any failure raises and the script exits non-zero):
    `unpack`, the five stage kernels and `nonce_fold`, the fold on a
    stream of its own (checked) beside the stages, the carry chained
    from window to window on the card; a batch-compatible packed window
-   takes the window aggregate (`agg_prep`, the dedupe, `agg_tables`,
+   takes the window aggregate (`agg_prep`, `dedupe`, `agg_tables`,
    `msm`) in place of the five stages, and none of a clean chain's
    windows may be re-dispatched (`batch.AGG_REDISPATCH`). Chains are
    forged with bench.py's
@@ -115,7 +119,7 @@ Phases (any failure raises and the script exits non-zero):
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
-5. A `kernels` JSON line (thirteen kernels), the card line, and the
+5. A `kernels` JSON line (fourteen kernels), the card line, and the
    final status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
@@ -126,9 +130,11 @@ and spill stores of each launched kernel with its resident blocks per SM.
 
 runs, on one card and in turns (parent, this tree, this tree, parent),
 one process per turn: each tree's own phase 1 and phase 2 and the six
-stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), and
-the two wire kernels alone where the tree has them (`wire_times`); one
-`AB {...}` JSON line per turn.
+stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), the
+two wire kernels alone where the tree has them (`wire_times`), and `msm`
+and `window_tables` (the dedupe) on a full window of a chain forged once
+for all turns and at 8 lanes (`agg_times`); one `AB {...}` JSON line per
+turn.
 
     python3 chip_smoke.py --ab-replay PARENT   # the replay, against PARENT
 
@@ -179,6 +185,8 @@ KERNEL_ROWS = (
      "scripts/exp_sqr.py:116"),
     ("agg_prep", "ouroboros_consensus_tpu_torch/ops/pk/csrc/agg_prep.cu",
      "ouroboros_consensus_tpu/ops/pk/aggregate.py:232"),
+    ("dedupe", "ouroboros_consensus_tpu_torch/ops/pk/csrc/dedupe.cu",
+     "ouroboros_consensus_tpu/ops/pk/aggregate.py:153"),
     ("agg_tables", "ouroboros_consensus_tpu_torch/ops/pk/csrc/agg_tables.cu",
      "ouroboros_consensus_tpu/ops/pk/limbs.py:489"),
     ("msm", "ouroboros_consensus_tpu_torch/ops/pk/csrc/msm.cu",
@@ -186,7 +194,7 @@ KERNEL_ROWS = (
 )
 # the kernels each path must launch (and the replay kernels it must not)
 WIRE = {"unpack", "nonce_fold"}  # every packed window's, around the stages
-AGG = {"agg_prep", "agg_tables", "msm"}  # the window aggregate's
+AGG = {"agg_prep", "dedupe", "agg_tables", "msm"}  # the window aggregate's
 BC_STAGES = {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"}
 D3_STAGES = {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"}
 PATH_KERNELS = {
@@ -253,7 +261,9 @@ def phase_build() -> dict:
             text = f.read()
         # a source with several kernels reports its largest
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-        stack = [int(x) for x in re.findall(r"(\d+) bytes cumulative stack size", text)]
+        # the cumulative size where a kernel calls a function, else its frame
+        stack = [int(x) for x in
+                 re.findall(r"(\d+) bytes (?:cumulative stack size|stack frame)", text)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
         ptxas[name] = {
             "registers": max(regs, default=None),
@@ -966,12 +976,18 @@ def add_to_encoding(col, lane: int, pt) -> None:
 
 
 def msm_work(scalars, n_small: int) -> dict:
-    """The point operations one `msm` launch does on these scalars ([N,
-    32] uint8): a bucket addition per nonzero digit past each nonempty
-    bucket's first, the segments' two additions a bucket, each window's
-    joins (three additions a segment and six doublings), the Horner
-    chain (twelve doublings and one addition a window), the B term's 32
-    additions and the final one. -> {adds, dbls, entries, buckets}."""
+    """The point operations of the function `msm` computes on these
+    scalars ([N, 32] uint8), at their least: a bucket addition per nonzero
+    digit past each nonempty bucket's first, the weighted sums by running
+    sums (two additions a bucket), the Horner chain (twelve doublings and
+    one addition a window), the B term's 32 additions and the final one.
+    The bound is taken from these. The tree that forms the weighted sums
+    on the card does more: its first two levels as running sums over four
+    buckets (nine additions and two doublings a node), then three
+    additions and one doubling a node; `tree` counts its operations and
+    `overhead` what they add to the running sums'. -> {adds, dbls,
+    entries, buckets, path, tree, overhead}: path, the dependent
+    operations of the Horner chain and the B term's last addition."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
@@ -985,10 +1001,73 @@ def msm_work(scalars, n_small: int) -> dict:
         keys.append((w * pm.NBUCKETS + d.abs())[d != 0])
     keys = torch.cat(keys)
     entries, buckets = keys.numel(), torch.unique(keys).numel()
-    adds = (entries - buckets) + ww * pm.NSEG * pm.SEG * 2 + ww * (3 * pm.NSEG - 1) \
-        + (ww - 1) + 32 + 1
-    dbls = ww * 6 + (ww - 1) * 12
-    return {"adds": adds, "dbls": dbls, "entries": entries, "buckets": buckets}
+    running = 2 * ww * pm.HALF
+    adds = (entries - buckets) + running + (ww - 1) + 32 + 1
+    dbls = (ww - 1) * pm.SHARED_BITS
+    leaf4, upper = ww * pm.HALF // 4, ww * (pm.HALF // 4 - 1)
+    tree = {"adds": 9 * leaf4 + 3 * upper, "dbls": 2 * leaf4 + upper}
+    return {"adds": adds, "dbls": dbls, "entries": entries, "buckets": buckets,
+            "path": {"dbls": (ww - 1) * pm.SHARED_BITS, "adds": ww}, "tree": tree,
+            "overhead": {"adds": tree["adds"] - running, "dbls": tree["dbls"]}}
+
+
+def kernel_split(fn, once: str, reps: int = 5) -> dict:
+    """The device time of `fn` split by kernel: torch.profiler's CUDA
+    activity over `reps` calls after one warm-up (`once`: a kernel that
+    launches once a call, which counts the calls: the profiler may drop
+    a call's events at the end of its cycle). -> {kernel name (cut at
+    its argument list): {ms: device ms a launch, launches: a call},
+    "total": device ms a call}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    out: dict = {}
+    for _attempt in range(3):  # a profile that caught no launch of `once` is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            # a kernel's own time; the host ops that launched it have none
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            if us <= 0 or e.device_type != DeviceType.CUDA or "Activity Buffer" in e.key:
+                continue
+            name = e.key.split("(")[0].split("<")[0].strip() or e.key
+            rec = out.setdefault(name, {"us": 0.0, "count": 0})
+            rec["us"] += us
+            rec["count"] += e.count
+        if once in out:
+            break
+    calls = out.get(once, {}).get("count") or reps
+    split = {k: {"ms": r["us"] / r["count"] / 1e3, "launches": r["count"] / calls}
+             for k, r in out.items()}
+    split["total"] = sum(r["us"] for r in out.values()) / calls / 1e3
+    return split
+
+
+def msm_split(args, reps: int = 5) -> dict:
+    """`msm`'s device time split by kernel (`kernel_split`; the wrapper's
+    fill included)."""
+    from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
+    return kernel_split(lambda: pm.msm(*args), "msm_final_kernel", reps)
+
+
+def msm_args(cols, depth: int):
+    """`msm`'s arguments for a window's limb-first columns (on their
+    device): agg_prep, the dedupe and agg_tables, then `msm_inputs`."""
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+
+    pts, scal, _flags, _eta, _lv = pa.agg_prep(*cols, kes_depth=depth)
+    raw, tpts, _ok = pa.window_tables(cols, pts, scal)
+    return pa.msm_inputs(pts, scal, tpts, pa.agg_tables(raw))
 
 
 def hold_points(key: str, kern, plain, inputs, lanes: int, dev) -> dict:
@@ -1040,16 +1119,38 @@ def held(key: str, kern, plain, inputs, lanes: int, dev, reps: int, points: bool
     return rec
 
 
+def hold_dedupe(key: str, cols, pts, scal, lanes: int, dev, reps: int) -> dict:
+    """The `dedupe` kernel against its plain version on the card, byte
+    for byte (raw sums and the B row, slot points, ok_cap), through its
+    one entry, `window_tables` (a window's key columns `cols`, points and
+    scalar rows; the cap `aggregate._DEDUPE_CAP` at the call); with
+    `reps`, both timed. -> hold's record (bytes: the keys, coefficients
+    and B rows read once, the slot points read and written, the sums
+    written)."""
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+
+    def kern():
+        if dev.type != "cuda":  # a CPU rehearsal: the plain version
+            return plain()
+        return pa.window_tables(cols, pts, scal)
+
+    def plain():
+        return pa.window_tables_plain(cols, pts, scal, pa._DEDUPE_CAP)
+
+    got = kern()
+    ins = (*(cols[k] for k in pa.DEDUPE_KEYS), scal[pa.SC_Z1:pa.SC_Z3C + 1],
+           scal[pa.SC_B1:pa.SC_B3 + 1], got[1])
+    return hold(key, kern, plain, ins, lanes, dev, reps)
+
+
 def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool = True):
     """The aggregate's kernels on one window's limb-first columns (on
-    `dev`) against their plain versions: `agg_prep` and `agg_tables` byte
-    for byte, the dedupe (torch) on the card against the CPU, `msm` as
-    points (`msm_twin` False: not held; its plain version takes seconds
-    on a tiled window's crowded buckets); with `reps`, each kernel and
-    the dedupe timed. -> ({agg_prep, agg_tables[, msm]: records,
-    msm_work, dedupe_ms}, aggregate_window's verdicts)."""
-    import torch
-
+    `dev`) against their plain versions: `agg_prep`, `dedupe` and
+    `agg_tables` byte for byte, `msm` as points (`msm_twin` False: not
+    held; its plain version takes seconds on a tiled window's crowded
+    buckets); with `reps`, each kernel timed. -> ({agg_prep, dedupe,
+    agg_tables[, msm]: records, msm_work, msm_args}, aggregate_window's
+    verdicts)."""
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
     from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
 
@@ -1060,16 +1161,16 @@ def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool 
                              lambda: pa.agg_prep_plain(*cols, kes_depth=depth),
                              cols, n, dev, reps)}
     pts, scal, _flags, _eta, _lv = prep()
-
-    def dedupe(dv):
-        return pa.window_tables([c.to(dv) for c in cols], pts.to(dv), scal.to(dv))
-
-    raw, tpts, _ok = dedupe(dev)
-    if not all(torch.equal(a.cpu(), b) for a, b in zip((raw, tpts, _ok), dedupe("cpu"))):
-        raise AssertionError(f"the dedupe of the {n}-lane {tag} window differs on the card")
+    recs["dedupe"] = hold_dedupe(f"dedupe ({tag}, {n} lanes)", cols, pts, scal, n, dev, reps)
+    if reps and dev.type == "cuda":
+        recs["dedupe"]["device_ms"] = kernel_split(
+            lambda: pa.window_tables(cols, pts, scal), "dedupe_kernel")["total"]
+        log(f"dedupe ({tag}, {n} lanes): device {recs['dedupe']['device_ms']:.4f} ms a call")
+    raw, tpts, _ok = pa.window_tables(cols, pts, scal)
     recs["agg_tables"] = held(f"agg_tables ({tag}, {n} lanes)", lambda: pa.agg_tables(raw),
                               lambda: pa.agg_tables_plain(raw), (raw,), n, dev, reps)
     points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, pa.agg_tables(raw))
+    recs["msm_args"] = (points, scalars, n_small, base)
     if msm_twin:
         recs["msm"] = held(f"msm ({tag}, {n} lanes)",
                            lambda: pm.msm(points, scalars, n_small, base),
@@ -1077,11 +1178,93 @@ def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool 
                            (points, scalars, base), n, dev, reps, points=True)
     if reps:
         recs["msm_work"] = msm_work(scalars, n_small)
-        if dev.type == "cuda":
-            from ouroboros_consensus_tpu_torch.device import time_ms
-
-            recs["dedupe_ms"] = time_ms(lambda: dedupe(dev), reps)
     return recs, pa.aggregate_window(*cols, kes_depth=depth)
+
+
+def spread_keys(lanes: int, distinct: int, share: int, seed: int):
+    """A key column in which each of `distinct` keys takes at least one of
+    `lanes` lanes (in seeded order), the keys sharing their first `share`
+    bytes (and a third of them differing from another in the last byte
+    alone), with seeded coefficients and points -> (key [32, lanes]
+    int32, coeff [lanes, 32] uint8, pts [lanes, 40] int32), on the CPU."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (distinct, 32))
+    pool[:, :share] = pool[0, :share]
+    pool[1::3, :31] = pool[0::3, :31][:len(pool[1::3])]
+    pick = rng.permutation(np.concatenate([np.arange(distinct),
+                                           rng.integers(0, distinct, lanes - distinct)]))
+    key = np.ascontiguousarray(pool[pick].T, dtype=np.int32)
+    coeff = rng.integers(0, 256, (lanes, 32)).astype(np.uint8)
+    pts = rng.integers(-2**31, 2**31, (lanes, 40)).astype(np.int32)
+    return torch.from_numpy(key), torch.from_numpy(coeff), torch.from_numpy(pts)
+
+
+def dedupe_inputs(made, dev, seed: int):
+    """Four key columns (spread_keys' triples) as a window that
+    `window_tables` takes: the keys at their places among the 22 columns
+    (DEDUPE_KEYS), their coefficients and points at theirs among the
+    scalar and point rows, seeded B rows, the other rows zero. -> (cols,
+    pts, scal) on `dev`."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+
+    b = made[0][0].shape[-1]
+    cols = {k: m[0].to(dev) for k, m in zip(pa.DEDUPE_KEYS, made)}
+    pts = torch.zeros((pa.N_PTS, b, 40), dtype=torch.int32)
+    pts[pa.PT_RE:pa.PT_Y + 1] = torch.stack([m[2] for m in made])
+    scal = torch.zeros((pa.N_SC, b, 32), dtype=torch.uint8)
+    scal[pa.SC_Z1:pa.SC_Z3C + 1] = torch.stack([m[1] for m in made])
+    rng = np.random.default_rng(seed)
+    brows = rng.integers(0, 256, (3, b, 32)).astype(np.uint8)
+    scal[pa.SC_B1:pa.SC_B3 + 1] = torch.from_numpy(brows)
+    return cols, pts.to(dev), scal.to(dev)
+
+
+def dedupe_windows(dev, lanes: int = 8192, seed: int = 19) -> dict:
+    """The `dedupe` kernel byte for byte against its plain version on the
+    card beyond the aggregate's own windows (whose one pool gives each
+    column a key or two), each through `window_tables` with its B rows:
+    four columns of 256 distinct keys (the cap exactly: ok_cap true), of
+    300 (ok_cap false), four columns whose keys share their first 8, 16,
+    24 and 31 bytes, a window of 20,000 lanes (past 8,192 the sort runs
+    in global scratch), and three groups in two slots (cap 2); each
+    column's groups counted on the CPU against ok_cap. -> {tag: record}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+
+    out = {}
+    cases = (("cap_exact", lanes, [(pa._DEDUPE_CAP, 0)] * 4),
+             ("over_cap", lanes, [(300, 0)] * 4),
+             ("prefix", lanes, [(200, 8), (200, 16), (200, 24), (200, 31)]),
+             ("wide", 20000, [(300, 8), (3000, 0), (200, 16), (1, 0)]))
+    for tag, n, spec in cases:
+        made = [spread_keys(n, d, share, seed + c) for c, (d, share) in enumerate(spec)]
+        win = dedupe_inputs(made, dev, seed)
+        reps = 5 if tag == "wide" else 0  # the wide window timed: its sort in global scratch
+        out[tag] = hold_dedupe(f"dedupe ({tag}, {n} lanes)", *win, n, dev, reps)
+        ok = pa.window_tables(*win)[2].tolist()
+        if ok != [d <= pa._DEDUPE_CAP for d, _s in spec]:
+            raise AssertionError(f"dedupe {tag}: ok_cap {ok} for {spec}")
+    rng = np.random.default_rng(seed)
+    pool = rng.integers(0, 256, (3, 32))
+    pool[1, :31] = pool[0, :31]
+    key = torch.from_numpy(np.ascontiguousarray(pool[np.arange(12) % 3].T, dtype=np.int32))
+    coeff = torch.arange(12 * 32).reshape(12, 32).remainder(251).to(torch.uint8)
+    ptsk = torch.arange(12 * 40, dtype=torch.int32).reshape(12, 40)
+    win = dedupe_inputs([(key, coeff, ptsk)] * 4, dev, seed)
+    cap = pa._DEDUPE_CAP
+    pa._DEDUPE_CAP = 2  # window_tables reads the cap at the call
+    try:
+        out["cap2"] = hold_dedupe("dedupe (three groups in two slots)", *win, 12, dev, 0)
+        if any(pa.window_tables(*win)[2].tolist()):
+            raise AssertionError("the dedupe's cap-2 overflow passed")
+    finally:
+        pa._DEDUPE_CAP = cap
+    return out
 
 
 def agg_matches_stages(tag: str, av, cols, depth: int) -> None:
@@ -1101,21 +1284,18 @@ def agg_matches_stages(tag: str, av, cols, depth: int) -> None:
 
 def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 17,
               reps: int = 5, workdir: str | None = None) -> dict:
-    """The window aggregate's three kernels against their plain versions
+    """The window aggregate's four kernels against their plain versions
     on the card, at each width of `lanes_list` (the first lanes of a
-    tiled bc window; `hold_agg`), clean and on a copy with a
-    torsion-offset R_k, an OCert s flipped and a wrong β in three lanes
-    (at the widest, msm is not held on that copy); the dedupe's cap 2 on
-    a key column of three groups. The whole aggregate_window: the
-    identity on the clean window (agg_ok, flags, eta and leader value
-    equal to the five stage kernels'), not on the dirty one (agg_ok
-    false; the cheap checks flag the β lane). Each kernel is timed on
-    the clean window at each width. -> {agg_prep, agg_tables, msm:
-    records at the widest; dedupe_ms}."""
-    import torch
-
-    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
-
+    tiled bc window of `distinct` headers; `hold_agg`), clean and on a
+    copy with a torsion-offset R_k, an OCert s flipped and a wrong β in
+    three lanes (at the widest, msm is not held on that copy); then
+    `dedupe_windows`. The whole
+    aggregate_window: the identity on the clean window (agg_ok, flags,
+    eta and leader value equal to the five stage kernels'), not on the
+    dirty one (agg_ok false; the cheap checks flag the β lane). Each
+    kernel is timed on the clean window at each width, and msm's launches
+    split by kernel at the narrowest (`msm_split`). -> {agg_prep, dedupe,
+    agg_tables, msm: records at the widest}."""
     depth = 7
     top = max(lanes_list)
     clean, _ = tiled_window(top, distinct, seed, workdir, "bc")
@@ -1123,7 +1303,9 @@ def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 1
     add_to_encoding(dirty[7], 3, torsion8())  # R_k + T8
     dirty[2][0, 5] ^= 1  # an OCert s
     dirty[19][0, 6] ^= 1  # a declared β
-    recs: dict = {"agg_prep": {}, "agg_tables": {}, "msm": {}, "dedupe_ms": {}}
+    names = ("agg_prep", "dedupe", "agg_tables", "msm")
+    recs: dict = {k: {} for k in names}
+    split = None
     for n in lanes_list:
         for tag, src in (("clean", clean), ("dirty", dirty)):
             cols = [c[..., :n].contiguous().to(dev) for c in src]
@@ -1132,35 +1314,30 @@ def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 1
             if tag == "clean":
                 agg_matches_stages(f"clean {n}-lane", av, cols, depth)
                 got["msm"]["work"] = got["msm_work"]
-                for key in ("agg_prep", "agg_tables", "msm"):
+                for key in names:
                     recs[key][n] = got[key]
-                if "dedupe_ms" in got:
-                    recs["dedupe_ms"][n] = got["dedupe_ms"]
+                if n == min(lanes_list) and dev.type == "cuda":
+                    split = msm_split(got["msm_args"])
+                    log(f"msm split ({n} lanes, ms a launch): {json.dumps(split)}")
             elif bool(av.agg_ok) or n > 6 and int(av.flags[2, 6]) != 0:
                 raise AssertionError(f"the dirty {n}-lane window's aggregate passed")
-    # the dedupe's cap: three groups in two slots overflow
-    key = clean[13][:, :12].clone()
-    key[0, 4:8] ^= 1
-    key[31, 8:] ^= 2
-    coeff = torch.arange(12 * 32, dtype=torch.int64).reshape(12, 32).remainder(251).to(torch.uint8)
-    ptsk = torch.arange(12 * 40, dtype=torch.int32).reshape(12, 40)
-    got = pa.dedupe_column(key.to(dev), coeff.to(dev), ptsk.to(dev), cap=2)
-    want = pa.dedupe_column(key, coeff, ptsk, cap=2)
-    if bool(got[2]) or not all(torch.equal(a.cpu(), b) for a, b in zip(got, want)):
-        raise AssertionError("the dedupe's cap-2 overflow differs on the card")
-    log(f"aggregate: dedupe ms by lanes {json.dumps(recs['dedupe_ms'])}; cap-2 overflow "
-        "equal on the card")
+    extra = dedupe_windows(dev, max(top, 1024))  # room for 300 keys in a CPU rehearsal
     out = {}
-    for key in ("agg_prep", "agg_tables", "msm"):
+    for key in names:
         out[key] = {**recs[key][top]}
         if dev.type == "cuda":
             out[key]["ms_by_lanes"] = {n: r["ms"] for n, r in recs[key].items()}
     one = [c[..., :1].clone() for c in clean]
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+
     out["agg_prep"]["field_ops"] = count_field_ops(
         lambda: pa.agg_prep_plain(*one, kes_depth=depth))
     w = out["msm"]["work"]
     out["msm"]["products"] = w["adds"] * 900 + w["dbls"] * 620
-    out["dedupe_ms"] = recs["dedupe_ms"]
+    out["msm"]["split_by_lanes"] = {min(lanes_list): split}
+    out["dedupe"]["windows"] = {k: {"max_abs_err": r["max_abs_err"], "bytes": r["bytes"],
+                                    **({"ms": r["ms"]} if "ms" in r else {})}
+                                for k, r in extra.items()}
     return out
 
 
@@ -1200,28 +1377,34 @@ def phase_agg_chain(dev, db: str, stages: dict, lanes: int = 8192, reps: int = 5
     (`chain_window`), the bucket shape the replay gives msm (about ten
     entries a bucket, where the tiled window crowds 32 copies of each
     scalar into few): held against their plain versions and timed
-    (`hold_agg`), and the window's aggregate the identity with the stage
-    kernels' verdicts. The records replace phase_agg's in `stages` (the
-    kernels line's ms and bound are this window's); phase_agg's stay
-    beside them under `tiled`."""
+    (`hold_agg`), msm's launches split by kernel (`msm_split`), and the
+    window's aggregate the identity with the stage kernels' verdicts. The
+    records replace phase_agg's in `stages` (the kernels line's ms and
+    bound are this window's); phase_agg's stay beside them under
+    `tiled`."""
     cols = [c.contiguous().to(dev) for c in chain_window(db, lanes)]
     depth = bench_params().kes_depth
     got, av = hold_agg("chain window", cols, lanes, dev, reps, depth)
     agg_matches_stages(f"chain {lanes}-lane", av, cols, depth)
     got["msm"]["work"] = got["msm_work"]
-    for key in ("agg_prep", "agg_tables", "msm"):
+    if dev.type == "cuda":
+        split = msm_split(got["msm_args"])
+        log(f"msm split (chain window, {lanes} lanes, ms a launch): {json.dumps(split)}")
+        got["msm"]["split_by_lanes"] = {**stages["msm"].get("split_by_lanes", {}),
+                                        "chain": split}
+        got["msm"]["device_ms"] = split["total"]
+    for key in ("agg_prep", "dedupe", "agg_tables", "msm"):
         tiled = stages[key]
         rec = got[key]
         rec["tiled"] = {k: tiled[k] for k in ("ms", "plain_ms", "lanes", "bytes", "work",
                                               "products") if k in tiled}
         rec["ms_by_lanes"] = tiled.get("ms_by_lanes")  # the tiled windows'
-        if "field_ops" in tiled:
-            rec["field_ops"] = tiled["field_ops"]
+        for k in ("field_ops", "windows"):
+            if k in tiled:
+                rec[k] = tiled[k]
         stages[key] = rec
     w = stages["msm"]["work"]
     stages["msm"]["products"] = w["adds"] * 900 + w["dbls"] * 620
-    if "dedupe_ms" in got:
-        stages["dedupe_ms"]["chain"] = got["dedupe_ms"]
     log(f"aggregate on a {lanes}-lane chain window: msm work {json.dumps(w)} "
         f"(tiled {json.dumps(stages['msm']['tiled'].get('work'))})")
 
@@ -1305,7 +1488,8 @@ def compare(tag: str, dres, nres) -> None:
 
 STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish",
                   "unpack_limb_first", "nonce_fold")
-AGG_WRAPPERS = (("aggregate", "agg_prep"), ("aggregate", "agg_tables"), ("msm", "msm"))
+AGG_WRAPPERS = (("aggregate", "agg_prep"), ("aggregate", "window_tables"),
+                ("aggregate", "agg_tables"), ("msm", "msm"))
 
 
 def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
@@ -1477,7 +1661,7 @@ LAYERS = (  # (module, function, layer) timed by layer_breakdown
     ("batch", "staging_buffer", "pin_alloc"), ("batch", "pad_packed_into", "pad_packed_into"),
     ("batch", "upload_staged", "h2d"),
     ("K", "unpack_limb_first", "unpack"), ("K", "_tiles", "stages"),
-    ("pa", "agg_prep", "agg_prep"), ("pa", "dedupe_columns", "dedupe"),
+    ("pa", "agg_prep", "agg_prep"), ("pa", "window_tables", "dedupe"),
     ("pa", "agg_tables", "agg_tables"), ("pm", "msm", "msm"),
     ("batch", "verdict_reduce", "reduce"), ("batch", "dispatch_window", "device_step"),
     ("batch", "materialize", "redispatch"), ("batch", "epilogue", "epilogue"),
@@ -2089,8 +2273,29 @@ st["vrf_prep"] = own.phase_vrf_prep(dev, workdir=w)
 rec["phase2_ms"] = {k: v["ms"] for k, v in st.items()}
 rec["stage_ms"] = new.stage_times(dev, lanes, workdir=w)
 rec["stage_ms"].update(new.wire_times(dev, lanes, workdir=w))
+rec["agg_ms"] = new.agg_times(dev, sys.argv[4], w)
 print("AB " + json.dumps(rec), flush=True)
 """
+
+
+def agg_times(dev, db: str, workdir: str, reps: int = 20) -> dict:
+    """`msm` and `window_tables` (the dedupe) of the tree this process
+    imports, on a full window of the forged chain at `db` and on the
+    first 8 lanes of a tiled window: ms a call (CUDA events over `reps`
+    calls). -> {"chain" | "8": {msm, window_tables}}."""
+    from ouroboros_consensus_tpu_torch.device import time_ms
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
+    tiled, _ = tiled_window(8, 256, 17, workdir, "bc")
+    out = {}
+    for tag, cols in (("chain", chain_window(db, 8192)), ("8", tiled)):
+        cols = [c.contiguous().to(dev) for c in cols]
+        pts, scal, _f, _e, _l = pa.agg_prep(*cols, kes_depth=bench_params().kes_depth)
+        args = msm_args(cols, bench_params().kes_depth)
+        out[tag] = {"msm": time_ms(lambda: pm.msm(*args), reps),
+                    "window_tables": time_ms(lambda: pa.window_tables(cols, pts, scal), reps)}
+    return out
 
 
 def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
@@ -2099,16 +2304,28 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
     own tree's kernels. Prints each turn's `AB {...}` line and the card."""
     this = os.path.abspath(__file__)
     recs = []
-    for root in (parent, REPO, REPO, parent):
-        p = subprocess.run([sys.executable, "-c", AB_CHILD, os.path.abspath(root), this,
-                            ",".join(map(str, lanes))],
-                           capture_output=True, text=True)
-        line = [x for x in p.stdout.splitlines() if x.startswith("AB ")]
-        if p.returncode != 0 or not line:
-            print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f"A/B turn for {root} failed (exit {p.returncode})")
-        recs.append(json.loads(line[0][3:]))
-        print(line[0], flush=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+    try:
+        db = os.path.join(work, "chain_bc")
+        forge_chain(db, 9000, "bc", 0)  # a full window in the first epoch
+        for root in (parent, REPO, REPO, parent):
+            p = subprocess.run([sys.executable, "-c", AB_CHILD, os.path.abspath(root), this,
+                                ",".join(map(str, lanes)), db],
+                               capture_output=True, text=True)
+            line = [x for x in p.stdout.splitlines() if x.startswith("AB ")]
+            if p.returncode != 0 or not line:
+                print(p.stdout[-4000:], p.stderr[-4000:], file=sys.stderr)
+                raise RuntimeError(f"A/B turn for {root} failed (exit {p.returncode})")
+            recs.append(json.loads(line[0][3:]))
+            print(line[0], flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for tag in ("chain", "8"):
+        for key in ("msm", "window_tables"):
+            par = [r["agg_ms"][tag][key] for r in (recs[0], recs[3])]
+            cur = [r["agg_ms"][tag][key] for r in (recs[1], recs[2])]
+            log(f"A/B {key} ({tag}): parent {min(par):.4f} this {min(cur):.4f} "
+                f"({min(par) / min(cur):.2f}x)")
     for key in (*STAGES, *sorted(WIRE)):
         if not all(key in r["stage_ms"] for r in recs):
             continue
@@ -2267,8 +2484,8 @@ def main(argv=None) -> int:
         if "bound_ms" in st:  # the wire kernels: phase_wire's bound
             per_lane = None
             bound, bound_by = st["bound_ms"], st["bound_by"]
-        elif name in ("msm", "agg_tables"):
-            # msm: this run's point operations (msm_work); agg_tables: its bytes
+        elif name in ("msm", "agg_tables", "dedupe"):
+            # msm: this run's point operations (msm_work); agg_tables, dedupe: their bytes
             per_lane = None
             ops_ms = st.get("products", 0) / wide_rate * 1e3
             bytes_ms = st["bytes"] / 3.35e12 * 1e3
@@ -2293,6 +2510,8 @@ def main(argv=None) -> int:
             "wrapper_ms_by_lanes": st.get("wrapper_ms_by_lanes"),
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
             "msm_work": st.get("work"), "tiled": st.get("tiled"),
+            "split_by_lanes": st.get("split_by_lanes"), "windows": st.get("windows"),
+            "device_ms": st.get("device_ms"),
         })
     for p, out in paths.items():
         fill = [{"kernel": k, "lanes": n, "blocks": -(-n // 32)}
@@ -2301,7 +2520,6 @@ def main(argv=None) -> int:
             f"kes, agg_prep 4 warps, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; "
             f"{sms} SMs): {json.dumps(fill)}")
         log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows', 'list', 'lanes_per_launch')})}")
-    log(f"aggregate dedupe (torch) ms by lanes: {json.dumps(stages['dedupe_ms'])}")
     log(f"fe_bench rows: {json.dumps(tools['fe_rows'])}")
     log(f"total {time.monotonic() - t_all:.1f} s; sms {sms}, max sm clock {clock / 1e6:.0f} MHz")
     print(json.dumps({"kernels": kernels}), flush=True)

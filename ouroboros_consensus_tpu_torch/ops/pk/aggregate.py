@@ -12,20 +12,21 @@ Per lane the reference checks
 and a window verifies Σ_i z1·eq_ed + z2·eq_kes + z3·eq_u + z4·eq_v = 0
 with per-lane Fiat–Shamir coefficients z1..z4 (SHA-512 of the lane's own
 transcript, each forced odd so that z·T ≠ 0 for every nonzero 8-torsion
-T: a single lane cannot cancel its own small-order offset). Three
-kernels and some tensor code, all on the current stream, none of which
-reads a value back to the host:
+T: a single lane cannot cancel its own small-order offset). Four
+kernels and a little tensor code, all on the current stream, none of
+which reads a value back to the host:
 
 1. `agg_prep` (csrc/agg_prep.cu): every lane's own work — the eight
    decompressions, the two challenge digests and their reductions, the
    KES Merkle walk and period range, H, 8·Γ and their compressions, c and
    β, the leader value and eta, the coefficients and every mod-L product
    the MSM needs, and the cheap-check flags pre_ed, pre_kes, pre_vrf.
-2. The dedupe (`dedupe_columns`, torch): the four repeated-key columns
-   (R_e, A_e, A_l, Y) grouped by their exact 32-byte wire encodings
-   (stable sorts over four int64 words, never a hash), the coefficient
-   bytes scatter-added per group into at most 256 slots, each slot's
-   point the first sorted lane's; `ok_cap` says whether the groups fit.
+2. `dedupe` (csrc/dedupe.cu, `window_tables`): the four repeated-key
+   columns (R_e, A_e, A_l, Y) grouped by their exact 32-byte wire
+   encodings (stable sorts over four words, never a hash), the
+   coefficient bytes summed per group into at most 256 slots, each
+   slot's point the first sorted lane's, and the window's B row; `ok_cap`
+   says whether the groups fit.
 3. `agg_tables` (csrc/agg_tables.cu): the slot sums and the window's B
    coefficient reduced mod L.
 4. `msm` (ops/pk/msm.py, csrc/msm.cu): Σ k_i·P_i over the 128-bit group
@@ -54,6 +55,8 @@ from . import verify as pv
 
 FS_TAG = tuple(b"octRLC-1")  # the Fiat–Shamir hash's domain prefix
 _DEDUPE_CAP = 256  # slots of one deduped-key table
+DEDUPE_MAX_LANES = 1 << 22  # lanes the dedupe kernel takes (csrc/agg.cuh: DD_MAXN)
+DEDUPE_SMEM_LANES = 8192  # past these its sort runs in global scratch (DD_SMEM_LANES)
 
 # agg_prep's point columns ([9, B, 40]) and scalar rows ([12, B, 32])
 PT_RK, PT_U, PT_V, PT_G, PT_H, PT_RE, PT_AE, PT_AL, PT_Y = range(9)
@@ -225,23 +228,23 @@ def agg_prep(*cols, kes_depth: int):
 
 
 def _key_words(key: torch.Tensor) -> torch.Tensor:
-    """[32, B] key bytes -> [4, B] int64 words whose signed order is the
-    bytes' lexicographic order (byte 0 most significant; the first byte
-    of a word offset by −128 so that the word fits int64)."""
-    k = key.to(torch.int64).reshape(4, 8, -1)
-    w = (k[:, 0] - 128) * (1 << 56)
+    """[..., 32, B] key bytes -> [..., 4, B] int64 words whose signed
+    order is the bytes' lexicographic order (byte 0 most significant; the
+    first byte of a word offset by −128 so that the word fits int64)."""
+    k = key.to(torch.int64).reshape(*key.shape[:-2], 4, 8, key.shape[-1])
+    w = (k[..., 0, :] - 128) * (1 << 56)
     for j in range(1, 8):
-        w = w + k[:, j] * (1 << (56 - 8 * j))
+        w = w + k[..., j, :] * (1 << (56 - 8 * j))
     return w
 
 
-def dedupe_columns(keys: torch.Tensor, coeffs: torch.Tensor, pts: torch.Tensor,
-                   cap: int = _DEDUPE_CAP):
-    """k repeated-key columns collapsed, each into per-distinct-key slots:
-    keys [k, 32, B] bytes, coeffs [k, B, 32] uint8 (mod-L bytes), pts [k,
-    B, 40] int32 -> (raw slot sums [k * cap, 32] int64 (un-carried byte
-    rows; column c's slots at c * cap), slot points [k * cap, 40] int32,
-    ok_cap [k] bool).
+def dedupe_columns_plain(keys: torch.Tensor, coeffs: torch.Tensor, pts: torch.Tensor,
+                         cap: int = _DEDUPE_CAP):
+    """The twin of the `dedupe` kernel's columns: k repeated-key columns
+    collapsed, each into per-distinct-key slots: keys [k, 32, B] bytes,
+    coeffs [k, B, 32] uint8 (mod-L bytes), pts [k, B, 40] int32 -> (raw
+    slot sums [k * cap, 32] int64 (un-carried byte rows; column c's slots
+    at c * cap), slot points [k * cap, 40] int32, ok_cap [k] bool).
 
     The grouping is exact: each column's keys sort lexicographically
     (four stable sorts over their int64 words, the least significant
@@ -249,12 +252,11 @@ def dedupe_columns(keys: torch.Tensor, coeffs: torch.Tensor, pts: torch.Tensor,
     group ids are contiguous in sorted order. Each slot's point is its
     first sorted lane's; unused slots keep lane perm[0]'s point with
     coefficient 0. A column with more groups than `cap` overflows into its
-    last slot and reports ok_cap false. Fixed shapes, no value read back to
-    the host: torch.sort, cumsum and index_add_ on the columns' device, the
-    k columns in each call at once."""
+    last slot and reports ok_cap false. torch.sort, cumsum and index_add_
+    on the columns' device, the k columns in each call at once."""
     k, _, b = keys.shape
     dev = keys.device
-    words = _key_words(keys.reshape(k * 32, b)).reshape(4, k, b).transpose(0, 1)
+    words = _key_words(keys)  # [k, 4, b]: each column's own bytes
     perm = torch.arange(b, device=dev).expand(k, b)
     for w in range(3, -1, -1):
         perm = perm.gather(1, torch.sort(words[:, w].gather(1, perm), dim=1, stable=True).indices)
@@ -277,10 +279,44 @@ def dedupe_columns(keys: torch.Tensor, coeffs: torch.Tensor, pts: torch.Tensor,
 
 def dedupe_column(key: torch.Tensor, coeff: torch.Tensor, pts: torch.Tensor,
                   cap: int = _DEDUPE_CAP):
-    """`dedupe_columns` of one column: key [32, B], coeff [B, 32], pts
-    [B, 40] -> (raw [cap, 32], slot points [cap, 40], ok_cap [] bool)."""
-    raw, tp, ok = dedupe_columns(key[None], coeff[None], pts[None], cap)
+    """`dedupe_columns_plain` of one column: key [32, B], coeff [B, 32],
+    pts [B, 40] -> (raw [cap, 32], slot points [cap, 40], ok_cap []
+    bool)."""
+    raw, tp, ok = dedupe_columns_plain(key[None], coeff[None], pts[None], cap)
     return raw, tp, ok[0]
+
+
+def _dedupe_launch(fn, stream, keys, coeffs, pts, brows, cap: int):
+    """One call of pk_dedupe (`fn`: the CUDA launcher, or the host
+    build's) over the four key columns `keys` (a list of [32, B] int32),
+    coeffs [4, B, 32], pts [4, B, 40] and the B row's rows brows [3, B,
+    32] -> (raw [4 * cap + 1, 32], slot points [4 * cap, 40], ok_cap [4],
+    rc). Past DEDUPE_SMEM_LANES lanes the sort's scratch is allocated
+    here (16 bytes a lane of the next power of two, a column)."""
+    from .kernels import _p
+
+    k, b = len(keys), keys[0].shape[-1]
+    dev = keys[0].device
+    raw = torch.empty((k * cap + 1, 32), dtype=torch.int64, device=dev)
+    tpts = torch.empty((k * cap, 40), dtype=torch.int32, device=dev)
+    ok = torch.empty((k,), dtype=torch.bool, device=dev)
+    words = torch.empty((k, 4, b), dtype=torch.int64, device=dev)
+    gscr = None
+    if b > DEDUPE_SMEM_LANES:
+        gscr = torch.empty((k, 1 << (b - 1).bit_length(), 16), dtype=torch.uint8, device=dev)
+    ptrs = (ctypes.c_void_p * k)(*(_p(t) for t in keys))
+    rc = fn(b, cap, ptrs, _p(coeffs), _p(pts), _p(brows), _p(words),
+            None if gscr is None else _p(gscr), _p(raw), _p(tpts), _p(ok), stream)
+    return raw, tpts, ok, rc
+
+
+def window_tables_plain(cols, pts: torch.Tensor, scal: torch.Tensor, cap: int):
+    """The twin of `window_tables` (the `dedupe` kernel with its B row)."""
+    traw, tpts, ok_cap = dedupe_columns_plain(torch.stack([cols[k] for k in DEDUPE_KEYS]),
+                                              scal[SC_Z1:SC_Z3C + 1], pts[PT_RE:PT_Y + 1],
+                                              cap)
+    braw = scal[SC_B1:SC_B3 + 1].to(torch.int64).sum((0, 1))[None]
+    return torch.cat([traw, braw]), tpts, ok_cap
 
 
 def window_tables(cols, pts: torch.Tensor, scal: torch.Tensor):
@@ -288,12 +324,43 @@ def window_tables(cols, pts: torch.Tensor, scal: torch.Tensor):
     points and scalars) into _DEDUPE_CAP slots each (read at the call)
     and the lane sums of its B coefficient -> (raw [4 * cap + 1, 32]
     int64: the slot sums, then the B row; slot points [4 * cap, 40];
-    ok_cap [4])."""
-    traw, tpts, ok_cap = dedupe_columns(torch.stack([cols[k] for k in DEDUPE_KEYS]),
-                                        scal[SC_Z1:SC_Z3C + 1], pts[PT_RE:PT_Y + 1],
-                                        _DEDUPE_CAP)
-    braw = scal[SC_B1:SC_B3 + 1].to(torch.int64).sum((0, 1))[None]
-    return torch.cat([traw, braw]), tpts, ok_cap
+    ok_cap [4]).
+
+    Replaces the plain-XLA `_dedupe_column` ×4 and the B coefficient's
+    lane sums of ouroboros_consensus_tpu/ops/pk/aggregate.py:153, :299
+    (a lax.sort over the 32 key bytes and the lane index, cumsum,
+    scatter-adds; never a hash): csrc/dedupe.cu, one launch, a block of
+    1,024 threads a column — the keys as four big-endian words, four
+    stable bitonic sorts in shared memory (least significant word first;
+    a pass over words already in order skipped), group starts and their
+    scan, the slot sums by runs a warp (integer atomics in shared
+    memory), each slot's first sorted lane's point — and one block for
+    the B row; past DEDUPE_SMEM_LANES lanes the sorts run in global
+    scratch. Plain version: window_tables_plain.
+    Bound: bytes (keys, coefficients and points read once, the slots
+    written once); the sorts' steps are the dependent path."""
+    from . import build
+    from .kernels import LAUNCHES, _check, _raise_on, _route, _stream
+
+    dev = pts.device
+    keys = [cols[k] for k in DEDUPE_KEYS]
+    coeffs, tp = scal[SC_Z1:SC_Z3C + 1], pts[PT_RE:PT_Y + 1]
+    b = keys[0].shape[-1]
+    for c, key in enumerate(keys):
+        _check(f"dedupe.keys[{c}]", key, (32, b), dev)
+    _check("dedupe.coeffs", coeffs, (4, b, 32), dev, torch.uint8)
+    _check("dedupe.pts", tp, (4, b, 40), dev)
+    brows = scal[SC_B1:SC_B3 + 1]
+    _check("dedupe.brows", brows, (3, b, 32), dev, torch.uint8)
+    if _route(dev) == "plain":
+        return window_tables_plain(cols, pts, scal, _DEDUPE_CAP)
+    if b > DEDUPE_MAX_LANES:
+        raise ValueError(f"dedupe: {b} lanes, the kernel takes at most {DEDUPE_MAX_LANES}")
+    raw, tpts, ok, rc = _dedupe_launch(build.kernel_lib("dedupe"), _stream(dev), keys, coeffs,
+                                       tp, brows, _DEDUPE_CAP)
+    _raise_on(rc, "dedupe")
+    LAUNCHES["dedupe"] += 1
+    return raw, tpts, ok
 
 
 def msm_inputs(pts: torch.Tensor, scal: torch.Tensor, tpts: torch.Tensor,

@@ -45,6 +45,7 @@ ENTRIES = {
                    "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
     "fe_bench": ("pk_fe_bench",),
     "agg_prep": ("pk_agg_prep",),
+    "dedupe": ("pk_dedupe",),
     "agg_tables": ("pk_agg_tables",),
     "msm": ("pk_msm",),
 }
@@ -75,12 +76,15 @@ ARGTYPES = {
     "pk_prim_red": [_I] + [_P] * 4,
     "pk_fe_bench": [_I, _I, _I, _P, _P, _P],
     "pk_agg_prep": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 6,
+    "pk_dedupe": [_I, _I, ctypes.POINTER(_P)] + [_P] * 9,
     "pk_agg_tables": [_I, _P, _P, _P],
-    "pk_msm": [_I, _I, _I, _I] + [_P] * 15,
+    "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
     "pk_fe_sq": [_I] + [_P] * 3,
     "pk_b2b_one": [_I] + [_P] * 3,
+    # host build only: msm's Horner chain on the warp and on one thread
+    "pk_msm_horner": [_I] + [_P] * 4,
     # host build only: sc_mul and sc_add over [B, 32] byte rows
     "pk_sc_mul": [_I] + [_P] * 3,
     "pk_sc_add": [_I] + [_P] * 3,
@@ -223,7 +227,7 @@ def kernel_lib(name: str, entry: str | None = None):
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
-    unpack 256; msm's bucket phase 128),
+    unpack 256; msm's chunk phase 128; dedupe 1,024 at 8,192 lanes),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")

@@ -1,11 +1,19 @@
-// Lane bodies of the window aggregate's three kernels (agg_prep.cu,
-// agg_tables.cu, msm.cu): the per-lane prep, the mod-L reduction of the
-// dedupe tables' slot sums, and the phases of the shared signed-digit
-// bucket machine. Each body is a function of its thread's index, so the
-// host build (csrc/host_emu.cpp) runs a phase's bodies one after another
-// and the CPU tests hold them to the twins (ops/pk/aggregate.py, msm.py).
+// Lane bodies of the window aggregate's four kernels (agg_prep.cu,
+// dedupe.cu, agg_tables.cu, msm.cu): the per-lane prep, the key dedupe's
+// sort, groups and slot sums, the mod-L reduction of the dedupe tables'
+// slot sums, and the phases of the shared signed-digit bucket machine.
+// Each body is a function of its thread's index, so the host build
+// (csrc/host_emu.cpp) runs a phase's bodies one after another and the CPU
+// tests hold them to the twins (ops/pk/aggregate.py, msm.py).
 #pragma once
 #include "stages.cuh"
+
+// atomics (sequential on the host, where the threads run in turn)
+#ifdef PK_HOST
+static inline int pk_atomic_add(int *p, int v) { int o = *p; *p += v; return o; }
+#else
+PK_DEV int pk_atomic_add(int *p, int v) { return atomicAdd(p, v); }
+#endif
 
 // ---------------------------------------------------------------------------
 // agg_prep: one lane over four warps, 32 lanes a block
@@ -213,6 +221,159 @@ PK_DEV void agg_products(int role, int i, bool live, int lane, const AggShape &s
 }
 
 // ---------------------------------------------------------------------------
+// dedupe: a repeated-key column collapsed into per-distinct-key slots, a
+// block a column (ops/pk/aggregate.py: dedupe_columns_plain)
+// ---------------------------------------------------------------------------
+
+#define DD_THREADS 1024
+#define DD_KEYS 4                  // key columns a window (the B row one block more)
+#define DD_BROWS 3                 // the B coefficient's rows a lane
+#define DD_MAXN (1 << 22)          // lanes a column (the byte sums stay int32)
+#define DD_MAXCAP 512              // slots a column
+#define DD_SMEM_LANES 8192         // a column's sort in shared memory up to these
+                                   // lanes (16 B a lane beside the slots' 132 B
+                                   // of DD_MAXCAP, under a block's 227 KB)
+
+struct DedupeIn {
+  const int32_t *key;  // [32][B] bytes, lane-minor
+  const u8 *coeff;     // [B][32]
+  const int32_t *pts;  // [B][40]
+  u64 *words;          // scratch [4][B]: the key as big-endian words
+};
+struct DedupeOut { int64_t *raw; int32_t *pts; u8 *ok; };  // this column's cap rows
+// sort keys and positions over np = 2^k >= B and the order (in shared
+// memory while 16 np bytes fit beside the slots, else in global scratch);
+// after the sort gid (int32) takes the keys' place; acc [cap][32] and
+// starts [cap] always in shared memory
+struct DedupeSmem { u64 *sk; u32 *sp, *perm; int *gid, *acc, *starts; };
+
+// lane l's key as four big-endian words: their unsigned order is the
+// bytes' lexicographic order
+PK_DEV void dd_pack(int l, int B, const DedupeIn &in) {
+  for (int w = 0; w < 4; w++) {
+    u64 v = 0;
+    for (int k = 0; k < 8; k++) v = (v << 8) | (u8)in.key[(size_t)(8 * w + k) * B + l];
+    in.words[(size_t)w * B + l] = v;
+  }
+}
+
+// position i of a sort pass over word w: the key word of the lane the
+// order puts there (past B the largest word: the padding sorts last)
+PK_DEV void dd_load(int i, int w, int B, const DedupeIn &in, const DedupeSmem &sm) {
+  sm.sk[i] = i < B ? in.words[(size_t)w * B + sm.perm[i]] : ~(u64)0;
+  sm.sp[i] = (u32)i;
+}
+
+// whether position i is out of order with i - 1 (a pass over words
+// already in order keeps the order, so its sort is skipped)
+PK_DEV bool dd_descent(int i, const DedupeSmem &sm) {
+  return i > 0 && sm.sk[i - 1] > sm.sk[i];
+}
+
+// compare-exchange p of a bitonic step (j, k; powers of two) over
+// (word, position) pairs, ascending: the positions break ties, so the
+// pass is stable
+PK_DEV void dd_cmpx(int p, int j, int k, const DedupeSmem &sm) {
+  int i = ((p & ~(j - 1)) << 1) | (p & (j - 1)), l = i + j;
+  u64 a = sm.sk[i], b = sm.sk[l];
+  bool gt = a > b || (a == b && sm.sp[i] > sm.sp[l]);
+  if (gt == ((i & k) == 0)) {
+    sm.sk[i] = b; sm.sk[l] = a;
+    u32 t = sm.sp[i]; sm.sp[i] = sm.sp[l]; sm.sp[l] = t;
+  }
+}
+
+// after a sort pass, position i's lane (read before any write)
+PK_DEV u32 dd_gathered(int i, const DedupeSmem &sm) { return sm.perm[sm.sp[i]]; }
+
+// whether lanes a and b hold equal keys (the eight loads before any
+// compare, so they are in flight together)
+PK_DEV bool dd_same(int a, int b, int B, const DedupeIn &in) {
+  u64 x[4], y[4];
+  for (int w = 0; w < 4; w++) {
+    x[w] = in.words[(size_t)w * B + a];
+    y[w] = in.words[(size_t)w * B + b];
+  }
+  return x[0] == y[0] && x[1] == y[1] && x[2] == y[2] && x[3] == y[3];
+}
+
+// 1 where sorted position i starts a group (its key differs from i - 1's)
+PK_DEV int dd_newgrp(int i, int B, const DedupeIn &in, const DedupeSmem &sm) {
+  return i == 0 || !dd_same(sm.perm[i], sm.perm[i - 1], B, in) ? 1 : 0;
+}
+
+// after the first pass (the first word alone): whether positions i - 1
+// and i tie on it with different keys (then the order needs all four
+// words: the passes again from the lanes' order, least significant first)
+PK_DEV bool dd_tie_differs(int i, int B, const DedupeIn &in, const DedupeSmem &sm) {
+  if (i == 0 || i >= B) return false;
+  int a = sm.perm[i], b = sm.perm[i - 1];
+  return in.words[a] == in.words[b] && !dd_same(a, b, B, in);
+}
+
+// a group start's position into its slot's start. Only the last slot
+// takes more than one, and its start is read clamped to B - 1, so an add
+// to a start already past B - 1 is left out: the sum stays below 33 B
+// (the warps that pass the test at once), far from int32's end
+PK_DEV void dd_start_add(int *start, int i, int B) {
+  if (*(volatile int *)start < B) pk_atomic_add(start, i);
+}
+
+// warp v over its slice of the sorted positions, lane k = coefficient
+// byte k: runs of one slot summed, each run added to the slot's
+// accumulator; lane 0 adds each group start's position to its slot's
+// start (gid: the inclusive count of group starts)
+PK_DEV void dd_sums(int v, int k, int nwarps, int B, int cap, const DedupeIn &in,
+                    const DedupeSmem &sm) {
+  int per = (B + nwarps - 1) / nwarps, lo = v * per, hi = lo + per < B ? lo + per : B;
+  int slot = -1, run = 0;
+  for (int i0 = lo; i0 < hi; i0 += 16) {
+    int val[16];  // the batch's loads first, so they are in flight together
+    for (int u = 0; u < 16; u++)
+      val[u] = i0 + u < hi ? in.coeff[(size_t)sm.perm[i0 + u] * 32 + k] : 0;
+    for (int u = 0; u < 16 && i0 + u < hi; u++) {
+      int i = i0 + u, g = sm.gid[i] - 1, s = g < cap - 1 ? g : cap - 1;
+      if (s != slot) {
+        if (slot >= 0) pk_atomic_add(&sm.acc[slot * 32 + k], run);
+        slot = s;
+        run = 0;
+      }
+      run += val[u];
+      if (k == 0 && (i == 0 || sm.gid[i - 1] != sm.gid[i])) dd_start_add(&sm.starts[s], i, B);
+    }
+  }
+  if (slot >= 0) pk_atomic_add(&sm.acc[slot * 32 + k], run);
+}
+
+// slot s's outputs: its sums, the point of its group's first sorted lane
+// (the starts' sum past the last slot is clamped, as the reference's)
+PK_DEV void dd_store(int s, int B, const DedupeIn &in, const DedupeSmem &sm,
+                     const DedupeOut &o) {
+  for (int k = 0; k < 32; k++) o.raw[(size_t)s * 32 + k] = sm.acc[s * 32 + k];
+  int st = sm.starts[s] < B - 1 ? sm.starts[s] : B - 1;
+  const int32_t *p = in.pts + (size_t)sm.perm[st] * 40;
+  for (int k = 0; k < 40; k++) o.pts[(size_t)s * 40 + k] = p[k];
+}
+
+// the B row: thread t sums bytes 4 (t & 7) .. 4 (t & 7) + 3 of every
+// DD_THREADS / 8-th of the n rows from row t >> 3 (rows [n][32]), a word
+// a load, eight loads in flight -> sum[4]
+PK_DEV void dd_brow_part(int t, int n, const u8 *rows, int *sum) {
+  const int step = DD_THREADS / 8;
+  const u32 *w = (const u32 *)rows;
+  for (int b = 0; b < 4; b++) sum[b] = 0;
+  for (int r0 = t >> 3; r0 < n; r0 += 8 * step) {
+    u32 v[8];
+    for (int u = 0; u < 8; u++) {
+      int r = r0 + u * step;
+      v[u] = r < n ? w[(size_t)r * 8 + (t & 7)] : 0;
+    }
+    for (int u = 0; u < 8; u++)
+      for (int b = 0; b < 4; b++) sum[b] += (v[u] >> (8 * b)) & 0xff;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // agg_tables: a row of un-carried byte sums -> its value mod L
 // ---------------------------------------------------------------------------
 
@@ -231,42 +392,68 @@ PK_DEV void agg_table_row(int r, const int64_t *raw, u8 *out) {
 #define MSM_C 12
 #define MSM_HALF 2048              // |d| <= 2^11
 #define MSM_D (MSM_HALF + 1)       // buckets of a window, |d| = 0 .. 2^11
-#define MSM_SEG 64                 // buckets a segment of the weighted sums
-#define MSM_SEG_LOG 6
-#define MSM_NSEG (MSM_HALF / MSM_SEG)
 #define MSM_WMAX 32                // windows the final block holds
-#define MSM_SMALL 32               // a bucket of more entries takes a block
-#define MSM_BIG 128                // that block's threads
+#define MSM_CH 16                  // entries a thread of the chunk phase sums
+#define MSM_SPAN 8                 // pieces a thread of the span phase joins
+#define MSM_BIG 128                // a bucket of more pieces takes a block of these
+#define MSM_WIDE 3                 // tree levels a thread a node (the first two as
+                                   // running sums); the rest on quads
+#define MSM_JOIN (MSM_HALF >> MSM_WIDE)  // nodes a window after the wide levels
 
 // n points, the first n_small with ws windows, the rest with ww (ws <= ww)
 struct MsmShape { int n, n_small, ws, ww; };
 
-#ifdef PK_HOST
-static inline int pk_atomic_add(int *p, int v) { int o = *p; *p += v; return o; }
-#else
-PK_DEV int pk_atomic_add(int *p, int v) { return atomicAdd(p, v); }
-#endif
-
-PK_DEV ge msm_load(const int32_t *pts, size_t k) {
-  const int32_t *e = pts + k * 40;
+// a point row [40] as X ‖ Y ‖ Z ‖ T; on the card 16-byte loads and stores
+// (every point array is 16-byte aligned: torch's, and shared arrays
+// declared so)
+PK_DEV ge msm_words(const u32 *w) {
   ge p;
   for (int l = 0; l < 10; l++) {
-    p.x.v[l] = (u32)e[l];
-    p.y.v[l] = (u32)e[10 + l];
-    p.z.v[l] = (u32)e[20 + l];
-    p.t.v[l] = (u32)e[30 + l];
+    p.x.v[l] = w[l];
+    p.y.v[l] = w[10 + l];
+    p.z.v[l] = w[20 + l];
+    p.t.v[l] = w[30 + l];
   }
   return p;
 }
 
-PK_DEV void msm_store(int32_t *pts, size_t k, const ge &p) {
-  int32_t *e = pts + k * 40;
-  for (int l = 0; l < 10; l++) {
-    e[l] = (int32_t)p.x.v[l];
-    e[10 + l] = (int32_t)p.y.v[l];
-    e[20 + l] = (int32_t)p.z.v[l];
-    e[30 + l] = (int32_t)p.t.v[l];
+PK_DEV ge msm_load(const int32_t *pts, size_t k) {
+  u32 w[40];
+#ifdef PK_HOST
+  for (int m = 0; m < 40; m++) w[m] = (u32)pts[k * 40 + m];
+#else
+  const uint4 *e = (const uint4 *)(pts + k * 40);
+#pragma unroll
+  for (int i = 0; i < 10; i++) {
+    uint4 v = e[i];
+    w[4 * i] = v.x; w[4 * i + 1] = v.y; w[4 * i + 2] = v.z; w[4 * i + 3] = v.w;
   }
+#endif
+  return msm_words(w);
+}
+
+PK_DEV void msm_store(int32_t *pts, size_t k, const ge &p) {
+  u32 w[40];
+  for (int l = 0; l < 10; l++) {
+    w[l] = p.x.v[l];
+    w[10 + l] = p.y.v[l];
+    w[20 + l] = p.z.v[l];
+    w[30 + l] = p.t.v[l];
+  }
+#ifdef PK_HOST
+  for (int m = 0; m < 40; m++) pts[k * 40 + m] = (int32_t)w[m];
+#else
+  uint4 *e = (uint4 *)(pts + k * 40);
+#pragma unroll
+  for (int i = 0; i < 10; i++)
+    e[i] = make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+#endif
+}
+
+// bucket (window w, |d| = d >= 1) of key w · D + d in the [ww · HALF]
+// bucket array
+PK_DEV size_t msm_bidx(int key) {
+  return (size_t)(key / MSM_D) * MSM_HALF + key % MSM_D - 1;
 }
 
 // phase 1, a thread a point: its balanced signed digits, least
@@ -293,51 +480,92 @@ PK_DEV void msm_recode(int p, const MsmShape &s, const u8 *scalars,
 }
 
 // phase 3, a thread a point: its index into each of its nonzero buckets
-// (the sign in bit 31) at the bucket's next free place
+// (the sign in bit 31) at the bucket's next free place, and the bucket's
+// key beside it
 PK_DEV void msm_scatter(int p, const MsmShape &s, const int32_t *digits,
-                        int *cursor, u32 *ent) {
+                        int *cursor, u32 *ent, int *ekey) {
   for (int w = 0; w < s.ww; w++) {
     int d = digits[(size_t)w * s.n + p];
     if (d == 0) continue;
-    int pos = pk_atomic_add(&cursor[w * MSM_D + (d < 0 ? -d : d)], 1);
+    int key = w * MSM_D + (d < 0 ? -d : d);
+    int pos = pk_atomic_add(&cursor[key], 1);
     ent[pos] = (u32)p | (d < 0 ? 0x80000000u : 0u);
+    ekey[pos] = key;
   }
 }
 
-// phase 4a, a thread a bucket t = w · 2^11 + |d| − 1 of at most
-// MSM_SMALL entries: the sum of its entries (offsets: the exclusive scan
-// of the counts, [ww · D + 1]); a bigger bucket is phase 4b's
-PK_DEV void msm_bucket(int t, const int32_t *pts, const int *offsets,
-                       const u32 *ent, int32_t *buckets) {
-  int w = t / MSM_HALF, d = t % MSM_HALF + 1;
-  int lo = offsets[w * MSM_D + d], hi = offsets[w * MSM_D + d + 1];
-  if (hi - lo > MSM_SMALL) return;
-  ge acc = ge_identity();
-  for (int e = lo; e < hi; e++) {
-    u32 x = ent[e];
-    ge p = msm_load(pts, x & 0x7FFFFFFFu);
-    if (x >> 31) p = ge_neg(p);
-    acc = e == lo ? p : ge_add(acc, p);
-  }
-  msm_store(buckets, t, acc);
+PK_DEV ge msm_entry(const int32_t *pts, u32 x) {
+  ge p = msm_load(pts, x & 0x7FFFFFFFu);
+  return (x >> 31) ? ge_neg(p) : p;
 }
 
-// phase 4b, a block of MSM_BIG threads a bucket of more than MSM_SMALL
-// entries (the scan lists them: the digits of the top windows are small,
-// so their few buckets hold most of the points): thread j sums entries
-// lo + j, lo + j + MSM_BIG, ... into tree[j] (`msm_big_partial`), then
-// rounds of a tree over the threads' sums, each after a barrier
-// (`msm_big_round`, half = MSM_BIG / 2 down to 1), and thread 0 stores
-// the bucket (`msm_big_store`); tree holds MSM_BIG points, 40 words each
-PK_DEV void msm_big_partial(int key, int j, const int32_t *pts, const int *offsets,
-                            const u32 *ent, int32_t *tree) {
+// the sum of one bucket's entries inside chunk t ([a, b) of the entries):
+// the whole bucket into its place; a piece of a bucket begun in an
+// earlier chunk into part[t]; a piece that goes on past b into tailp[t]
+PK_DEV void msm_flush(int t, int key, const ge &acc, int a, int b, const int *offsets,
+                      int32_t *buckets, int32_t *part, int32_t *tailp) {
+  if (offsets[key] < a) msm_store(part, t, acc);
+  else if (offsets[key + 1] > b) msm_store(tailp, t, acc);
+  else msm_store(buckets, msm_bidx(key), acc);
+}
+
+// phase 4, a thread a chunk of MSM_CH consecutive entries (the entries
+// lie bucket by bucket; offsets[m] is their count): a running sum of the
+// entries of each bucket it meets, at most MSM_CH - 1 additions a thread
+// whatever the buckets' sizes
+PK_DEV void msm_chunk(int t, int m, const int *offsets, const u32 *ent, const int *ekey,
+                      const int32_t *pts, int32_t *buckets, int32_t *part, int32_t *tailp) {
+  int a = t * MSM_CH, e_n = offsets[m];
+  if (a >= e_n) return;
+  int b = a + MSM_CH < e_n ? a + MSM_CH : e_n;
+  int key = ekey[a];
+  ge acc = msm_entry(pts, ent[a]);
+  for (int e = a + 1; e < b; e++) {
+    int k = ekey[e];
+    ge p = msm_entry(pts, ent[e]);
+    if (k != key) {
+      msm_flush(t, key, acc, a, b, offsets, buckets, part, tailp);
+      key = k;
+      acc = p;
+    } else {
+      acc = ge_add(acc, p);
+    }
+  }
+  msm_flush(t, key, acc, a, b, offsets, buckets, part, tailp);
+}
+
+// phase 5, a thread a bucket key: a bucket whose entries cross chunks
+// c0 < c1 is tailp[c0] + part[c0 + 1] + ... + part[c1]; at most MSM_SPAN
+// pieces here, one after another; more are listed in big[1..] (big[0]
+// their count) for phase 5b
+PK_DEV void msm_span(int key, const int *offsets, const int32_t *part,
+                     const int32_t *tailp, int32_t *buckets, int *big) {
   int lo = offsets[key], hi = offsets[key + 1];
+  if (hi == lo) return;
+  int c0 = lo / MSM_CH, c1 = (hi - 1) / MSM_CH;
+  if (c1 == c0) return;
+  if (c1 - c0 + 1 > MSM_SPAN) {
+    big[1 + pk_atomic_add(big, 1)] = key;
+    return;
+  }
+  ge acc = msm_load(tailp, c0);
+  for (int c = c0 + 1; c <= c1; c++) acc = ge_add(acc, msm_load(part, c));
+  msm_store(buckets, msm_bidx(key), acc);
+}
+
+// phase 5b, a block of MSM_BIG threads a listed bucket of n pieces:
+// thread j sums pieces j, j + MSM_BIG, ... (piece 0 is tailp[c0], piece
+// k part[c0 + k]) into tree[j] (`msm_big_partial`), then rounds of a
+// tree over the threads' sums, each after a barrier (`msm_big_round`,
+// half = MSM_BIG / 2 down to 1), and thread 0 stores the bucket
+// (`msm_big_store`); tree holds MSM_BIG points, 40 words each
+PK_DEV void msm_big_partial(int key, int j, const int *offsets, const int32_t *part,
+                            const int32_t *tailp, int32_t *tree) {
+  int c0 = offsets[key] / MSM_CH, n = (offsets[key + 1] - 1) / MSM_CH - c0 + 1;
   ge acc = ge_identity();
-  for (int e = lo + j; e < hi; e += MSM_BIG) {
-    u32 x = ent[e];
-    ge p = msm_load(pts, x & 0x7FFFFFFFu);
-    if (x >> 31) p = ge_neg(p);
-    acc = e == lo + j ? p : ge_add(acc, p);
+  for (int k = j; k < n; k += MSM_BIG) {
+    ge v = k == 0 ? msm_load(tailp, c0) : msm_load(part, c0 + k);
+    acc = k == j ? v : ge_add(acc, v);
   }
   msm_store(tree, j, acc);
 }
@@ -347,51 +575,256 @@ PK_DEV void msm_big_round(int j, int half, int32_t *tree) {
 }
 
 PK_DEV void msm_big_store(int key, const int32_t *tree, int32_t *buckets) {
-  int w = key / MSM_D, d = key % MSM_D;
-  msm_store(buckets, (size_t)w * MSM_HALF + d - 1, msm_load(tree, 0));
+  msm_store(buckets, msm_bidx(key), msm_load(tree, 0));
 }
 
-// phase 5, lane t = w · NSEG + s of a quad (segments of SEG buckets):
-// from the top, run = Σ B_d and acc = Σ (d − lo + 1)·B_d (segs
-// [2][ww · NSEG][40]); lanes past the last segment (live false) run along
-PK_DEV void msm_segment(int t, bool live, int nseg, const int32_t *buckets,
-                        int32_t *segs, Quad &qd) {
-  ge run = ge_identity(), acc = ge_identity();
-  for (int j = MSM_SEG - 1; j >= 0; j--) {
-    qadd(qd, run, run, msm_load(buckets, (size_t)t * MSM_SEG + j));
-    qadd(qd, acc, acc, run);
-  }
-  if (!live || qd.w > 0) return;
-  msm_store(segs, t, run);
-  msm_store(segs, (size_t)nseg + t, acc);
+// The weighted sums Σ_d d·B_d of a window as a tree. A range of buckets
+// from a keeps W = Σ (d − a + 1)·B_d and N = n·S (n buckets, S their
+// sum); a bucket alone is W = N = B_d, and two adjacent ranges of n
+// buckets each join as W = W_L + W_H + N_H, N = 2·(N_L + N_H), role 0
+// forming W (two additions), role 1 N (an addition and a doubling). A
+// level of T nodes is [2][T][40] (W, then N), window-major, so node q's
+// children are nodes 2q and 2q + 1 of the level below.
+
+// bucket b of the [ww · HALF] array, the identity when empty
+PK_DEV ge msm_leaf(int b, const int *offsets, const int32_t *buckets) {
+  int key = (b / MSM_HALF) * MSM_D + b % MSM_HALF + 1;
+  if (offsets[key + 1] == offsets[key]) return ge_identity();
+  return msm_load(buckets, b);
 }
 
-// phase 6a, lane w of a quad: Σ_d d·B_d = Σ_s acc_s + SEG · Σ_s s·run_s
-PK_DEV ge msm_window(int w, int nseg, const int32_t *segs, Quad &qd) {
-  ge tot = ge_identity(), run2 = ge_identity(), acc2 = ge_identity();
-  for (int s = MSM_NSEG - 1; s >= 0; s--) {
-    size_t t = (size_t)w * MSM_NSEG + s;
-    qadd(qd, tot, tot, msm_load(segs, nseg + t));
-    if (s > 0) {
-      qadd(qd, run2, run2, msm_load(segs, t));
-      qadd(qd, acc2, acc2, run2);
-    }
+// phase 6, a thread a node and role: the first levels by running sums,
+// over buckets 4q .. 4q + 3 from the top (run = Σ B, acc = Σ run = W)
+// and N = 4·run; a level of t nodes into `out`
+PK_DEV void msm_leaf4(int q, int role, int t, const int *offsets, const int32_t *buckets,
+                      int32_t *out) {
+  ge run = msm_leaf(4 * q + 3, offsets, buckets), acc = run;
+  for (int d = 2; d >= 0; d--) {
+    run = ge_add(run, msm_leaf(4 * q + d, offsets, buckets));
+    if (role == 0) acc = ge_add(acc, run);
   }
-  for (int k = 0; k < MSM_SEG_LOG; k++) qdbl(qd, acc2, acc2);
-  ge r;
-  qadd(qd, r, tot, acc2);
+  if (role == 1) {
+    ge_dbl(run, run, false);
+    ge_dbl(acc, run, true);
+  }
+  msm_store(out, (size_t)role * t + q, acc);
+}
+
+// phase 6b, a later wide level, a thread a node and role: node q of a
+// level of t nodes from `in` (2t nodes) into `out`
+PK_DEV void msm_wide_node(int q, int role, int t, const int32_t *in, int32_t *out) {
+  ge wl = msm_load(in, 2 * q), wh = msm_load(in, 2 * q + 1), r;
+  ge nl = msm_load(in, (size_t)2 * t + 2 * q), nh = msm_load(in, (size_t)2 * t + 2 * q + 1);
+  if (role == 0) {
+    r = ge_add(ge_add(wl, wh), nh);
+  } else {
+    r = ge_add(nl, nh);
+    ge_dbl(r, r, true);
+  }
+  msm_store(out, (size_t)role * t + q, r);
+}
+
+// phase 7, lane q of quad `role` (one quad the W of each node, the other
+// its N): node q of a window's level from its level below, whose W nodes
+// start at `iw` and N nodes at `in`
+PK_DEV ge msm_join_node(int role, int q, const int32_t *iw, const int32_t *in, Quad &qd) {
+  ge wl = msm_load(iw, 2 * q), wh = msm_load(iw, 2 * q + 1);
+  ge nl = msm_load(in, 2 * q), nh = msm_load(in, 2 * q + 1);
+  ge t1, r;
+  if (role == 0) {
+    qadd(qd, t1, wl, wh);
+    qadd(qd, r, t1, nh);
+  } else {
+    qadd(qd, t1, nl, nh);
+    qdbl(qd, r, t1);
+  }
   return r;
 }
 
-// phase 6b, on a quad (every lane the same chain): the Horner chain over
-// the window sums (most significant first, 2^12 a step), plus the B term,
-// and the exact identity test
-PK_DEV bool msm_horner(const int32_t *sums, int nw, const ge &bterm, ge &total, Quad &qd) {
-  ge acc = msm_load(sums, nw - 1);
-  for (int w = nw - 2; w >= 0; w--) {
-    for (int k = 0; k < MSM_C; k++) qdbl(qd, acc, acc);
-    qadd(qd, acc, acc, msm_load(sums, w));
+// where window w's join level of n nodes (n < MSM_JOIN) lies in `b`: its
+// W nodes, its N nodes n after them. Each window owns 2 · MSM_JOIN nodes
+// of b from w · 2 · MSM_JOIN, and its levels alternate between two places
+// there (level MSM_JOIN / 2 at 0, the next at MSM_JOIN, ...), so no block
+// writes where another reads, and a level's writes never meet the level
+// below, which it reads
+PK_DEV int32_t *msm_join_level(int32_t *b, int w, int n) {
+  int odd = 0;
+  for (int k = MSM_JOIN / 2; k > n; k >>= 1) odd ^= 1;
+  return b + ((size_t)w * 2 * MSM_JOIN + (odd ? MSM_JOIN : 0)) * 40;
+}
+
+// ---------------------------------------------------------------------------
+// The Horner chain on one warp, a field element over ten lanes: lane k of
+// a group holds limb k, three groups a warp (lanes 30 and 31 run along),
+// so a round of products runs three at once. Lane k forms its own column
+// of the product (ten terms, the operands' limbs shuffled in) and the
+// carry passes move each column's carry one lane up, so every product,
+// sum and difference equals pk.cuh's fe_mul, fe_add and fe_sub limb for
+// limb, and w_dbl / w_add the one-thread ge_dbl / ge_add. On the host a
+// warp value holds all 32 lanes and a shuffle is an index.
+// ---------------------------------------------------------------------------
+
+#ifdef PK_HOST
+#define W_N 32
+#define W_LANES(l) for (int l = 0; l < 32; l++)
+#define W_AT(x, l) ((x).v[l])
+#define W_SHFL(x, src) ((x).v[(src) & 31])
+#else
+#define W_N 1
+#define W_LANES(l) for (int l = threadIdx.x & 31, w_once = 0; w_once < 1; w_once++)
+#define W_AT(x, l) ((x).v[0])
+#define W_SHFL(x, src) __shfl_sync(0xffffffffu, (x).v[0], (src))
+#endif
+
+struct wv { u32 v[W_N]; };    // a limb a lane
+struct wv64 { u64 v[W_N]; };  // a column a lane
+struct wge { wv x, y, z, t; };
+
+// lane l's limb and its group's first lane
+PK_DEV int w_limb(int l) { return l % 10; }
+PK_DEV int w_base(int l) { return l - l % 10; }
+
+// one carry pass of fe_carry: limb k keeps its low bits plus the carry
+// out of limb k - 1 (limb 0: 19 x limb 9's)
+PK_DEV wv64 w_pass(const wv64 &h) {
+  wv64 c, r;
+  W_LANES(l) { W_AT(c, l) = W_AT(h, l) >> ((w_limb(l) & 1) ? 25 : 26); }
+  W_LANES(l) {
+    int k = w_limb(l);
+    u64 cin = W_SHFL(c, w_base(l) + (k == 0 ? 9 : k - 1));
+    W_AT(r, l) = (W_AT(h, l) & ((((u64)1) << ((k & 1) ? 25 : 26)) - 1)) +
+                 (k == 0 ? 19 * cin : cin);
   }
-  qadd(qd, total, acc, bterm);
-  return fe_is_zero(total.x) && fe_eq(total.y, total.z);
+  return r;
+}
+
+PK_DEV wv w_low(const wv64 &h) {
+  wv r;
+  W_LANES(l) { W_AT(r, l) = (u32)W_AT(h, l); }
+  return r;
+}
+
+// fe_mul's column k on lane k: term (i, k - i mod 10) doubled when both
+// limbs are odd (i odd, k even) and times 19 when it wraps (i > k)
+PK_DEV wv w_mul(const wv &a, const wv &b) {
+  wv64 h;
+  W_LANES(l) {
+    int k = w_limb(l), g = w_base(l);
+    u64 acc = 0;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      u32 ai = W_SHFL(a, g + i);
+      if (i & 1) ai = (k & 1) ? ai : 2 * ai;
+      u32 bj = W_SHFL(b, g + (k >= i ? k - i : k - i + 10));
+      acc += (u64)ai * (i > k ? 19 * bj : bj);
+    }
+    W_AT(h, l) = acc;
+  }
+  return w_low(w_pass(w_pass(h)));
+}
+
+PK_DEV wv w_add(const wv &a, const wv &b) {
+  wv64 h;
+  W_LANES(l) { W_AT(h, l) = (u64)W_AT(a, l) + W_AT(b, l); }
+  return w_low(w_pass(h));
+}
+
+// limb k of 2p (PK_TWO_P)
+PK_DEV u32 w_two_p(int k) { return k == 0 ? 0x7ffffdau : (k & 1) ? 0x3fffffeu : 0x7fffffeu; }
+
+PK_DEV wv w_sub(const wv &a, const wv &b) {
+  wv64 h;
+  W_LANES(l) { W_AT(h, l) = (u64)W_AT(a, l) + w_two_p(w_limb(l)) - W_AT(b, l); }
+  return w_low(w_pass(h));
+}
+
+// group 0 takes a, group 1 b, the rest c
+PK_DEV wv w_pick(const wv &a, const wv &b, const wv &c) {
+  wv r;
+  W_LANES(l) { W_AT(r, l) = l < 10 ? W_AT(a, l) : l < 20 ? W_AT(b, l) : W_AT(c, l); }
+  return r;
+}
+
+// group g's element in every group
+PK_DEV wv w_from(const wv &x, int g) {
+  wv r;
+  W_LANES(l) { W_AT(r, l) = W_SHFL(x, 10 * g + w_limb(l)); }
+  return r;
+}
+
+// ge_dbl: the squares of X, Y, Z in one round, (X + Y)^2 in a second,
+// X3 = e·f, Y3 = g·h, Z3 = f·g in a third, T3 = e·h in a fourth when an
+// addition reads it
+PK_DEV void w_dbl(wge &p, bool with_t) {
+  wv s = w_pick(p.x, p.y, p.z);
+  s = w_mul(s, s);
+  wv a = w_from(s, 0), b = w_from(s, 1), zz = w_from(s, 2);
+  wv xy = w_add(p.x, p.y);
+  wv c = w_add(zz, zz), h = w_add(a, b), e = w_sub(h, w_mul(xy, xy));
+  wv g = w_sub(a, b), f = w_add(c, g);
+  wv r = w_mul(w_pick(e, g, f), w_pick(f, h, g));
+  p.x = w_from(r, 0);
+  p.y = w_from(r, 1);
+  p.z = w_from(r, 2);
+  if (with_t) p.t = w_mul(e, h);
+}
+
+// ge_add (p + q): (Y1 − X1)(Y2 − X2), (Y1 + X1)(Y2 + X2) and T1·T2 in one
+// round, Z1·Z2 and (T1·T2)·2d in a second, then the four products of
+// ge_add's end in two
+PK_DEV void w_add_pt(wge &p, const wge &q, const wv &d2) {
+  wv r = w_mul(w_pick(w_sub(p.y, p.x), w_add(p.y, p.x), p.t),
+               w_pick(w_sub(q.y, q.x), w_add(q.y, q.x), q.t));
+  wv a = w_from(r, 0), b = w_from(r, 1), tt = w_from(r, 2);
+  r = w_mul(w_pick(p.z, tt, tt), w_pick(q.z, d2, d2));
+  wv zz = w_from(r, 0), c = w_from(r, 1);
+  wv d = w_add(zz, zz), e = w_sub(b, a), f = w_sub(d, c), g = w_add(d, c), h = w_add(b, a);
+  r = w_mul(w_pick(e, g, f), w_pick(f, h, g));
+  p.x = w_from(r, 0);
+  p.y = w_from(r, 1);
+  p.z = w_from(r, 2);
+  p.t = w_mul(e, h);
+}
+
+// point k of a [.][40] array, every group a copy
+PK_DEV wge w_load(const int32_t *pts, size_t k) {
+  wge p;
+  W_LANES(l) {
+    const int32_t *e = pts + k * 40 + w_limb(l);
+    W_AT(p.x, l) = (u32)e[0];
+    W_AT(p.y, l) = (u32)e[10];
+    W_AT(p.z, l) = (u32)e[20];
+    W_AT(p.t, l) = (u32)e[30];
+  }
+  return p;
+}
+
+// phase 8, one warp: the Horner chain over the window sums (most
+// significant first, 2^12 a step; T formed only on a step's last
+// doubling), plus the B term -> total [40]: the same limbs as ge_dbl /
+// ge_add on one thread. The caller tests the identity on the stored limbs.
+PK_DEV void msm_horner_warp(const int32_t *sums, int nw, const int32_t *bterm, int32_t *total) {
+  wv d2;
+  W_LANES(l) { W_AT(d2, l) = PK_D2[w_limb(l)]; }
+  wge acc = w_load(sums, nw - 1);
+#pragma unroll 1
+  for (int w = nw - 2; w >= 0; w--) {
+#pragma unroll 1
+    for (int k = 0; k < MSM_C; k++) w_dbl(acc, k == MSM_C - 1);
+    w_add_pt(acc, w_load(sums, w), d2);
+  }
+  w_add_pt(acc, w_load(bterm, 0), d2);
+  W_LANES(l) {
+    if (l < 10) {
+      total[l] = (int32_t)W_AT(acc.x, l);
+      total[10 + l] = (int32_t)W_AT(acc.y, l);
+      total[20 + l] = (int32_t)W_AT(acc.z, l);
+      total[30 + l] = (int32_t)W_AT(acc.t, l);
+    }
+  }
+}
+
+PK_DEV int msm_identity(const int32_t *total) {
+  ge t = msm_load(total, 0);
+  return fe_is_zero(t.x) && fe_eq(t.y, t.z) ? 1 : 0;
 }

@@ -152,8 +152,9 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
 // group's lanes, then the transcript hashes, then each role's products);
 // agg_tables row by row; the msm phase by phase, each phase's threads in
 // turn (the atomics' places are then in point order), the scan
-// sequential, a big bucket's tree round by round, the quads' four
-// products in order
+// sequential, a big bucket's tree round by round, the tree level by
+// level (each level's reads before its writes), the quads' four
+// products in order, the Horner warp's lanes one after another
 extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
                            void *const *cols, void *pts, void *scal,
                            void *flags, void *eta, void *lv, void *) {
@@ -193,48 +194,155 @@ extern "C" int pk_agg_tables(int R, const void *raw, void *out, void *) {
   return 0;
 }
 
+// the dedupe column by column: each sort step's compare-exchanges in
+// turn, each gather's reads before its writes, the scan sequential, the
+// slot sums warp by warp and lane by lane (the atomics' sums are
+// integers: any order gives the same); then the B row. The sort's arrays
+// are the host's own, whatever the width (gscr is not read)
+extern "C" int pk_dedupe(int B, int cap, const void *const *keys, const void *coeffs,
+                         const void *pts, const void *brows, void *words, void *, void *raw,
+                         void *tpts, void *ok, void *) {
+  if (B < 1 || B > DD_MAXN || cap < 1 || cap > DD_MAXCAP) return -1;
+  int np = 1;
+  while (np < B) np <<= 1;
+  u64 *sk = new u64[np];
+  u32 *sp = new u32[np], *perm = new u32[np], *got = new u32[np];
+  int *gid = new int[B], *acc = new int[cap * 33];
+  DedupeSmem sm{sk, sp, perm, gid, acc, acc + cap * 32};
+  for (int c = 0; c < DD_KEYS; c++) {
+    DedupeIn in{(CI)keys[c], (const u8 *)coeffs + (size_t)c * B * 32,
+                (CI)pts + (size_t)c * B * 40, (u64 *)words + (size_t)c * 4 * B};
+    for (int l = 0; l < B; l++) dd_pack(l, B, in);
+    for (int i = 0; i < np; i++) perm[i] = (u32)i;
+    auto pass = [&](int w) {
+      for (int i = 0; i < np; i++) dd_load(i, w, B, in, sm);
+      bool desc = false;
+      for (int i = 0; i < np; i++) desc = desc || dd_descent(i, sm);
+      if (!desc) return;
+      for (int kk = 2; kk <= np; kk <<= 1)
+        for (int j = kk >> 1; j > 0; j >>= 1)
+          for (int p = 0; p < np / 2; p++) dd_cmpx(p, j, kk, sm);
+      for (int i = 0; i < np; i++) got[i] = dd_gathered(i, sm);
+      for (int i = 0; i < np; i++) perm[i] = got[i];
+    };
+    pass(0);
+    bool tie = false;
+    for (int i = 0; i < B; i++) tie = tie || dd_tie_differs(i, B, in, sm);
+    if (tie) {
+      for (int i = 0; i < np; i++) perm[i] = (u32)i;
+      for (int w = 3; w >= 0; w--) pass(w);
+    }
+    for (int i = 0; i < B; i++) gid[i] = dd_newgrp(i, B, in, sm);
+    for (int i = 1; i < B; i++) gid[i] += gid[i - 1];
+    for (int i = 0; i < cap * 33; i++) acc[i] = 0;
+    for (int v = 0; v < DD_THREADS / 32; v++)
+      for (int b = 0; b < 32; b++) dd_sums(v, b, DD_THREADS / 32, B, cap, in, sm);
+    DedupeOut o{(int64_t *)raw + (size_t)c * cap * 32, (OI)tpts + (size_t)c * cap * 40,
+                (u8 *)ok};
+    for (int s = 0; s < cap; s++) dd_store(s, B, in, sm, o);
+    ((u8 *)ok)[c] = gid[B - 1] <= cap ? 1 : 0;
+  }
+  static int sums[DD_THREADS / 8][32];
+  for (int t = 0; t < DD_THREADS; t++)
+    dd_brow_part(t, DD_BROWS * B, (const u8 *)brows, &sums[t >> 3][4 * (t & 7)]);
+  for (int b = 0; b < 32; b++) {
+    int64_t v = 0;
+    for (int g = 0; g < DD_THREADS / 8; g++) v += sums[g][b];
+    ((int64_t *)raw)[(size_t)DD_KEYS * cap * 32 + b] = v;
+  }
+  delete[] sk;
+  delete[] sp;
+  delete[] perm;
+  delete[] got;
+  delete[] gid;
+  delete[] acc;
+  return 0;
+}
+
 extern "C" int pk_msm(int n, int n_small, int ws, int ww, const void *base8,
                       const void *points, const void *scalars, const void *base,
-                      void *digits, void *counts, void *offsets, void *cursor,
-                      void *big, void *ent, void *buckets, void *segs, void *total,
+                      void *digits, void *counts, void *offsets, void *cursor, void *big,
+                      void *ent, void *ekey, void *part, void *tailp, void *buckets,
+                      void *treea, void *treeb, void *wsum, void *bterm, void *total,
                       void *ident, void *) {
   if (ww > MSM_WMAX || ws > ww) return -1;
   MsmShape s{n, n_small, ws, ww};
-  int m = ww * MSM_D, nb = ww * MSM_HALF, nseg = ww * MSM_NSEG;
+  int m = ww * MSM_D, emax = n_small * ws + (n - n_small) * ww;
+  int nch = (emax + MSM_CH - 1) / MSM_CH;
   int *cnt = (int *)counts, *off = (int *)offsets, *cur = (int *)cursor, *bg = (int *)big;
+  OI bk = (OI)buckets, pt = (OI)part, tl = (OI)tailp;
   for (int p = 0; p < n; p++) msm_recode(p, s, (const u8 *)scalars, (OI)digits, cnt);
   int acc = 0;
   for (int i = 0; i < m; i++) {
     off[i] = cur[i] = acc;
     acc += cnt[i];
-    if (cnt[i] > MSM_SMALL) bg[1 + bg[0]++] = i;
   }
   off[m] = acc;
-  for (int p = 0; p < n; p++) msm_scatter(p, s, (CI)digits, cur, (u32 *)ent);
-  for (int t = 0; t < nb; t++) msm_bucket(t, (CI)points, off, (const u32 *)ent, (OI)buckets);
+  for (int p = 0; p < n; p++) msm_scatter(p, s, (CI)digits, cur, (u32 *)ent, (int *)ekey);
+  for (int t = 0; t < nch; t++)
+    msm_chunk(t, m, off, (const u32 *)ent, (const int *)ekey, (CI)points, bk, pt, tl);
+  for (int key = 0; key < m; key++) msm_span(key, off, pt, tl, bk, bg);
   static int32_t tree[MSM_BIG * 40];
   for (int k = 0; k < bg[0]; k++) {
     int key = bg[1 + k];
-    for (int j = 0; j < MSM_BIG; j++)
-      msm_big_partial(key, j, (CI)points, off, (const u32 *)ent, tree);
+    for (int j = 0; j < MSM_BIG; j++) msm_big_partial(key, j, off, pt, tl, tree);
     for (int half = MSM_BIG / 2; half > 0; half >>= 1)
       for (int j = 0; j < MSM_BIG; j++) msm_big_round(j, half, tree);
-    msm_big_store(key, tree, (OI)buckets);
+    msm_big_store(key, tree, bk);
   }
   static u32 qx[PK_QUAD_WORDS];
-  for (int t = 0; t < nseg; t++) {
-    Quad qd{qx, -1, 0, 0, 0};
-    msm_segment(t, true, nseg, (CI)buckets, (OI)segs, qd);
-  }
-  static int32_t sums[MSM_WMAX * 40];
   Quad qd{qx, -1, 0, 0, 0};
-  for (int w = 0; w < ww; w++) msm_store(sums, w, msm_window(w, nseg, (CI)segs, qd));
   u8 b[32];
   for (int k = 0; k < 32; k++) b[k] = ((const u8 *)base)[k];
-  ge tot;
-  bool id = msm_horner(sums, ww, qbase_mul_w8(qd, (const u32 *)base8, b), tot, qd);
-  msm_store((OI)total, 0, tot);
-  ((OI)ident)[0] = id ? 1 : 0;
+  msm_store((OI)bterm, 0, qbase_mul_w8(qd, (const u32 *)base8, b));
+  // the wide levels, a thread a node and role; then the join as its
+  // blocks run on the card, one window's levels to its sum before the
+  // next window starts (blocks keep no order among themselves), each
+  // level's reads before its writes
+  OI ta = (OI)treea, tb = (OI)treeb, in = nullptr;
+  for (int lvl = 1; lvl < MSM_WIDE; lvl++) {
+    int t = ww * (MSM_HALF >> (lvl + 1));
+    OI out = lvl % 2 ? ta : tb;
+    for (int q = 0; q < t; q++)
+      for (int role = 0; role < 2; role++) {
+        if (lvl == 1) msm_leaf4(q, role, t, off, bk, out);
+        else msm_wide_node(q, role, t, in, out);
+      }
+    in = out;
+  }
+  OI jb = in == ta ? tb : ta;
+  static ge v[2][MSM_JOIN / 2];
+  for (int w = 0; w < ww; w++) {
+    CI iw = in + (size_t)w * MSM_JOIN * 40, inn = in + ((size_t)ww + w) * MSM_JOIN * 40;
+    for (int k = MSM_JOIN / 2; k >= 1; k >>= 1) {
+      OI ow = msm_join_level(jb, w, k), on = ow + (size_t)k * 40;
+      for (int role = 0; role < 2; role++)
+        for (int q = 0; q < k; q++) v[role][q] = msm_join_node(role, q, iw, inn, qd);
+      for (int role = 0; role < 2; role++)
+        for (int q = 0; q < k; q++) msm_store(role ? on : ow, q, v[role][q]);
+      iw = ow;
+      inn = on;
+    }
+    msm_store((OI)wsum, w, msm_load(iw, 0));
+  }
+  msm_horner_warp((OI)wsum, ww, (OI)bterm, (OI)total);
+  ((OI)ident)[0] = msm_identity((OI)total);
+  return 0;
+}
+
+// host only: msm's Horner chain over nw window sums and a B term [40],
+// on the warp (msm_horner_warp) and on one thread (ge_dbl, T on a step's
+// last doubling, ge_add) -> warp [40], thread [40]
+extern "C" int pk_msm_horner(int nw, const void *sums, const void *bterm, void *warp,
+                             void *thread) {
+  if (nw < 1 || nw > MSM_WMAX) return -1;
+  msm_horner_warp((CI)sums, nw, (CI)bterm, (OI)warp);
+  ge acc = msm_load((CI)sums, nw - 1);
+  for (int w = nw - 2; w >= 0; w--) {
+    for (int k = 0; k < MSM_C; k++) ge_dbl(acc, acc, k == MSM_C - 1);
+    acc = ge_add(acc, msm_load((CI)sums, w));
+  }
+  msm_store((OI)thread, 0, ge_add(acc, msm_load((CI)bterm, 0)));
   return 0;
 }
 

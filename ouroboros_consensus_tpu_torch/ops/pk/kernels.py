@@ -65,7 +65,8 @@ from . import verify as pv
 # window aggregate's three (ops/pk/aggregate.py, msm.py) count here too
 LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
             "vrf_ladders": 0, "finish": 0, "unpack": 0, "nonce_fold": 0,
-            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "agg_tables": 0, "msm": 0}
+            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "dedupe": 0, "agg_tables": 0,
+            "msm": 0}
 
 _BASE8: dict = {}
 

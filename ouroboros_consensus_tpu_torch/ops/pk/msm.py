@@ -14,10 +14,11 @@ have different widths, through ONE bucket machine:
   weight 0 and is skipped (the aggregate's unused table slots carry
   coefficient 0, so at one pool nearly all of the table entries land
   there);
-* each window's weight Σ_d d·B_d by summation by parts, over segments of
-  SEG buckets at once: a segment's running sums give its Σ run and its
-  locally weighted sum, and one more running sum over the segments joins
-  them (`weighted_sums`);
+* each window's weight Σ_d d·B_d as a tree: a range of buckets from a
+  keeps W = Σ (d − a + 1)·B_d and N = (its length)·Σ B_d, and two
+  adjacent ranges join as W = W_L + W_H + N_H, N = 2·(N_L + N_H): eleven
+  levels of two operations deep each from the single buckets
+  (`weighted_sums`), where running sums would chain 2^12 additions;
 * one Horner chain over the windows (2^12 a step).
 
 The plain twin (`msm_shared`) keeps that shape; its bucket sums are
@@ -30,6 +31,8 @@ of a bucket in any order), so the two agree as points (compressed bytes,
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import curve as pc
@@ -39,9 +42,8 @@ from . import scalar as sc
 SHARED_BITS = 12
 HALF = 1 << (SHARED_BITS - 1)
 NBUCKETS = HALF + 1  # |d| in 0 .. 2^11
-SEG = 64  # buckets a segment of the weighted sums
-SMALL = 32  # the kernel's bucket of more entries is summed by a block (csrc/agg.cuh)
-NSEG = HALF // SEG
+CHUNK = 16  # entries a thread of the kernel's chunk phase sums (csrc/agg.cuh)
+SPAN = 8  # chunk pieces a thread of its span phase joins; more take a block
 SMALL_BITS = 128  # the raw Fiat–Shamir coefficients
 WIDE_BITS = 253  # mod-L products and table sums
 
@@ -98,7 +100,9 @@ def bucket_sums(points: pc.Point, digits: list, nwin: int) -> pc.Point:
     w * HALF + d − 1; an empty bucket is the identity). `digits`: one
     [W_g, N] digit array per point (already aligned with `points` along
     N: a point with fewer windows has zeros above them). The entries of
-    each bucket are added in point order, one rank at a time."""
+    each bucket, in point order, are added pairwise in rounds (each
+    round the entry at an even rank in its bucket takes the next one's)
+    until one is left."""
     dev = points.x.device
     dig = torch.cat([torch.cat([d, torch.zeros(nwin - d.shape[0], d.shape[1],
                                                dtype=d.dtype, device=dev)]) for d in digits], 1)
@@ -110,57 +114,45 @@ def bucket_sums(points: pc.Point, digits: list, nwin: int) -> pc.Point:
     acc = pc.identity(nwin * HALF, dev)
     if key.numel() == 0:
         return acc
-    first = torch.ones_like(key, dtype=torch.bool)
-    first[1:] = key[1:] != key[:-1]
-    start = torch.cummax(torch.where(first, torch.arange(key.numel(), device=dev), 0), 0).values
-    rank = torch.arange(key.numel(), device=dev) - start
-    pts = _take(points, p_idx)
-    pts = pc.Point(fe.select(neg, fe.neg(pts.x), pts.x), pts.y, pts.z,
-                   fe.select(neg, fe.neg(pts.t), pts.t))
-    for r in range(int(rank.max()) + 1):
-        sel = rank == r
-        k = key[sel]
-        acc = _put(acc, k, pc.add(_take(acc, k), _take(pts, sel.nonzero()[:, 0])))
-    return acc
+    vals = _take(points, p_idx)
+    vals = pc.Point(fe.select(neg, fe.neg(vals.x), vals.x), vals.y, vals.z,
+                    fe.select(neg, fe.neg(vals.t), vals.t))
+    while True:
+        first = torch.ones_like(key, dtype=torch.bool)
+        first[1:] = key[1:] != key[:-1]
+        if bool(first.all()):
+            break
+        pos = torch.arange(key.numel(), device=dev)
+        rank = pos - torch.cummax(torch.where(first, pos, 0), 0).values
+        last = torch.ones_like(first)
+        last[:-1] = first[1:]
+        pair = (rank % 2 == 0) & ~last  # an even rank with a next entry in its bucket
+        i = pair.nonzero()[:, 0]
+        vals = _put(vals, i, pc.add(_take(vals, i), _take(vals, i + 1)))
+        keep = rank % 2 == 0
+        key, vals = key[keep], _take(vals, keep.nonzero()[:, 0])
+    return _put(acc, key, vals)
 
 
-def segment_sums(buckets: pc.Point, nwin: int):
-    """Over each segment s of SEG buckets (lo_s = s·SEG + 1), a running
-    sum from the top: run_s = Σ B_d and acc_s = Σ (d − lo_s + 1)·B_d, two
-    additions a bucket -> (run, acc), Points of [10, nwin * NSEG]
-    (segment w * NSEG + s; the device's phase 5, csrc/agg.cuh:
-    msm_segment)."""
-    segs = pc.Point(*(c.reshape(fe.NL, nwin * NSEG, SEG) for c in buckets))
-    dev = buckets.x.device
-    run = pc.identity(nwin * NSEG, dev)
-    acc = pc.identity(nwin * NSEG, dev)
-    for j in range(SEG - 1, -1, -1):
-        run = pc.add(run, pc.Point(*(c[:, :, j] for c in segs)))
-        acc = pc.add(acc, run)
-    return run, acc
+def tree_level(w: pc.Point, n: pc.Point):
+    """One level of the weighted-sum tree: nodes 2q (the lower range) and
+    2q + 1 (the upper, both of the same length) -> node q, W = W_L + W_H
+    + N_H and N = 2·(N_L + N_H) (csrc/agg.cuh: msm_wide_node,
+    msm_join_node)."""
+    wl, wh = _take(w, slice(0, None, 2)), _take(w, slice(1, None, 2))
+    nl, nh = _take(n, slice(0, None, 2)), _take(n, slice(1, None, 2))
+    return pc.add(pc.add(wl, wh), nh), pc.double(pc.add(nl, nh), True)
 
 
 def weighted_sums(buckets: pc.Point, nwin: int) -> pc.Point:
-    """Σ_{d=1}^{2^11} d·B[w, d] per window -> Point [10, nwin], by
-    summation by parts in two levels: `segment_sums`, then over the
-    segments of a window Σ_s acc_s + SEG·Σ_s s·run_s (a running sum over
-    s, three additions a segment, and log2(SEG) doublings; the device's
-    phase 6, csrc/agg.cuh: msm_window)."""
-    dev = buckets.x.device
-    run, acc = segment_sums(buckets, nwin)
-    run = pc.Point(*(c.reshape(fe.NL, nwin, NSEG) for c in run))
-    acc = pc.Point(*(c.reshape(fe.NL, nwin, NSEG) for c in acc))
-    tot = pc.identity(nwin, dev)
-    run2 = pc.identity(nwin, dev)
-    acc2 = pc.identity(nwin, dev)
-    for s in range(NSEG - 1, -1, -1):
-        tot = pc.add(tot, pc.Point(*(c[:, :, s] for c in acc)))
-        if s > 0:
-            run2 = pc.add(run2, pc.Point(*(c[:, :, s] for c in run)))
-            acc2 = pc.add(acc2, run2)
-    for _ in range(SEG.bit_length() - 1):
-        acc2 = pc.double(acc2)
-    return pc.add(tot, acc2)
+    """Σ_{d=1}^{2^11} d·B[w, d] per window -> Point [10, nwin]: each
+    window's 2^11 buckets (bucket w · HALF + d − 1) as the tree's leaves
+    (W = N = B_d), eleven levels (the device's phases 6 and 7:
+    csrc/msm.cu's wide levels, then the join)."""
+    w = n = buckets
+    for _ in range(SHARED_BITS - 1):
+        w, n = tree_level(w, n)
+    return w
 
 
 def horner(sums: pc.Point, cbits: int = SHARED_BITS) -> pc.Point:
@@ -208,29 +200,52 @@ def msm_plain(points: torch.Tensor, scalars: torch.Tensor, n_small: int,
             is_identity(total).to(torch.int32).reshape(1))
 
 
-def _msm_launch(fn, stream, points, scalars, n_small, base):
-    from .kernels import _base8, _p, _raise_on
+def msm_buffers(n: int, n_small: int, dev) -> dict:
+    """The `msm` kernel's scratch and outputs for n points (the first
+    n_small 128-bit), by name in pk_msm's order: views of two int32
+    allocations, each view on a 16-byte boundary (the point arrays' loads
+    and stores are 16 bytes); the first, zero on entry, holds the counts
+    (ww · NBUCKETS) and the big list (count first). The tree's levels
+    alternate between tree_a and tree_b."""
+    ws, ww = signed_digit_windows(SMALL_BITS), signed_digit_windows(WIDE_BITS)
+    m = ww * NBUCKETS
+    emax = n_small * ws + (n - n_small) * ww
+    nch = max(-(-emax // CHUNK), 1)
+    maxbig = min(emax // ((SPAN - 1) * CHUNK + 2), m)
+    shapes = {
+        "digits": (ww, n), "offsets": (m + 1,), "cursor": (m,),
+        "ent": (max(emax, 1),), "ekey": (max(emax, 1),),
+        "part": (nch, 40), "tailp": (nch, 40), "buckets": (ww * HALF, 40),
+        "tree_a": (2 * ww * HALF // 4, 40), "tree_b": (2 * ww * HALF // 8, 40),
+        "wsum": (ww, 40), "bterm": (40,), "total": (40,), "ident": (1,),
+    }
+    sizes = {k: -(-math.prod(v) // 4) * 4 for k, v in shapes.items()}
+    flat = torch.empty((sum(sizes.values()),), dtype=torch.int32, device=dev)
+    zero = torch.zeros((-(-m // 4) * 4 + maxbig + 1,), dtype=torch.int32, device=dev)
+    views, at = {}, 0
+    for k, shape in shapes.items():
+        views[k] = flat[at: at + math.prod(shape)].view(shape)
+        at += sizes[k]
+    bufs = {"digits": views["digits"], "counts": zero[:m]}
+    bufs.update({k: views[k] for k in ("offsets", "cursor")})
+    bufs["big"] = zero[-(-m // 4) * 4:]
+    bufs.update({k: views[k] for k in shapes if k not in bufs})
+    return bufs
+
+
+def msm_launch(fn, stream, points, scalars, n_small, base) -> dict:
+    """One call of pk_msm (`fn`: the CUDA launcher, or the host build's)
+    -> msm_buffers after it."""
+    from .kernels import _base8, _p
 
     dev = points.device
     n = points.shape[0]
-    ws, ww = signed_digit_windows(SMALL_BITS), signed_digit_windows(WIDE_BITS)
-    entries = n_small * ws + (n - n_small) * ww
-    i32 = dict(dtype=torch.int32, device=dev)
-    digits = torch.empty((ww, n), **i32)
-    counts = torch.zeros((ww * NBUCKETS + 1,), **i32)
-    offsets = torch.empty((ww * NBUCKETS + 1,), **i32)
-    cursor = torch.empty((ww * NBUCKETS,), **i32)
-    big = torch.zeros((min(entries // (SMALL + 1), ww * NBUCKETS) + 1,), **i32)
-    ent = torch.empty((max(entries, 1),), **i32)
-    buckets = torch.empty((ww * HALF, 40), **i32)
-    segs = torch.empty((2, ww * NSEG, 40), **i32)
-    total = torch.empty((40,), **i32)
-    ident = torch.empty((1,), **i32)
-    rc = fn(n, n_small, ws, ww, _p(_base8(dev)), _p(points), _p(scalars), _p(base),
-            _p(digits), _p(counts), _p(offsets), _p(cursor), _p(big), _p(ent), _p(buckets),
-            _p(segs), _p(total), _p(ident), stream)
-    _raise_on(rc, "msm")
-    return total, ident
+    bufs = msm_buffers(n, n_small, dev)
+    rc = fn(n, n_small, signed_digit_windows(SMALL_BITS), signed_digit_windows(WIDE_BITS),
+            _p(_base8(dev)), _p(points), _p(scalars), _p(base),
+            *(_p(t) for t in bufs.values()), stream)
+    bufs["rc"] = rc
+    return bufs
 
 
 def msm(points: torch.Tensor, scalars: torch.Tensor, n_small: int, base: torch.Tensor):
@@ -243,17 +258,21 @@ def msm(points: torch.Tensor, scalars: torch.Tensor, n_small: int, base: torch.T
     ouroboros_consensus_tpu/ops/pk/msm.py:381 (and the collected B term's
     fixed-base mul of ops/pk/aggregate.py:304), which the JAX package
     never wrote as a Pallas kernel (argsort and gathers have no Mosaic
-    lowering): csrc/msm.cu, six launches of one source on the current
-    stream — recode and count per (window, |digit|), an exclusive scan,
-    the scatter of point indices into buckets (atomics; no sort), one
-    bucket sum a thread, the segments' running sums, then one block that
-    joins each window's segments (a thread a window, the fixed-base mul
-    of the B term on a thread of its own), runs the Horner chain and
-    tests the identity. Plain version: msm_plain.
-    Bound: operations (the bucket additions, 9 field products each); on
-    a replay window the one-thread Horner chain and the per-window joins
-    are the dependent path."""
-    from .kernels import LAUNCHES, _check, _route, _stream
+    lowering): csrc/msm.cu, ten launches of one source on the current
+    stream (nine kernels, the wide tree level's twice) — recode and count per (window, |digit|), an exclusive scan,
+    the scatter of point indices into buckets (atomics; no sort), the
+    entries' running sums in chunks of CHUNK a thread, the pieces of the
+    buckets that cross chunks (a thread a bucket, a block's tree past
+    SPAN pieces), the weighted sums as a tree (its three widest levels a
+    thread a node, the first two as running sums over four buckets, the
+    fixed-base mul of the B term in a block beside them; then a block a
+    window, a node a lane of two quads, for the last eight), then one
+    warp that runs the Horner chain with a field element over ten lanes
+    and tests the identity. Plain version: msm_plain. Bound: operations
+    (the bucket additions, 9 field products each); on a replay window
+    the Horner chain (252 doublings, 22 additions) is the dependent
+    path."""
+    from .kernels import LAUNCHES, _check, _raise_on, _route, _stream
 
     dev = points.device
     n = points.shape[0]
@@ -262,10 +281,14 @@ def msm(points: torch.Tensor, scalars: torch.Tensor, n_small: int, base: torch.T
     _check("msm.base", base, (32,), dev, torch.uint8)
     if not 0 <= n_small <= n:
         raise ValueError(f"msm: n_small {n_small} outside [0, {n}]")
+    if points.data_ptr() % 16:
+        raise ValueError("msm: points must start on a 16-byte boundary (the kernel's "
+                         "16-byte loads)")
     if _route(dev) == "plain":
         return msm_plain(points, scalars, n_small, base)
     from . import build
 
-    out = _msm_launch(build.kernel_lib("msm"), _stream(dev), points, scalars, n_small, base)
+    bufs = msm_launch(build.kernel_lib("msm"), _stream(dev), points, scalars, n_small, base)
+    _raise_on(bufs["rc"], "msm")
     LAUNCHES["msm"] += 1
-    return out
+    return bufs["total"], bufs["ident"]

@@ -216,5 +216,5 @@ def test_host_msm_decides_the_aggregate(window, host, kind):
     raw, tpts, ok_cap = pa.window_tables(cols, pts, scal)
     assert bool(ok_cap.all())
     points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, pa.agg_tables_plain(raw))
-    _, ident, _, _ = _host_msm(host, points, scalars, n_small, base)
-    assert ident == (1 if kind == "clean" else 0)
+    got = _host_msm(host, points, scalars, n_small, base)
+    assert int(got["ident"][0]) == (1 if kind == "clean" else 0)

@@ -105,61 +105,82 @@ def test_lone_torsion_point_times_odd_scalar_is_not_the_identity():
 
 
 def _host_msm(host, points, scalars, n_small, base):
-    """pk_msm of the host build -> (total [40], identity, buckets, segs)."""
-    n = points.shape[0]
-    ws, ww = 11, 22
-    i32 = dict(dtype=torch.int32)
-    entries = n_small * ws + (n - n_small) * ww
-    bufs = [torch.empty((ww, n), **i32), torch.zeros((ww * pm.NBUCKETS + 1,), **i32),
-            torch.empty((ww * pm.NBUCKETS + 1,), **i32), torch.empty((ww * pm.NBUCKETS,), **i32),
-            torch.zeros((entries // (pm.SMALL + 1) + 1,), **i32),
-            torch.empty((max(entries, 1),), **i32),
-            torch.empty((ww * pm.HALF, 40), **i32), torch.empty((2, ww * pm.NSEG, 40), **i32),
-            torch.empty((40,), **i32), torch.empty((1,), **i32)]
-    rc = host.pk_msm(n, n_small, ws, ww, K._base8(torch.device("cpu")).data_ptr(),
-                     points.data_ptr(), scalars.data_ptr(), base.data_ptr(),
-                     *(b.data_ptr() for b in bufs), None)
-    assert rc == 0
-    return bufs[8], int(bufs[9][0]), bufs[6], bufs[7]
+    """pk_msm of the host build -> its buffers (msm.msm_buffers' names)."""
+    bufs = pm.msm_launch(host.pk_msm, None, points, scalars, n_small, base)
+    assert bufs["rc"] == 0
+    return bufs
+
+
+def _pt(t: torch.Tensor) -> pc.Point:
+    """[k, 40] int32 (or [40]) point rows -> Point [10, k]."""
+    return pc.unstack(t.reshape(-1, 40).T.to(torch.int64))
 
 
 def _flat(hps) -> torch.Tensor:
     return pc.stack(_points(hps)).T.contiguous().to(torch.int32)
 
 
-def test_host_msm_phases_match_the_twin(host):
-    hps, ks = _two_groups(14, 6, 5)
+def _scalars(ks) -> torch.Tensor:
+    return torch.from_numpy(np.stack([np.frombuffer(k.to_bytes(32, "little"), np.uint8)
+                                      for k in ks])).contiguous()
+
+
+@pytest.mark.parametrize("seed,n_small,n_wide", [(14, 6, 5), (17, 40, 30)])
+def test_host_msm_phases_match_the_twin(host, seed, n_small, n_wide):
+    """Every phase of the device body against the restructured twin, as
+    points: the bucket sums (chunks, spans), the window sums (the tree),
+    the B term and the total."""
+    hps, ks = _two_groups(seed, n_small, n_wide)
     points = _flat(hps)
-    scalars = torch.from_numpy(np.stack([np.frombuffer(k.to_bytes(32, "little"), np.uint8)
-                                         for k in ks])).contiguous()
+    scalars = _scalars(ks)
     base = torch.from_numpy(np.frombuffer((1234567).to_bytes(32, "little"), np.uint8).copy())
-    total, ident, buckets, segs = _host_msm(host, points, scalars, 6, base)
-    want_total, want_ident = pm.msm_plain(points, scalars, 6, base)
-    assert ident == int(want_ident[0]) == 0
-    assert _enc(pc.unstack(total.to(torch.int64).reshape(40, 1))) == \
-        _enc(pc.unstack(want_total.to(torch.int64).reshape(40, 1)))
-    # the bucket sums, bucket by bucket (as points)
+    got = _host_msm(host, points, scalars, n_small, base)
+    want_total, want_ident = pm.msm_plain(points, scalars, n_small, base)
+    assert int(got["ident"][0]) == int(want_ident[0]) == 0
+    assert _enc(_pt(got["total"])) == _enc(_pt(want_total))
+    # the bucket sums, bucket by bucket (as points; empty buckets are not
+    # written: the range phase reads them as the identity)
     p = pc.unstack(points.T.to(torch.int64))
-    digits = [pm.recode_signed(sc.bytes_to_limbs(scalars[:6].T), 128),
-              pm.recode_signed(sc.bytes_to_limbs(scalars[6:].T), 253)]
-    digits = [torch.cat([digits[0], torch.zeros(11, 6, dtype=torch.int64)]), digits[1]]
+    digits = [pm.recode_signed(sc.bytes_to_limbs(scalars[:n_small].T), 128),
+              pm.recode_signed(sc.bytes_to_limbs(scalars[n_small:].T), 253)]
+    digits = [torch.cat([digits[0], torch.zeros(11, n_small, dtype=torch.int64)]), digits[1]]
     twin = pm.bucket_sums(p, digits, 22)
-    got = pc.unstack(buckets.T.to(torch.int64))
     used = torch.nonzero(~pm.is_identity(twin))[:, 0]
     assert used.numel() > 0
-    assert bool(pm.is_identity(pc.Point(*(c[:, ~torch.isin(torch.arange(22 * pm.HALF), used)]
-                                          for c in got))).all())
-    assert _enc(pc.Point(*(c[:, used] for c in got))) == \
-        _enc(pc.Point(*(c[:, used] for c in twin)))
-    # the segments of the weighted sums: run and acc of every segment
-    run, acc = pm.segment_sums(twin, 22)
-    for k, want in enumerate((run, acc)):
-        assert _enc(pc.unstack(segs[k].T.to(torch.int64))) == _enc(want)
+    assert _enc(_take(_pt(got["buckets"]), used)) == _enc(_take(twin, used))
+    # the tree's top (each window's W: its sum), the B term
+    assert _enc(_pt(got["wsum"])) == _enc(pm.weighted_sums(twin, 22))
+    assert _enc(_pt(got["bterm"])) == _enc(pc.base_mul_w8(base.to(torch.int64).reshape(32, 1)))
+
+
+def _take(p: pc.Point, idx) -> pc.Point:
+    return pc.Point(*(c[:, idx] for c in p))
+
+
+def test_tree_weighted_sums_match_big_ints():
+    """The tree's window sums against Σ_d d·B_d with big ints, on random
+    points in a few buckets of two windows."""
+    rng = random.Random(18)
+    nwin = 2
+    vals = {(w, d): he.point_mul(rng.randrange(1, he.L), he.B)
+            for w, d in ((0, 1), (0, 2), (0, 129), (0, 2048), (1, 7), (1, 1024))}
+    hps = [he.IDENT] * (nwin * pm.HALF)
+    for (w, d), p in vals.items():
+        hps[w * pm.HALF + d - 1] = p
+    got = pm.weighted_sums(_points(hps), nwin)
+    want = []
+    for w in range(nwin):
+        acc = he.IDENT
+        for (ww, d), p in vals.items():
+            if ww == w:
+                acc = he.point_add(acc, he.point_mul(d, p))
+        want.append(he.point_compress(acc))
+    assert _enc(got) == want
 
 
 def test_host_msm_big_bucket_matches_big_ints(host):
     """Three hundred points with digit 1 in window 0 and nothing above:
-    one bucket of more than SMALL entries, summed by a block's tree."""
+    one bucket across more than SPAN chunks, summed by a block's tree."""
     rng = random.Random(16)
     hps = [he.point_mul(rng.randrange(1, he.L), he.B) for _ in range(300)]
     want = he.IDENT
@@ -168,9 +189,10 @@ def test_host_msm_big_bucket_matches_big_ints(host):
     one = np.zeros((300, 32), np.uint8)
     one[:, 0] = 1
     base = torch.zeros(32, dtype=torch.uint8)
-    total, ident, _, _ = _host_msm(host, _flat(hps), torch.from_numpy(one), 0, base)
-    assert ident == 0
-    assert _enc(pc.unstack(total.to(torch.int64).reshape(40, 1))) == [he.point_compress(want)]
+    got = _host_msm(host, _flat(hps), torch.from_numpy(one), 0, base)
+    assert int(got["big"][0]) == 1  # 300 entries cross 19 chunks: a block's tree
+    assert int(got["ident"][0]) == 0
+    assert _enc(_pt(got["total"])) == [he.point_compress(want)]
 
 
 def test_host_msm_identity_is_exact(host):
@@ -184,8 +206,27 @@ def test_host_msm_identity_is_exact(host):
     scalars = torch.from_numpy(np.stack([np.frombuffer(v.to_bytes(32, "little"), np.uint8)
                                          for v in (k, k)])).contiguous()
     zero = torch.zeros(32, dtype=torch.uint8)
-    assert _host_msm(host, _flat(hps), scalars, 0, zero)[1] == 1
+    assert int(_host_msm(host, _flat(hps), scalars, 0, zero)["ident"][0]) == 1
     hps.append(_torsion8())
     scalars = torch.cat([torch.from_numpy(np.frombuffer(z.to_bytes(32, "little"),
                                                         np.uint8).copy())[None], scalars])
-    assert _host_msm(host, _flat([hps[2], *hps[:2]]), scalars, 1, zero)[1] == 0
+    assert int(_host_msm(host, _flat([hps[2], *hps[:2]]), scalars, 1, zero)["ident"][0]) == 0
+
+
+@pytest.mark.parametrize("nw", [1, 2, 22])
+def test_host_warp_horner_matches_one_thread(host, nw):
+    """The Horner chain on one warp (a field element over ten lanes,
+    three products a round) equals the one-thread chain of ge_dbl and
+    ge_add limb for limb, and Σ_w 2^(12w)·S_w + B' with big ints as a
+    point."""
+    rng = random.Random(19 + nw)
+    sums = [he.point_mul(rng.randrange(1, he.L), he.B) for _ in range(nw)]
+    bterm = he.point_mul(rng.randrange(1, he.L), he.B)
+    warp, thread = torch.empty(40, dtype=torch.int32), torch.empty(40, dtype=torch.int32)
+    assert host.pk_msm_horner(nw, _flat(sums).data_ptr(), _flat([bterm]).data_ptr(),
+                              warp.data_ptr(), thread.data_ptr()) == 0
+    assert torch.equal(warp, thread)
+    want = bterm
+    for w, s in enumerate(sums):
+        want = he.point_add(want, he.point_mul(1 << (12 * w), s))
+    assert _enc(_pt(warp)) == [he.point_compress(want)]
