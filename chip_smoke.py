@@ -265,10 +265,20 @@ def phase_build() -> dict:
         stack = [int(x) for x in
                  re.findall(r"(\d+) bytes (?:cumulative stack size|stack frame)", text)]
         spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+        # each function's own spill stores, by its name (of the mangled
+        # `_Z<length><name>...`), where it spills
+        by_fn = {}
+        for fn, n in re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                                r"(\d+) bytes spill stores", text):
+            m = re.match(r"_Z(\d+)(\w+)", fn)
+            key = m.group(2)[:int(m.group(1))] if m else fn
+            if int(n):
+                by_fn[key] = by_fn.get(key, 0) + int(n)
         ptxas[name] = {
             "registers": max(regs, default=None),
             "stack_bytes": max(stack, default=None),
             "spill_store_bytes": sum(spills),
+            "spill_stores_by_function": by_fn,
             "blocks_per_sm": build.blocks_per_sm(name),
         }
         log(f"ptxas {name}: {json.dumps(ptxas[name])}")
@@ -423,6 +433,180 @@ def wide_products(ops: dict) -> int:
     2^25.5: 100 for a multiply (10 x 10), 55 for a squaring (10 squares
     and 45 distinct cross terms, ref10's fe_sq)."""
     return 100 * ops["mul"] + 55 * ops["sqr"]
+
+
+# 32-bit integer instructions of one compression, at their fewest as the
+# card runs them: SHA-512's 80 rounds at 28 (three funnel-shift pairs and
+# a three-input XOR a Σ, one LOP3 pair for Ch and for Maj, 64-bit adds as
+# IADD3 pairs of three inputs) and its 64 schedule words at 20, plus the
+# final adds; Blake2b's 96 G steps at 22 (four three-input adds, four XORs
+# and three rotations the 32-bit swap aside), plus its set-up and output
+SHA512_INSTRS = 80 * 28 + 64 * 20 + 16
+BLAKE2B_INSTRS = 96 * 22 + 40
+
+
+def count_hash_ops(fn) -> dict:
+    """SHA-512 and Blake2b compressions one lane of `fn` performs (the
+    plain twin's count: `hashes.sha512_compress` calls, and
+    `hashes.blake2b_fixed` calls, each one block)."""
+    from ouroboros_consensus_tpu_torch.ops.pk import hashes as ph
+
+    comp, b2b = ph.sha512_compress, ph.blake2b_fixed
+    n = {"sha512": 0, "blake2b": 0}
+
+    def counting_comp(state, block):
+        n["sha512"] += 1
+        return comp(state, block)
+
+    def counting_b2b(data, digest_size=32):
+        n["blake2b"] += 1
+        return b2b(data, digest_size)
+
+    ph.sha512_compress, ph.blake2b_fixed = counting_comp, counting_b2b
+    try:
+        fn()
+    finally:
+        ph.sha512_compress, ph.blake2b_fixed = comp, b2b
+    return n
+
+
+def agg_prep_work(one, depth: int) -> dict:
+    """agg_prep's work a lane, from its plain twin on one lane (`one`, the
+    22 columns): field multiplies and squarings (`count_field_ops`), the
+    same with its two inversions batched (each inverted Z then costs three
+    products, Montgomery's trick, and the window one inversion: its
+    products are left out), and the SHA-512 and Blake2b compressions."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import field as fe
+
+    twin = count_field_ops(lambda: pa.agg_prep_plain(*one, kes_depth=depth))
+    inv = count_field_ops(lambda: fe.inv(one[0][:10].to(torch.int64)))
+    batched = {"mul": twin["mul"] - 2 * inv["mul"] + 2 * 3, "sqr": twin["sqr"] - 2 * inv["sqr"]}
+    return {"field_ops": twin, "inversion_ops": inv, "field_ops_batched": batched,
+            "hash_ops": count_hash_ops(lambda: pa.agg_prep_plain(*one, kes_depth=depth))}
+
+
+def agg_prep_bound(st: dict, wide_rate: float, int_rate: float) -> dict:
+    """agg_prep's operation bound on `st["lanes"]` lanes, the larger of two
+    pipes' times: its field products with the inversions batched at the
+    wide-product rate (IMAD.WIDE, on the FMA pipe) and its hash
+    compressions' 32-bit instructions at the integer rate (LOP3, SHF and
+    IADD3, on the ALU pipe, which issues beside the FMA pipe); each part
+    beside it, and the field-only bound of the twin's count (two
+    inversions a lane), as earlier PRs gave it.
+    -> {bound_ms, bound_pipe, field_ms, hash_ms, bound_field_only_ms,
+    per_lane}."""
+    n = st["lanes"]
+    field = wide_products(st["field_ops_batched"]) * n / wide_rate * 1e3
+    h = st["hash_ops"]
+    hashes = (h["sha512"] * SHA512_INSTRS + h["blake2b"] * BLAKE2B_INSTRS) * n / int_rate * 1e3
+    old = wide_products(st["field_ops"]) * n / wide_rate * 1e3
+    return {"bound_ms": max(field, hashes), "bound_pipe": "fma" if field >= hashes else "alu",
+            "field_ms": field, "hash_ms": hashes, "bound_field_only_ms": old,
+            "per_lane": {"wide_products": wide_products(st["field_ops_batched"]),
+                         "hash_instructions": h["sha512"] * SHA512_INSTRS
+                         + h["blake2b"] * BLAKE2B_INSTRS}}
+
+
+# agg_prep.cu's clock64 stamps (the agg_stamps build): a warp's stamp k
+# ends the step named here (k 0 its start, 11 the block's end; a step
+# after a barrier includes the wait)
+AGG_STEPS = {
+    "ae": {1: "OCert digest", 2: "h_e, A_e", 10: "wait z, z1, z1·h_e"},
+    "re": {8: "R_e", 10: "wait z, z1·s_e"},
+    "v": {8: "V", 10: "wait z, z3, z3·s_v"},
+    "al": {10: "A_l, Merkle walk"},
+    "rk": {8: "R_k", 10: "wait z, z2·s_k"},
+    "y": {10: "Y, leader value, eta"},
+    "u": {8: "U", 10: "wait z, z4, z4·s_v"},
+    "g": {1: "Γ, 8Γ", 3: "wait inverses, β'", 10: "wait c and z, z4·c"},
+    "h": {1: "H (hash, Elligator2, 8·)", 3: "wait 8Γ leaves, tree up", 4: "root inverse (warp)",
+          5: "tree down", 6: "c", 10: "wait z, z3·c"},
+    "hash": {1: "KES digest", 3: "wait OCert digest, transcript", 10: "h_k, z2, z2·h_k"},
+}
+AGG_NSTAMP = 12
+
+
+def agg_dependent_path(by_lanes: dict) -> dict:
+    """agg_prep's dependent path from its stamps at one block (8 lanes)
+    and on the chain window: the warp that ends last, and AW_H's and
+    AW_HASH's paths as counts of steps times their measured costs (at one
+    block: three SHA-512 compressions, one exponentiation and the root's
+    265 rounds on a warp for AW_H; the KES digest's and the transcript's
+    compressions for AW_HASH) beside their measured ends."""
+    out = {}
+    for tag in (8, "chain"):
+        st = by_lanes.get(tag)
+        if st is None:
+            continue
+        c = st["costs_us"]
+        one = by_lanes.get(8, st)["costs_us"]
+        out[str(tag)] = {
+            "warp": st["path"]["warp"], "end_us": st["path"]["end_us"],
+            "h": {"end_us": st["warps"]["h"]["end_us"],
+                  "model": "3 sha512 + 1 exponentiation + 265 warp rounds",
+                  "model_us": 3 * one["sha512"] + one["decompression"] + 265 * one["warp_round"]},
+            "hash": {"end_us": st["warps"]["hash"]["end_us"],
+                     "model": "KES digest + transcript compressions",
+                     "model_us": (st["nb_kes"] + 5) * one["sha512"]},
+            "costs_us": c,
+        }
+    return out
+
+
+def agg_stamps(cols, depth: int) -> dict:
+    """One launch of the stamped agg_prep (agg_stamps.cu) on these columns
+    (on the card; its outputs held to the shipped kernel's): each role's
+    steps in µs (clock64 cycles at the maximum SM clock), the mean over
+    blocks, each role's end (before the block barrier) from the block's
+    first stamp, and the block's whole time. The dependent path is the
+    role that ends last; the costs: one decompression chain (V and U),
+    one SHA-512 compression (the KES digest over its blocks), one product
+    round of the root's inversion on the warp (265 rounds)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+    from ouroboros_consensus_tpu_torch.ops.pk.kernels import _p
+
+    b = cols[0].shape[-1]
+    dev = cols[0].device
+    nblk = -(-b // 32)
+    stamps = torch.zeros((nblk, len(AGG_STEPS), AGG_NSTAMP), dtype=torch.int64, device=dev)
+    fn = build.kernel_lib("agg_stamps")
+
+    got = pa._agg_prep_launch(lambda *a: fn(*a[:-1], _p(stamps), a[-1]),
+                              torch.cuda.current_stream().cuda_stream, cols, depth)
+    torch.cuda.synchronize()
+    want = pa.agg_prep(*cols, kes_depth=depth)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("the stamped agg_prep differs from the shipped kernel")
+    us = 1e6 / max_sm_clock_hz()
+    t = stamps.cpu().to(torch.float64)
+    start = t[:, :, 0].min(1).values  # each block's first stamp
+    out = {"lanes": b, "blocks": nblk, "warps": {}}
+    for w, (role, steps) in enumerate(AGG_STEPS.items()):
+        rec, prev = {}, t[:, w, 0]
+        for k, name in sorted(steps.items()):
+            rec[name] = float((t[:, w, k] - prev).mean()) * us
+            prev = t[:, w, k]
+        out["warps"][role] = {"steps_us": rec,
+                              "end_us": float((t[:, w, 10] - start).mean()) * us}
+    out["block_us"] = float((t[:, :, 11].max(1).values - start).mean()) * us
+    path = max(out["warps"], key=lambda r: out["warps"][r]["end_us"])
+    nbk = cols[11].shape[0]
+    out["path"] = {"warp": path, **out["warps"][path]}
+    out["nb_kes"] = nbk
+    out["costs_us"] = {
+        "decompression": (out["warps"]["v"]["steps_us"]["V"]
+                          + out["warps"]["u"]["steps_us"]["U"]) / 2,
+        "sha512": out["warps"]["hash"]["steps_us"]["KES digest"] / nbk,
+        "warp_round": out["warps"]["h"]["steps_us"]["root inverse (warp)"] / 265,
+    }
+    return out
 
 
 def hold(key: str, kern, plain, inputs, lanes: int, dev, reps: int) -> dict:
@@ -1160,6 +1344,12 @@ def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool 
     recs = {"agg_prep": held(f"agg_prep ({tag}, {n} lanes)", prep,
                              lambda: pa.agg_prep_plain(*cols, kes_depth=depth),
                              cols, n, dev, reps)}
+    if reps and dev.type == "cuda":
+        st = recs["agg_prep"]["stamps"] = agg_stamps(cols, depth)
+        log(f"agg_prep stamps ({tag}, {n} lanes): block {st['block_us']:.1f} us, path "
+            f"{st['path']['warp']} ends {st['path']['end_us']:.1f} us "
+            f"{json.dumps({k: round(v, 2) for k, v in st['path']['steps_us'].items()})}; "
+            f"costs {json.dumps({k: round(v, 3) for k, v in st['costs_us'].items()})}")
     pts, scal, _flags, _eta, _lv = prep()
     recs["dedupe"] = hold_dedupe(f"dedupe ({tag}, {n} lanes)", cols, pts, scal, n, dev, reps)
     if reps and dev.type == "cuda":
@@ -1330,8 +1520,9 @@ def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 1
     one = [c[..., :1].clone() for c in clean]
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
 
-    out["agg_prep"]["field_ops"] = count_field_ops(
-        lambda: pa.agg_prep_plain(*one, kes_depth=depth))
+    out["agg_prep"].update(agg_prep_work(one, depth))
+    out["agg_prep"]["stamps_by_lanes"] = {n: r["stamps"] for n, r in recs["agg_prep"].items()
+                                          if "stamps" in r}
     w = out["msm"]["work"]
     out["msm"]["products"] = w["adds"] * 900 + w["dbls"] * 620
     out["msm"]["split_by_lanes"] = {min(lanes_list): split}
@@ -1399,10 +1590,16 @@ def phase_agg_chain(dev, db: str, stages: dict, lanes: int = 8192, reps: int = 5
         rec["tiled"] = {k: tiled[k] for k in ("ms", "plain_ms", "lanes", "bytes", "work",
                                               "products") if k in tiled}
         rec["ms_by_lanes"] = tiled.get("ms_by_lanes")  # the tiled windows'
-        for k in ("field_ops", "windows"):
+        for k in ("field_ops", "field_ops_batched", "inversion_ops", "hash_ops", "windows",
+                  "stamps_by_lanes"):
             if k in tiled:
                 rec[k] = tiled[k]
         stages[key] = rec
+    if "stamps" in stages["agg_prep"]:
+        prep = stages["agg_prep"]
+        prep["stamps_by_lanes"] = {**prep.get("stamps_by_lanes", {}), "chain": prep.pop("stamps")}
+        prep["dependent_path"] = agg_dependent_path(prep["stamps_by_lanes"])
+        log(f"agg_prep dependent path: {json.dumps(prep['dependent_path'])}")
     w = stages["msm"]["work"]
     stages["msm"]["products"] = w["adds"] * 900 + w["dbls"] * 620
     log(f"aggregate on a {lanes}-lane chain window: msm work {json.dumps(w)} "
@@ -2279,22 +2476,27 @@ print("AB " + json.dumps(rec), flush=True)
 
 
 def agg_times(dev, db: str, workdir: str, reps: int = 20) -> dict:
-    """`msm` and `window_tables` (the dedupe) of the tree this process
-    imports, on a full window of the forged chain at `db` and on the
-    first 8 lanes of a tiled window: ms a call (CUDA events over `reps`
-    calls). -> {"chain" | "8": {msm, window_tables}}."""
+    """`agg_prep`, `msm` and `window_tables` (the dedupe) of the tree this
+    process imports, on a full window of the forged chain at `db` and on
+    the first 8 lanes of a tiled window (agg_prep also on its first 128
+    and 8,192): ms a call (CUDA events over `reps` calls).
+    -> {"chain" | "8" | "128" | "8192": {agg_prep[, msm, window_tables]}}."""
     from ouroboros_consensus_tpu_torch.device import time_ms
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
     from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
 
-    tiled, _ = tiled_window(8, 256, 17, workdir, "bc")
+    depth = bench_params().kes_depth
+    tiled, _ = tiled_window(8192, 256, 17, workdir, "bc")
     out = {}
-    for tag, cols in (("chain", chain_window(db, 8192)), ("8", tiled)):
+    for tag, cols in (("chain", chain_window(db, 8192)), ("8", [c[..., :8] for c in tiled]),
+                      ("128", [c[..., :128] for c in tiled]), ("8192", tiled)):
         cols = [c.contiguous().to(dev) for c in cols]
-        pts, scal, _f, _e, _l = pa.agg_prep(*cols, kes_depth=bench_params().kes_depth)
-        args = msm_args(cols, bench_params().kes_depth)
-        out[tag] = {"msm": time_ms(lambda: pm.msm(*args), reps),
-                    "window_tables": time_ms(lambda: pa.window_tables(cols, pts, scal), reps)}
+        out[tag] = {"agg_prep": time_ms(lambda: pa.agg_prep(*cols, kes_depth=depth), reps)}
+        if tag in ("chain", "8"):
+            pts, scal, _f, _e, _l = pa.agg_prep(*cols, kes_depth=depth)
+            args = msm_args(cols, depth)
+            out[tag]["msm"] = time_ms(lambda: pm.msm(*args), reps)
+            out[tag]["window_tables"] = time_ms(lambda: pa.window_tables(cols, pts, scal), reps)
     return out
 
 
@@ -2320,8 +2522,12 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
             print(line[0], flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for tag in ("chain", "8"):
-        for key in ("msm", "window_tables"):
+    for tag, keys in (("chain", ("agg_prep", "msm", "window_tables")),
+                      ("8", ("agg_prep", "msm", "window_tables")), ("128", ("agg_prep",)),
+                      ("8192", ("agg_prep",))):
+        for key in keys:
+            if not all(key in r["agg_ms"].get(tag, {}) for r in recs):
+                continue
             par = [r["agg_ms"][tag][key] for r in (recs[0], recs[3])]
             cur = [r["agg_ms"][tag][key] for r in (recs[1], recs[2])]
             log(f"A/B {key} ({tag}): parent {min(par):.4f} this {min(cur):.4f} "
@@ -2439,7 +2645,8 @@ def main(argv=None) -> int:
         return ab_main(a.ab)
     if a.ab_replay:
         return ab_replay_main(a.ab_replay, a.headers)
-    from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz, resolve, wide_product_rate
+    from ouroboros_consensus_tpu_torch.device import (int_op_rate, max_sm_clock_hz, resolve,
+                                                      wide_product_rate)
 
     dev = resolve(None)
     card = card_line()
@@ -2470,6 +2677,7 @@ def main(argv=None) -> int:
     # out, so this is a lower bound. Byte bound: the bytes moved over the
     # card's 3.35 TB/s.
     wide_rate = wide_product_rate()
+    int_rate = int_op_rate()
     by_path = {p: out["launches"] for p, out in paths.items()}
     by_path["generic"] = generic["launches"]
     by_path["tools"] = tools["launches"]
@@ -2484,6 +2692,13 @@ def main(argv=None) -> int:
         if "bound_ms" in st:  # the wire kernels: phase_wire's bound
             per_lane = None
             bound, bound_by = st["bound_ms"], st["bound_by"]
+        elif name == "agg_prep":
+            # agg_prep: field products (inversions batched) and hash instructions
+            per_lane = None
+            st["bound_parts"] = agg_prep_bound(st, wide_rate, int_rate)
+            bytes_ms = st["bytes"] / 3.35e12 * 1e3
+            bound = max(st["bound_parts"]["bound_ms"], bytes_ms)
+            bound_by = "operations" if bound > bytes_ms else "bytes"
         elif name in ("msm", "agg_tables", "dedupe"):
             # msm: this run's point operations (msm_work); agg_tables, dedupe: their bytes
             per_lane = None
@@ -2511,13 +2726,16 @@ def main(argv=None) -> int:
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
             "msm_work": st.get("work"), "tiled": st.get("tiled"),
             "split_by_lanes": st.get("split_by_lanes"), "windows": st.get("windows"),
-            "device_ms": st.get("device_ms"),
+            "device_ms": st.get("device_ms"), "bound_parts": st.get("bound_parts"),
+            "hash_ops_per_lane": st.get("hash_ops"),
+            "dependent_path": st.get("dependent_path"),
+            "stamps_by_lanes": st.get("stamps_by_lanes"),
         })
     for p, out in paths.items():
         fill = [{"kernel": k, "lanes": n, "blocks": -(-n // 32)}
                 for k, n in out.get("lanes_per_launch", [])]
         log(f"{p}: grid fill per window (32 lanes a block in every stage kernel: ed, "
-            f"kes, agg_prep 4 warps, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; "
+            f"kes 4 warps, agg_prep 10, vrf_prep, vrf_bc_prep, finish 3, vrf_ladders 8; "
             f"{sms} SMs): {json.dumps(fill)}")
         log(f"{p}: {json.dumps({k: v for k, v in out.items() if k not in ('launches', 'windows', 'list', 'lanes_per_launch')})}")
     log(f"fe_bench rows: {json.dumps(tools['fe_rows'])}")

@@ -45,6 +45,14 @@ def wide_product_rate() -> float:
     return sms * 64 / 2 * max_sm_clock_hz()
 
 
+def int_op_rate() -> float:
+    """32-bit integer instructions per second the card can issue (adds,
+    logic ops, shifts): the same table's 64 per SM per clock on compute
+    capability 9.0, times the SMs and the maximum SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 64 * max_sm_clock_hz()
+
+
 def time_ms(fn, reps: int) -> float:
     """Device time of one call of `fn`, in ms: CUDA events around `reps`
     calls after one warm-up call, over `reps`."""

@@ -194,15 +194,19 @@ def agg_prep(*cols, kes_depth: int):
 
     Replaces the per-lane half of the plain-XLA `aggregate_window`
     (ouroboros_consensus_tpu/ops/pk/aggregate.py:232-326): csrc/
-    agg_prep.cu, one launch, 32 lanes a block on four warps. Phase 1, a
-    role a warp: the OCert digest, R_e, A_e and V (0); the KES digest,
-    Merkle walk, R_k and A_l, then the leader value and eta (1); H, its
-    compression, c, and Y (2); Γ, 8·Γ's compression and β, and U (3).
-    Phase 2: the Fiat–Shamir digest (warp 0). Phase 3: each warp its
-    coefficient's mod-L products. Plain version: agg_prep_plain.
-    Bound: operations — nine field exponentiations (eight square roots,
-    one Elligator2) and two inversions a lane, three of them on the
-    longest warp's path."""
+    agg_prep.cu, one launch, 32 lanes a block on ten warps, a role a warp
+    (csrc/agg.cuh): eight decompressions (A_e after the OCert digest, R_e,
+    V, A_l then the Merkle walk, R_k, Y then the leader value and eta, U,
+    Γ then 8·Γ), H (hash to the curve), and the KES digest with the
+    Fiat–Shamir transcript beside them. H and 8·Γ are compressed with one
+    inversion a block (a product tree over the block's 64 Z coordinates,
+    the root inverted on one warp), then c and β'; each mod-L product runs
+    on a warp that holds its other factor once z is out. Named barriers
+    join only the warps that hand something on. Plain version:
+    agg_prep_plain. Bound: operations — nine field exponentiations a lane
+    and the block's one inversion, with fifteen or more SHA-512 and ten
+    Blake2b compressions; the longest path is one exponentiation, the
+    root's inversion on the warp and three compressions."""
     from .kernels import LAUNCHES, _check, _route, _stream
 
     if len(cols) != 22:

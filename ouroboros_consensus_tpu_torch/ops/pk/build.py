@@ -45,6 +45,7 @@ ENTRIES = {
                    "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
     "fe_bench": ("pk_fe_bench",),
     "agg_prep": ("pk_agg_prep",),
+    "agg_stamps": ("pk_agg_prep_stamps",),  # the instrument: agg_prep with clock64 stamps
     "dedupe": ("pk_dedupe",),
     "agg_tables": ("pk_agg_tables",),
     "msm": ("pk_msm",),
@@ -76,6 +77,7 @@ ARGTYPES = {
     "pk_prim_red": [_I] + [_P] * 4,
     "pk_fe_bench": [_I, _I, _I, _P, _P, _P],
     "pk_agg_prep": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 6,
+    "pk_agg_prep_stamps": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 7,
     "pk_dedupe": [_I, _I, ctypes.POINTER(_P)] + [_P] * 9,
     "pk_agg_tables": [_I, _P, _P, _P],
     "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
@@ -88,7 +90,12 @@ ARGTYPES = {
     # host build only: sc_mul and sc_add over [B, 32] byte rows
     "pk_sc_mul": [_I] + [_P] * 3,
     "pk_sc_add": [_I] + [_P] * 3,
+    # host build only: agg_prep's inversion tree over 64 [10] limb rows, and
+    # sc_reduce512 over [B, 64] byte rows
+    "pk_agg_inv_tree": [_P, _P],
+    "pk_sc_reduce": [_I, _P, _P],
 }
+DEVICE_ONLY = ("pk_agg_prep_stamps",)  # the instrument has no host build
 
 _LIBS: dict = {}
 # wall seconds from the start of the parallel build to each source's nvcc exit
@@ -227,7 +234,8 @@ def kernel_lib(name: str, entry: str | None = None):
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
-    unpack 256; msm's chunk phase 128; dedupe 1,024 at 8,192 lanes),
+    unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 1,024 at
+    8,192 lanes),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")
@@ -248,9 +256,13 @@ def build_host_emu() -> ctypes.CDLL:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
+            # -fno-aggressive-loop-optimizations: without it g++ 12 at -O1
+            # makes sha512_msg's loop over a byte source that reads a
+            # caller's local array (src(k) only where k < N, so always in
+            # bounds) run forever
             subprocess.run(
-                ["g++", "-O1", "-std=c++17", "-shared", "-fPIC", "-DPK_HOST",
-                 "-Wno-unknown-pragmas", "-I", CSRC, "-o", tmp,
+                ["g++", "-O1", "-fno-aggressive-loop-optimizations", "-std=c++17", "-shared",
+                 "-fPIC", "-DPK_HOST", "-Wno-unknown-pragmas", "-I", CSRC, "-o", tmp,
                  os.path.join(CSRC, "host_emu.cpp")],
                 check=True, capture_output=True, text=True,
             )
@@ -260,6 +272,8 @@ def build_host_emu() -> ctypes.CDLL:
                 os.remove(tmp)
     lib = ctypes.CDLL(path)
     for entry, args in ARGTYPES.items():
+        if entry in DEVICE_ONLY:
+            continue
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = args

@@ -7,6 +7,7 @@
 // tests hold them to the twins (ops/pk/aggregate.py, msm.py).
 #pragma once
 #include "stages.cuh"
+#include "wire.cuh"
 
 // atomics (sequential on the host, where the threads run in turn)
 #ifdef PK_HOST
@@ -16,8 +17,174 @@ PK_DEV int pk_atomic_add(int *p, int v) { return atomicAdd(p, v); }
 #endif
 
 // ---------------------------------------------------------------------------
-// agg_prep: one lane over four warps, 32 lanes a block
+// A field element over ten lanes of a warp: lane k of a group holds limb
+// k, three groups a warp (lanes 30 and 31 run along), so a round of
+// products runs three at once. Lane k forms its own column of the product
+// (ten terms, the operands' limbs shuffled in) and the carry passes move
+// each column's carry one lane up, so every product, sum and difference
+// equals pk.cuh's fe_mul, fe_add and fe_sub limb for limb (and w_inv
+// fe_inv, w_dbl / w_add_pt the one-thread ge_dbl / ge_add). agg_prep
+// inverts its tree's root this way, msm runs its Horner chain. On the host
+// a warp value holds all 32 lanes and a shuffle is an index.
 // ---------------------------------------------------------------------------
+
+#ifdef PK_HOST
+#define W_N 32
+#define W_LANES(l) for (int l = 0; l < 32; l++)
+#define W_AT(x, l) ((x).v[l])
+#define W_SHFL(x, src) ((x).v[(src) & 31])
+#else
+#define W_N 1
+#define W_LANES(l) for (int l = threadIdx.x & 31, w_once = 0; w_once < 1; w_once++)
+#define W_AT(x, l) ((x).v[0])
+#define W_SHFL(x, src) __shfl_sync(0xffffffffu, (x).v[0], (src))
+#endif
+
+struct wv { u32 v[W_N]; };    // a limb a lane
+struct wv64 { u64 v[W_N]; };  // a column a lane
+
+// lane l's limb and its group's first lane
+PK_DEV int w_limb(int l) { return l % 10; }
+PK_DEV int w_base(int l) { return l - l % 10; }
+
+// one carry pass of fe_carry: limb k keeps its low bits plus the carry
+// out of limb k - 1 (limb 0: 19 x limb 9's)
+PK_DEV wv64 w_pass(const wv64 &h) {
+  wv64 c, r;
+  W_LANES(l) { W_AT(c, l) = W_AT(h, l) >> ((w_limb(l) & 1) ? 25 : 26); }
+  W_LANES(l) {
+    int k = w_limb(l);
+    u64 cin = W_SHFL(c, w_base(l) + (k == 0 ? 9 : k - 1));
+    W_AT(r, l) = (W_AT(h, l) & ((((u64)1) << ((k & 1) ? 25 : 26)) - 1)) +
+                 (k == 0 ? 19 * cin : cin);
+  }
+  return r;
+}
+
+PK_DEV wv w_low(const wv64 &h) {
+  wv r;
+  W_LANES(l) { W_AT(r, l) = (u32)W_AT(h, l); }
+  return r;
+}
+
+// fe_mul's column k on lane k: term (i, k - i mod 10) doubled when both
+// limbs are odd (i odd, k even) and times 19 when it wraps (i > k)
+PK_DEV wv w_mul(const wv &a, const wv &b) {
+  wv64 h;
+  W_LANES(l) {
+    int k = w_limb(l), g = w_base(l);
+    u64 acc = 0;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+      u32 ai = W_SHFL(a, g + i);
+      if (i & 1) ai = (k & 1) ? ai : 2 * ai;
+      u32 bj = W_SHFL(b, g + (k >= i ? k - i : k - i + 10));
+      acc += (u64)ai * (i > k ? 19 * bj : bj);
+    }
+    W_AT(h, l) = acc;
+  }
+  return w_low(w_pass(w_pass(h)));
+}
+
+PK_DEV wv w_add(const wv &a, const wv &b) {
+  wv64 h;
+  W_LANES(l) { W_AT(h, l) = (u64)W_AT(a, l) + W_AT(b, l); }
+  return w_low(w_pass(h));
+}
+
+// limb k of 2p (PK_TWO_P)
+PK_DEV u32 w_two_p(int k) { return k == 0 ? 0x7ffffdau : (k & 1) ? 0x3fffffeu : 0x7fffffeu; }
+
+PK_DEV wv w_sub(const wv &a, const wv &b) {
+  wv64 h;
+  W_LANES(l) { W_AT(h, l) = (u64)W_AT(a, l) + w_two_p(w_limb(l)) - W_AT(b, l); }
+  return w_low(w_pass(h));
+}
+
+// group 0 takes a, group 1 b, the rest c
+PK_DEV wv w_pick(const wv &a, const wv &b, const wv &c) {
+  wv r;
+  W_LANES(l) { W_AT(r, l) = l < 10 ? W_AT(a, l) : l < 20 ? W_AT(b, l) : W_AT(c, l); }
+  return r;
+}
+
+// group g's element in every group
+PK_DEV wv w_from(const wv &x, int g) {
+  wv r;
+  W_LANES(l) { W_AT(r, l) = W_SHFL(x, 10 * g + w_limb(l)); }
+  return r;
+}
+
+// w_mul(a, a) with half the shuffles and products: column k's ten terms
+// pair up (a_i·a_j and a_j·a_i, i + j ≡ k mod 10: both odd or not, both
+// wrapping or not), so lane k sums five products and doubles them, and an
+// even k adds the squares of limbs k/2 and k/2 + 5 (the second wraps).
+// The column sums are w_mul's, so are the limbs
+PK_DEV wv w_sq(const wv &a) {
+  wv64 h;
+  W_LANES(l) {
+    const int k = w_limb(l), g = w_base(l), even = (k & 1) == 0;
+    const int base = (k + 1) >> 1;
+    u64 pairs = 0, squares = 0;
+#pragma unroll
+    for (int t = 0; t < 5; t++) {
+      const int i = base + t < 10 ? base + t : base + t - 10;
+      const int j = k >= i ? k - i : k - i + 10;
+      const u32 f = ((even && (i & 1)) ? 2 : 1) * (i > k ? 19 : 1);  // f · a_i < 2^32
+      const u64 p = (u64)(f * W_SHFL(a, g + i)) * W_SHFL(a, g + j);
+      if (even && t == 0) squares += p;  // limb k/2 squared
+      else pairs += p;
+    }
+    const int d = (k >> 1) + 5;  // every lane shuffles; an even k adds it
+    const u32 ad = W_SHFL(a, g + d);
+    if (even) squares += (u64)(((d & 1) ? 38 : 19) * ad) * ad;
+    W_AT(h, l) = 2 * pairs + squares;
+  }
+  return w_low(w_pass(w_pass(h)));
+}
+
+// k squarings in a row
+PK_DEV wv w_sqn(wv a, int k) {
+#pragma unroll 1
+  for (int i = 0; i < k; i++) a = w_sq(a);
+  return a;
+}
+
+// x^(p − 2): fe_inv's chain, a round a product (one group of the three
+// carries it)
+PK_DEV wv w_inv(const wv &x) {
+  wv t0 = w_sq(x);
+  wv t1 = w_mul(x, w_sqn(t0, 2));
+  wv x11 = w_mul(t0, t1);
+  wv t31 = w_mul(t1, w_sq(x11));
+  wv a = w_mul(w_sqn(t31, 5), t31);
+  wv b = w_mul(w_sqn(a, 10), a);
+  wv c = w_mul(w_sqn(b, 20), b);
+  wv d = w_mul(w_sqn(c, 10), a);
+  wv e = w_mul(w_sqn(d, 50), d);
+  wv f = w_mul(w_sqn(e, 100), e);
+  wv g = w_mul(w_sqn(f, 50), d);
+  return w_mul(w_sqn(g, 5), x11);
+}
+
+// ---------------------------------------------------------------------------
+// agg_prep: one lane over ten warps, 32 lanes a block
+// ---------------------------------------------------------------------------
+//
+// A warp a role. Eight roles decompress one key each (A_e, R_e, V, A_l,
+// R_k, Y, U, Γ); AW_AE first hashes the OCert challenge, AW_AL then walks
+// the KES Merkle path, AW_Y then forms the leader value and eta, AW_G then
+// multiplies Γ by the cofactor. AW_H hashes to the curve (H = 8 ·
+// Elligator2). AW_HASH hashes the KES challenge and the lane's Fiat–Shamir
+// transcript (from the input columns and the two digests, a block at a
+// time). H and 8Γ are compressed with one inversion a block: their 64 Z
+// coordinates are the leaves of a product tree in shared memory; AW_H
+// forms the tree, inverts its root on the warp (w_inv) and walks back
+// down. Each mod-L product runs on a warp that holds its other factor once
+// AW_HASH has published z. Warps meet at named barriers, each between the
+// warps it names (agg_prep.cu), so no warp waits on work it does not read.
+// Every body below is a function of (lane, scratch); host_emu.cpp runs
+// them phase by phase in an order the barriers allow.
 
 // the 22 limb-first input arrays, unpack_limb_first's order
 enum {
@@ -27,23 +194,48 @@ enum {
   AI_TLO, AI_THI, AI_N
 };
 struct AggIn { const int32_t *c[AI_N]; };
-struct AggShape { int B, depth, nb_ed, nb_kes; };
+// alone: the grid has at most one block an SM (agg_prep.cu orders its
+// warps' roles by it; the host build ignores it)
+struct AggShape { int B, depth, nb_ed, nb_kes, alone; };
 // outputs: points [9][B][40] int32 (point-major), scalars [12][B][32]
 // bytes, flags [5][B], eta and leader value [32][B]
-struct AggOut { int32_t *pts; u8 *sc; int32_t *flags, *eta, *lv; };
+// (stamps: the instrument build's clock64 buffer, agg_stamps.cu; else null)
+struct AggOut { int32_t *pts; u8 *sc; int32_t *flags, *eta, *lv; u64 *stamps; };
 enum { PT_RK, PT_U, PT_V, PT_G, PT_H, PT_RE, PT_AE, PT_AL, PT_Y };
 enum { SC_Z2, SC_Z3, SC_Z4, SC_Z4C, SC_Z4S, SC_Z1, SC_Z1H, SC_Z2H, SC_Z3C,
        SC_B1, SC_B2, SC_B3 };
-#define AGG_FS_BYTES 520  // tag ‖ the lane transcript (aggregate.fs_coefficients)
 
-// what the roles hand on, lane-minor bytes
+#define AGG_WARPS 10
+#define AGG_LEAVES (2 * PK_GROUP)  // the tree's leaves: Z of H (2l) and of 8Γ (2l + 1)
+#define AGG_TN (2 * AGG_LEAVES)    // tree nodes in heap order: root 1, leaves 64 .. 127
+enum { AW_AE, AW_RE, AW_V, AW_AL, AW_RK, AW_Y, AW_U, AW_G, AW_H, AW_HASH };
+// the cheap checks, a row a role (OK_RE and OK_RK with s < L, OK_G with
+// s_v < L and β' = β)
+enum { OK_AE, OK_RE, OK_V, OK_AL, OK_RK, OK_Y, OK_U, OK_G, OK_MERKLE, OK_N };
+
+// what the roles hand on: bytes lane-minor, field elements limb-major
 struct AggScratch {
-  u8 ed_dig[64 * PK_GROUP];
-  u8 kes_dig[64 * PK_GROUP];
-  u8 c16[16 * PK_GROUP];
-  u8 z[64 * PK_GROUP];        // the Fiat–Shamir digest, low bits forced
-  int32_t ok[5 * PK_GROUP];   // pre_ed, pre_kes; VRF: Y, Γ ‖ s ‖ β ‖ U, V
+  u8 ed_dig[64 * PK_GROUP];   // the OCert challenge digest (AW_AE)
+  u8 kes_dig[64 * PK_GROUP];  // the KES challenge digest (AW_HASH)
+  u8 he[32 * PK_GROUP];       // h_e = ed_dig mod L (AW_AE)
+  u8 z[64 * PK_GROUP];        // the Fiat–Shamir digest, low bits forced (AW_HASH)
+  u8 c16[16 * PK_GROUP];      // c (AW_H)
+  u32 xy[4][10 * PK_GROUP];   // X, Y of H, then of 8Γ
+  u32 node[10 * AGG_TN];      // the product tree (a zero Z's leaf holds 1)
+  u32 inv[10 * AGG_TN];       // the inverses of its nodes
+  u8 zero[AGG_LEAVES];        // the leaves whose Z is 0
+  int32_t ok[OK_N * PK_GROUP];
 };
+
+PK_DEV fe agg_fe_get(const u32 *a, int stride, int k) {
+  fe r;
+  for (int l = 0; l < 10; l++) r.v[l] = a[l * stride + k];
+  return r;
+}
+
+PK_DEV void agg_fe_put(u32 *a, int stride, int k, const fe &x) {
+  for (int l = 0; l < 10; l++) a[l * stride + k] = x.v[l];
+}
 
 PK_DEV void agg_put_point(const AggOut &o, int col, int i, int B, const ge &p) {
   int32_t *d = o.pts + ((size_t)col * B + i) * 40;
@@ -66,158 +258,275 @@ PK_DEV bool agg_decode(const int32_t *col, int i, int B, ge &p) {
   return ge_decompress(p, b);
 }
 
-// role 0: A_e, R_e and s_e (pre_ed), the OCert challenge digest, and V
-PK_DEV void agg_role_ed(int i, bool live, int lane, const AggShape &s,
-                        const AggIn &in, const AggOut &o, AggScratch &sc) {
-  const int B = s.B;
-  ge a, r, v;
-  u8 sb[32], dig[64];
-  bool ok = agg_decode(in.c[AI_ED_PK], i, B, a);
-  ok = agg_decode(in.c[AI_ED_R], i, B, r) && ok;
-  load_bytes(in.c[AI_ED_S], 32, i, B, sb);
-  sc.ok[lane] = ok && sc_lt_l(sb) ? 1 : 0;
-  sha512_columns(in.c[AI_ED_HB], s.nb_ed, in.c[AI_ED_HNB][i], i, B, dig);
-  for (int k = 0; k < 64; k++) sc.ed_dig[(k << 5) + lane] = dig[k];
-  sc.ok[4 * PK_GROUP + lane] = agg_decode(in.c[AI_VRF_V], i, B, v) ? 1 : 0;
-  if (!live) return;
-  agg_put_point(o, PT_AE, i, B, ge_neg(a));
-  agg_put_point(o, PT_RE, i, B, ge_neg(r));
-  agg_put_point(o, PT_V, i, B, ge_neg(v));
+PK_DEV bool agg_scalar_ok(const int32_t *col, int i, int B) {
+  u8 b[32];
+  load_bytes(col, 32, i, B, b);
+  return sc_lt_l(b);
 }
 
-// role 1: A_l, R_k, s_k, the Merkle walk and period (pre_kes), the KES
-// challenge digest; then the leader value, eta and the two threshold
-// compares (flag rows 3 and 4), which read only the declared β
-PK_DEV void agg_role_kes(int i, bool live, int lane, const AggShape &s,
-                         const AggIn &in, const AggOut &o, AggScratch &sc) {
-  const int B = s.B;
-  ge al, rk;
-  u8 leaf[32], sb[32], dig[64];
-  load_bytes(in.c[AI_KES_LEAF], 32, i, B, leaf);
-  bool ok = ge_decompress(al, leaf);
-  ok = agg_decode(in.c[AI_KES_R], i, B, rk) && ok;
-  load_bytes(in.c[AI_KES_S], 32, i, B, sb);
-  ok = sc_lt_l(sb) && ok;
-  ok = kes_merkle(i, B, s.depth, in.c[AI_KES_VK], in.c[AI_KES_PER], leaf,
-                  in.c[AI_KES_SIB]) && ok;
-  sc.ok[PK_GROUP + lane] = ok ? 1 : 0;
-  sha512_columns(in.c[AI_KES_HB], s.nb_kes, in.c[AI_KES_HNB][i], i, B, dig);
-  for (int k = 0; k < 64; k++) sc.kes_dig[(k << 5) + lane] = dig[k];
-  if (live) {
-    agg_put_point(o, PT_AL, i, B, ge_neg(al));
-    agg_put_point(o, PT_RK, i, B, ge_neg(rk));
+// 64 lane-minor scratch bytes (a digest) mod L
+PK_DEV void agg_reduce_lane(const u8 *dig, int lane, u8 *out) {
+  u64 x[8];
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    u64 v = 0;
+    for (int k = 7; k >= 0; k--) v = (v << 8) | dig[((8 * j + k) << 5) + lane];
+    x[j] = v;
   }
-  finish_role_leader(i, B, live, in.c[AI_BETA], in.c[AI_TLO], in.c[AI_THI],
-                     o.flags, o.eta, o.lv);
+  sc_reduce_words(x, out);
 }
 
-// role 2: H, its compression and c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖ V)[:16],
-// and Y
-PK_DEV void agg_role_h(int i, bool live, int lane, const AggShape &s,
-                       const AggIn &in, const AggOut &o, AggScratch &sc) {
-  const int B = s.B;
-  ge h = vrf_hash_h(i, B, in.c[AI_VRF_PK], in.c[AI_VRF_AL]);
-  u8 buf[130], dg[64];
-  buf[0] = 0x04; buf[1] = 0x02;
-  ge_compress_many(&h, 1, buf + 2);
-  load_bytes(in.c[AI_VRF_G], 32, i, B, buf + 34);
-  load_bytes(in.c[AI_VRF_U], 32, i, B, buf + 66);
-  load_bytes(in.c[AI_VRF_V], 32, i, B, buf + 98);
-  sha512_msg(buf, 130, dg);
-  for (int k = 0; k < 16; k++) sc.c16[(k << 5) + lane] = dg[k];
-  ge y;
-  sc.ok[2 * PK_GROUP + lane] = agg_decode(in.c[AI_VRF_PK], i, B, y) ? 1 : 0;
-  if (!live) return;
-  agg_put_point(o, PT_H, i, B, h);
-  agg_put_point(o, PT_Y, i, B, ge_neg(y));
+// a decompression role: the key of input column `col`, negated, into
+// point column `pt`; whether it decodes into ok row `row`
+PK_DEV void agg_decompress(int col, int pt, int row, int i, bool live, int lane,
+                           const AggShape &s, const AggIn &in, const AggOut &o,
+                           AggScratch &sc) {
+  ge p;
+  sc.ok[row * PK_GROUP + lane] = agg_decode(in.c[col], i, s.B, p) ? 1 : 0;
+  if (live) agg_put_point(o, pt, i, s.B, ge_neg(p));
 }
 
-// role 3: Γ and s_v, 8·Γ's compression and β' = SHA-512(suite ‖ 3 ‖ 8Γ)
-// against the declared β, and U
-PK_DEV void agg_role_gamma(int i, bool live, int lane, const AggShape &s,
-                           const AggIn &in, const AggOut &o, AggScratch &sc) {
-  const int B = s.B;
-  ge g, u;
-  bool ok = vrf_decode_gamma(i, B, in.c[AI_VRF_G], in.c[AI_VRF_S], g);
+// AW_AE, first: the OCert challenge digest
+PK_DEV void agg_ae_digest(int i, int lane, const AggShape &s, const AggIn &in, AggScratch &sc) {
+  u8 dig[64];
+  sha512_columns(in.c[AI_ED_HB], s.nb_ed, in.c[AI_ED_HNB][i], i, s.B, dig);
+  for (int k = 0; k < 64; k++) sc.ed_dig[(k << 5) + lane] = dig[k];
+}
+
+// AW_AE, then: h_e and A_e
+PK_DEV void agg_ae_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                         const AggOut &o, AggScratch &sc) {
+  u8 h[32];
+  agg_reduce_lane(sc.ed_dig, lane, h);
+  for (int k = 0; k < 32; k++) sc.he[(k << 5) + lane] = h[k];
+  agg_decompress(AI_ED_PK, PT_AE, OK_AE, i, live, lane, s, in, o, sc);
+}
+
+// AW_RE: R_e, and s_e < L
+PK_DEV void agg_re_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                         const AggOut &o, AggScratch &sc) {
+  agg_decompress(AI_ED_R, PT_RE, OK_RE, i, live, lane, s, in, o, sc);
+  sc.ok[OK_RE * PK_GROUP + lane] &= agg_scalar_ok(in.c[AI_ED_S], i, s.B) ? 1 : 0;
+}
+
+// AW_RK: R_k, and s_k < L
+PK_DEV void agg_rk_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                         const AggOut &o, AggScratch &sc) {
+  agg_decompress(AI_KES_R, PT_RK, OK_RK, i, live, lane, s, in, o, sc);
+  sc.ok[OK_RK * PK_GROUP + lane] &= agg_scalar_ok(in.c[AI_KES_S], i, s.B) ? 1 : 0;
+}
+
+// AW_AL: A_l, then the Merkle walk and the period's range
+PK_DEV void agg_al_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                         const AggOut &o, AggScratch &sc) {
+  agg_decompress(AI_KES_LEAF, PT_AL, OK_AL, i, live, lane, s, in, o, sc);
+  sc.ok[OK_MERKLE * PK_GROUP + lane] =
+      kes_merkle(i, s.B, s.depth, in.c[AI_KES_VK], in.c[AI_KES_PER], in.c[AI_KES_LEAF],
+                 in.c[AI_KES_SIB]) ? 1 : 0;
+}
+
+// AW_Y: Y, then the leader value, eta and the two threshold compares
+// (flag rows 3 and 4), which read only the declared β
+PK_DEV void agg_y_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                        const AggOut &o, AggScratch &sc) {
+  agg_decompress(AI_VRF_PK, PT_Y, OK_Y, i, live, lane, s, in, o, sc);
+  finish_role_leader(i, s.B, live, in.c[AI_BETA], in.c[AI_TLO], in.c[AI_THI], o.flags, o.eta, o.lv);
+}
+
+// a tree leaf: Z, or 1 in place of a zero Z (whose inverse is then 0, as
+// fe_inv(0) is)
+PK_DEV void agg_tree_leaf(AggScratch &sc, int k, const fe &z) {
+  bool zero = fe_is_zero(z);
+  sc.zero[k] = zero ? 1 : 0;
+  agg_fe_put(sc.node, AGG_TN, AGG_LEAVES + k, zero ? fe_one() : z);
+}
+
+// AW_G, first: Γ and s_v < L, −Γ, and 8Γ's X, Y and leaf
+PK_DEV void agg_g_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                        const AggOut &o, AggScratch &sc) {
+  ge g;
+  sc.ok[OK_G * PK_GROUP + lane] =
+      vrf_decode_gamma(i, s.B, in.c[AI_VRF_G], in.c[AI_VRF_S], g) ? 1 : 0;
   ge g8 = ge_mul_cofactor(g);
-  u8 buf[34], dg[64], bb[64];
-  buf[0] = 0x04; buf[1] = 0x03;
-  ge_compress_many(&g8, 1, buf + 2);
-  sha512_msg(buf, 34, dg);
-  load_bytes(in.c[AI_BETA], 64, i, B, bb);
-  for (int k = 0; k < 64; k++) ok = ok && dg[k] == bb[k];
-  ok = agg_decode(in.c[AI_VRF_U], i, B, u) && ok;
-  sc.ok[3 * PK_GROUP + lane] = ok ? 1 : 0;
-  if (!live) return;
-  agg_put_point(o, PT_G, i, B, ge_neg(g));
-  agg_put_point(o, PT_U, i, B, ge_neg(u));
+  agg_fe_put(sc.xy[2], PK_GROUP, lane, g8.x);
+  agg_fe_put(sc.xy[3], PK_GROUP, lane, g8.y);
+  agg_tree_leaf(sc, 2 * lane + 1, g8.z);
+  if (live) agg_put_point(o, PT_G, i, s.B, ge_neg(g));
 }
 
-// phase 2 (warp 0): the Fiat–Shamir digest of the lane's transcript
+// AW_H, first: H = 8·Elligator2(SHA-512(suite ‖ 1 ‖ Y ‖ alpha) mod 2^255)
+// (stages.cuh's vrf_hash_h), and its X, Y and leaf
+PK_DEV void agg_h_point(int i, bool live, int lane, const AggShape &s, const AggIn &in,
+                        const AggOut &o, AggScratch &sc) {
+  ge h = vrf_hash_h(i, s.B, in.c[AI_VRF_PK], in.c[AI_VRF_AL]);
+  agg_fe_put(sc.xy[0], PK_GROUP, lane, h.x);
+  agg_fe_put(sc.xy[1], PK_GROUP, lane, h.y);
+  agg_tree_leaf(sc, 2 * lane, h.z);
+  if (live) agg_put_point(o, PT_H, i, s.B, h);
+}
+
+// the tree, a thread a node: node n + t of the level of n nodes from its
+// children (up), then their inverses from its own (down; below the
+// lowest level a zero Z's inverse is 0)
+PK_DEV void agg_tree_up(AggScratch &sc, int n, int t) {
+  int m = n + t;
+  agg_fe_put(sc.node, AGG_TN, m, fe_mul(agg_fe_get(sc.node, AGG_TN, 2 * m),
+                                        agg_fe_get(sc.node, AGG_TN, 2 * m + 1)));
+}
+
+PK_DEV void agg_tree_down(AggScratch &sc, int n, int t) {
+  int m = n + t;
+  fe iv = agg_fe_get(sc.inv, AGG_TN, m);
+  fe il = fe_mul(iv, agg_fe_get(sc.node, AGG_TN, 2 * m + 1));
+  fe ir = fe_mul(iv, agg_fe_get(sc.node, AGG_TN, 2 * m));
+  if (2 * m >= AGG_LEAVES) {
+    if (sc.zero[2 * m - AGG_LEAVES]) il = fe_zero();
+    if (sc.zero[2 * m + 1 - AGG_LEAVES]) ir = fe_zero();
+  }
+  agg_fe_put(sc.inv, AGG_TN, 2 * m, il);
+  agg_fe_put(sc.inv, AGG_TN, 2 * m + 1, ir);
+}
+
+// the root's inverse, on the whole warp (a field element over ten lanes)
+PK_DEV void agg_tree_invert(AggScratch &sc) {
+  wv x;
+  W_LANES(l) { W_AT(x, l) = sc.node[w_limb(l) * AGG_TN + 1]; }
+  wv r = w_inv(x);
+  W_LANES(l) {
+    if (l < 10) sc.inv[l * AGG_TN + 1] = W_AT(r, l);
+  }
+}
+
+// leaf 2·lane + which's point (0: H, 1: 8Γ) compressed with its inverse
+PK_DEV void agg_compress(const AggScratch &sc, int which, int lane, u8 *out) {
+  fe iz = agg_fe_get(sc.inv, AGG_TN, AGG_LEAVES + 2 * lane + which);
+  fe x = fe_mul(agg_fe_get(sc.xy[2 * which], PK_GROUP, lane), iz);
+  fe y = fe_mul(agg_fe_get(sc.xy[2 * which + 1], PK_GROUP, lane), iz);
+  fe_to_bytes(out, y);
+  out[31] |= (u8)(fe_parity(x) << 7);
+}
+
+// AW_G, after the tree: β' = SHA-512(suite ‖ 3 ‖ 8Γ) against the declared β
+PK_DEV void agg_g_beta(int i, int lane, const AggShape &s, const AggIn &in, AggScratch &sc) {
+  u8 enc[32], dg[64];
+  agg_compress(sc, 1, lane, enc);
+  vrf_beta(enc, dg);
+  bool ok = true;
+  for (int k = 0; k < 64; k++) ok = ok && dg[k] == (u8)in.c[AI_BETA][(size_t)k * s.B + i];
+  if (!ok) sc.ok[OK_G * PK_GROUP + lane] = 0;
+}
+
+// AW_H, after the tree: c = SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖ V)[:16]
+PK_DEV void agg_h_challenge(int i, int lane, const AggShape &s, const AggIn &in,
+                            AggScratch &sc) {
+  u8 enc[32], dg[64];
+  agg_compress(sc, 0, lane, enc);
+  vrf_challenge(enc, i, s.B, in.c[AI_VRF_G], in.c[AI_VRF_U], in.c[AI_VRF_V], dg);
+  for (int k = 0; k < 16; k++) sc.c16[(k << 5) + lane] = dg[k];
+}
+
+// AW_HASH, first: the KES challenge digest
+PK_DEV void agg_kes_digest(int i, int lane, const AggShape &s, const AggIn &in,
+                           AggScratch &sc) {
+  u8 dig[64];
+  sha512_columns(in.c[AI_KES_HB], s.nb_kes, in.c[AI_KES_HNB][i], i, s.B, dig);
+  for (int k = 0; k < 64; k++) sc.kes_dig[(k << 5) + lane] = dig[k];
+}
+
+// AW_HASH, after AW_AE's digest: the Fiat–Shamir digest of the lane's
+// transcript (tag ‖ R_e ‖ s_e ‖ OCert digest ‖ R_k ‖ s_k ‖ KES digest ‖ Γ ‖
+// U ‖ V ‖ s_v ‖ Y ‖ alpha ‖ β, 520 bytes: aggregate.fs_coefficients)
 PK_DEV void agg_fs(int i, int lane, const AggShape &s, const AggIn &in, AggScratch &sc) {
+  const u64 tag = 0x6f6374524c432d31ull;  // "octRLC-1"
+  // after the tag, the transcript's 32-byte runs q = 0 .. 15: R_e, s_e, the
+  // OCert digest (2), R_k, s_k, the KES digest (2), Γ, U, V, s_v, Y,
+  // alpha, β (2)
+  const int32_t *col[14] = {in.c[AI_ED_R], in.c[AI_ED_S], nullptr, nullptr,
+                            in.c[AI_KES_R], in.c[AI_KES_S], nullptr, nullptr,
+                            in.c[AI_VRF_G], in.c[AI_VRF_U], in.c[AI_VRF_V], in.c[AI_VRF_S],
+                            in.c[AI_VRF_PK], in.c[AI_VRF_AL]};
+  const int32_t *beta = in.c[AI_BETA];
   const int B = s.B;
-  const char tag[8] = {'o', 'c', 't', 'R', 'L', 'C', '-', '1'};
-  u8 m[AGG_FS_BYTES], z[64];
-  int o = 0;
-  for (int k = 0; k < 8; k++) m[o++] = (u8)tag[k];
-  load_bytes(in.c[AI_ED_R], 32, i, B, m + o); o += 32;
-  load_bytes(in.c[AI_ED_S], 32, i, B, m + o); o += 32;
-  for (int k = 0; k < 64; k++) m[o++] = sc.ed_dig[(k << 5) + lane];
-  load_bytes(in.c[AI_KES_R], 32, i, B, m + o); o += 32;
-  load_bytes(in.c[AI_KES_S], 32, i, B, m + o); o += 32;
-  for (int k = 0; k < 64; k++) m[o++] = sc.kes_dig[(k << 5) + lane];
-  const int cols[6] = {AI_VRF_G, AI_VRF_U, AI_VRF_V, AI_VRF_S, AI_VRF_PK, AI_VRF_AL};
-  for (int c = 0; c < 6; c++) { load_bytes(in.c[cols[c]], 32, i, B, m + o); o += 32; }
-  load_bytes(in.c[AI_BETA], 64, i, B, m + o);
-  sha512_long(m, AGG_FS_BYTES, z);
+  u8 z[64];
+  sha512_msg<520>([&](int k) -> u8 {
+    if (k < 8) return (u8)(tag >> (56 - 8 * k));
+    const int q = (k - 8) >> 5, r = (k - 8) & 31;
+    if (q == 2 || q == 3) return sc.ed_dig[((32 * (q - 2) + r) << 5) + lane];
+    if (q == 6 || q == 7) return sc.kes_dig[((32 * (q - 6) + r) << 5) + lane];
+    if (q < 14) return (u8)col[q][(size_t)r * B + i];
+    return (u8)beta[(size_t)(32 * (q - 14) + r) * B + i];
+  }, z);
   for (int k = 0; k < 64; k++) sc.z[(k << 5) + lane] = (k & 15) == 0 ? (z[k] | 1) : z[k];
 }
 
-// phase 3: warp `role` stores coefficient z_(role+1) and its products
-// mod L (role 2 also the three cheap-check flag rows)
+// once z is published: coefficient z_(r+1) into scalar row `row`, and its
+// product with the n bytes x mod L
+PK_DEV void agg_coef(int r, int row, int i, bool live, int lane, const AggShape &s,
+                     const AggOut &o, const AggScratch &sc) {
+  u8 z[16];
+  for (int k = 0; k < 16; k++) z[k] = sc.z[((16 * r + k) << 5) + lane];
+  if (live) agg_put_scalar(o, row, i, s.B, z, 16);
+}
+
+// x: n (16 or 32) bytes
+PK_DEV void agg_product(int r, const u8 *x, int n, int row, int i, bool live, int lane,
+                        const AggShape &s, const AggOut &o, const AggScratch &sc) {
+  u8 z[16], xx[32], p[32];
+  for (int k = 0; k < 16; k++) z[k] = sc.z[((16 * r + k) << 5) + lane];
+  for (int k = 0; k < 32; k++) xx[k] = k < n ? x[k] : 0;
+  sc_mul<4>(z, xx, p);
+  if (live) agg_put_scalar(o, row, i, s.B, p, 32);
+}
+
+// a product with 32 bytes of input column `col`
+PK_DEV void agg_product_col(int r, int col, int row, int i, bool live, int lane,
+                            const AggShape &s, const AggIn &in, const AggOut &o,
+                            const AggScratch &sc) {
+  u8 x[32];
+  load_bytes(in.c[col], 32, i, s.B, x);
+  agg_product(r, x, 32, row, i, live, lane, s, o, sc);
+}
+
+// the products, by role: z1, z1·h_e (AW_AE); z1·s_e (AW_RE); z3, z3·s_v
+// (AW_V); z2·s_k (AW_RK); z4, z4·s_v (AW_U); z4·c (AW_G); z3·c (AW_H);
+// z2, z2·h_k (AW_HASH)
 PK_DEV void agg_products(int role, int i, bool live, int lane, const AggShape &s,
                          const AggIn &in, const AggOut &o, const AggScratch &sc) {
-  const int B = s.B;
-  const int zoff[4] = {0, 16, 32, 48};
-  u8 z[16], x[32], y[32], p[32];
-  for (int k = 0; k < 16; k++) z[k] = sc.z[((zoff[role] + k) << 5) + lane];
-  if (role == 0) {  // z1: R_e's table, z1·h_e (A_e's), z1·s_e (B's)
-    u8 dig[64];
-    for (int k = 0; k < 64; k++) dig[k] = sc.ed_dig[(k << 5) + lane];
-    sc_reduce512(dig, x);
-    load_bytes(in.c[AI_ED_S], 32, i, B, y);
-    if (!live) return;
-    agg_put_scalar(o, SC_Z1, i, B, z, 16);
-    sc_mul(z, 16, x, 32, p); agg_put_scalar(o, SC_Z1H, i, B, p, 32);
-    sc_mul(z, 16, y, 32, p); agg_put_scalar(o, SC_B1, i, B, p, 32);
-  } else if (role == 1) {  // z2: −R_k's, z2·h_k (A_l's), z2·s_k (B's)
-    u8 dig[64];
-    for (int k = 0; k < 64; k++) dig[k] = sc.kes_dig[(k << 5) + lane];
-    sc_reduce512(dig, x);
-    load_bytes(in.c[AI_KES_S], 32, i, B, y);
-    if (!live) return;
-    agg_put_scalar(o, SC_Z2, i, B, z, 16);
-    sc_mul(z, 16, x, 32, p); agg_put_scalar(o, SC_Z2H, i, B, p, 32);
-    sc_mul(z, 16, y, 32, p); agg_put_scalar(o, SC_B2, i, B, p, 32);
-  } else if (role == 2) {  // z3: −U's, z3·c (Y's), z3·s_v (B's); the flags
+  u8 x[32];
+  if (role == AW_AE) {
+    for (int k = 0; k < 32; k++) x[k] = sc.he[(k << 5) + lane];
+    agg_coef(0, SC_Z1, i, live, lane, s, o, sc);
+    agg_product(0, x, 32, SC_Z1H, i, live, lane, s, o, sc);
+  } else if (role == AW_RE) {
+    agg_product_col(0, AI_ED_S, SC_B1, i, live, lane, s, in, o, sc);
+  } else if (role == AW_V) {
+    agg_coef(2, SC_Z3, i, live, lane, s, o, sc);
+    agg_product_col(2, AI_VRF_S, SC_B3, i, live, lane, s, in, o, sc);
+  } else if (role == AW_RK) {
+    agg_product_col(1, AI_KES_S, SC_B2, i, live, lane, s, in, o, sc);
+  } else if (role == AW_U) {
+    agg_coef(3, SC_Z4, i, live, lane, s, o, sc);
+    agg_product_col(3, AI_VRF_S, SC_Z4S, i, live, lane, s, in, o, sc);
+  } else if (role == AW_G || role == AW_H) {
     for (int k = 0; k < 16; k++) x[k] = sc.c16[(k << 5) + lane];
-    load_bytes(in.c[AI_VRF_S], 32, i, B, y);
-    if (!live) return;
-    agg_put_scalar(o, SC_Z3, i, B, z, 16);
-    sc_mul(z, 16, x, 16, p); agg_put_scalar(o, SC_Z3C, i, B, p, 32);
-    sc_mul(z, 16, y, 32, p); agg_put_scalar(o, SC_B3, i, B, p, 32);
-    o.flags[i] = sc.ok[lane];
-    o.flags[(size_t)B + i] = sc.ok[PK_GROUP + lane];
-    o.flags[(size_t)2 * B + i] =
-        sc.ok[2 * PK_GROUP + lane] & sc.ok[3 * PK_GROUP + lane] & sc.ok[4 * PK_GROUP + lane];
-  } else {  // z4: −V's, z4·c (−Γ's), z4·s_v (H's)
-    for (int k = 0; k < 16; k++) x[k] = sc.c16[(k << 5) + lane];
-    load_bytes(in.c[AI_VRF_S], 32, i, B, y);
-    if (!live) return;
-    agg_put_scalar(o, SC_Z4, i, B, z, 16);
-    sc_mul(z, 16, x, 16, p); agg_put_scalar(o, SC_Z4C, i, B, p, 32);
-    sc_mul(z, 16, y, 32, p); agg_put_scalar(o, SC_Z4S, i, B, p, 32);
+    if (role == AW_G) agg_product(3, x, 16, SC_Z4C, i, live, lane, s, o, sc);
+    else agg_product(2, x, 16, SC_Z3C, i, live, lane, s, o, sc);
+  } else if (role == AW_HASH) {
+    agg_reduce_lane(sc.kes_dig, lane, x);
+    agg_coef(1, SC_Z2, i, live, lane, s, o, sc);
+    agg_product(1, x, 32, SC_Z2H, i, live, lane, s, o, sc);
   }
+}
+
+// last, after every role: the three cheap-check flag rows
+PK_DEV void agg_flags(int i, bool live, int lane, const AggShape &s, const AggOut &o,
+                      const AggScratch &sc) {
+  if (!live) return;
+  const int32_t *ok = sc.ok + lane;
+  const int G = PK_GROUP;
+  o.flags[i] = ok[OK_AE * G] & ok[OK_RE * G];
+  o.flags[(size_t)s.B + i] = ok[OK_AL * G] & ok[OK_RK * G] & ok[OK_MERKLE * G];
+  o.flags[(size_t)2 * s.B + i] = ok[OK_Y * G] & ok[OK_G * G] & ok[OK_U * G] & ok[OK_V * G];
 }
 
 // ---------------------------------------------------------------------------
@@ -654,103 +963,10 @@ PK_DEV int32_t *msm_join_level(int32_t *b, int w, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// The Horner chain on one warp, a field element over ten lanes: lane k of
-// a group holds limb k, three groups a warp (lanes 30 and 31 run along),
-// so a round of products runs three at once. Lane k forms its own column
-// of the product (ten terms, the operands' limbs shuffled in) and the
-// carry passes move each column's carry one lane up, so every product,
-// sum and difference equals pk.cuh's fe_mul, fe_add and fe_sub limb for
-// limb, and w_dbl / w_add the one-thread ge_dbl / ge_add. On the host a
-// warp value holds all 32 lanes and a shuffle is an index.
+// msm's Horner chain on one warp (the ten-lane field elements above)
 // ---------------------------------------------------------------------------
 
-#ifdef PK_HOST
-#define W_N 32
-#define W_LANES(l) for (int l = 0; l < 32; l++)
-#define W_AT(x, l) ((x).v[l])
-#define W_SHFL(x, src) ((x).v[(src) & 31])
-#else
-#define W_N 1
-#define W_LANES(l) for (int l = threadIdx.x & 31, w_once = 0; w_once < 1; w_once++)
-#define W_AT(x, l) ((x).v[0])
-#define W_SHFL(x, src) __shfl_sync(0xffffffffu, (x).v[0], (src))
-#endif
-
-struct wv { u32 v[W_N]; };    // a limb a lane
-struct wv64 { u64 v[W_N]; };  // a column a lane
 struct wge { wv x, y, z, t; };
-
-// lane l's limb and its group's first lane
-PK_DEV int w_limb(int l) { return l % 10; }
-PK_DEV int w_base(int l) { return l - l % 10; }
-
-// one carry pass of fe_carry: limb k keeps its low bits plus the carry
-// out of limb k - 1 (limb 0: 19 x limb 9's)
-PK_DEV wv64 w_pass(const wv64 &h) {
-  wv64 c, r;
-  W_LANES(l) { W_AT(c, l) = W_AT(h, l) >> ((w_limb(l) & 1) ? 25 : 26); }
-  W_LANES(l) {
-    int k = w_limb(l);
-    u64 cin = W_SHFL(c, w_base(l) + (k == 0 ? 9 : k - 1));
-    W_AT(r, l) = (W_AT(h, l) & ((((u64)1) << ((k & 1) ? 25 : 26)) - 1)) +
-                 (k == 0 ? 19 * cin : cin);
-  }
-  return r;
-}
-
-PK_DEV wv w_low(const wv64 &h) {
-  wv r;
-  W_LANES(l) { W_AT(r, l) = (u32)W_AT(h, l); }
-  return r;
-}
-
-// fe_mul's column k on lane k: term (i, k - i mod 10) doubled when both
-// limbs are odd (i odd, k even) and times 19 when it wraps (i > k)
-PK_DEV wv w_mul(const wv &a, const wv &b) {
-  wv64 h;
-  W_LANES(l) {
-    int k = w_limb(l), g = w_base(l);
-    u64 acc = 0;
-#pragma unroll
-    for (int i = 0; i < 10; i++) {
-      u32 ai = W_SHFL(a, g + i);
-      if (i & 1) ai = (k & 1) ? ai : 2 * ai;
-      u32 bj = W_SHFL(b, g + (k >= i ? k - i : k - i + 10));
-      acc += (u64)ai * (i > k ? 19 * bj : bj);
-    }
-    W_AT(h, l) = acc;
-  }
-  return w_low(w_pass(w_pass(h)));
-}
-
-PK_DEV wv w_add(const wv &a, const wv &b) {
-  wv64 h;
-  W_LANES(l) { W_AT(h, l) = (u64)W_AT(a, l) + W_AT(b, l); }
-  return w_low(w_pass(h));
-}
-
-// limb k of 2p (PK_TWO_P)
-PK_DEV u32 w_two_p(int k) { return k == 0 ? 0x7ffffdau : (k & 1) ? 0x3fffffeu : 0x7fffffeu; }
-
-PK_DEV wv w_sub(const wv &a, const wv &b) {
-  wv64 h;
-  W_LANES(l) { W_AT(h, l) = (u64)W_AT(a, l) + w_two_p(w_limb(l)) - W_AT(b, l); }
-  return w_low(w_pass(h));
-}
-
-// group 0 takes a, group 1 b, the rest c
-PK_DEV wv w_pick(const wv &a, const wv &b, const wv &c) {
-  wv r;
-  W_LANES(l) { W_AT(r, l) = l < 10 ? W_AT(a, l) : l < 20 ? W_AT(b, l) : W_AT(c, l); }
-  return r;
-}
-
-// group g's element in every group
-PK_DEV wv w_from(const wv &x, int g) {
-  wv r;
-  W_LANES(l) { W_AT(r, l) = W_SHFL(x, 10 * g + w_limb(l)); }
-  return r;
-}
 
 // ge_dbl: the squares of X, Y, Z in one round, (X + Y)^2 in a second,
 // X3 = e·f, Y3 = g·h, Z3 = f·g in a third, T3 = e·h in a fourth when an

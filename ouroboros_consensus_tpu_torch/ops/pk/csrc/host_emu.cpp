@@ -148,8 +148,21 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
   return 0;
 }
 
-// the window aggregate: agg_prep group by group (each role over the
-// group's lanes, then the transcript hashes, then each role's products);
+// AW_H's tree: up level by level, the root's inverse on the warp, down
+static void agg_tree_host(AggScratch &sc) {
+  for (int n = PK_GROUP; n >= 1; n >>= 1)
+    for (int t = 0; t < n; t++) agg_tree_up(sc, n, t);
+  agg_tree_invert(sc);
+  for (int n = 1; n <= PK_GROUP; n <<= 1)
+    for (int t = 0; t < n; t++) agg_tree_down(sc, n, t);
+}
+
+// the window aggregate: agg_prep group by group, over a scratch filled
+// with 0xA5 first (a read of what no earlier phase wrote gives garbage);
+// each phase over the group's 32 lanes (lanes past B run along, as on the
+// card: their Z's are leaves of the tree), in an order the kernel's
+// barriers allow: every role's first phase, AW_H's tree, the phases after
+// AB_ED and AB_INV, c (AB_C), then the products (AB_COEF) and the flags.
 // agg_tables row by row; the msm phase by phase, each phase's threads in
 // turn (the atomics' places are then in point order), the scan
 // sequential, a big bucket's tree round by round, the tree level by
@@ -158,20 +171,62 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
 extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
                            void *const *cols, void *pts, void *scal,
                            void *flags, void *eta, void *lv, void *) {
-  AggShape s{B, depth, nb_ed, nb_kes};
+  AggShape s{B, depth, nb_ed, nb_kes, 0};
   AggIn in;
   for (int k = 0; k < AI_N; k++) in.c[k] = (CI)cols[k];
-  AggOut o{(OI)pts, (u8 *)scal, (OI)flags, (OI)eta, (OI)lv};
+  AggOut o{(OI)pts, (u8 *)scal, (OI)flags, (OI)eta, (OI)lv, nullptr};
   static AggScratch sc;
   for (int g = 0; g < B; g += PK_GROUP) {
-    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
-    for (int l = 0; l < n; l++) agg_role_ed(g + l, true, l, s, in, o, sc);
-    for (int l = 0; l < n; l++) agg_role_kes(g + l, true, l, s, in, o, sc);
-    for (int l = 0; l < n; l++) agg_role_h(g + l, true, l, s, in, o, sc);
-    for (int l = 0; l < n; l++) agg_role_gamma(g + l, true, l, s, in, o, sc);
-    for (int l = 0; l < n; l++) agg_fs(g + l, l, s, in, sc);
-    for (int r = 0; r < 4; r++)
-      for (int l = 0; l < n; l++) agg_products(r, g + l, true, l, s, in, o, sc);
+    u8 *raw = (u8 *)&sc;
+    for (size_t k = 0; k < sizeof sc; k++) raw[k] = 0xA5;
+#define AGG_LANES(body)                                   \
+  for (int l = 0; l < PK_GROUP; l++) {                    \
+    const bool live = g + l < B;                          \
+    const int i = live ? g + l : B - 1;                   \
+    body;                                                 \
+  }
+    AGG_LANES(agg_ae_digest(i, l, s, in, sc));
+    AGG_LANES(agg_kes_digest(i, l, s, in, sc));
+    AGG_LANES(agg_re_point(i, live, l, s, in, o, sc));
+    AGG_LANES(agg_decompress(AI_VRF_V, PT_V, OK_V, i, live, l, s, in, o, sc));
+    AGG_LANES(agg_al_point(i, live, l, s, in, o, sc));
+    AGG_LANES(agg_rk_point(i, live, l, s, in, o, sc));
+    AGG_LANES(agg_y_point(i, live, l, s, in, o, sc));
+    AGG_LANES(agg_decompress(AI_VRF_U, PT_U, OK_U, i, live, l, s, in, o, sc));
+    AGG_LANES(agg_g_point(i, live, l, s, in, o, sc));
+    AGG_LANES(agg_h_point(i, live, l, s, in, o, sc));
+    agg_tree_host(sc);
+    AGG_LANES(agg_fs(i, l, s, in, sc));
+    AGG_LANES(agg_ae_point(i, live, l, s, in, o, sc));
+    AGG_LANES(agg_g_beta(i, l, s, in, sc));
+    AGG_LANES(agg_h_challenge(i, l, s, in, sc));
+    const int coef[8] = {AW_AE, AW_RE, AW_V, AW_RK, AW_U, AW_G, AW_H, AW_HASH};
+    for (int r : coef) AGG_LANES(agg_products(r, i, live, l, s, in, o, sc));
+    AGG_LANES(agg_flags(i, live, l, s, o, sc));
+#undef AGG_LANES
+  }
+  return 0;
+}
+
+// host only: sc_reduce512 over [B][64] little-endian bytes -> [B][32]
+extern "C" int pk_sc_reduce(int B, const void *in, void *out) {
+  for (int b = 0; b < B; b++) sc_reduce512((const u8 *)in + 64 * b, (u8 *)out + 32 * b);
+  return 0;
+}
+
+// host only: agg_prep's tree over 64 field elements [64][10] -> their
+// inverses [64][10] (0 for a zero)
+extern "C" int pk_agg_inv_tree(const void *z, void *inv) {
+  static AggScratch sc;
+  for (int k = 0; k < AGG_LEAVES; k++) {
+    fe x;
+    for (int l = 0; l < 10; l++) x.v[l] = ((const u32 *)z)[10 * k + l];
+    agg_tree_leaf(sc, k, x);
+  }
+  agg_tree_host(sc);
+  for (int k = 0; k < AGG_LEAVES; k++) {
+    fe x = agg_fe_get(sc.inv, AGG_TN, AGG_LEAVES + k);
+    for (int l = 0; l < 10; l++) ((u32 *)inv)[10 * k + l] = x.v[l];
   }
   return 0;
 }
@@ -179,7 +234,7 @@ extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
 // host only: sc_mul and sc_add over [B, 32] little-endian byte rows
 extern "C" int pk_sc_mul(int B, const void *a, const void *b, void *out) {
   for (int i = 0; i < B; i++)
-    sc_mul((const u8 *)a + 32 * i, 32, (const u8 *)b + 32 * i, 32, (u8 *)out + 32 * i);
+    sc_mul<8>((const u8 *)a + 32 * i, (const u8 *)b + 32 * i, (u8 *)out + 32 * i);
   return 0;
 }
 

@@ -365,12 +365,12 @@ PK_DEV ge ge_neg(const ge &p) {
   return r;
 }
 
-PK_NOINLINE ge ge_mul_cofactor(const ge &p) {
-  ge q = p;
-  ge_dbl(q, q, false);
-  ge_dbl(q, q, false);
-  ge_dbl(q, q, true);
-  return q;
+// 8·P as a loop over one doubling: one copy of its code, its
+// temporaries live one doubling at a time
+PK_NOINLINE ge ge_mul_cofactor(ge p) {
+#pragma unroll 1
+  for (int k = 0; k < 3; k++) ge_dbl(p, p, k == 2);
+  return p;
 }
 
 // A point in cached form for additions: (Y+X, Y-X, 2d·T, 2Z).
@@ -717,34 +717,38 @@ PK_NOINLINE ge ge_base_mul_w8(const u32 *table, const u8 *s) {
 
 PK_DEV u64 rotr64(u64 x, int n) { return (x >> n) | (x << (64 - n)); }
 
-PK_NOINLINE void sha512_compress(u64 st[8], const u8 *blk) {
-  u64 w[80];
+// SHA-512's 80 rounds over a window of 16 message words, unrolled
+// sixteen at a time so that every index into the window is a constant:
+// the schedule stays in registers
+PK_DEV void sha512_rounds(u64 st[8], u64 w[16]) {
+  u64 a = st[0], b = st[1], c = st[2], d = st[3], e = st[4], f = st[5], g = st[6],
+      h = st[7];
 #pragma unroll 1
-  for (int t = 0; t < 16; t++) {
-    u64 x = 0;
-    for (int j = 0; j < 8; j++) x = (x << 8) | blk[8 * t + j];
-    w[t] = x;
-  }
-#pragma unroll 1
-  for (int t = 16; t < 80; t++) {
-    u64 s0 = rotr64(w[t - 15], 1) ^ rotr64(w[t - 15], 8) ^ (w[t - 15] >> 7);
-    u64 s1 = rotr64(w[t - 2], 19) ^ rotr64(w[t - 2], 61) ^ (w[t - 2] >> 6);
-    w[t] = s1 + w[t - 7] + s0 + w[t - 16];
-  }
-  u64 a = st[0], b = st[1], c = st[2], d = st[3];
-  u64 e = st[4], f = st[5], g = st[6], h = st[7];
-#pragma unroll 1
-  for (int t = 0; t < 80; t++) {
-    u64 s1 = rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41);
-    u64 ch = (e & f) ^ (~e & g);
-    u64 t1 = h + s1 + ch + PK_SHA512_K[t] + w[t];
-    u64 s0 = rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39);
-    u64 maj = (a & b) ^ (a & c) ^ (b & c);
-    u64 t2 = s0 + maj;
-    h = g; g = f; f = e; e = d + t1; d = c; c = b; b = a; a = t1 + t2;
+  for (int r = 0; r < 80; r += 16) {
+#pragma unroll
+    for (int j = 0; j < 16; j++) {
+      if (r > 0) {  // w[r + j] from the window's w[r + j − 16 .. r + j − 1]
+        u64 x = w[(j + 1) & 15], y = w[(j + 14) & 15];
+        w[j] += (rotr64(y, 19) ^ rotr64(y, 61) ^ (y >> 6)) + w[(j + 9) & 15] +
+                (rotr64(x, 1) ^ rotr64(x, 8) ^ (x >> 7));
+      }
+      u64 t1 = h + (rotr64(e, 14) ^ rotr64(e, 18) ^ rotr64(e, 41)) + ((e & f) ^ (~e & g)) +
+               PK_SHA512_K[r + j] + w[j];
+      u64 t2 = (rotr64(a, 28) ^ rotr64(a, 34) ^ rotr64(a, 39)) + ((a & b) ^ (a & c) ^ (b & c));
+      h = g; g = f; f = e; e = d + t1; d = c; c = b; b = a; a = t1 + t2;
+    }
   }
   st[0] += a; st[1] += b; st[2] += c; st[3] += d;
   st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+}
+
+// one SHA-512 compression of 16 big-endian message words (one copy of
+// the rounds)
+PK_NOINLINE void sha512_compress(u64 st[8], const u64 *m) {
+  u64 w[16];
+#pragma unroll
+  for (int t = 0; t < 16; t++) w[t] = m[t];
+  sha512_rounds(st, w);
 }
 
 PK_DEV void sha512_init(u64 st[8]) {
@@ -756,35 +760,29 @@ PK_DEV void sha512_digest(const u64 st[8], u8 *out) {
     for (int j = 0; j < 8; j++) out[8 * i + j] = (u8)(st[i] >> (56 - 8 * j));
 }
 
-// SHA-512 of a short local message (n <= 239 bytes: at most 2 blocks)
-PK_NOINLINE void sha512_msg(const u8 *msg, int n, u8 *out) {
-  u8 buf[256];
-  int nb = (n + 17 + 127) / 128;
-  for (int i = 0; i < nb * 128; i++) buf[i] = i < n ? msg[i] : 0;
-  buf[n] = 0x80;
-  u64 bits = (u64)n * 8;
-  for (int j = 0; j < 8; j++) buf[nb * 128 - 1 - j] = (u8)(bits >> (8 * j));
-  u64 st[8];
+// SHA-512 of an N-byte message whose byte k is src(k), N known when
+// compiled: every block's words are formed in registers (the padding and
+// the length at their fixed places), no copy of the message
+template <int N, class F>
+PK_DEV void sha512_msg(F src, u8 *out) {
+  constexpr int NB = (N + 17 + 127) / 128;
+  u64 st[8], w[16];
   sha512_init(st);
-  for (int i = 0; i < nb; i++) sha512_compress(st, buf + 128 * i);
-  sha512_digest(st, out);
-}
-
-// SHA-512 of a local message of any length: its whole blocks in place,
-// then the padded tail (one or two blocks)
-PK_NOINLINE void sha512_long(const u8 *msg, int n, u8 *out) {
-  u64 st[8];
-  sha512_init(st);
-  int whole = n / 128;
-#pragma unroll 1
-  for (int i = 0; i < whole; i++) sha512_compress(st, msg + 128 * i);
-  u8 buf[256];
-  int rem = n - 128 * whole, nb = (rem + 17 + 127) / 128;
-  for (int i = 0; i < nb * 128; i++) buf[i] = i < rem ? msg[128 * whole + i] : 0;
-  buf[rem] = 0x80;
-  u64 bits = (u64)n * 8;
-  for (int j = 0; j < 8; j++) buf[nb * 128 - 1 - j] = (u8)(bits >> (8 * j));
-  for (int i = 0; i < nb; i++) sha512_compress(st, buf + 128 * i);
+#pragma unroll
+  for (int b = 0; b < NB; b++) {
+#pragma unroll
+    for (int t = 0; t < 16; t++) {
+      u64 x = 0;
+#pragma unroll
+      for (int j = 0; j < 8; j++) {
+        const int k = 128 * b + 8 * t + j;
+        x = (x << 8) | (k < N ? (u64)src(k) : k == N ? 0x80 : 0);
+      }
+      w[t] = x;
+    }
+    if (b == NB - 1) w[15] = (u64)N * 8;  // the length in bits (its high word 0)
+    sha512_compress(st, w);
+  }
   sha512_digest(st, out);
 }
 
@@ -792,18 +790,83 @@ PK_NOINLINE void sha512_long(const u8 *msg, int n, u8 *out) {
 // predicated per lane on its own block count (block 0 always applies)
 PK_NOINLINE void sha512_columns(const int32_t *blocks, int nb, int nblocks,
                                 int lane, int B, u8 *out) {
-  u64 st[8];
+  u64 st[8], w[16];
   sha512_init(st);
-  u8 blk[128];
 #pragma unroll 1
-  for (int i = 0; i < nb; i++) {
-    if (i > 0 && i >= nblocks) break;
-    for (int k = 0; k < 128; k++)
-      blk[k] = (u8)blocks[((size_t)i * 128 + k) * B + lane];
-    sha512_compress(st, blk);
+  for (int k = 0; k < nb; k++) {
+    if (k > 0 && k >= nblocks) break;
+#pragma unroll
+    for (int t = 0; t < 16; t++) {
+      u64 x = 0;
+      for (int j = 0; j < 8; j++)
+        x = (x << 8) | (u8)blocks[((size_t)k * 128 + 8 * t + j) * B + lane];
+      w[t] = x;
+    }
+    sha512_compress(st, w);
   }
   sha512_digest(st, out);
 }
+
+// Blake2b-256 on one thread, its state and message in registers
+PK_DEV void b2b_g1(u64 &a, u64 &b, u64 &c, u64 &d, u64 x, u64 y) {
+  a = a + b + x; d = rotr64(d ^ a, 32);
+  c = c + d;     b = rotr64(b ^ c, 24);
+  a = a + b + y; d = rotr64(d ^ a, 16);
+  c = c + d;     b = rotr64(b ^ c, 63);
+}
+
+// One round with the message schedule S (PK_B2B_SIGMA_NIB<r>: index k in
+// nibble 15 - k): every index is a constant, so with the rounds unrolled
+// each message word is a register (or a known zero the compiler drops),
+// and the diagonal step is a renaming of the state's registers.
+template <u64 S>
+PK_DEV void b2b_round1(u64 *v, const u64 *m) {
+  b2b_g1(v[0], v[4], v[8], v[12], m[(S >> 60) & 15], m[(S >> 56) & 15]);
+  b2b_g1(v[1], v[5], v[9], v[13], m[(S >> 52) & 15], m[(S >> 48) & 15]);
+  b2b_g1(v[2], v[6], v[10], v[14], m[(S >> 44) & 15], m[(S >> 40) & 15]);
+  b2b_g1(v[3], v[7], v[11], v[15], m[(S >> 36) & 15], m[(S >> 32) & 15]);
+  b2b_g1(v[0], v[5], v[10], v[15], m[(S >> 28) & 15], m[(S >> 24) & 15]);
+  b2b_g1(v[1], v[6], v[11], v[12], m[(S >> 20) & 15], m[(S >> 16) & 15]);
+  b2b_g1(v[2], v[7], v[8], v[13], m[(S >> 12) & 15], m[(S >> 8) & 15]);
+  b2b_g1(v[3], v[4], v[9], v[14], m[(S >> 4) & 15], m[S & 15]);
+}
+
+// Unkeyed Blake2b-256 of one final block: the message words m[0..15]
+// (n <= 128 bytes, little-endian, zero past n) -> the digest's words
+// h[0..3] (digest byte 8j + k is byte k of h[j]). The state and the
+// message stay in registers: 12 unrolled rounds of 8 G, whose four
+// columns (then four diagonals) are independent, so one thread issues
+// four dependent chains side by side.
+PK_DEV void b2b_256_1(const u64 *m, u64 n, u64 *h) {
+  u64 v[16];
+#pragma unroll
+  for (int j = 0; j < 8; j++) {
+    v[j] = PK_SHA512_H0[j];
+    v[8 + j] = PK_SHA512_H0[j];
+  }
+  v[0] ^= 0x01010000ull ^ 32;
+  v[12] ^= n;
+  v[14] = ~v[14];
+  b2b_round1<PK_B2B_SIGMA_NIB0>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB1>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB2>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB3>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB4>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB5>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB6>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB7>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB8>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB9>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB0>(v, m);
+  b2b_round1<PK_B2B_SIGMA_NIB1>(v, m);
+#pragma unroll
+  for (int j = 0; j < 4; j++)
+    h[j] = PK_SHA512_H0[j] ^ (j == 0 ? 0x01010000ull ^ 32 : 0) ^ v[j] ^ v[8 + j];
+}
+
+// b2b_256_1 behind a call: one copy of the unrolled compression for a
+// kernel that hashes at several places
+PK_NOINLINE void blake2b_256_words(const u64 *m, u64 n, u64 *h) { b2b_256_1(m, n, h); }
 
 PK_DEV void b2b_g(u64 *v, int a, int b, int c, int d, u64 x, u64 y) {
   v[a] = v[a] + v[b] + x; v[d] = rotr64(v[d] ^ v[a], 32);
@@ -853,34 +916,74 @@ PK_NOINLINE void blake2b_256(const u8 *msg, int n, u8 *out) {
 // Scalars mod L (bytes)
 // ---------------------------------------------------------------------------
 
-// 64 little-endian bytes -> 32 bytes of the value mod L (TweetNaCl modL)
-PK_NOINLINE void sc_reduce512(const u8 *in, u8 *out) {
-  i64 x[64];
-  for (int i = 0; i < 64; i++) x[i] = in[i];
-#pragma unroll 1
-  for (int i = 63; i >= 32; --i) {
-    i64 carry = 0;
-    int j;
-    for (j = i - 32; j < i - 12; ++j) {
-      x[j] += carry - 16 * x[i] * (i64)PK_L_BYTES[j - (i - 32)];
-      carry = (x[j] + 128) >> 8;
-      x[j] -= carry * 256;
-    }
-    x[j] += carry;
-    x[i] = 0;
+// x mod L for a 512-bit x as eight little-endian words, in 21-bit signed
+// limbs in registers, after ref10's sc_reduce:
+// L = 2^252 + c, so limb i >= 12 folds into limbs i − 12 .. i − 7 with
+// the six signed 21-bit limbs of −c; rounded carries between the folds,
+// exact ones at the end (every limb stays under 2^50)
+PK_DEV void sc_fold(i64 *s, int i) {
+  s[i - 12] += s[i] * 666643;
+  s[i - 11] += s[i] * 470296;
+  s[i - 10] += s[i] * 654183;
+  s[i - 9] -= s[i] * 997805;
+  s[i - 8] += s[i] * 136657;
+  s[i - 7] -= s[i] * 683901;
+  s[i] = 0;
+}
+
+PK_DEV void sc_carry21(i64 *s, int k, bool round) {
+  i64 c = (s[k] + (round ? (i64)1 << 20 : 0)) >> 21;
+  s[k + 1] += c;
+  s[k] -= c * ((i64)1 << 21);
+}
+
+PK_NOINLINE void sc_reduce_words(const u64 *x, u8 *out) {
+  i64 s[24];
+#pragma unroll
+  for (int k = 0; k < 24; k++) {
+    const int off = 21 * k, q = off >> 6, r = off & 63;
+    u64 v = x[q] >> r;
+    if (r > 43 && q < 7) v |= x[q + 1] << (64 - r);
+    s[k] = (i64)(k < 23 ? v & 2097151 : v);
   }
-  i64 carry = 0;
-  i64 top = x[31] >> 4;
-  for (int j = 0; j < 32; j++) {
-    x[j] += carry - top * (i64)PK_L_BYTES[j];
-    carry = x[j] >> 8;
-    x[j] &= 255;
+#pragma unroll
+  for (int i = 23; i >= 18; i--) sc_fold(s, i);
+#pragma unroll
+  for (int k = 6; k <= 16; k += 2) sc_carry21(s, k, true);
+#pragma unroll
+  for (int k = 7; k <= 15; k += 2) sc_carry21(s, k, true);
+#pragma unroll
+  for (int i = 17; i >= 12; i--) sc_fold(s, i);
+#pragma unroll
+  for (int k = 0; k <= 10; k += 2) sc_carry21(s, k, true);
+#pragma unroll
+  for (int k = 1; k <= 11; k += 2) sc_carry21(s, k, true);
+  sc_fold(s, 12);
+#pragma unroll
+  for (int k = 0; k <= 11; k++) sc_carry21(s, k, false);
+  sc_fold(s, 12);
+#pragma unroll
+  for (int k = 0; k <= 10; k++) sc_carry21(s, k, false);
+  u64 w[4] = {0, 0, 0, 0};  // limbs 0 .. 10 under 2^21, limb 11 under 2^22
+#pragma unroll
+  for (int k = 0; k < 12; k++) {
+    const int off = 21 * k, q = off >> 6, r = off & 63;
+    w[q] |= (u64)s[k] << r;
+    if (r > 42) w[q + 1] |= (u64)s[k] >> (64 - r);
   }
-  for (int j = 0; j < 32; j++) x[j] -= carry * (i64)PK_L_BYTES[j];
-  for (int i = 0; i < 32; i++) {
-    if (i + 1 < 32) x[i + 1] += x[i] >> 8;
-    out[i] = (u8)(x[i] & 255);
+#pragma unroll
+  for (int k = 0; k < 32; k++) out[k] = (u8)(w[k >> 3] >> (8 * (k & 7)));
+}
+
+// 64 little-endian bytes -> 32 bytes of the value mod L
+PK_DEV void sc_reduce512(const u8 *in, u8 *out) {
+  u64 x[8];
+  for (int j = 0; j < 8; j++) {
+    u64 v = 0;
+    for (int k = 7; k >= 0; k--) v = (v << 8) | in[8 * j + k];
+    x[j] = v;
   }
+  sc_reduce_words(x, out);
 }
 
 // n >= 0 little-endian column sums (the value < 2^512) -> its 64 bytes
@@ -894,17 +997,34 @@ PK_DEV void sc_carry64(const u64 *cols, int n, u8 *out) {
   }
 }
 
-// a·b mod L for na- and nb-byte little-endian scalars (na, nb <= 32): the
-// byte convolution (each column < 32 · 255² < 2^21), carried to 64 bytes,
-// then sc_reduce512 (ops/pk/scalar.py: mul_mod_l, the same sums)
-PK_NOINLINE void sc_mul(const u8 *a, int na, const u8 *b, int nb, u8 *out) {
-  u64 cols[64];
-  for (int k = 0; k < 64; k++) cols[k] = 0;
-  for (int j = 0; j < nb; j++)
-    for (int i = 0; i < na; i++) cols[i + j] += (u64)a[i] * b[j];
-  u8 wide[64];
-  sc_carry64(cols, 64, wide);
-  sc_reduce512(wide, out);
+// a·b mod L for a 4·NA-byte a and a 32-byte b, little-endian (NA 4 or
+// 8): the product in 32-bit words in registers, then sc_reduce_words
+template <int NA>
+PK_NOINLINE void sc_mul(const u8 *a, const u8 *b, u8 *out) {
+  u32 x[NA], y[8], r[NA + 8];
+#pragma unroll
+  for (int k = 0; k < NA; k++)
+    x[k] = a[4 * k] | (a[4 * k + 1] << 8) | (a[4 * k + 2] << 16) | ((u32)a[4 * k + 3] << 24);
+#pragma unroll
+  for (int k = 0; k < 8; k++)
+    y[k] = b[4 * k] | (b[4 * k + 1] << 8) | (b[4 * k + 2] << 16) | ((u32)b[4 * k + 3] << 24);
+#pragma unroll
+  for (int k = 0; k < NA + 8; k++) r[k] = 0;
+#pragma unroll
+  for (int i = 0; i < NA; i++) {
+    u64 carry = 0;
+#pragma unroll
+    for (int j = 0; j < 8; j++) {
+      u64 t = (u64)x[i] * y[j] + r[i + j] + carry;
+      r[i + j] = (u32)t;
+      carry = t >> 32;
+    }
+    r[i + 8] = (u32)carry;
+  }
+  u64 w[8];
+#pragma unroll
+  for (int k = 0; k < 8; k++) w[k] = 2 * k < NA + 8 ? r[2 * k] | (u64)r[2 * k + 1] << 32 : 0;
+  sc_reduce_words(w, out);
 }
 
 // a + b mod L for 32-byte little-endian scalars (no kernel calls it: the

@@ -47,28 +47,36 @@ PK_DEV void store_point(int32_t *col, int i, int B, const ge &p) {
   }
 }
 
-// CompactSum Merkle walk: bit l of the period puts the running vk on the
-// right; siblings are indexed by level, so any period value reads in
-// bounds. -> root == vk and 0 <= period < 2^depth
+// bytes 8j .. 8j + 7 of lane i's column as a little-endian word
+PK_DEV u64 col_word(const int32_t *col, int j, int i, int B) {
+  u64 x = 0;
+  for (int k = 7; k >= 0; k--) x = (x << 8) | (u8)col[(size_t)(8 * j + k) * B + i];
+  return x;
+}
+
+// CompactSum Merkle walk, its hashes on words: bit l of the period puts
+// the running vk on the right; siblings are indexed by level, so any
+// period value reads in bounds. -> root == vk and 0 <= period < 2^depth
 PK_NOINLINE bool kes_merkle(int i, int B, int depth, const int32_t *vk,
-                            const int32_t *period, const u8 *leafb,
+                            const int32_t *period, const int32_t *leaf,
                             const int32_t *sib) {
-  u8 cur[32], data[64], vkb[32];
-  int32_t per = period[i];
-  for (int k = 0; k < 32; k++) cur[k] = leafb[k];
+  u64 cur[4], m[16];
+  for (int j = 0; j < 4; j++) cur[j] = col_word(leaf, j, i, B);
+  for (int j = 8; j < 16; j++) m[j] = 0;
+  const int32_t per = period[i];
+#pragma unroll 1
   for (int l = 0; l < depth; l++) {
     bool right = ((per >> l) & 1) == 1;
-    for (int k = 0; k < 32; k++) {
-      u8 sv = (u8)sib[((size_t)l * 32 + k) * B + i];
-      data[k] = right ? sv : cur[k];
-      data[32 + k] = right ? cur[k] : sv;
+    for (int j = 0; j < 4; j++) {
+      u64 sv = col_word(sib + (size_t)l * 32 * B, j, i, B);
+      m[j] = right ? sv : cur[j];
+      m[4 + j] = right ? cur[j] : sv;
     }
-    blake2b_256(data, 64, cur);
+    blake2b_256_words(m, 64, cur);
   }
-  load_bytes(vk, 32, i, B, vkb);
-  bool root_ok = true;
-  for (int k = 0; k < 32; k++) root_ok = root_ok && cur[k] == vkb[k];
-  return root_ok && per >= 0 && per < (1 << depth);
+  bool ok = true;
+  for (int j = 0; j < 4; j++) ok = ok && cur[j] == col_word(vk, j, i, B);
+  return ok && per >= 0 && per < (1 << depth);
 }
 
 // The Ed25519 verify-point P = s·B − h·A, h = SHA-512(R ‖ A ‖ M) mod L,
@@ -116,9 +124,7 @@ PK_DEV void kes_role_merkle(int i, int B, int lane, int depth,
                             const int32_t *vk, const int32_t *period,
                             const int32_t *leaf, const int32_t *sib,
                             EdScratch &sc) {
-  u8 leafb[32];
-  load_bytes(leaf, 32, i, B, leafb);
-  sc.ok[2 * PK_GROUP + lane] = kes_merkle(i, B, depth, vk, period, leafb, sib) ? 1 : 0;
+  sc.ok[2 * PK_GROUP + lane] = kes_merkle(i, B, depth, vk, period, leaf, sib) ? 1 : 0;
 }
 
 // phase 2 on the quad of the block's four warps; ok ANDs the first
@@ -188,13 +194,30 @@ PK_DEV bool vrf_decode_gamma(int i, int B, const int32_t *gamma,
   return ok_g && sc_lt_l(sb);
 }
 
+// H = 8·Elligator2(SHA-512(suite ‖ 1 ‖ Y ‖ alpha) mod 2^255)
 PK_DEV ge vrf_hash_h(int i, int B, const int32_t *pk, const int32_t *alpha) {
-  u8 buf[66], dg[64];
-  buf[0] = 0x04; buf[1] = 0x01;
-  load_bytes(pk, 32, i, B, buf + 2);
-  load_bytes(alpha, 32, i, B, buf + 34);
-  sha512_msg(buf, 66, dg);
+  u8 dg[64];
+  sha512_msg<66>([&](int k) -> u8 {
+    return k == 0 ? 0x04 : k == 1 ? 0x01 : k < 34 ? (u8)pk[(size_t)(k - 2) * B + i]
+                                                  : (u8)alpha[(size_t)(k - 34) * B + i];
+  }, dg);
   return ge_mul_cofactor(elligator2(fe_freeze(fe_from_bytes(dg))));
+}
+
+// c's digest SHA-512(suite ‖ 2 ‖ H ‖ Γ ‖ U ‖ V): H's encoding given, Γ, U
+// and V read from their columns
+PK_DEV void vrf_challenge(const u8 *h, int i, int B, const int32_t *g, const int32_t *u,
+                          const int32_t *v, u8 *dg) {
+  sha512_msg<130>([&](int k) -> u8 {
+    return k == 0 ? 0x04 : k == 1 ? 0x02 : k < 34 ? h[k - 2]
+         : k < 66 ? (u8)g[(size_t)(k - 34) * B + i] : k < 98 ? (u8)u[(size_t)(k - 66) * B + i]
+         : (u8)v[(size_t)(k - 98) * B + i];
+  }, dg);
+}
+
+// β's digest SHA-512(suite ‖ 3 ‖ 8Γ) from 8Γ's encoding
+PK_DEV void vrf_beta(const u8 *g8, u8 *dg) {
+  sha512_msg<34>([&](int k) -> u8 { return k == 0 ? 0x04 : k == 1 ? 0x03 : g8[k - 2]; }, dg);
 }
 
 // The two VRF preps over the three warps of a block, 32 lanes. H (role
@@ -220,13 +243,9 @@ PK_DEV void bc_role_h(int i, int B, bool live, const int32_t *pk,
                       const int32_t *v, const int32_t *alpha, int32_t *c16,
                       int32_t *prep) {
   ge h = vrf_hash_h(i, B, pk, alpha);
-  u8 buf[130], dg[64];
-  buf[0] = 0x04; buf[1] = 0x02;
-  ge_compress_many(&h, 1, buf + 2);
-  load_bytes(gamma, 32, i, B, buf + 34);
-  load_bytes(u, 32, i, B, buf + 66);
-  load_bytes(v, 32, i, B, buf + 98);
-  sha512_msg(buf, 130, dg);
+  u8 enc[32], dg[64];
+  ge_compress_many(&h, 1, enc);
+  vrf_challenge(enc, i, B, gamma, u, v, dg);
   if (!live) return;
   store_bytes(c16, 16, i, B, dg);
   store_point(prep, i, B, h);
@@ -338,7 +357,7 @@ PK_DEV void finish_role_vrf(int i, int B, int lane, const int32_t *vrfpts,
   u8 buf[130], dg[64], cb[16];
   buf[0] = 0x04; buf[1] = 0x02;
   ge_compress_many(pts, 4, buf + 2);
-  sha512_msg(buf, 130, dg);
+  sha512_msg<130>([&](int k) -> u8 { return buf[k]; }, dg);
   load_bytes(c, 16, i, B, cb);
   bool ok = true;
   for (int k = 0; k < 16; k++) ok = ok && dg[k] == cb[k];
@@ -348,26 +367,37 @@ PK_DEV void finish_role_vrf(int i, int B, int lane, const int32_t *vrfpts,
 PK_DEV void finish_role_beta(int i, int B, int lane, const int32_t *vrfpts,
                              const int32_t *beta, FinishScratch &sc) {
   ge g8 = load_point(vrfpts + (size_t)160 * B, i, B);
-  u8 buf[34], dg[64], bb[64];
-  buf[0] = 0x04; buf[1] = 0x03;
-  ge_compress_many(&g8, 1, buf + 2);
-  sha512_msg(buf, 34, dg);
+  u8 enc[32], dg[64], bb[64];
+  ge_compress_many(&g8, 1, enc);
+  vrf_beta(enc, dg);
   load_bytes(beta, 64, i, B, bb);
   bool ok = true;
   for (int k = 0; k < 64; k++) ok = ok && dg[k] == bb[k];
   sc.ok[PK_GROUP + lane] = ok ? 1 : 0;
 }
 
+// the leader value Blake2b-256('L' ‖ β), eta Blake2b-256(Blake2b-256('N'
+// ‖ β)) and the two threshold compares (flag rows 3 and 4), the hashes on
+// words
 PK_DEV void finish_role_leader(int i, int B, bool live, const int32_t *beta,
                                const int32_t *tlo, const int32_t *thi,
                                int32_t *out, int32_t *eta, int32_t *lv) {
-  u8 buf[65], lvb[32], e1[32], e2[32], tl[32], th[32];
-  load_bytes(beta, 64, i, B, buf + 1);
-  buf[0] = 'L';
-  blake2b_256(buf, 65, lvb);
-  buf[0] = 'N';
-  blake2b_256(buf, 65, e1);
-  blake2b_256(e1, 32, e2);
+  u64 m[16], lw[4], e1[4], e2[4];
+  for (int j = 0; j < 16; j++) m[j] = 0;
+#pragma unroll
+  for (int k = 0; k < 64; k++)  // β is message bytes 1 .. 64
+    m[(k + 1) >> 3] |= (u64)(u8)beta[(size_t)k * B + i] << (8 * ((k + 1) & 7));
+  m[0] |= 'L';
+  blake2b_256_words(m, 65, lw);
+  m[0] ^= 'L' ^ 'N';
+  blake2b_256_words(m, 65, e1);
+  u64 m2[16] = {e1[0], e1[1], e1[2], e1[3], 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+  blake2b_256_words(m2, 32, e2);
+  u8 lvb[32], e2b[32], tl[32], th[32];
+  for (int k = 0; k < 32; k++) {
+    lvb[k] = (u8)(lw[k >> 3] >> (8 * (k & 7)));
+    e2b[k] = (u8)(e2[k >> 3] >> (8 * (k & 7)));
+  }
   load_bytes(tlo, 32, i, B, tl);
   load_bytes(thi, 32, i, B, th);
   bool win = lt_be32(lvb, tl);
@@ -375,7 +405,7 @@ PK_DEV void finish_role_leader(int i, int B, bool live, const int32_t *beta,
   if (!live) return;
   out[(size_t)3 * B + i] = win ? 1 : 0;
   out[(size_t)4 * B + i] = (!win && !loss) ? 1 : 0;
-  store_bytes(eta, 32, i, B, e2);
+  store_bytes(eta, 32, i, B, e2b);
   store_bytes(lv, 32, i, B, lvb);
 }
 

@@ -10,9 +10,8 @@
 
 // SHA-512 of 66 bytes: data [66, B] -> digest [64, B]
 PK_DEV void prim_sha_lane(int i, int B, const int32_t *data, int32_t *out) {
-  u8 buf[66], dg[64];
-  load_bytes(data, 66, i, B, buf);
-  sha512_msg(buf, 66, dg);
+  u8 dg[64];
+  sha512_msg<66>([&](int k) -> u8 { return (u8)data[(size_t)k * B + i]; }, dg);
   store_bytes(out, 64, i, B, dg);
 }
 

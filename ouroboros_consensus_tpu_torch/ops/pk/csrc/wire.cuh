@@ -25,66 +25,6 @@
 #define WIRE_HD __host__ __device__ inline
 #endif
 
-// ---------------------------------------------------------------------------
-// Blake2b-256 on one thread
-// ---------------------------------------------------------------------------
-
-PK_DEV void b2b_g1(u64 &a, u64 &b, u64 &c, u64 &d, u64 x, u64 y) {
-  a = a + b + x; d = rotr64(d ^ a, 32);
-  c = c + d;     b = rotr64(b ^ c, 24);
-  a = a + b + y; d = rotr64(d ^ a, 16);
-  c = c + d;     b = rotr64(b ^ c, 63);
-}
-
-// One round with the message schedule S (PK_B2B_SIGMA_NIB<r>: index k in
-// nibble 15 - k): every index is a constant, so with the rounds unrolled
-// each message word is a register (or a known zero the compiler drops),
-// and the diagonal step is a renaming of the state's registers.
-template <u64 S>
-PK_DEV void b2b_round1(u64 *v, const u64 *m) {
-  b2b_g1(v[0], v[4], v[8], v[12], m[(S >> 60) & 15], m[(S >> 56) & 15]);
-  b2b_g1(v[1], v[5], v[9], v[13], m[(S >> 52) & 15], m[(S >> 48) & 15]);
-  b2b_g1(v[2], v[6], v[10], v[14], m[(S >> 44) & 15], m[(S >> 40) & 15]);
-  b2b_g1(v[3], v[7], v[11], v[15], m[(S >> 36) & 15], m[(S >> 32) & 15]);
-  b2b_g1(v[0], v[5], v[10], v[15], m[(S >> 28) & 15], m[(S >> 24) & 15]);
-  b2b_g1(v[1], v[6], v[11], v[12], m[(S >> 20) & 15], m[(S >> 16) & 15]);
-  b2b_g1(v[2], v[7], v[8], v[13], m[(S >> 12) & 15], m[(S >> 8) & 15]);
-  b2b_g1(v[3], v[4], v[9], v[14], m[(S >> 4) & 15], m[S & 15]);
-}
-
-// Unkeyed Blake2b-256 of one final block: the message words m[0..15]
-// (n <= 128 bytes, little-endian, zero past n) -> the digest's words
-// h[0..3] (digest byte 8j + k is byte k of h[j]). The state and the
-// message stay in registers: 12 unrolled rounds of 8 G, whose four
-// columns (then four diagonals) are independent, so one thread issues
-// four dependent chains side by side.
-PK_DEV void b2b_256_1(const u64 *m, u64 n, u64 *h) {
-  u64 v[16];
-#pragma unroll
-  for (int j = 0; j < 8; j++) {
-    v[j] = PK_SHA512_H0[j];
-    v[8 + j] = PK_SHA512_H0[j];
-  }
-  v[0] ^= 0x01010000ull ^ 32;
-  v[12] ^= n;
-  v[14] = ~v[14];
-  b2b_round1<PK_B2B_SIGMA_NIB0>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB1>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB2>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB3>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB4>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB5>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB6>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB7>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB8>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB9>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB0>(v, m);
-  b2b_round1<PK_B2B_SIGMA_NIB1>(v, m);
-#pragma unroll
-  for (int j = 0; j < 4; j++)
-    h[j] = PK_SHA512_H0[j] ^ (j == 0 ? 0x01010000ull ^ 32 : 0) ^ v[j] ^ v[8 + j];
-}
-
 // the fold's combine on one thread, ev <- Blake2b-256(ev ‖ e), 32-byte
 // words each (the compression instrument, nonce_fold.cu)
 PK_DEV void b2b_combine(u64 *ev, const u64 *e) {

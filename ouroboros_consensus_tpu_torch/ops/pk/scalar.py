@@ -2,12 +2,13 @@
 package's ops/pk/limbs.py, in the port's own radix.
 
 A scalar is 32 little-endian bytes, [32, B] int64 rows with lanes last
-(the byte rows the stage kernels already read and write): the radix of
-the CUDA side's `sc_reduce512` (csrc/pk.cuh, TweetNaCl's modL over signed
-int64 byte limbs), which `sc_mul` and `sc_add` reuse. Every function
-here normalises its input to 64 bytes with one sequential carry and then
-reduces it with field.reduce512, so the twin and the device code do the
-same integer operations and agree byte for byte (the reference's
+(the byte rows the stage kernels already read and write). The CUDA
+side's `sc_reduce512` (csrc/pk.cuh: ref10's sc_reduce over signed 21-bit
+limbs in registers), which `sc_mul` and `sc_add` reuse, takes the same
+64 bytes. Every function here normalises its input to 64 bytes with one
+sequential carry and then reduces it with field.reduce512: both give the
+value mod L, so the twin and the device code agree byte for byte (the
+reference's
 `reduce512` and `is_canonical_scalar` are field.reduce512 and
 field.scalar_lt_l; its `windows8_from_limbs` is the byte rows
 themselves):

@@ -5,7 +5,10 @@ both), `aggregate_window` on a clean batch-compatible window of
 port-forged headers against the per-lane stage twins, every corrupted
 field of the reference's matrix (and a torsion-offset R_e and R_k)
 rejected, and the `agg_prep` and `msm` device bodies (csrc/agg.cuh,
-built as host C++) held to the twins."""
+built as host C++) held to the twins: `agg_prep` on a block with an
+off-curve Γ beside valid lanes, on widths that are and are not a multiple
+of its 32-lane block, on lanes that all share one header's keys, and its
+block inversion tree on zero and nonzero Z coordinates."""
 
 import ctypes
 
@@ -203,6 +206,84 @@ def test_host_agg_prep_matches_twin(window, host):
     want = pa.agg_prep_plain(*cols, kes_depth=DEPTH)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _offcurve_y() -> int:
+    """The smallest y > 1 with no x on the curve."""
+    for y in range(2, 1000):
+        x2 = (y * y - 1) * pow(fe.D * y * y + 1, fe.P - 2, fe.P) % fe.P
+        if pow(x2, (fe.P - 1) // 2, fe.P) == fe.P - 1:
+            return y
+    raise AssertionError("no off-curve y")
+
+
+def _prep_case(window, case: str):
+    """The 22 columns of one agg_prep case, from the 8-lane window."""
+    if case == "gamma_offcurve":  # an off-curve Γ and a y = p Γ beside valid lanes
+        cols = [c.clone() for c in window]
+        cols[14][:, 4] = torch.tensor(list(_offcurve_y().to_bytes(32, "little")),
+                                      dtype=torch.int32)
+        cols[14][:, 1] = torch.tensor(list(fe.P.to_bytes(32, "little")), dtype=torch.int32)
+        return cols
+    if case == "b1":
+        return [c[..., :1].contiguous() for c in window]
+    if case == "b40":  # a full block and 8 lanes of a second, three of them corrupted
+        cols = _corrupt([c[..., torch.arange(40) % LANES].contiguous() for c in window],
+                        "ocert_sig", 35)
+        cols[10][1, 5, 37] ^= 4  # a Merkle sibling byte
+        cols[6][0, 38] = 1 << DEPTH  # a KES period out of range
+        return cols
+    if case == "shared_keys":  # every lane the same header: one pool's keys, 32 times
+        return [c[..., torch.full((32,), 3)].contiguous() for c in window]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["gamma_offcurve", "b1", "b40", "shared_keys"])
+def test_host_agg_prep_cases(window, host, case):
+    cols = _prep_case(window, case)
+    got = _host_prep(host, cols)
+    want = pa.agg_prep_plain(*cols, kes_depth=DEPTH)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("zeros", ["none", "some", "all"])
+def test_host_agg_inv_tree(host, zeros):
+    """agg_prep's block inversion (64 leaves, one inversion at the root
+    on a warp) against each element's own inverse mod p, a zero's
+    inverse 0 (fe_inv(0)) whatever the other leaves."""
+    rng = np.random.default_rng(23)
+    xs = [int.from_bytes(rng.bytes(32), "little") % fe.P for _ in range(64)]
+    if zeros == "some":
+        xs[5] = 0
+        xs[40] = fe.P  # a zero in non-canonical limbs
+    elif zeros == "all":
+        xs = [0] * 64
+    z = np.array([[(x >> fe.OFF[i]) & ((1 << fe.W[i]) - 1) for i in range(10)] for x in xs],
+                 dtype=np.uint32)
+    inv = np.zeros_like(z)
+    assert host.pk_agg_inv_tree(z.ctypes.data, inv.ctypes.data) == 0
+    got = [sum(int(r[i]) << fe.OFF[i] for i in range(10)) % fe.P for r in inv]
+    assert got == [pow(x % fe.P, fe.P - 2, fe.P) for x in xs]
+
+
+@pytest.mark.parametrize("kind", ["edges", "random"])
+def test_host_agg_reduce(host, kind):
+    """The mod-L reduction that agg_prep and the stage kernels share
+    (sc_reduce512: 21-bit signed limbs in registers) against Python's x mod L, on multiples of L and their neighbours, the
+    largest 384- and 512-bit values, and seeded random values of every
+    width."""
+    rng = np.random.default_rng(24)
+    if kind == "edges":
+        xs = [0, 1, 2**252, 2**253, 2**384 - 1, 2**512 - 1]
+        xs += [k * sc.L + d for k in (1, 2, 3, 2**100, 2**259 - 1) for d in (-2, -1, 0, 1, 2)]
+    else:
+        xs = [int.from_bytes(rng.bytes(64), "little") >> int(rng.integers(0, 512))
+              for _ in range(2000)]
+    raw = np.array([list(x.to_bytes(64, "little")) for x in xs], dtype=np.uint8)
+    out = np.zeros((len(xs), 32), dtype=np.uint8)
+    assert host.pk_sc_reduce(len(xs), raw.ctypes.data, out.ctypes.data) == 0
+    assert [int.from_bytes(bytes(r), "little") for r in out] == [x % sc.L for x in xs]
 
 
 @pytest.mark.parametrize("kind", ["clean", "kes_torsion"])
