@@ -609,6 +609,94 @@ def agg_stamps(cols, depth: int) -> dict:
     return out
 
 
+# the stamped dedupe's (dedupe_stamps.cu) phases: stamp k ends phase k
+DD_PHASES = {1: "pack", 2: "first pass", 3: "tie check", 4: "refinement",
+             5: "group starts", 6: "scan", 7: "sums", 8: "store"}
+DD_NSTAMP = 10
+
+
+def dedupe_stamps(cols, pts, scal, reps: int = 10) -> dict:
+    """`reps` launches of the stamped dedupe (dedupe_stamps.cu) on one
+    window (on the card; its outputs held to the shipped kernel's): each
+    column block's phases in µs (clock64 cycles at the maximum SM clock),
+    the mean over launches, each block's span from its first stamp to its
+    last, the B row block's span, and the spread of the blocks' first
+    stamps (the launch's start to its last block's start)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+    from ouroboros_consensus_tpu_torch.ops.pk.kernels import _p
+
+    dev = pts.device
+    keys = [cols[k] for k in pa.DEDUPE_KEYS]
+    b = keys[0].shape[-1]
+    fn = build.kernel_lib("dedupe_stamps")
+    stream = torch.cuda.current_stream().cuda_stream
+    us = 1e6 / max_sm_clock_hz()
+    want = pa.window_tables(cols, pts, scal)
+    runs = []
+    for _ in range(reps):
+        stamps = torch.zeros((pa.DEDUPE_KEYS.__len__() + 1, DD_NSTAMP), dtype=torch.int64,
+                             device=dev)
+        raw, tpts, ok, rc = pa._dedupe_launch(
+            lambda *a: fn(*a[:-1], _p(stamps), a[-1]), stream, keys,
+            scal[pa.SC_Z1:pa.SC_Z3C + 1], pts[pa.PT_RE:pa.PT_Y + 1],
+            scal[pa.SC_B1:pa.SC_B3 + 1], pa._DEDUPE_CAP)
+        torch.cuda.synchronize()
+        if rc != 0 or not all(torch.equal(g, w) for g, w in zip((raw, tpts, ok), want)):
+            raise AssertionError(f"the stamped dedupe differs from the shipped kernel (rc {rc})")
+        runs.append(stamps.cpu().to(torch.float64))
+    t = torch.stack(runs)  # [reps, blocks, DD_NSTAMP]
+    start = t[:, :, 0].min(1).values
+    cols_rec = {}
+    for c in range(len(pa.DEDUPE_KEYS)):
+        steps = {name: float((t[:, c, k] - t[:, c, k - 1]).mean()) * us
+                 for k, name in DD_PHASES.items()}
+        cols_rec[str(c)] = {"steps_us": steps,
+                            "span_us": float((t[:, c, 8] - t[:, c, 0]).mean()) * us,
+                            "end_us": float((t[:, c, 8] - start).mean()) * us}
+    brow = len(pa.DEDUPE_KEYS)
+    return {"lanes": b, "reps": reps, "columns": cols_rec,
+            "b_row_us": float((t[:, brow, 9] - t[:, brow, 0]).mean()) * us,
+            "start_spread_us": float((t[:, :, 0].max(1).values - start).mean()) * us,
+            "launch_us": float((torch.maximum(t[:, :4, 8].max(1).values, t[:, brow, 9])
+                                - start).mean()) * us}
+
+
+def dedupe_stamps_main() -> int:
+    """The stamped dedupe on a full window of a forged bc chain, on the
+    tiled 8,192-lane window and on its first 8 lanes, beside each
+    window's `window_tables` time by CUDA events. Prints one `DDSTAMPS
+    {...}` line a window, and the card."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.device import resolve, time_ms
+    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+
+    dev = resolve(None)
+    build.build_cuda()
+    depth = bench_params().kes_depth
+    work = tempfile.mkdtemp(prefix="chip_smoke_dds_")
+    try:
+        db = os.path.join(work, "chain_bc")
+        forge_chain(db, 9000, "bc", 0)  # a full window in the first epoch
+        tiled, _ = tiled_window(8192, 256, 17, work, "bc")
+        for tag, cols in (("chain", chain_window(db, 8192)), ("8192", tiled),
+                          ("8", [c[..., :8] for c in tiled])):
+            cols = [c.contiguous().to(dev) for c in cols]
+            pts, scal, _f, _e, _l = pa.agg_prep(*cols, kes_depth=depth)
+            rec = dedupe_stamps(cols, pts, scal)
+            rec["window_tables_ms"] = time_ms(lambda: pa.window_tables(cols, pts, scal), 20)
+            print(f"DDSTAMPS {tag} " + json.dumps(rec), flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"card: {card_line()}", flush=True)
+    return 0
+
+
 def hold(key: str, kern, plain, inputs, lanes: int, dev, reps: int) -> dict:
     """One kernel against its plain version on the same inputs: byte-equal
     outputs or AssertionError; on the card both are timed with CUDA events
@@ -2631,6 +2719,8 @@ def main(argv=None) -> int:
                          "eighth as many")
     ap.add_argument("--ab", metavar="PARENT",
                     help="time this tree against the checkout PARENT instead")
+    ap.add_argument("--dedupe-stamps", action="store_true",
+                    help="split the dedupe kernel's launch by phase instead")
     ap.add_argument("--ab-replay", metavar="PARENT",
                     help="time this tree's replay of one bc chain against PARENT's instead")
     a = ap.parse_args(argv)
@@ -2645,6 +2735,8 @@ def main(argv=None) -> int:
         return ab_main(a.ab)
     if a.ab_replay:
         return ab_replay_main(a.ab_replay, a.headers)
+    if a.dedupe_stamps:
+        return dedupe_stamps_main()
     from ouroboros_consensus_tpu_torch.device import (int_op_rate, max_sm_clock_hz, resolve,
                                                       wide_product_rate)
 

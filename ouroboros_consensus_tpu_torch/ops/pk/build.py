@@ -47,6 +47,7 @@ ENTRIES = {
     "agg_prep": ("pk_agg_prep",),
     "agg_stamps": ("pk_agg_prep_stamps",),  # the instrument: agg_prep with clock64 stamps
     "dedupe": ("pk_dedupe",),
+    "dedupe_stamps": ("pk_dedupe_stamps",),  # the instrument: dedupe with clock64 stamps
     "agg_tables": ("pk_agg_tables",),
     "msm": ("pk_msm",),
 }
@@ -79,6 +80,7 @@ ARGTYPES = {
     "pk_agg_prep": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 6,
     "pk_agg_prep_stamps": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 7,
     "pk_dedupe": [_I, _I, ctypes.POINTER(_P)] + [_P] * 9,
+    "pk_dedupe_stamps": [_I, _I, ctypes.POINTER(_P)] + [_P] * 10,
     "pk_agg_tables": [_I, _P, _P, _P],
     "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
@@ -95,7 +97,7 @@ ARGTYPES = {
     "pk_agg_inv_tree": [_P, _P],
     "pk_sc_reduce": [_I, _P, _P],
 }
-DEVICE_ONLY = ("pk_agg_prep_stamps",)  # the instrument has no host build
+DEVICE_ONLY = ("pk_agg_prep_stamps", "pk_dedupe_stamps")  # the instruments: no host build
 
 _LIBS: dict = {}
 # wall seconds from the start of the parallel build to each source's nvcc exit

@@ -38,6 +38,21 @@
 // gathers and a sort).
 #include "agg.cuh"
 
+// the instrument build (dedupe_stamps.cu): thread 0 of each block stamps
+// clock64 into [block][DD_NSTAMP] after each phase's barrier
+#define DD_NSTAMP 10
+#ifdef DD_STAMPS
+#define DD_STAMP(k)                                                      \
+  do {                                                                   \
+    __syncthreads();                                                     \
+    if (threadIdx.x == 0) stamps[blockIdx.x * DD_NSTAMP + (k)] = clock64(); \
+  } while (0)
+#define DD_STAMP_ARG , long long *stamps
+#else
+#define DD_STAMP(k) ((void)0)
+#define DD_STAMP_ARG
+#endif
+
 __device__ void dd_sync_scan(int t, int n, int *gid, int *part) {
   // inclusive scan of gid[0, n) in place: thread t a slice of per
   int per = (n + DD_THREADS - 1) / DD_THREADS, lo = t * per, hi = lo + per < n ? lo + per : n;
@@ -105,11 +120,12 @@ __device__ void dd_pass(int t, int w, int B, int np, const DedupeIn &in, const D
 // arrays in shared memory, else in gscr, 16 np bytes a column
 __global__ void __launch_bounds__(DD_THREADS) dedupe_kernel(
     int B, int np, int cap, DedupeIn in0, DedupeIn in1, DedupeIn in2, DedupeIn in3,
-    const u8 *brows, u8 *gscr, int64_t *raw, int32_t *tpts, u8 *ok) {
+    const u8 *brows, u8 *gscr, int64_t *raw, int32_t *tpts, u8 *ok DD_STAMP_ARG) {
   extern __shared__ __align__(16) u8 dd_smem[];
   __shared__ int part[32];
   __shared__ int flag, refine;
   int t = threadIdx.x, c = blockIdx.x;
+  DD_STAMP(0);
   if (c == DD_KEYS) {
     int *sums = (int *)dd_smem;  // [DD_THREADS / 8][32]
     dd_brow_part(t, DD_BROWS * B, brows, sums + (t >> 3) * 32 + 4 * (t & 7));
@@ -119,6 +135,7 @@ __global__ void __launch_bounds__(DD_THREADS) dedupe_kernel(
       for (int g = 0; g < DD_THREADS / 8; g++) v += sums[g * 32 + t];
       raw[(size_t)DD_KEYS * cap * 32 + t] = v;
     }
+    DD_STAMP(9);
     return;
   }
   const DedupeIn in = c == 0 ? in0 : c == 1 ? in1 : c == 2 ? in2 : in3;
@@ -134,26 +151,34 @@ __global__ void __launch_bounds__(DD_THREADS) dedupe_kernel(
   for (int i = t; i < np; i += DD_THREADS) sm.perm[i] = (u32)i;
   if (t == 0) refine = 0;
   __syncthreads();
+  DD_STAMP(1);
   // the first word alone decides unless a tie on it hides different keys
   dd_pass(t, 0, B, np, in, sm, &flag);
+  DD_STAMP(2);
   bool tie = false;
   for (int i = t; i < B; i += DD_THREADS) tie = tie || dd_tie_differs(i, B, in, sm);
   if (tie) refine = 1;
   __syncthreads();
+  DD_STAMP(3);
   if (refine) {
     for (int i = t; i < np; i += DD_THREADS) sm.perm[i] = (u32)i;
     __syncthreads();
     for (int w = 3; w >= 0; w--) dd_pass(t, w, B, np, in, sm, &flag);
   }
+  DD_STAMP(4);
   for (int i = t; i < B; i += DD_THREADS) sm.gid[i] = dd_newgrp(i, B, in, sm);
   for (int i = t; i < cap * 33; i += DD_THREADS) sm.acc[i] = 0;  // acc and starts
   __syncthreads();
+  DD_STAMP(5);
   dd_sync_scan(t, B, sm.gid, part);
+  DD_STAMP(6);
   dd_sums(t >> 5, t & 31, DD_THREADS / 32, B, cap, in, sm);
   __syncthreads();
+  DD_STAMP(7);
   DedupeOut o{raw + (size_t)c * cap * 32, tpts + (size_t)c * cap * 40, ok};
   for (int s = t; s < cap; s += DD_THREADS) dd_store(s, B, in, sm, o);
   if (t == 0) ok[c] = sm.gid[B - 1] <= cap ? 1 : 0;
+  DD_STAMP(8);
 }
 
 // keys: DD_KEYS pointers to [32][B] int32 byte columns; coeffs
@@ -162,9 +187,16 @@ __global__ void __launch_bounds__(DD_THREADS) dedupe_kernel(
 // DD_SMEM_LANES lanes, scratch of 16 np bytes a column (np the power of
 // two >= B), else unread -> raw [DD_KEYS * cap + 1][32] int64, tpts
 // [DD_KEYS * cap][40] int32, ok [DD_KEYS] uint8
+#ifdef DD_STAMPS
+// stamps: [DD_KEYS + 1][DD_NSTAMP] int64, zeroed by the caller
+extern "C" int pk_dedupe_stamps(int B, int cap, const void *const *keys, const void *coeffs,
+                                const void *pts, const void *brows, void *words, void *gscr,
+                                void *raw, void *tpts, void *ok, void *stamps, void *stream) {
+#else
 extern "C" int pk_dedupe(int B, int cap, const void *const *keys, const void *coeffs,
                          const void *pts, const void *brows, void *words, void *gscr, void *raw,
                          void *tpts, void *ok, void *stream) {
+#endif
   if (B < 1 || B > DD_MAXN || cap < 1 || cap > DD_MAXCAP) return (int)cudaErrorInvalidValue;
   int np = 1;
   while (np < B) np <<= 1;
@@ -182,10 +214,15 @@ extern "C" int pk_dedupe(int B, int cap, const void *const *keys, const void *co
                      (u64 *)words + (size_t)c * 4 * B};
   dedupe_kernel<<<DD_KEYS + 1, DD_THREADS, bytes, (cudaStream_t)stream>>>(
       B, np, cap, in[0], in[1], in[2], in[3], (const u8 *)brows,
-      smem ? nullptr : (u8 *)gscr, (int64_t *)raw, (int32_t *)tpts, (u8 *)ok);
+      smem ? nullptr : (u8 *)gscr, (int64_t *)raw, (int32_t *)tpts, (u8 *)ok
+#ifdef DD_STAMPS
+      , (long long *)stamps
+#endif
+      );
   return (int)cudaGetLastError();
 }
 
+#ifndef DD_STAMPS
 // Resident blocks per SM at the main path's shape (8,192 lanes, cap 256).
 extern "C" int pk_dedupe_occupancy(int *blocks) {
   size_t bytes = (size_t)8192 * 16 + (size_t)256 * 33 * 4;
@@ -195,3 +232,4 @@ extern "C" int pk_dedupe_occupancy(int *blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dedupe_kernel, DD_THREADS,
                                                             bytes);
 }
+#endif
