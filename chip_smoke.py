@@ -7,7 +7,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the fourteen kernel sources (one nvcc per source, in
+   the build of the fifteen kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -36,14 +36,15 @@ Phases (any failure raises and the script exits non-zero):
    exchanges alone, and each loop's SASS instructions). Then the window
    aggregate (`phase_agg`) at 8, 128 and 8,192 lanes of a tiled bc
    window of 256 distinct headers, clean and with a torsion-offset R_k, a
-   flipped OCert s and a wrong β: `agg_prep`, `dedupe` and `agg_tables`
-   byte for byte against their plain versions, `msm` against its plain
+   flipped OCert s and a wrong β: `agg_prep` and `dedupe` (its slots and
+   B row reduced mod L) byte for byte against their plain versions, `msm` against its plain
    version as points (compressed total, identity flag; not on the widest
    dirty window), and `aggregate_window`: the identity and the five
    stages' verdicts on the clean window, agg_ok false on the dirty one;
    `dedupe` also on columns of 256 distinct keys (the cap exactly), of
    300 (ok_cap false), of keys sharing their first 8, 16, 24 and 31
-   bytes, and three groups in two slots (`dedupe_windows`); msm's
+   bytes (many keys a warp, and a few), of 1, 8, 8,193, 20,000 and 70,000
+   lanes, and three groups in two slots (`dedupe_windows`); msm's
    launches split by kernel (`msm_split`, torch.profiler) at 8 lanes;
    then the same on a
    full 8,192-lane window of the forged bc chain (`phase_agg_chain`: the
@@ -55,8 +56,7 @@ Phases (any failure raises and the script exits non-zero):
    `unpack`, the five stage kernels and `nonce_fold`, the fold on a
    stream of its own (checked) beside the stages, the carry chained
    from window to window on the card; a batch-compatible packed window
-   takes the window aggregate (`agg_prep`, `dedupe`, `agg_tables`,
-   `msm`) in place of the five stages, and none of a clean chain's
+   takes the window aggregate (`agg_prep`, `dedupe`, `msm`) in place of the five stages, and none of a clean chain's
    windows may be re-dispatched (`batch.AGG_REDISPATCH`). Chains are
    forged with bench.py's
    parameters (1 pool, KES depth 7, f = 1/2, 3600 slots per KES period,
@@ -89,7 +89,7 @@ Phases (any failure raises and the script exits non-zero):
       port bench's measurement (`tools.bench.measure`: a native replay, a
       warm-up and the best of two timed device replays, every chunk a
       sidecar hit; the native replay is the bc path's own) of the same
-      chain with the aggregate on and off, on `bench {...}` and
+      chain with the aggregate on, off, on and off, on `bench {...}` and
       `bench_lanes {...}` lines;
    b. a draft-03 chain, and a copy with one VRF-proof byte flipped two
       thirds of the way in and the header KES-signed again (both
@@ -119,7 +119,7 @@ Phases (any failure raises and the script exits non-zero):
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
-5. A `kernels` JSON line (fourteen kernels), the card line, and the
+5. A `kernels` JSON line (thirteen kernels), the card line, and the
    final status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
@@ -131,10 +131,11 @@ and spill stores of each launched kernel with its resident blocks per SM.
 runs, on one card and in turns (parent, this tree, this tree, parent),
 one process per turn: each tree's own phase 1 and phase 2 and the six
 stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), the
-two wire kernels alone where the tree has them (`wire_times`), and `msm`
-and `window_tables` (the dedupe) on a full window of a chain forged once
-for all turns and at 8 lanes (`agg_times`); one `AB {...}` JSON line per
-turn.
+two wire kernels alone where the tree has them (`wire_times`), and
+`agg_prep`, `msm` and the dedupe with its mod-L reductions on a full
+window of a chain forged once for all turns, on tiled windows, on
+20,000 lanes and on 256 and 300 distinct keys (`agg_times`); one `AB
+{...}` JSON line per turn.
 
     python3 chip_smoke.py --ab-replay PARENT   # the replay, against PARENT
 
@@ -187,14 +188,16 @@ KERNEL_ROWS = (
      "ouroboros_consensus_tpu/ops/pk/aggregate.py:232"),
     ("dedupe", "ouroboros_consensus_tpu_torch/ops/pk/csrc/dedupe.cu",
      "ouroboros_consensus_tpu/ops/pk/aggregate.py:153"),
-    ("agg_tables", "ouroboros_consensus_tpu_torch/ops/pk/csrc/agg_tables.cu",
-     "ouroboros_consensus_tpu/ops/pk/limbs.py:489"),
     ("msm", "ouroboros_consensus_tpu_torch/ops/pk/csrc/msm.cu",
      "ouroboros_consensus_tpu/ops/pk/msm.py:381"),
 )
 # the kernels each path must launch (and the replay kernels it must not)
 WIRE = {"unpack", "nonce_fold"}  # every packed window's, around the stages
-AGG = {"agg_prep", "dedupe", "agg_tables", "msm"}  # the window aggregate's
+# the reference functions a kernel replaces beside its row's own: the
+# dedupe's launch also reduces the slots and the B coefficient mod L
+ALSO_REPLACES = {"dedupe": ["ouroboros_consensus_tpu/ops/pk/limbs.py:489",
+                            "ouroboros_consensus_tpu/ops/pk/limbs.py:502"]}
+AGG = {"agg_prep", "dedupe", "msm"}  # the window aggregate's
 BC_STAGES = {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"}
 D3_STAGES = {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"}
 PATH_KERNELS = {
@@ -609,92 +612,81 @@ def agg_stamps(cols, depth: int) -> dict:
     return out
 
 
-# the stamped dedupe's (dedupe_stamps.cu) phases: stamp k ends phase k
-DD_PHASES = {1: "pack", 2: "first pass", 3: "tie check", 4: "refinement",
-             5: "group starts", 6: "scan", 7: "sums", 8: "store"}
-DD_NSTAMP = 10
+# the wide window's four columns: (distinct keys, shared prefix bytes)
+WIDE_SPEC = [(300, 8), (3000, 0), (200, 16), (1, 0)]
+
+
+# the stamped dedupe's (dedupe_stamps.cu, csrc/agg.cuh: dd_block) stamps:
+# stamp k ends phase k of a block's tile; 6 its last merge, 7 its root's
+# slots, 8 the B row, 9 the merge levels it ran; 10-14 its last merge's
+# phases; 15 its root's tile groups gathered into the slots (and the
+# overflow slot's lane)
+DD_TILE_PHASES = {1: "keys", 2: "compare", 3: "rank", 4: "sums", 5: "store"}
+DD_MERGE_PHASES = {11: "stage", 12: "entries", 13: "scan", 14: "compact"}
+DD_NSTAMP = 16
 
 
 def dedupe_stamps(cols, pts, scal, reps: int = 10) -> dict:
     """`reps` launches of the stamped dedupe (dedupe_stamps.cu) on one
-    window (on the card; its outputs held to the shipped kernel's): each
-    column block's phases in µs (clock64 cycles at the maximum SM clock),
-    the mean over launches, each block's span from its first stamp to its
-    last, the B row block's span, and the spread of the blocks' first
-    stamps (the launch's start to its last block's start)."""
+    window (on the card; its outputs held to the shipped kernel's), in µs
+    (the global timer's ns: one clock for all SMs), the mean over launches: the
+    tile phases (the mean over blocks), the merges (from a block's tile
+    list to its last merge, by the levels it ran), each column's root
+    finish (its slots mod L), the B row, each column's end and the
+    launch's span from its first block's start, and the spread of the
+    blocks' starts."""
     import torch
 
-    from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
     from ouroboros_consensus_tpu_torch.ops.pk import build
-    from ouroboros_consensus_tpu_torch.ops.pk.kernels import _p
 
-    dev = pts.device
     keys = [cols[k] for k in pa.DEDUPE_KEYS]
     b = keys[0].shape[-1]
+    blocks = pa._dedupe_shape(b)[0]
     fn = build.kernel_lib("dedupe_stamps")
     stream = torch.cuda.current_stream().cuda_stream
-    us = 1e6 / max_sm_clock_hz()
+    us = 1e-3  # a stamp is in ns
     want = pa.window_tables(cols, pts, scal)
     runs = []
     for _ in range(reps):
-        stamps = torch.zeros((pa.DEDUPE_KEYS.__len__() + 1, DD_NSTAMP), dtype=torch.int64,
-                             device=dev)
-        raw, tpts, ok, rc = pa._dedupe_launch(
-            lambda *a: fn(*a[:-1], _p(stamps), a[-1]), stream, keys,
-            scal[pa.SC_Z1:pa.SC_Z3C + 1], pts[pa.PT_RE:pa.PT_Y + 1],
-            scal[pa.SC_B1:pa.SC_B3 + 1], pa._DEDUPE_CAP)
+        stamps = torch.zeros((blocks, DD_NSTAMP), dtype=torch.int64, device=pts.device)
+        got = pa._dedupe_launch(lambda *a: fn(*a[:-1], stamps.data_ptr(), a[-1]), stream, keys,
+                                scal[pa.SC_Z1:pa.SC_Z3C + 1].data_ptr(),
+                                pts[pa.PT_RE:pa.PT_Y + 1].data_ptr(),
+                                scal[pa.SC_B1:pa.SC_B3 + 1].data_ptr(), pa._DEDUPE_CAP)
         torch.cuda.synchronize()
-        if rc != 0 or not all(torch.equal(g, w) for g, w in zip((raw, tpts, ok), want)):
-            raise AssertionError(f"the stamped dedupe differs from the shipped kernel (rc {rc})")
+        if got[3] != 0 or not all(torch.equal(g, w) for g, w in zip(got[:3], want)):
+            raise AssertionError(f"the stamped dedupe differs from the shipped kernel "
+                                 f"(rc {got[3]})")
         runs.append(stamps.cpu().to(torch.float64))
     t = torch.stack(runs)  # [reps, blocks, DD_NSTAMP]
-    start = t[:, :, 0].min(1).values
-    cols_rec = {}
-    for c in range(len(pa.DEDUPE_KEYS)):
-        steps = {name: float((t[:, c, k] - t[:, c, k - 1]).mean()) * us
-                 for k, name in DD_PHASES.items()}
-        cols_rec[str(c)] = {"steps_us": steps,
-                            "span_us": float((t[:, c, 8] - t[:, c, 0]).mean()) * us,
-                            "end_us": float((t[:, c, 8] - start).mean()) * us}
-    brow = len(pa.DEDUPE_KEYS)
-    return {"lanes": b, "reps": reps, "columns": cols_rec,
-            "b_row_us": float((t[:, brow, 9] - t[:, brow, 0]).mean()) * us,
-            "start_spread_us": float((t[:, :, 0].max(1).values - start).mean()) * us,
-            "launch_us": float((torch.maximum(t[:, :4, 8].max(1).values, t[:, brow, 9])
-                                - start).mean()) * us}
-
-
-def dedupe_stamps_main() -> int:
-    """The stamped dedupe on a full window of a forged bc chain, on the
-    tiled 8,192-lane window and on its first 8 lanes, beside each
-    window's `window_tables` time by CUDA events. Prints one `DDSTAMPS
-    {...}` line a window, and the card."""
-    import torch
-
-    from ouroboros_consensus_tpu_torch.device import resolve, time_ms
-    from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
-    from ouroboros_consensus_tpu_torch.ops.pk import build
-
-    dev = resolve(None)
-    build.build_cuda()
-    depth = bench_params().kes_depth
-    work = tempfile.mkdtemp(prefix="chip_smoke_dds_")
-    try:
-        db = os.path.join(work, "chain_bc")
-        forge_chain(db, 9000, "bc", 0)  # a full window in the first epoch
-        tiled, _ = tiled_window(8192, 256, 17, work, "bc")
-        for tag, cols in (("chain", chain_window(db, 8192)), ("8192", tiled),
-                          ("8", [c[..., :8] for c in tiled])):
-            cols = [c.contiguous().to(dev) for c in cols]
-            pts, scal, _f, _e, _l = pa.agg_prep(*cols, kes_depth=depth)
-            rec = dedupe_stamps(cols, pts, scal)
-            rec["window_tables_ms"] = time_ms(lambda: pa.window_tables(cols, pts, scal), 20)
-            print(f"DDSTAMPS {tag} " + json.dumps(rec), flush=True)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-    print(f"card: {card_line()}", flush=True)
-    return 0
+    start = t[:, :, 0].min(1, keepdim=True).values
+    out = {"lanes": b, "blocks": blocks, "reps": reps,
+           "tile_us": {name: float((t[:, :, k] - t[:, :, k - 1]).mean()) * us
+                       for k, name in DD_TILE_PHASES.items()},
+           "start_spread_us": float((t[:, :, 0].max(1, keepdim=True).values - start).mean()) * us}
+    merges = {}  # by the last level a block merged: its blocks, from its tile's list
+    for lv in range(1, int(t[..., 9].max()) + 1):
+        sel = t[..., 9] == lv
+        merges[str(lv)] = {"blocks": float(sel.sum()) / reps,
+                           "us": float((t[..., 6] - t[..., 5])[sel].mean()) * us}
+    out["merges_by_levels_us"] = merges
+    root = t[..., 7] > 0
+    merged = torch.where(t[..., 9] > 0, t[..., 6], t[..., 5])  # a root's list ready
+    out["finish_us"] = float((t[..., 7] - merged)[root].mean()) * us
+    out["gather_us"] = float((t[..., 15] - merged)[root].mean()) * us
+    top = root & (t[..., 9] > 0)  # the roots' own merges
+    if bool(top.any()):
+        out["root_merge_us"] = {name: float((t[..., k] - t[..., k - 1])[top].mean()) * us
+                                for k, name in DD_MERGE_PHASES.items()}
+        out["root_merge_us"]["from_ticket"] = float((t[..., 6] - t[..., 10])[top].mean()) * us
+    col_end = (t[..., 7] - start)[root].reshape(reps, -1)
+    out["column_end_us"] = [float(x) * us for x in col_end.mean(0)]
+    brow = t[..., 8] > 0
+    out["b_row_us"] = float((t[..., 8] - t[..., 5])[brow].mean()) * us
+    out["launch_us"] = float((t[..., :9].max(2).values.max(1, keepdim=True).values
+                              - start).mean()) * us
+    return out
 
 
 def hold(key: str, kern, plain, inputs, lanes: int, dev, reps: int) -> dict:
@@ -1334,12 +1326,14 @@ def msm_split(args, reps: int = 5) -> dict:
 
 def msm_args(cols, depth: int):
     """`msm`'s arguments for a window's limb-first columns (on their
-    device): agg_prep, the dedupe and agg_tables, then `msm_inputs`."""
+    device): agg_prep, the dedupe, then `msm_inputs`."""
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
 
     pts, scal, _flags, _eta, _lv = pa.agg_prep(*cols, kes_depth=depth)
-    raw, tpts, _ok = pa.window_tables(cols, pts, scal)
-    return pa.msm_inputs(pts, scal, tpts, pa.agg_tables(raw))
+    red, tpts, _ok = pa.window_tables(cols, pts, scal)
+    if hasattr(pa, "agg_tables"):  # a tree whose dedupe leaves the reductions to agg_tables
+        red = pa.agg_tables(red)
+    return pa.msm_inputs(pts, scal, tpts, red)
 
 
 def hold_points(key: str, kern, plain, inputs, lanes: int, dev) -> dict:
@@ -1393,11 +1387,11 @@ def held(key: str, kern, plain, inputs, lanes: int, dev, reps: int, points: bool
 
 def hold_dedupe(key: str, cols, pts, scal, lanes: int, dev, reps: int) -> dict:
     """The `dedupe` kernel against its plain version on the card, byte
-    for byte (raw sums and the B row, slot points, ok_cap), through its
-    one entry, `window_tables` (a window's key columns `cols`, points and
-    scalar rows; the cap `aggregate._DEDUPE_CAP` at the call); with
+    for byte (the slots and the B row mod L, slot points, ok_cap), through
+    its one entry, `window_tables` (a window's key columns `cols`, points
+    and scalar rows; the cap `aggregate._DEDUPE_CAP` at the call); with
     `reps`, both timed. -> hold's record (bytes: the keys, coefficients
-    and B rows read once, the slot points read and written, the sums
+    and B rows read once, the slot points read and written, the rows
     written)."""
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
 
@@ -1407,7 +1401,7 @@ def hold_dedupe(key: str, cols, pts, scal, lanes: int, dev, reps: int) -> dict:
         return pa.window_tables(cols, pts, scal)
 
     def plain():
-        return pa.window_tables_plain(cols, pts, scal, pa._DEDUPE_CAP)
+        return pa.window_tables_reduced_plain(cols, pts, scal, pa._DEDUPE_CAP)
 
     got = kern()
     ins = (*(cols[k] for k in pa.DEDUPE_KEYS), scal[pa.SC_Z1:pa.SC_Z3C + 1],
@@ -1417,12 +1411,12 @@ def hold_dedupe(key: str, cols, pts, scal, lanes: int, dev, reps: int) -> dict:
 
 def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool = True):
     """The aggregate's kernels on one window's limb-first columns (on
-    `dev`) against their plain versions: `agg_prep`, `dedupe` and
-    `agg_tables` byte for byte, `msm` as points (`msm_twin` False: not
-    held; its plain version takes seconds on a tiled window's crowded
-    buckets); with `reps`, each kernel timed. -> ({agg_prep, dedupe,
-    agg_tables[, msm]: records, msm_work, msm_args}, aggregate_window's
-    verdicts)."""
+    `dev`) against their plain versions: `agg_prep` and `dedupe` byte for
+    byte, `msm` as points (`msm_twin` False: not held; its plain version
+    takes seconds on a tiled window's crowded buckets); with `reps`, each
+    kernel timed, the dedupe also split by phase (`dedupe_stamps`). ->
+    ({agg_prep, dedupe[, msm]: records, msm_work, msm_args},
+    aggregate_window's verdicts)."""
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
     from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
 
@@ -1444,10 +1438,10 @@ def hold_agg(tag: str, cols, n: int, dev, reps: int, depth: int, msm_twin: bool 
         recs["dedupe"]["device_ms"] = kernel_split(
             lambda: pa.window_tables(cols, pts, scal), "dedupe_kernel")["total"]
         log(f"dedupe ({tag}, {n} lanes): device {recs['dedupe']['device_ms']:.4f} ms a call")
-    raw, tpts, _ok = pa.window_tables(cols, pts, scal)
-    recs["agg_tables"] = held(f"agg_tables ({tag}, {n} lanes)", lambda: pa.agg_tables(raw),
-                              lambda: pa.agg_tables_plain(raw), (raw,), n, dev, reps)
-    points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, pa.agg_tables(raw))
+        st = recs["dedupe"]["stamps"] = dedupe_stamps(cols, pts, scal, 3)
+        log(f"dedupe stamps ({tag}, {n} lanes): {json.dumps(st)}")
+    red, tpts, _ok = pa.window_tables(cols, pts, scal)
+    points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, red)
     recs["msm_args"] = (points, scalars, n_small, base)
     if msm_twin:
         recs["msm"] = held(f"msm ({tag}, {n} lanes)",
@@ -1505,24 +1499,33 @@ def dedupe_windows(dev, lanes: int = 8192, seed: int = 19) -> dict:
     """The `dedupe` kernel byte for byte against its plain version on the
     card beyond the aggregate's own windows (whose one pool gives each
     column a key or two), each through `window_tables` with its B rows:
-    four columns of 256 distinct keys (the cap exactly: ok_cap true), of
-    300 (ok_cap false), four columns whose keys share their first 8, 16,
-    24 and 31 bytes, a window of 20,000 lanes (past 8,192 the sort runs
-    in global scratch), and three groups in two slots (cap 2); each
-    column's groups counted on the CPU against ok_cap. -> {tag: record}."""
+    one lane and 8 lanes; four columns of 256 distinct keys (the cap
+    exactly: ok_cap true), of 300 (ok_cap false); four columns whose keys
+    share their first 8, 16, 24 and 31 bytes, 200 keys a column (a warp
+    of many keys ranks lane by lane) and 3 to 8 (a warp's keys in turn);
+    one lane past `lanes` (a tile of one lane); 20,000 lanes (more tiles
+    and one merge level more than 8,192); 70,000 lanes, one column a key a
+    lane (its merges searched in L2); and three groups in two slots (cap
+    2); each column's groups counted on the CPU against ok_cap. -> {tag:
+    record}."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
 
     out = {}
-    cases = (("cap_exact", lanes, [(pa._DEDUPE_CAP, 0)] * 4),
+    cases = (("one_lane", 1, [(1, 0)] * 4),
+             ("eight", 8, [(1, 0), (2, 0), (1, 0), (1, 0)]),
+             ("cap_exact", lanes, [(pa._DEDUPE_CAP, 0)] * 4),
              ("over_cap", lanes, [(300, 0)] * 4),
              ("prefix", lanes, [(200, 8), (200, 16), (200, 24), (200, 31)]),
-             ("wide", 20000, [(300, 8), (3000, 0), (200, 16), (1, 0)]))
+             ("few_prefix", lanes, [(4, 8), (6, 16), (8, 24), (3, 31)]),
+             ("past_tile", lanes + 1, [(300, 8), (5, 0), (1, 0), (257, 0)]),
+             ("wide", 20000, WIDE_SPEC),
+             ("epoch_wide", 70000, [(70000, 0), (1, 0), (3000, 8), (256, 0)]))
     for tag, n, spec in cases:
         made = [spread_keys(n, d, share, seed + c) for c, (d, share) in enumerate(spec)]
         win = dedupe_inputs(made, dev, seed)
-        reps = 5 if tag == "wide" else 0  # the wide window timed: its sort in global scratch
+        reps = 5 if tag == "wide" else 0  # the wide window timed
         out[tag] = hold_dedupe(f"dedupe ({tag}, {n} lanes)", *win, n, dev, reps)
         ok = pa.window_tables(*win)[2].tolist()
         if ok != [d <= pa._DEDUPE_CAP for d, _s in spec]:
@@ -1573,7 +1576,7 @@ def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 1
     dirty one (agg_ok false; the cheap checks flag the β lane). Each
     kernel is timed on the clean window at each width, and msm's launches
     split by kernel at the narrowest (`msm_split`). -> {agg_prep, dedupe,
-    agg_tables, msm: records at the widest}."""
+    msm: records at the widest}."""
     depth = 7
     top = max(lanes_list)
     clean, _ = tiled_window(top, distinct, seed, workdir, "bc")
@@ -1581,7 +1584,7 @@ def phase_agg(dev, lanes_list=(8, 128, 8192), distinct: int = 256, seed: int = 1
     add_to_encoding(dirty[7], 3, torsion8())  # R_k + T8
     dirty[2][0, 5] ^= 1  # an OCert s
     dirty[19][0, 6] ^= 1  # a declared β
-    names = ("agg_prep", "dedupe", "agg_tables", "msm")
+    names = ("agg_prep", "dedupe", "msm")
     recs: dict = {k: {} for k in names}
     split = None
     for n in lanes_list:
@@ -1672,7 +1675,7 @@ def phase_agg_chain(dev, db: str, stages: dict, lanes: int = 8192, reps: int = 5
         got["msm"]["split_by_lanes"] = {**stages["msm"].get("split_by_lanes", {}),
                                         "chain": split}
         got["msm"]["device_ms"] = split["total"]
-    for key in ("agg_prep", "dedupe", "agg_tables", "msm"):
+    for key in ("agg_prep", "dedupe", "msm"):
         tiled = stages[key]
         rec = got[key]
         rec["tiled"] = {k: tiled[k] for k in ("ms", "plain_ms", "lanes", "bytes", "work",
@@ -1773,8 +1776,7 @@ def compare(tag: str, dres, nres) -> None:
 
 STAGE_WRAPPERS = ("ed_points", "kes_points", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish",
                   "unpack_limb_first", "nonce_fold")
-AGG_WRAPPERS = (("aggregate", "agg_prep"), ("aggregate", "window_tables"),
-                ("aggregate", "agg_tables"), ("msm", "msm"))
+AGG_WRAPPERS = (("aggregate", "agg_prep"), ("aggregate", "window_tables"), ("msm", "msm"))
 
 
 def replay_path(tag: str, db: str, params, lview, max_batch: int, dev,
@@ -1947,12 +1949,12 @@ LAYERS = (  # (module, function, layer) timed by layer_breakdown
     ("batch", "upload_staged", "h2d"),
     ("K", "unpack_limb_first", "unpack"), ("K", "_tiles", "stages"),
     ("pa", "agg_prep", "agg_prep"), ("pa", "window_tables", "dedupe"),
-    ("pa", "agg_tables", "agg_tables"), ("pm", "msm", "msm"),
+    ("pm", "msm", "msm"),
     ("batch", "verdict_reduce", "reduce"), ("batch", "dispatch_window", "device_step"),
     ("batch", "materialize", "redispatch"), ("batch", "epilogue", "epilogue"),
 )
 STEP_PARTS = ("stage_packed", "stage_packed_columns", "pin_alloc", "pad_packed_into", "h2d",
-              "unpack", "stages", "agg_prep", "dedupe", "agg_tables", "msm", "reduce")
+              "unpack", "stages", "agg_prep", "dedupe", "msm", "reduce")
 
 
 def layer_breakdown(db: str, params, lview, max_batch: int, dev,
@@ -2374,12 +2376,17 @@ def phase_main(dev, forges: Forges, max_batch: int) -> dict:
             paths["bc_dirty"] = {
                 "launches": {k: sum(d["launches"][k] for d in dirty) for k in dirty[0]["launches"]},
                 "agg_redispatch": [d["agg_redispatch"] for d in dirty]}
-            out["bench"] = port_bench.measure(db, device=dev, native=out["native"])
-            print("bench " + json.dumps(out["bench"]), flush=True)
-            out["bench_lanes"] = port_bench.measure(db, device=dev, aggregate=False,
-                                                    native=out["native"])
-            print("bench_lanes " + json.dumps(out["bench_lanes"]), flush=True)
-            if out["bench"]["agg_redispatch"] or not out["bench"]["aggregate"]:
+            # the aggregate on, off, on, off (the host's speed varies from
+            # call to call, so the two sides are compared within one); each
+            # side's best kept
+            turns = {True: [], False: []}
+            for agg in (True, False, True, False):
+                r = port_bench.measure(db, device=dev, aggregate=agg, native=out["native"])
+                print(("bench " if agg else "bench_lanes ") + json.dumps(r), flush=True)
+                turns[agg].append(r)
+            out["bench"], out["bench_lanes"] = (max(turns[agg], key=lambda r: r["value"])
+                                                for agg in (True, False))
+            if any(r["agg_redispatch"] or not r["aggregate"] for r in turns[True]):
                 raise AssertionError("the bench's aggregated replays re-dispatched a window")
         elif tag == "draft03":
             corrupted_replay(tag, db, n, "vrf_proof", "VRFKeyBadProof",
@@ -2564,14 +2571,24 @@ print("AB " + json.dumps(rec), flush=True)
 
 
 def agg_times(dev, db: str, workdir: str, reps: int = 20) -> dict:
-    """`agg_prep`, `msm` and `window_tables` (the dedupe) of the tree this
-    process imports, on a full window of the forged chain at `db` and on
-    the first 8 lanes of a tiled window (agg_prep also on its first 128
-    and 8,192): ms a call (CUDA events over `reps` calls).
-    -> {"chain" | "8" | "128" | "8192": {agg_prep[, msm, window_tables]}}."""
+    """`agg_prep`, `msm` and the dedupe with its mod-L reductions
+    (`dedupe_tables`: a tree with `aggregate.agg_tables` times its pair,
+    `window_tables` then `agg_tables`; else its one launch,
+    `window_tables`) of the tree this process imports: on a full window
+    of the forged chain at `db`, on the first 8 lanes of a tiled window
+    and on all its 8,192 (agg_prep also on its first 128), on 20,000
+    lanes (`dedupe_windows`' wide columns) and on four columns of 256 and
+    of 300 distinct keys in 8,192 lanes: ms a call (CUDA events over
+    `reps` calls). -> {"chain" | "8" | "128" | "8192" | "20000" |
+    "keys256" | "keys300": {agg_prep[, msm][, dedupe_tables]}}."""
     from ouroboros_consensus_tpu_torch.device import time_ms
     from ouroboros_consensus_tpu_torch.ops.pk import aggregate as pa
     from ouroboros_consensus_tpu_torch.ops.pk import msm as pm
+
+    def dedupe_call(cols, pts, scal):
+        if hasattr(pa, "agg_tables"):  # the dedupe and agg_tables, two launches
+            return lambda: pa.agg_tables(pa.window_tables(cols, pts, scal)[0])
+        return lambda: pa.window_tables(cols, pts, scal)
 
     depth = bench_params().kes_depth
     tiled, _ = tiled_window(8192, 256, 17, workdir, "bc")
@@ -2580,11 +2597,17 @@ def agg_times(dev, db: str, workdir: str, reps: int = 20) -> dict:
                       ("128", [c[..., :128] for c in tiled]), ("8192", tiled)):
         cols = [c.contiguous().to(dev) for c in cols]
         out[tag] = {"agg_prep": time_ms(lambda: pa.agg_prep(*cols, kes_depth=depth), reps)}
-        if tag in ("chain", "8"):
+        if tag != "128":
             pts, scal, _f, _e, _l = pa.agg_prep(*cols, kes_depth=depth)
+            out[tag]["dedupe_tables"] = time_ms(dedupe_call(cols, pts, scal), reps)
+        if tag in ("chain", "8"):
             args = msm_args(cols, depth)
             out[tag]["msm"] = time_ms(lambda: pm.msm(*args), reps)
-            out[tag]["window_tables"] = time_ms(lambda: pa.window_tables(cols, pts, scal), reps)
+    for tag, n, spec in (("20000", 20000, WIDE_SPEC), ("keys256", 8192, [(256, 0)] * 4),
+                         ("keys300", 8192, [(300, 0)] * 4)):
+        win = dedupe_inputs([spread_keys(n, d, share, 19 + c) for c, (d, share)
+                             in enumerate(spec)], dev, 19)
+        out[tag] = {"dedupe_tables": time_ms(dedupe_call(*win), reps)}
     return out
 
 
@@ -2610,9 +2633,10 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
             print(line[0], flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    for tag, keys in (("chain", ("agg_prep", "msm", "window_tables")),
-                      ("8", ("agg_prep", "msm", "window_tables")), ("128", ("agg_prep",)),
-                      ("8192", ("agg_prep",))):
+    pair = ("dedupe_tables",)
+    for tag, keys in (("chain", ("agg_prep", "msm", *pair)), ("8", ("agg_prep", "msm", *pair)),
+                      ("128", ("agg_prep",)), ("8192", ("agg_prep", *pair)), ("20000", pair),
+                      ("keys256", pair), ("keys300", pair)):
         for key in keys:
             if not all(key in r["agg_ms"].get(tag, {}) for r in recs):
                 continue
@@ -2719,8 +2743,6 @@ def main(argv=None) -> int:
                          "eighth as many")
     ap.add_argument("--ab", metavar="PARENT",
                     help="time this tree against the checkout PARENT instead")
-    ap.add_argument("--dedupe-stamps", action="store_true",
-                    help="split the dedupe kernel's launch by phase instead")
     ap.add_argument("--ab-replay", metavar="PARENT",
                     help="time this tree's replay of one bc chain against PARENT's instead")
     a = ap.parse_args(argv)
@@ -2735,8 +2757,6 @@ def main(argv=None) -> int:
         return ab_main(a.ab)
     if a.ab_replay:
         return ab_replay_main(a.ab_replay, a.headers)
-    if a.dedupe_stamps:
-        return dedupe_stamps_main()
     from ouroboros_consensus_tpu_torch.device import (int_op_rate, max_sm_clock_hz, resolve,
                                                       wide_product_rate)
 
@@ -2791,8 +2811,8 @@ def main(argv=None) -> int:
             bytes_ms = st["bytes"] / 3.35e12 * 1e3
             bound = max(st["bound_parts"]["bound_ms"], bytes_ms)
             bound_by = "operations" if bound > bytes_ms else "bytes"
-        elif name in ("msm", "agg_tables", "dedupe"):
-            # msm: this run's point operations (msm_work); agg_tables, dedupe: their bytes
+        elif name in ("msm", "dedupe"):
+            # msm: this run's point operations (msm_work); the dedupe: its bytes
             per_lane = None
             ops_ms = st.get("products", 0) / wide_rate * 1e3
             bytes_ms = st["bytes"] / 3.35e12 * 1e3
@@ -2807,6 +2827,7 @@ def main(argv=None) -> int:
         used = [p for p, ks in PATH_KERNELS.items() if name in ks]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "also_replaces": ALSO_REPLACES.get(name),
             "launches": sum(by_path[p][name] for p in used),
             "launches_by_path": {p: by_path[p][name] for p in used},
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],

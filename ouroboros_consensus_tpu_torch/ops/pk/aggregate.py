@@ -12,7 +12,7 @@ Per lane the reference checks
 and a window verifies Σ_i z1·eq_ed + z2·eq_kes + z3·eq_u + z4·eq_v = 0
 with per-lane Fiat–Shamir coefficients z1..z4 (SHA-512 of the lane's own
 transcript, each forced odd so that z·T ≠ 0 for every nonzero 8-torsion
-T: a single lane cannot cancel its own small-order offset). Four
+T: a single lane cannot cancel its own small-order offset). Three
 kernels and a little tensor code, all on the current stream, none of
 which reads a value back to the host:
 
@@ -23,13 +23,11 @@ which reads a value back to the host:
    the MSM needs, and the cheap-check flags pre_ed, pre_kes, pre_vrf.
 2. `dedupe` (csrc/dedupe.cu, `window_tables`): the four repeated-key
    columns (R_e, A_e, A_l, Y) grouped by their exact 32-byte wire
-   encodings (stable sorts over four words, never a hash), the
+   encodings (comparisons in tiles, merged up a tree; never a hash), the
    coefficient bytes summed per group into at most 256 slots, each
-   slot's point the first sorted lane's, and the window's B row; `ok_cap`
-   says whether the groups fit.
-3. `agg_tables` (csrc/agg_tables.cu): the slot sums and the window's B
-   coefficient reduced mod L.
-4. `msm` (ops/pk/msm.py, csrc/msm.cu): Σ k_i·P_i over the 128-bit group
+   slot's point its key's lowest lane, the slot sums and the window's B
+   coefficient reduced mod L; `ok_cap` says whether the groups fit.
+3. `msm` (ops/pk/msm.py, csrc/msm.cu): Σ k_i·P_i over the 128-bit group
    (z2·−R_k, z3·−U, z4·−V) and the wide group (z4·c·−Γ, z4·s_v·H and the
    four tables) plus the B term, and the exact identity test.
 
@@ -56,7 +54,11 @@ from . import verify as pv
 FS_TAG = tuple(b"octRLC-1")  # the Fiat–Shamir hash's domain prefix
 _DEDUPE_CAP = 256  # slots of one deduped-key table
 DEDUPE_MAX_LANES = 1 << 22  # lanes the dedupe kernel takes (csrc/agg.cuh: DD_MAXN)
-DEDUPE_SMEM_LANES = 8192  # past these its sort runs in global scratch (DD_SMEM_LANES)
+DEDUPE_TILE = 256  # lanes a tile, a block of the dedupe kernel (DD_TILE)
+_DD_LEVELS = 8  # the kernel's tree levels, four children a node (DD_LEVELS, DD_FAN)
+# the dedupe scratch kept between calls at most (bytes): windows to about
+# 30,000 lanes; a wider window's is allocated for its call alone
+_SCRATCH_KEEP = 1 << 25
 
 # agg_prep's point columns ([9, B, 40]) and scalar rows ([12, B, 32])
 PT_RK, PT_U, PT_V, PT_G, PT_H, PT_RE, PT_AE, PT_AL, PT_Y = range(9)
@@ -290,28 +292,65 @@ def dedupe_column(key: torch.Tensor, coeff: torch.Tensor, pts: torch.Tensor,
     return raw, tp, ok[0]
 
 
-def _dedupe_launch(fn, stream, keys, coeffs, pts, brows, cap: int):
-    """One call of pk_dedupe (`fn`: the CUDA launcher, or the host
-    build's) over the four key columns `keys` (a list of [32, B] int32),
-    coeffs [4, B, 32], pts [4, B, 40] and the B row's rows brows [3, B,
-    32] -> (raw [4 * cap + 1, 32], slot points [4 * cap, 40], ok_cap [4],
-    rc). Past DEDUPE_SMEM_LANES lanes the sort's scratch is allocated
-    here (16 bytes a lane of the next power of two, a column)."""
+def _dedupe_shape(b: int) -> tuple[int, int, int]:
+    """The dedupe launch at `b` lanes -> (blocks, scratch bytes, tickets):
+    a block a tile of DEDUPE_TILE lanes of each column; the lists in three
+    buffers (32 key and 16 meta bytes an entry: the tiles', then the merge
+    levels' by turns), the tiles' groups' sums (128 bytes), a flag word a
+    lane, the B row's tile sums, each node's list length; a ticket a node
+    and one for the B row (csrc/agg.cuh: dd_scratch_bytes,
+    dd_ticket_count)."""
+    t = -(-b // DEDUPE_TILE)
+    ne = t * DEDUPE_TILE
+    return (4 * t, ne * (3 * 4 * (32 + 16) + 4 * (128 + 4)) + t * (3 * 128 + 4 * _DD_LEVELS * 4),
+            4 * _DD_LEVELS * t + 1)
+
+
+_WORKSPACE: dict = {}
+
+
+def _workspace(dev, stream, scratch_bytes: int, n_tickets: int):
+    """The dedupe's scratch (at least `scratch_bytes`, any contents) and
+    zero int32 tickets (at least `n_tickets`) for launches on `stream` of
+    `dev`. Kept between calls: the tickets (4 bytes a node: 2 MB at
+    DEDUPE_MAX_LANES) and a scratch of at most _SCRATCH_KEEP bytes
+    (launches on one stream do not overlap, the scratch is spent within a
+    launch, and each launch leaves its tickets zero: the last arrival at a
+    ticket resets it). A wider window's scratch is its call's own, handed
+    back to torch's allocator when the call returns."""
+    key = (str(dev), stream)
+    kept, tickets = _WORKSPACE.get(key, (None, None))
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros(n_tickets, dtype=torch.int32, device=dev)
+    if scratch_bytes > _SCRATCH_KEEP:
+        scratch = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    elif kept is None or kept.numel() < scratch_bytes:
+        scratch = kept = torch.empty(scratch_bytes, dtype=torch.uint8, device=dev)
+    else:
+        scratch = kept
+    _WORKSPACE[key] = (kept, tickets)
+    return scratch, tickets
+
+
+def _dedupe_launch(fn, stream, keys, coeffs: int, pts: int, brows: int, cap: int):
+    """One call of pk_dedupe (`fn`: the CUDA launcher, or the host build's)
+    over the four key columns `keys` ([32, B] int32 each) and the addresses
+    of coeffs [4, B, 32] uint8, pts [4, B, 40] int32 and the B row's rows
+    brows [3, B, 32] uint8 (contiguous) -> (red [4 * cap + 1, 32] uint8,
+    slot points [4 * cap, 40], ok_cap [4], rc). The scratch and the
+    tickets are the stream's own (`_workspace`)."""
     from .kernels import _p
 
-    k, b = len(keys), keys[0].shape[-1]
+    b = keys[0].shape[-1]
     dev = keys[0].device
-    raw = torch.empty((k * cap + 1, 32), dtype=torch.int64, device=dev)
-    tpts = torch.empty((k * cap, 40), dtype=torch.int32, device=dev)
-    ok = torch.empty((k,), dtype=torch.bool, device=dev)
-    words = torch.empty((k, 4, b), dtype=torch.int64, device=dev)
-    gscr = None
-    if b > DEDUPE_SMEM_LANES:
-        gscr = torch.empty((k, 1 << (b - 1).bit_length(), 16), dtype=torch.uint8, device=dev)
-    ptrs = (ctypes.c_void_p * k)(*(_p(t) for t in keys))
-    rc = fn(b, cap, ptrs, _p(coeffs), _p(pts), _p(brows), _p(words),
-            None if gscr is None else _p(gscr), _p(raw), _p(tpts), _p(ok), stream)
-    return raw, tpts, ok, rc
+    _blocks, scratch_bytes, n_tickets = _dedupe_shape(b)
+    red = torch.empty((4 * cap + 1, 32), dtype=torch.uint8, device=dev)
+    tpts = torch.empty((4 * cap, 40), dtype=torch.int32, device=dev)
+    ok = torch.empty(4, dtype=torch.bool, device=dev)
+    scratch, tickets = _workspace(dev, stream, scratch_bytes, n_tickets)
+    rc = fn(b, cap, _p(keys[0]), _p(keys[1]), _p(keys[2]), _p(keys[3]), coeffs, pts,
+            brows, _p(scratch), scratch_bytes, _p(tickets), _p(red), _p(tpts), _p(ok), stream)
+    return red, tpts, ok, rc
 
 
 def window_tables_plain(cols, pts: torch.Tensor, scal: torch.Tensor, cap: int):
@@ -323,54 +362,72 @@ def window_tables_plain(cols, pts: torch.Tensor, scal: torch.Tensor, cap: int):
     return torch.cat([traw, braw]), tpts, ok_cap
 
 
+def window_tables_reduced_plain(cols, pts: torch.Tensor, scal: torch.Tensor, cap: int):
+    """The twin of `window_tables`: window_tables_plain's rows reduced mod L
+    (agg_tables_plain), its slot points and ok_cap."""
+    raw, tpts, ok_cap = window_tables_plain(cols, pts, scal, cap)
+    return agg_tables_plain(raw), tpts, ok_cap
+
+
 def window_tables(cols, pts: torch.Tensor, scal: torch.Tensor):
     """The dedupe of a window's four repeated-key columns (agg_prep's
-    points and scalars) into _DEDUPE_CAP slots each (read at the call)
-    and the lane sums of its B coefficient -> (raw [4 * cap + 1, 32]
-    int64: the slot sums, then the B row; slot points [4 * cap, 40];
-    ok_cap [4]).
+    points and scalars) into _DEDUPE_CAP slots each (read at the call),
+    the slot sums and the lane sums of its B coefficient reduced mod L ->
+    (red [4 * cap + 1, 32] uint8, each row below L: the slots, then the B
+    coefficient; slot points [4 * cap, 40]; ok_cap [4]).
 
-    Replaces the plain-XLA `_dedupe_column` ×4 and the B coefficient's
-    lane sums of ouroboros_consensus_tpu/ops/pk/aggregate.py:153, :299
-    (a lax.sort over the 32 key bytes and the lane index, cumsum,
-    scatter-adds; never a hash): csrc/dedupe.cu, one launch, a block of
-    1,024 threads a column — the keys as four big-endian words, four
-    stable bitonic sorts in shared memory (least significant word first;
-    a pass over words already in order skipped), group starts and their
-    scan, the slot sums by runs a warp (integer atomics in shared
-    memory), each slot's first sorted lane's point — and one block for
-    the B row; past DEDUPE_SMEM_LANES lanes the sorts run in global
-    scratch. Plain version: window_tables_plain.
-    Bound: bytes (keys, coefficients and points read once, the slots
-    written once); the sorts' steps are the dependent path."""
+    Replaces the plain-XLA `_dedupe_column` ×4, `reduce_raw_sums` of its
+    tables and the window-wide `sum_mod_l` of the B coefficient
+    (ouroboros_consensus_tpu/ops/pk/aggregate.py:153, :189, :295;
+    ops/pk/limbs.py:489, :502; a lax.sort over the 32 key bytes and the
+    lane index, cumsum, scatter-adds; never a hash): csrc/dedupe.cu, one
+    launch, one path for every width — a block of 256 threads a tile of
+    256 lanes of a column (each lane's key compared with the tile's, the
+    tile's distinct keys ranked and their coefficient bytes summed, the
+    tiles of columns 0-2 also sum a B row), the tiles' sorted lists of
+    keys merged up a tree of atomic tickets (four children a node,
+    equal keys joined, the lowest lane kept), and the block that
+    completes a column's root ranks every tile group in it, adds its sums
+    to its slot's and reduces the slots mod L, a thread a slot; the last
+    tile of columns 0-2 the B row. Plain version:
+    window_tables_reduced_plain.
+    Bound: bytes (keys, coefficients and B rows read once, the slots
+    written once)."""
     from . import build
-    from .kernels import LAUNCHES, _check, _raise_on, _route, _stream
+    from .kernels import LAUNCHES, _raise_on, _route, _stream
 
     dev = pts.device
     keys = [cols[k] for k in DEDUPE_KEYS]
-    coeffs, tp = scal[SC_Z1:SC_Z3C + 1], pts[PT_RE:PT_Y + 1]
     b = keys[0].shape[-1]
-    for c, key in enumerate(keys):
-        _check(f"dedupe.keys[{c}]", key, (32, b), dev)
-    _check("dedupe.coeffs", coeffs, (4, b, 32), dev, torch.uint8)
-    _check("dedupe.pts", tp, (4, b, 40), dev)
-    brows = scal[SC_B1:SC_B3 + 1]
-    _check("dedupe.brows", brows, (3, b, 32), dev, torch.uint8)
+    # one pass of cheap tests; the named checks only to word a failure
+    if not (pts.dtype == torch.int32 and pts.shape == (N_PTS, b, 40) and pts.is_contiguous()
+            and scal.dtype == torch.uint8 and scal.shape == (N_SC, b, 32)
+            and scal.is_contiguous() and scal.device == dev
+            and all(k.dtype == torch.int32 and k.shape == (32, b) and k.is_contiguous()
+                    and k.device == dev for k in keys)):
+        from .kernels import _check
+        for c, key in enumerate(keys):
+            _check(f"dedupe.keys[{c}]", key, (32, b), dev)
+        _check("dedupe.pts", pts, (N_PTS, b, 40), dev)
+        _check("dedupe.scal", scal, (N_SC, b, 32), dev, torch.uint8)
     if _route(dev) == "plain":
-        return window_tables_plain(cols, pts, scal, _DEDUPE_CAP)
+        return window_tables_reduced_plain(cols, pts, scal, _DEDUPE_CAP)
     if b > DEDUPE_MAX_LANES:
         raise ValueError(f"dedupe: {b} lanes, the kernel takes at most {DEDUPE_MAX_LANES}")
-    raw, tpts, ok, rc = _dedupe_launch(build.kernel_lib("dedupe"), _stream(dev), keys, coeffs,
-                                       tp, brows, _DEDUPE_CAP)
+    # the rows' addresses (no slices: a tensor view costs microseconds)
+    sp = scal.data_ptr()
+    red, tpts, ok, rc = _dedupe_launch(build.kernel_lib("dedupe"), _stream(dev), keys,
+                                       sp + SC_Z1 * b * 32, pts.data_ptr() + PT_RE * b * 160,
+                                       sp + SC_B1 * b * 32, _DEDUPE_CAP)
     _raise_on(rc, "dedupe")
     LAUNCHES["dedupe"] += 1
-    return raw, tpts, ok
+    return red, tpts, ok
 
 
 def msm_inputs(pts: torch.Tensor, scal: torch.Tensor, tpts: torch.Tensor,
                red: torch.Tensor):
     """msm's arguments for a window: the 128-bit group's columns, the wide
-    group's per-lane columns and the tables' slots (agg_tables' reduced
+    group's per-lane columns and the tables' slots (window_tables' reduced
     rows `red`, the B coefficient last) -> (points, scalars, n_small,
     base)."""
     b = pts.shape[1]
@@ -380,36 +437,11 @@ def msm_inputs(pts: torch.Tensor, scal: torch.Tensor, tpts: torch.Tensor,
 
 
 def agg_tables_plain(raw: torch.Tensor) -> torch.Tensor:
-    """The twin of the `agg_tables` kernel: [R, 32] int64 un-carried byte
-    rows -> [R, 32] uint8 of each value mod L."""
+    """The mod-L reductions of window_tables_plain's rows: [R, 32] int64
+    un-carried byte rows -> [R, 32] uint8 of each value mod L (the
+    reference's reduce_raw_sums of the tables and sum_mod_l of the B
+    coefficient; the dedupe kernel's agg_table_row)."""
     return sc.reduce_raw_sums(raw.T).T.to(torch.uint8).contiguous()
-
-
-def agg_tables(raw: torch.Tensor) -> torch.Tensor:
-    """The aggregate's mod-L reductions in one launch: raw [R, 32] int64
-    (the dedupe tables' slot sums, then the window's B coefficient: the
-    lane sums of z1·s_e + z2·s_k + z3·s_v) -> [R, 32] uint8 scalars < L.
-
-    Replaces the plain-XLA `reduce_raw_sums` of the dedupe tables and the
-    window-wide `sum_mod_l` (ouroboros_consensus_tpu/ops/pk/limbs.py:489,
-    :502; aggregate.py:153, :299): csrc/agg_tables.cu, a thread a row —
-    one carry into 64 bytes, then pk.cuh's sc_reduce512. Plain version:
-    agg_tables_plain. Bound: bytes (R x 256 in, R x 32 out); a small
-    launch."""
-    from .kernels import LAUNCHES, _check, _route, _stream
-
-    dev = raw.device
-    _check("agg_tables.raw", raw, (raw.shape[0], 32), dev, torch.int64)
-    if _route(dev) == "plain":
-        return agg_tables_plain(raw)
-    from . import build
-    from .kernels import _p, _raise_on
-
-    out = torch.empty((raw.shape[0], 32), dtype=torch.uint8, device=dev)
-    rc = build.kernel_lib("agg_tables")(raw.shape[0], _p(raw), _p(out), _stream(dev))
-    _raise_on(rc, "agg_tables")
-    LAUNCHES["agg_tables"] += 1
-    return out
 
 
 def aggregate_window(*cols, kes_depth: int) -> AggregateVerdicts:
@@ -417,8 +449,8 @@ def aggregate_window(*cols, kes_depth: int) -> AggregateVerdicts:
     limb-first arrays (unpack_limb_first's order: ed, kes, vrf_pk, Γ, U,
     V, s, alpha, beta, thr_lo, thr_hi)."""
     pts, scal, flags, eta, lv = agg_prep(*cols, kes_depth=kes_depth)
-    raw, tpts, ok_cap = window_tables(cols, pts, scal)
-    _total, ident = pm.msm(*msm_inputs(pts, scal, tpts, agg_tables(raw)))
+    red, tpts, ok_cap = window_tables(cols, pts, scal)
+    _total, ident = pm.msm(*msm_inputs(pts, scal, tpts, red))
     agg_ok = (ident[0] != 0) & ok_cap.all()
     pre_ok = (flags[:3] != 0).all()
     flags = torch.cat([flags[:3] * agg_ok.to(torch.int32), flags[3:]])

@@ -48,7 +48,6 @@ ENTRIES = {
     "agg_stamps": ("pk_agg_prep_stamps",),  # the instrument: agg_prep with clock64 stamps
     "dedupe": ("pk_dedupe",),
     "dedupe_stamps": ("pk_dedupe_stamps",),  # the instrument: dedupe with clock64 stamps
-    "agg_tables": ("pk_agg_tables",),
     "msm": ("pk_msm",),
 }
 KERNELS = tuple(ENTRIES)
@@ -59,6 +58,8 @@ NVCC_FLAGS = [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_Z = ctypes.c_size_t
+_DEDUPE = [_I, _I] + [_P] * 8 + [_Z] + [_P] * 4  # pk_dedupe up to its stream
 ARGTYPES = {
     "pk_ed": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pk_kes": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
@@ -79,9 +80,8 @@ ARGTYPES = {
     "pk_fe_bench": [_I, _I, _I, _P, _P, _P],
     "pk_agg_prep": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 6,
     "pk_agg_prep_stamps": [_I, _I, _I, _I, ctypes.POINTER(_P)] + [_P] * 7,
-    "pk_dedupe": [_I, _I, ctypes.POINTER(_P)] + [_P] * 9,
-    "pk_dedupe_stamps": [_I, _I, ctypes.POINTER(_P)] + [_P] * 10,
-    "pk_agg_tables": [_I, _P, _P, _P],
+    "pk_dedupe": _DEDUPE + [_P],
+    "pk_dedupe_stamps": _DEDUPE + [_P, _P],
     "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
@@ -96,6 +96,12 @@ ARGTYPES = {
     # sc_reduce512 over [B, 64] byte rows
     "pk_agg_inv_tree": [_P, _P],
     "pk_sc_reduce": [_I, _P, _P],
+    # host build only: the dedupe's blocks in a given order, its launch's
+    # blocks, scratch bytes and tickets at B lanes, and its slots' mod-L
+    # row (agg_table_row) over [R, 32] int64 column sums
+    "pk_dedupe_order": [_I] + _DEDUPE + [_P],
+    "pk_dedupe_shape": [_I, _P],
+    "pk_agg_tables": [_I, _P, _P, _P],
 }
 DEVICE_ONLY = ("pk_agg_prep_stamps", "pk_dedupe_stamps")  # the instruments: no host build
 
@@ -236,8 +242,7 @@ def kernel_lib(name: str, entry: str | None = None):
 def blocks_per_sm(name: str) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
-    unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 1,024 at
-    8,192 lanes),
+    unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 256),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest."""
     fn = getattr(_lib(name), f"pk_{name}_occupancy")

@@ -1,7 +1,7 @@
-// Lane bodies of the window aggregate's four kernels (agg_prep.cu,
-// dedupe.cu, agg_tables.cu, msm.cu): the per-lane prep, the key dedupe's
-// sort, groups and slot sums, the mod-L reduction of the dedupe tables'
-// slot sums, and the phases of the shared signed-digit bucket machine.
+// Lane bodies of the window aggregate's three kernels (agg_prep.cu,
+// dedupe.cu, msm.cu): the per-lane prep, the key dedupe's tiles, merges
+// and slots mod L, and the phases of the shared signed-digit bucket
+// machine.
 // Each body is a function of its thread's index, so the host build
 // (csrc/host_emu.cpp) runs a phase's bodies one after another and the CPU
 // tests hold them to the twins (ops/pk/aggregate.py, msm.py).
@@ -530,168 +530,898 @@ PK_DEV void agg_flags(int i, bool live, int lane, const AggShape &s, const AggOu
 }
 
 // ---------------------------------------------------------------------------
-// dedupe: a repeated-key column collapsed into per-distinct-key slots, a
-// block a column (ops/pk/aggregate.py: dedupe_columns_plain)
+// dedupe: a window's four repeated-key columns, each collapsed into at most
+// `cap` slots by its exact 32-byte key and reduced mod L, and the window's
+// B row (ops/pk/aggregate.py: window_tables). A block a tile of DD_TILE
+// lanes of one column; the tiles' lists of distinct keys merge up a tree
+// of tickets (a node's last child to finish merges it; keys and lane
+// counts only); the block that completes a column's root ranks every
+// tile's groups in it, sums their bytes into the slots and finishes them;
+// the last tile of columns 0-2 to finish reduces the B row. The block
+// body (dd_block) is written once: on the card each thread runs it; on
+// the host (PK_HOST) one call runs a whole block, each DD_EACH over the
+// threads in turn, and DD_SYNC is a barrier only on the card, so what a
+// thread carries across a barrier lives in DedupeSmem.
 // ---------------------------------------------------------------------------
 
-#define DD_THREADS 1024
-#define DD_KEYS 4                  // key columns a window (the B row one block more)
+#define DD_TILE 256                // lanes a tile, threads a block
+#define DD_KEYS 4                  // key columns a window
 #define DD_BROWS 3                 // the B coefficient's rows a lane
-#define DD_MAXN (1 << 22)          // lanes a column (the byte sums stay int32)
-#define DD_MAXCAP 512              // slots a column
-#define DD_SMEM_LANES 8192         // a column's sort in shared memory up to these
-                                   // lanes (16 B a lane beside the slots' 132 B
-                                   // of DD_MAXCAP, under a block's 227 KB)
+#define DD_MAXN (1 << 22)          // lanes a column (a slot's byte sums stay below 2^30)
+#define DD_MAXCAP DD_TILE          // slots a column (a thread a slot)
+#define DD_FAN 4                   // children of a merge node, searched at once
+#define DD_LEVELS 8                // tree levels, the tiles' included
+#define DD_STAGE (5 * DD_TILE)     // keys a merge stages in shared memory (40 KB)
 
-struct DedupeIn {
-  const int32_t *key;  // [32][B] bytes, lane-minor
-  const u8 *coeff;     // [B][32]
-  const int32_t *pts;  // [B][40]
-  u64 *words;          // scratch [4][B]: the key as big-endian words
+#ifdef PK_HOST
+#define DD_HD static inline
+#define DD_EACH(i) for (int i = 0; i < DD_TILE; i++)
+#define DD_SYNC() ((void)0)
+#define DD_FENCE() ((void)0)
+#define DD_LD32(p) (*(const u32 *)(p))
+static inline void pk_atomic_add64(u64 *p, u64 v) { *p += v; }
+#else
+#define DD_HD __host__ __device__ inline  // the launcher calls these too
+#define DD_EACH(i) for (int i = threadIdx.x, dd_once = 0; dd_once < 1; dd_once++)
+#define DD_SYNC() __syncthreads()
+#define DD_FENCE() __threadfence()
+// what other blocks wrote is read from L2 (an SM's L1 may hold a line of
+// the same address from an earlier level)
+#define DD_LD32(p) ((u32)__ldcg((const unsigned int *)(p)))
+PK_DEV void pk_atomic_add64(u64 *p, u64 v) {
+  atomicAdd((unsigned long long *)p, (unsigned long long)v);
+}
+#endif
+
+// the lanes a tree of `levels` levels reaches (the tiles' the first)
+DD_HD constexpr long long dd_reach(int levels) {
+  return levels <= 1 ? DD_TILE : DD_FAN * dd_reach(levels - 1);
+}
+static_assert(dd_reach(DD_LEVELS) >= DD_MAXN, "DD_LEVELS: the root of the widest column");
+// a column within its cap stages all its merges' keys
+static_assert(DD_FAN * DD_MAXCAP <= DD_STAGE, "DD_STAGE");
+
+// an entry's key (4 words), meta (4) and sums (32) from L2, 16 bytes a
+// load on the card, so that a row's loads are in flight together
+PK_DEV void dd_ld_key(const u64 *e, u64 *k) {
+#ifdef PK_HOST
+  for (int w = 0; w < 4; w++) k[w] = e[w];
+#else
+  ulonglong2 x = __ldcg((const ulonglong2 *)e), y = __ldcg((const ulonglong2 *)e + 1);
+  k[0] = x.x; k[1] = x.y; k[2] = y.x; k[3] = y.y;
+#endif
+}
+
+PK_DEV void dd_ld_words(const u32 *e, u32 *x, int n) {  // n a multiple of 4
+#ifdef PK_HOST
+  for (int q = 0; q < n; q++) x[q] = e[q];
+#else
+  for (int q = 0; q < n; q += 4) {
+    uint4 v = __ldcg((const uint4 *)(e + q));
+    x[q] = v.x; x[q + 1] = v.y; x[q + 2] = v.z; x[q + 3] = v.w;
+  }
+#endif
+}
+
+// a key from shared memory, 16 bytes a load on the card
+PK_DEV void dd_smem_key(const u64 *e, u64 *k) {
+#ifdef PK_HOST
+  for (int w = 0; w < 4; w++) k[w] = e[w];
+#else
+  ulonglong2 x = ((const ulonglong2 *)e)[0], y = ((const ulonglong2 *)e)[1];
+  k[0] = x.x; k[1] = x.y; k[2] = y.x; k[3] = y.y;
+#endif
+}
+
+PK_DEV bool dd_key_lt(const u64 *y, const u64 *x) {
+  return y[0] < x[0] ||
+         (y[0] == x[0] && (y[1] < x[1] || (y[1] == x[1] && (y[2] < x[2] ||
+                                                            (y[2] == x[2] && y[3] < x[3])))));
+}
+
+PK_DEV bool dd_key_eq(const u64 *y, const u64 *x) {
+  return y[0] == x[0] && y[1] == x[1] && y[2] == x[2] && y[3] == x[3];
+}
+
+// the instrument build (dedupe_stamps.cu): thread 0 stamps the global
+// timer (ns; one clock for every SM, where clock64 is an SM's own) after a
+// phase's barrier into [block][DD_NSTAMP]
+#define DD_NSTAMP 16
+#ifdef DD_STAMPS
+PK_DEV long long dd_now() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define DD_STAMP(k)                                                          \
+  do {                                                                       \
+    __syncthreads();                                                         \
+    if (threadIdx.x == 0) a.stamps[blockIdx.x * DD_NSTAMP + (k)] = dd_now(); \
+  } while (0)
+#else
+#define DD_STAMP(k) ((void)0)
+#endif
+
+struct DedupeArgs {
+  int B, cap, T;                  // lanes, slots a column, tiles a column
+  const int32_t *key[DD_KEYS];    // [32][B] bytes, lane-minor
+  const u8 *coeff;                // [DD_KEYS][B][32]
+  const int32_t *pts;             // [DD_KEYS][B][40]
+  const u8 *brows;                // [DD_BROWS][B][32]
+  // scratch: NE = T * DD_TILE entries a column and buffer; a list sits
+  // at its node's first lane, the tiles' in buffer 0, level h's in buffer
+  // 1 + (h - 1) % 2
+  u64 *lkey;                      // [3][DD_KEYS][NE][4]: big-endian words
+  u32 *lmeta;                     // [3][DD_KEYS][NE][4]: lanes, lanes below, first lane, -
+  u32 *lsum;                      // [DD_KEYS][NE][32]: the tiles' groups' byte sums
+  u32 *flag;                      // [DD_KEYS][NE]: a merge's first-of-key flags, then ranks
+  u32 *bpart;                     // [DD_BROWS][T][32]: the tiles' B row sums
+  int *size;                      // [DD_KEYS][DD_LEVELS][T]: each node's list length
+  int *ticket;                    // [DD_KEYS][DD_LEVELS][T] and one: zero between launches
+  u8 *red;                        // [DD_KEYS * cap + 1][32]: the slots mod L, the B row last
+  int32_t *tpts;                  // [DD_KEYS * cap][40]
+  u8 *ok;                         // [DD_KEYS]
+#ifdef DD_STAMPS
+  long long *stamps;
+#endif
 };
-struct DedupeOut { int64_t *raw; int32_t *pts; u8 *ok; };  // this column's cap rows
-// sort keys and positions over np = 2^k >= B and the order (in shared
-// memory while 16 np bytes fit beside the slots, else in global scratch);
-// after the sort gid (int32) takes the keys' place; acc [cap][32] and
-// starts [cap] always in shared memory
-struct DedupeSmem { u64 *sk; u32 *sp, *perm; int *gid, *acc, *starts; };
+
+DD_HD bool dd_shape_ok(int B, int cap) {
+  return B >= 1 && B <= DD_MAXN && cap >= 1 && cap <= DD_MAXCAP;
+}
+
+DD_HD int dd_tiles(int B) { return (B + DD_TILE - 1) / DD_TILE; }
+
+DD_HD size_t dd_scratch_bytes(int T) {
+  size_t ne = (size_t)T * DD_TILE;
+  return ne * (3 * DD_KEYS * (32 + 16) + DD_KEYS * (128 + 4)) +
+         (size_t)T * (DD_BROWS * 128 + DD_KEYS * DD_LEVELS * 4);
+}
+
+DD_HD int dd_ticket_count(int T) { return DD_KEYS * DD_LEVELS * T + 1; }
+
+DD_HD DedupeArgs dd_args(int B, int cap, const void *const *keys, const void *coeffs,
+                         const void *pts, const void *brows, void *scratch, void *tickets,
+                         void *red, void *tpts, void *ok) {
+  DedupeArgs a;
+  a.B = B; a.cap = cap; a.T = dd_tiles(B);
+  for (int c = 0; c < DD_KEYS; c++) a.key[c] = (const int32_t *)keys[c];
+  a.coeff = (const u8 *)coeffs; a.pts = (const int32_t *)pts; a.brows = (const u8 *)brows;
+  size_t ne = (size_t)a.T * DD_TILE;
+  u8 *p = (u8 *)scratch;
+  a.lkey = (u64 *)p; p += 3 * DD_KEYS * ne * 32;
+  a.lmeta = (u32 *)p; p += 3 * DD_KEYS * ne * 16;
+  a.lsum = (u32 *)p; p += DD_KEYS * ne * 128;
+  a.flag = (u32 *)p; p += DD_KEYS * ne * 4;
+  a.bpart = (u32 *)p; p += (size_t)DD_BROWS * a.T * 128;
+  a.size = (int *)p;
+  a.ticket = (int *)tickets;
+  a.red = (u8 *)red; a.tpts = (int32_t *)tpts; a.ok = (u8 *)ok;
+  return a;
+}
+
+struct DedupeSmem {
+  // rows 0 .. DD_TILE - 1: the tile's keys as big-endian words, at the
+  // root its first keys; the rest (DD_GS): the tile's group byte sums, at
+  // the root the slots'; all of it: a merge's staged keys
+  alignas(16) u64 kw[DD_STAGE][4];
+  int below[DD_TILE];    // a lane's tile lanes with smaller keys
+  int cnt[DD_TILE];      // a lane's tile lanes with its key
+  int grp[DD_TILE];      // a lane's group rank in the tile
+  int lead[DD_TILE];     // the lowest lane of its key; a scan's own values
+  int sc[DD_TILE];       // a block scan's values, then their exclusive sums
+  int part[DD_TILE / 32];
+  int bp[32];            // the tile's B row byte sums
+  int cs[DD_FAN + 1];    // a merge's children's list offsets
+  int tot, last, carry, lane, gstar;
+  u64 obelow;            // an overflow slot's starts summed
+  u64 bsum[32];          // the B row's byte columns
+};
+// under the 48 KB of static shared memory a block may declare
+static_assert(sizeof(DedupeSmem) <= 48 * 1024, "DedupeSmem");
+#define DD_GS(s) ((int(*)[32])(s).kw[DD_TILE])
+
+#ifdef PK_HOST
+// exclusive scan of sc in place, the total in tot
+static void dd_block_scan(DedupeSmem &s) {
+  int r = 0;
+  for (int i = 0; i < DD_TILE; i++) {
+    int v = s.sc[i];
+    s.sc[i] = r;
+    r += v;
+  }
+  s.tot = r;
+}
+#else
+__device__ void dd_block_scan(DedupeSmem &s) {
+  int i = threadIdx.x, lane = i & 31, w = i >> 5, v = s.sc[i], x = v;
+  for (int o = 1; o < 32; o <<= 1) {
+    int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s.part[w] = x;
+  __syncthreads();
+  if (w == 0) {
+    int p = lane < DD_TILE / 32 ? s.part[lane] : 0, z = p;
+    for (int o = 1; o < 32; o <<= 1) {
+      int y = __shfl_up_sync(0xffffffffu, z, o);
+      if (lane >= o) z += y;
+    }
+    if (lane < DD_TILE / 32) s.part[lane] = z - p;
+    if (lane == DD_TILE / 32 - 1) s.tot = z;
+  }
+  __syncthreads();
+  s.sc[i] = s.part[w] + x - v;
+  __syncthreads();
+}
+#endif
+
+// a node's list: its entries' keys and meta rows
+struct DdList { u64 *key; u32 *meta; };
+
+// level h's list of column c at entry off
+PK_DEV DdList dd_list(const DedupeArgs &a, int h, int c, size_t off) {
+  int buf = h == 0 ? 0 : 1 + (h - 1) % 2;
+  size_t base = ((size_t)buf * DD_KEYS + c) * a.T * DD_TILE + off;
+  return DdList{a.lkey + base * 4, a.lmeta + base * 4};
+}
+
+// tile t of column c's groups' byte sums
+PK_DEV u32 *dd_tile_sums_at(const DedupeArgs &a, int c, int t) {
+  return a.lsum + ((size_t)c * a.T + t) * DD_TILE * 32;
+}
+
+PK_DEV int dd_idx(const DedupeArgs &a, int c, int h, int m) {
+  return (c * DD_LEVELS + h) * a.T + m;
+}
+
+// lanes from l0, at most n
+PK_DEV int dd_lanes(const DedupeArgs &a, size_t l0, size_t n) {
+  size_t r = (size_t)a.B - l0;
+  return (int)(r < n ? r : n);
+}
 
 // lane l's key as four big-endian words: their unsigned order is the
 // bytes' lexicographic order
-PK_DEV void dd_pack(int l, int B, const DedupeIn &in) {
-  for (int w = 0; w < 4; w++) {
+PK_DEV void dd_key_words(const int32_t *key, int B, int l, u64 *w) {
+  for (int q = 0; q < 4; q++) {
     u64 v = 0;
-    for (int k = 0; k < 8; k++) v = (v << 8) | (u8)in.key[(size_t)(8 * w + k) * B + l];
-    in.words[(size_t)w * B + l] = v;
+    for (int j = 0; j < 8; j++) v = (v << 8) | (u8)key[(size_t)(8 * q + j) * B + l];
+    w[q] = v;
   }
 }
 
-// position i of a sort pass over word w: the key word of the lane the
-// order puts there (past B the largest word: the padding sorts last)
-PK_DEV void dd_load(int i, int w, int B, const DedupeIn &in, const DedupeSmem &sm) {
-  sm.sk[i] = i < B ? in.words[(size_t)w * B + sm.perm[i]] : ~(u64)0;
-  sm.sp[i] = (u32)i;
+// the last of n arrivals at a ticket sees true and resets it
+PK_DEV bool dd_arrive(int *ticket, int n) {
+  if (pk_atomic_add(ticket, 1) != n - 1) return false;
+  *ticket = 0;
+  return true;
 }
 
-// whether position i is out of order with i - 1 (a pass over words
-// already in order keeps the order, so its sort is skipped)
-PK_DEV bool dd_descent(int i, const DedupeSmem &sm) {
-  return i > 0 && sm.sk[i - 1] > sm.sk[i];
+// a row of column sums (each < 2^31, the value < 2^512) -> 32 bytes of
+// the value mod L: the carry into eight words, then sc_reduce_words
+PK_DEV void agg_table_row(const u64 *cols, u8 *out) {
+  u64 x[8] = {0, 0, 0, 0, 0, 0, 0, 0}, c = 0;
+#pragma unroll
+  for (int i = 0; i < 64; i++) {
+    u64 v = c + (i < 32 ? cols[i] : 0);
+    x[i >> 3] |= (v & 255) << (8 * (i & 7));
+    c = v >> 8;
+  }
+  sc_reduce_words(x, out);
 }
 
-// compare-exchange p of a bitonic step (j, k; powers of two) over
-// (word, position) pairs, ascending: the positions break ties, so the
-// pass is stable
-PK_DEV void dd_cmpx(int p, int j, int k, const DedupeSmem &sm) {
-  int i = ((p & ~(j - 1)) << 1) | (p & (j - 1)), l = i + j;
-  u64 a = sm.sk[i], b = sm.sk[l];
-  bool gt = a > b || (a == b && sm.sp[i] > sm.sp[l]);
-  if (gt == ((i & k) == 0)) {
-    sm.sk[i] = b; sm.sk[l] = a;
-    u32 t = sm.sp[i]; sm.sp[i] = sm.sp[l]; sm.sp[l] = t;
+// ---- the tile: lanes l0 .. l0 + n - 1 of column c --------------------------
+
+PK_DEV void dd_tile_load(int i, int c, int l0, int n, const DedupeArgs &a, DedupeSmem &s) {
+  s.sc[i] = 0;
+  if (i < 32) s.bp[i] = 0;
+  if (i < n) dd_key_words(a.key[c], a.B, l0 + i, s.kw[i]);
+}
+
+// lane i against every lane of the tile (broadcast reads, no barrier
+// between them): its lanes below and equal, and whether it is its key's
+// lowest lane; a leader marks its sorted position (a warp's of more than
+// 8 keys: dd_tile_rank_warp)
+PK_DEV void dd_tile_rank(int i, int n, DedupeSmem &s) {
+  u64 x[4];
+  dd_smem_key(s.kw[i], x);
+  int less = 0, eq = 0;
+  bool before = false;
+#pragma unroll 4
+  for (int j = 0; j < n; j++) {
+    u64 y[4];
+    dd_smem_key(s.kw[j], y);
+    bool same = dd_key_eq(y, x);
+    less += dd_key_lt(y, x);
+    eq += same;
+    before = before || (same && j < i);
+  }
+  s.below[i] = less;
+  s.cnt[i] = eq;
+  s.lead[i] = !before;
+  if (!before) s.sc[less] = 1;
+}
+
+#ifndef PK_HOST
+// dd_tile_rank on the card, a warp at a time: the warp's distinct keys
+// (__match_any_sync on each word) in turn, each compared with the tile's
+// lanes 32 at a time (8 a lane) and the counts summed over the warp, so a
+// warp of one key makes 8 comparisons a lane, not 256; a warp of more
+// than 8 keys runs dd_tile_rank
+__device__ void dd_tile_rank_warp(int i, int n, DedupeSmem &s) {
+  const unsigned all = 0xffffffffu;
+  const int lane = i & 31, w0 = i - lane;
+  const bool live = i < n;
+  u64 x[4] = {0, 0, 0, 0};
+  if (live) dd_smem_key(s.kw[i], x);
+  unsigned peers = __match_any_sync(all, x[0]) & __match_any_sync(all, x[1]) &
+                   __match_any_sync(all, x[2]) & __match_any_sync(all, x[3]) &
+                   __ballot_sync(all, live);
+  if (!live) peers = 0;
+  unsigned reps = __ballot_sync(all, live && __ffs(peers) - 1 == lane);
+  if (__popc(reps) > 8) {  // many keys: a lane's own 256 comparisons cost less
+    if (live) dd_tile_rank(i, n, s);
+    return;
+  }
+  int less = 0, eq = 0;
+  bool before = false;
+  while (reps) {
+    const int r = __ffs(reps) - 1;
+    reps &= reps - 1;
+    u64 y[4];
+    for (int w = 0; w < 4; w++) y[w] = __shfl_sync(all, x[w], r);
+    int cl = 0, ce = 0;
+    bool cb = false;
+    for (int j = lane; j < n; j += 32) {
+      u64 z[4];
+      dd_smem_key(s.kw[j], z);
+      bool same = dd_key_eq(z, y);
+      cl += dd_key_lt(z, y);
+      ce += same;
+      cb = cb || (same && j < w0 + r);
+    }
+    cl = __reduce_add_sync(all, cl);
+    ce = __reduce_add_sync(all, ce);
+    cb = __any_sync(all, cb);
+    if (peers >> r & 1) {
+      less = cl;
+      eq = ce;
+      before = lane != r || cb;
+    }
+  }
+  if (!live) return;
+  s.below[i] = less;
+  s.cnt[i] = eq;
+  s.lead[i] = !before;
+  if (!before) s.sc[less] = 1;
+}
+#else
+// dd_tile_rank_warp on the host for warp w: each step over the warp's 32
+// lanes in turn, the match, ballot and shuffles over arrays, the sums
+// over the lanes' strided comparisons in one loop
+static void dd_tile_rank_warp(int w, int n, DedupeSmem &s) {
+  const int w0 = 32 * w;
+  u64 x[32][4];
+  bool live[32];
+  for (int l = 0; l < 32; l++) {
+    live[l] = w0 + l < n;
+    for (int q = 0; q < 4; q++) x[l][q] = 0;
+    if (live[l]) dd_smem_key(s.kw[w0 + l], x[l]);
+  }
+  unsigned peers[32], reps = 0;
+  for (int l = 0; l < 32; l++) {
+    peers[l] = 0;
+    for (int m = 0; m < 32; m++)
+      if (live[l] && live[m] && dd_key_eq(x[m], x[l])) peers[l] |= 1u << m;
+    if (live[l] && (peers[l] & (1u << l)) && !(peers[l] & ((1u << l) - 1))) reps |= 1u << l;
+  }
+  if (__builtin_popcount(reps) > 8) {
+    for (int l = 0; l < 32; l++)
+      if (live[l]) dd_tile_rank(w0 + l, n, s);
+    return;
+  }
+  int less[32] = {0}, eq[32] = {0};
+  bool before[32] = {false};
+  while (reps) {
+    const int r = __builtin_ctz(reps);
+    reps &= reps - 1;
+    int cl = 0, ce = 0;
+    bool cb = false;
+    for (int j = 0; j < n; j++) {
+      bool same = dd_key_eq(s.kw[j], x[r]);
+      cl += dd_key_lt(s.kw[j], x[r]);
+      ce += same;
+      cb = cb || (same && j < w0 + r);
+    }
+    for (int l = 0; l < 32; l++)
+      if (peers[l] >> r & 1) {
+        less[l] = cl;
+        eq[l] = ce;
+        before[l] = l != r || cb;
+      }
+  }
+  for (int l = 0; l < 32; l++) {
+    if (!live[l]) continue;
+    const int i = w0 + l;
+    s.below[i] = less[l];
+    s.cnt[i] = eq[l];
+    s.lead[i] = !before[l];
+    if (!before[l]) s.sc[less[l]] = 1;
   }
 }
+#endif
 
-// after a sort pass, position i's lane (read before any write)
-PK_DEV u32 dd_gathered(int i, const DedupeSmem &sm) { return sm.perm[sm.sp[i]]; }
-
-// whether lanes a and b hold equal keys (the eight loads before any
-// compare, so they are in flight together)
-PK_DEV bool dd_same(int a, int b, int B, const DedupeIn &in) {
-  u64 x[4], y[4];
-  for (int w = 0; w < 4; w++) {
-    x[w] = in.words[(size_t)w * B + a];
-    y[w] = in.words[(size_t)w * B + b];
-  }
-  return x[0] == y[0] && x[1] == y[1] && x[2] == y[2] && x[3] == y[3];
-}
-
-// 1 where sorted position i starts a group (its key differs from i - 1's)
-PK_DEV int dd_newgrp(int i, int B, const DedupeIn &in, const DedupeSmem &sm) {
-  return i == 0 || !dd_same(sm.perm[i], sm.perm[i - 1], B, in) ? 1 : 0;
-}
-
-// after the first pass (the first word alone): whether positions i - 1
-// and i tie on it with different keys (then the order needs all four
-// words: the passes again from the lanes' order, least significant first)
-PK_DEV bool dd_tie_differs(int i, int B, const DedupeIn &in, const DedupeSmem &sm) {
-  if (i == 0 || i >= B) return false;
-  int a = sm.perm[i], b = sm.perm[i - 1];
-  return in.words[a] == in.words[b] && !dd_same(a, b, B, in);
-}
-
-// a group start's position into its slot's start. Only the last slot
-// takes more than one, and its start is read clamped to B - 1, so an add
-// to a start already past B - 1 is left out: the sum stays below 33 B
-// (the warps that pass the test at once), far from int32's end
-PK_DEV void dd_start_add(int *start, int i, int B) {
-  if (*(volatile int *)start < B) pk_atomic_add(start, i);
-}
-
-// warp v over its slice of the sorted positions, lane k = coefficient
-// byte k: runs of one slot summed, each run added to the slot's
-// accumulator; lane 0 adds each group start's position to its slot's
-// start (gid: the inclusive count of group starts)
-PK_DEV void dd_sums(int v, int k, int nwarps, int B, int cap, const DedupeIn &in,
-                    const DedupeSmem &sm) {
-  int per = (B + nwarps - 1) / nwarps, lo = v * per, hi = lo + per < B ? lo + per : B;
-  int slot = -1, run = 0;
-  for (int i0 = lo; i0 < hi; i0 += 16) {
+// warp w, lane k = coefficient byte k, over the warp's 32 lanes of the
+// tile: runs of one group summed, each run added to its group's sum
+PK_DEV void dd_tile_sums(int w, int k, int n, const u8 *coeff, DedupeSmem &s) {
+  int lo = 32 * w, hi = lo + 32 < n ? lo + 32 : n;
+  int g0 = -1, run = 0;
+  for (int j0 = lo; j0 < hi; j0 += 16) {
     int val[16];  // the batch's loads first, so they are in flight together
-    for (int u = 0; u < 16; u++)
-      val[u] = i0 + u < hi ? in.coeff[(size_t)sm.perm[i0 + u] * 32 + k] : 0;
-    for (int u = 0; u < 16 && i0 + u < hi; u++) {
-      int i = i0 + u, g = sm.gid[i] - 1, s = g < cap - 1 ? g : cap - 1;
-      if (s != slot) {
-        if (slot >= 0) pk_atomic_add(&sm.acc[slot * 32 + k], run);
-        slot = s;
+    for (int u = 0; u < 16; u++) val[u] = j0 + u < hi ? coeff[(size_t)(j0 + u) * 32 + k] : 0;
+    for (int u = 0; u < 16 && j0 + u < hi; u++) {
+      int g = s.grp[j0 + u];
+      if (g != g0) {
+        if (g0 >= 0) pk_atomic_add(&DD_GS(s)[g0][k], run);
+        g0 = g;
         run = 0;
       }
       run += val[u];
-      if (k == 0 && (i == 0 || sm.gid[i - 1] != sm.gid[i])) dd_start_add(&sm.starts[s], i, B);
     }
   }
-  if (slot >= 0) pk_atomic_add(&sm.acc[slot * 32 + k], run);
+  if (g0 >= 0) pk_atomic_add(&DD_GS(s)[g0][k], run);
 }
 
-// slot s's outputs: its sums, the point of its group's first sorted lane
-// (the starts' sum past the last slot is clamped, as the reference's)
-PK_DEV void dd_store(int s, int B, const DedupeIn &in, const DedupeSmem &sm,
-                     const DedupeOut &o) {
-  for (int k = 0; k < 32; k++) o.raw[(size_t)s * 32 + k] = sm.acc[s * 32 + k];
-  int st = sm.starts[s] < B - 1 ? sm.starts[s] : B - 1;
-  const int32_t *p = in.pts + (size_t)sm.perm[st] * 40;
-  for (int k = 0; k < 40; k++) o.pts[(size_t)s * 40 + k] = p[k];
+// the tile's n rows of 32 bytes as words: thread i sums bytes
+// 4 (i & 7) .. + 3 of every DD_TILE-th word from i
+PK_DEV void dd_tile_brow(int i, int n, const u32 *rows, DedupeSmem &s) {
+  int sum[4] = {0, 0, 0, 0};
+  for (int q = i; q < n * 8; q += DD_TILE) {
+    u32 v = rows[q];
+    for (int b = 0; b < 4; b++) sum[b] += (v >> (8 * b)) & 255;
+  }
+  for (int b = 0; b < 4; b++)
+    if (sum[b]) pk_atomic_add(&s.bp[4 * (i & 7) + b], sum[b]);
 }
 
-// the B row: thread t sums bytes 4 (t & 7) .. 4 (t & 7) + 3 of every
-// DD_THREADS / 8-th of the n rows from row t >> 3 (rows [n][32]), a word
-// a load, eight loads in flight -> sum[4]
-PK_DEV void dd_brow_part(int t, int n, const u8 *rows, int *sum) {
-  const int step = DD_THREADS / 8;
-  const u32 *w = (const u32 *)rows;
-  for (int b = 0; b < 4; b++) sum[b] = 0;
-  for (int r0 = t >> 3; r0 < n; r0 += 8 * step) {
-    u32 v[8];
-    for (int u = 0; u < 8; u++) {
-      int r = r0 + u * step;
-      v[u] = r < n ? w[(size_t)r * 8 + (t & 7)] : 0;
-    }
-    for (int u = 0; u < 8; u++)
-      for (int b = 0; b < 4; b++) sum[b] += (v[u] >> (8 * b)) & 0xff;
+// the tile's list at its first lane: a leader writes its group's key and
+// meta at its rank, the threads the sums; its length and its B row sums
+PK_DEV void dd_tile_store(int i, int n, int c, int t, const DedupeArgs &a,
+                          const DedupeSmem &s) {
+  DdList o = dd_list(a, 0, c, (size_t)t * DD_TILE);
+  u32 *sum = dd_tile_sums_at(a, c, t);
+  if (i < n && s.lead[i]) {
+    size_t r = s.grp[i];
+    for (int w = 0; w < 4; w++) o.key[4 * r + w] = s.kw[i][w];
+    o.meta[4 * r] = s.cnt[i];
+    o.meta[4 * r + 1] = s.below[i];
+    o.meta[4 * r + 2] = t * DD_TILE + i;
+  }
+  for (int q = i; q < s.tot * 32; q += DD_TILE) sum[q] = DD_GS(s)[q >> 5][q & 31];
+  if (c < DD_BROWS && i < 32) a.bpart[((size_t)c * a.T + t) * 32 + i] = s.bp[i];
+  if (i == 0) a.size[dd_idx(a, c, 0, t)] = s.tot;
+}
+
+// ---- a merge node: its children's sorted lists into one ---------------------
+
+// child u of a node whose children (level h - 1, spanc tiles each) start at cm0
+PK_DEV DdList dd_child(const DedupeArgs &a, int c, int h, int cm0, int u, int spanc) {
+  return dd_list(a, h - 1, c, (size_t)(cm0 + u) * spanc * DD_TILE);
+}
+
+// entry q of child v (v's list in L2, or staged: at row cs[v] + q)
+PK_DEV void dd_child_key(const DedupeArgs &a, const DedupeSmem &s, bool staged, int c, int h,
+                         int cm0, int spanc, int v, size_t q, u64 *k) {
+  if (staged) dd_smem_key(s.kw[s.cs[v] + q], k);
+  else dd_ld_key(dd_child(a, c, h, cm0, v, spanc).key + 4 * q, k);
+}
+
+// key k's lower bounds in the node's nch children, the binary searches in
+// step with each other (their loads in flight together)
+PK_DEV void dd_lower_bounds(const DedupeArgs &a, int c, int h, int cm0, int spanc,
+                            const DedupeSmem &s, bool staged, int nch, const u64 *k, int *pos) {
+  int len[DD_FAN];
+#pragma unroll
+  for (int v = 0; v < DD_FAN; v++) {
+    pos[v] = 0;
+    len[v] = v < nch ? s.cs[v + 1] - s.cs[v] : 0;
+  }
+  for (;;) {
+    bool more = false;
+    u64 y[DD_FAN][4];
+#pragma unroll
+    for (int v = 0; v < DD_FAN; v++)
+      if (len[v] > 0) {
+        more = true;
+        dd_child_key(a, s, staged, c, h, cm0, spanc, v, pos[v] + len[v] / 2, y[v]);
+      }
+    if (!more) break;
+#pragma unroll
+    for (int v = 0; v < DD_FAN; v++)
+      if (len[v] > 0) {
+        int half = len[v] / 2;
+        if (dd_key_lt(y[v], k)) {
+          pos[v] += half + 1;
+          len[v] -= half + 1;
+        } else {
+          len[v] = half;
+        }
+      }
   }
 }
 
-// ---------------------------------------------------------------------------
-// agg_tables: a row of un-carried byte sums -> its value mod L
-// ---------------------------------------------------------------------------
+// entry e of the children's lists (child u's j-th): its place among all
+// the children's entries (those below its key, then its key's entries in
+// earlier children) and whether it is its key's first, by its lower bound
+// in every other child (in shared memory where the merge staged the
+// keys). The first writes the merged entry at
+// its place (the lanes with its key, the lanes below it in all the
+// children, its lowest lane), and flags it.
+PK_NOINLINE void dd_merge_entry(int e, int c, int h, int cm0, int nch, int spanc, bool staged,
+                                const DedupeArgs &a, const DedupeSmem &s, const DdList &out,
+                                size_t fo) {
+  int u = 0;
+  while (u + 1 < nch && s.cs[u + 1] <= e) u++;
+  const size_t j = e - s.cs[u];
+  u64 k[4];
+  u32 m[4];
+  dd_child_key(a, s, staged, c, h, cm0, spanc, u, j, k);
+  dd_ld_words(dd_child(a, c, h, cm0, u, spanc).meta + 4 * j, m, 4);
+  u32 cnt = m[0], ll = m[1];
+  int place = (int)j, before = 0;
+  int pos[DD_FAN];
+  dd_lower_bounds(a, c, h, cm0, spanc, s, staged, nch, k, pos);
+  u32 ym[DD_FAN][4];
+  bool hit[DD_FAN];
+#pragma unroll
+  for (int v = 0; v < DD_FAN; v++) {
+    hit[v] = v < nch && v != u && pos[v] < s.cs[v + 1] - s.cs[v];
+    if (hit[v]) dd_ld_words(dd_child(a, c, h, cm0, v, spanc).meta + 4 * (size_t)pos[v], ym[v], 4);
+  }
+#pragma unroll
+  for (int v = 0; v < DD_FAN; v++) {
+    if (v >= nch || v == u) continue;
+    place += pos[v];
+    if (!hit[v]) {  // every entry of child v is below k
+      ll += dd_lanes(a, (size_t)(cm0 + v) * spanc * DD_TILE, (size_t)spanc * DD_TILE);
+      continue;
+    }
+    ll += ym[v][1];
+    u64 y[4];
+    dd_child_key(a, s, staged, c, h, cm0, spanc, v, pos[v], y);
+    if (!dd_key_eq(y, k)) continue;
+    if (v < u) before++;
+    else cnt += ym[v][0];  // used only if this entry is its key's first
+  }
+  place += before;
+  a.flag[fo + place] = before == 0;
+  if (before) return;
+  for (int w = 0; w < 4; w++) out.key[4 * (size_t)place + w] = k[w];
+  out.meta[4 * (size_t)place] = cnt;
+  out.meta[4 * (size_t)place + 1] = ll;
+  out.meta[4 * (size_t)place + 2] = m[2];
+}
 
-PK_DEV void agg_table_row(int r, const int64_t *raw, u8 *out) {
+struct DdRec { u64 key[4]; u32 meta[4]; int dst; };
+
+#ifdef PK_HOST
+#define DD_PRIVATE(T, x) static T x##_v[DD_TILE]
+#define DD_OWN(x, i) x##_v[i]
+#else
+#define DD_PRIVATE(T, x) T x##_v
+#define DD_OWN(x, i) x##_v
+#endif
+
+// level h's node m of column c from its children (spanc tiles each): the
+// merged entries at their places, an exclusive scan of the first-of-key
+// flags (rank << 1 | flag), then the firsts moved down to their ranks a
+// chunk at a time (each chunk read before it is written: a rank is never
+// above its place). -> the node's list length
+PK_DEV int dd_merge(int c, int h, int m, int spanc, const DedupeArgs &a, DedupeSmem &s) {
+  int cm0 = m * DD_FAN, nodes = (a.T + spanc - 1) / spanc;
+  int nch = nodes - cm0 < DD_FAN ? nodes - cm0 : DD_FAN;
+  DD_EACH(i) if (i < nch) s.cs[i + 1] = (int)DD_LD32(a.size + dd_idx(a, c, h - 1, cm0 + i));
+  DD_SYNC();
+  DD_EACH(i) if (i == 0) {
+    s.cs[0] = 0;
+    for (int u = 0; u < nch; u++) s.cs[u + 1] += s.cs[u];
+    s.carry = 0;
+  }
+  DD_SYNC();
+  DD_STAMP(10);
+  const int D = s.cs[nch];
+  const size_t off = (size_t)cm0 * spanc * DD_TILE, fo = (size_t)c * a.T * DD_TILE + off;
+  const DdList out = dd_list(a, h, c, off);
+  // the children's keys into shared memory, where they fit: always while
+  // the column's keys are within the cap (a list then holds at most cap
+  // keys, and DD_FAN · cap <= DD_STAGE); an overflowing column's merges may
+  // search its lists in L2
+  const bool staged = D <= DD_STAGE;
+  if (staged) {
+    DD_EACH(i) for (int e = i; e < D; e += DD_TILE) {
+      int u = 0;
+      while (u + 1 < nch && s.cs[u + 1] <= e) u++;
+      dd_ld_key(dd_child(a, c, h, cm0, u, spanc).key + 4 * (size_t)(e - s.cs[u]), s.kw[e]);
+    }
+    DD_SYNC();
+  }
+  DD_STAMP(11);
+  DD_EACH(i) for (int e = i; e < D; e += DD_TILE)
+    dd_merge_entry(e, c, h, cm0, nch, spanc, staged, a, s, out, fo);
+  DD_SYNC();
+  DD_STAMP(12);
+  for (int base = 0; base < D; base += DD_TILE) {
+    DD_EACH(i) {
+      int f = base + i < D ? (int)DD_LD32(a.flag + fo + base + i) : 0;
+      s.sc[i] = f;
+      s.lead[i] = f;
+    }
+    DD_SYNC();
+    dd_block_scan(s);
+    DD_EACH(i) if (base + i < D)
+      a.flag[fo + base + i] = ((u32)(s.carry + s.sc[i]) << 1) | (u32)s.lead[i];
+    DD_SYNC();
+    DD_EACH(i) if (i == 0) s.carry += s.tot;
+    DD_SYNC();
+  }
+  const int G = s.carry;
+  DD_STAMP(13);
+  if (G < D) {
+    DD_PRIVATE(DdRec, rec);
+    for (int base = 0; base < D; base += DD_TILE) {
+      DD_EACH(i) {
+        DdRec &r = DD_OWN(rec, i);
+        size_t q = base + i;
+        u32 f = q < (size_t)D ? DD_LD32(a.flag + fo + q) : 0;
+        r.dst = (f & 1) && (f >> 1) != q ? (int)(f >> 1) : -1;
+        if (r.dst >= 0) {
+          dd_ld_key(out.key + 4 * q, r.key);
+          dd_ld_words(out.meta + 4 * q, r.meta, 4);
+        }
+      }
+      DD_SYNC();
+      DD_EACH(i) {
+        const DdRec &r = DD_OWN(rec, i);
+        if (r.dst >= 0) {
+          size_t d = r.dst;
+          for (int w = 0; w < 4; w++) out.key[4 * d + w] = r.key[w];
+          for (int k = 0; k < 3; k++) out.meta[4 * d + k] = r.meta[k];
+        }
+      }
+      DD_SYNC();
+    }
+  }
+  DD_STAMP(14);
+  DD_EACH(i) if (i == 0) a.size[dd_idx(a, c, h, m)] = G;
+  return G;
+}
+
+// ---- the root: a column's G distinct keys in order -------------------------
+
+// the root's first min(G, cap) keys into rows 0 .. of kw, the slots' sums
+// (DD_GS) zeroed
+PK_DEV void dd_root_stage(int i, const DdList &root, int G, const DedupeArgs &a, DedupeSmem &s) {
+  const int n = G < a.cap ? G : a.cap;
+  if (i < n) dd_ld_key(root.key + 4 * (size_t)i, s.kw[i]);
+  for (int q = i; q < a.cap * 32; q += DD_TILE) DD_GS(s)[q >> 5][q & 31] = 0;
+}
+
+// warp w, lane l: the groups of tiles w, w + 8, ... of column c, each
+// ranked in the root's staged keys (a group past them, or at rank
+// cap - 1 or beyond, falls in the last slot), its byte sums added to its
+// slot's
+PK_DEV void dd_gather(int w, int l, int c, int G, const DedupeArgs &a, DedupeSmem &s) {
+  const int n = G < a.cap ? G : a.cap;
+  for (int t = w; t < a.T; t += DD_TILE / 32) {
+    const int d = (int)DD_LD32(a.size + dd_idx(a, c, 0, t));
+    const DdList tl = dd_list(a, 0, c, (size_t)t * DD_TILE);
+    const u32 *sums = dd_tile_sums_at(a, c, t);
+    for (int q = l; q < d; q += 32) {
+      u64 k[4];
+      u32 x[32];
+      dd_ld_key(tl.key + 4 * (size_t)q, k);
+      dd_ld_words(sums + 32 * (size_t)q, x, 32);
+      int lo = 0, len = n;
+      while (len > 0) {
+        int half = len / 2;
+        u64 y[4];
+        dd_smem_key(s.kw[lo + half], y);
+        if (dd_key_lt(y, k)) {
+          lo += half + 1;
+          len -= half + 1;
+        } else {
+          len = half;
+        }
+      }
+      const int sl = lo < a.cap - 1 ? lo : a.cap - 1;
+      for (int k2 = 0; k2 < 32; k2++)
+        if (x[k2]) pk_atomic_add(&DD_GS(s)[sl][k2], (int)x[k2]);
+    }
+  }
+}
+
+// slot sl (< cap) of column c: its sums mod L; its point, its group's
+// lowest lane (an unused slot takes sorted position 0's, group 0's
+// lowest; the last slot under overflow the block's lane). A row of zero
+// sums is 0 mod L without the reduction.
+PK_DEV void dd_finish_slot(int sl, int c, const DdList &root, int G, const DedupeArgs &a,
+                           const DedupeSmem &s) {
+  int lane;
+  if (G > a.cap && sl == a.cap - 1) lane = s.lane;
+  else lane = (int)DD_LD32(root.meta + 4 * (size_t)(sl < G ? sl : 0) + 2);
+  // the point first: its loads in flight beside the reduction
+  const int32_t *p = a.pts + ((size_t)c * a.B + lane) * 40;
+  int32_t *o = a.tpts + ((size_t)c * a.cap + sl) * 40;
+#ifdef PK_HOST
+  for (int k = 0; k < 40; k++) o[k] = p[k];
+#else
+  int4 pv[10];
+  for (int k = 0; k < 10; k++) pv[k] = ((const int4 *)p)[k];
+#endif
+  u8 *row = a.red + ((size_t)c * a.cap + sl) * 32;
   u64 cols[32];
-  for (int k = 0; k < 32; k++) cols[k] = (u64)raw[(size_t)r * 32 + k];
-  u8 wide[64];
-  sc_carry64(cols, 32, wide);
-  sc_reduce512(wide, out + (size_t)r * 32);
+  u32 any = 0;
+#pragma unroll
+  for (int k = 0; k < 32; k++) {
+    cols[k] = (u32)DD_GS(s)[sl][k];
+    any |= (u32)cols[k];
+  }
+  if (any) {
+    agg_table_row(cols, row);
+  } else {
+    for (int k = 0; k < 32; k++) row[k] = 0;
+  }
+#ifndef PK_HOST
+  for (int k = 0; k < 10; k++) ((int4 *)o)[k] = pv[k];
+#endif
+}
+
+// past the cap the last slot's lane is the one at sorted position
+// min(the starts of groups cap - 1 on summed, B - 1), as the reference's:
+// the group holding that position, then its key's r-th lane in lane order
+// (8 lanes a thread a round)
+PK_DEV void dd_overflow(int c, const DdList &root, int G, const DedupeArgs &a, DedupeSmem &s) {
+  DD_EACH(i) if (i == 0) {
+    s.obelow = 0;
+    s.lane = -1;
+  }
+  DD_SYNC();
+  DD_EACH(i) {
+    u64 starts = 0;
+    for (int g = a.cap - 1 + i; g < G; g += DD_TILE) starts += DD_LD32(root.meta + 4 * (size_t)g + 1);
+    if (starts) pk_atomic_add64(&s.obelow, starts);
+  }
+  DD_SYNC();
+  DD_EACH(i) {
+    u64 p = s.obelow < (u64)(a.B - 1) ? s.obelow : (u64)(a.B - 1);
+    for (int g = i; g < G; g += DD_TILE) {
+      u64 b = DD_LD32(root.meta + 4 * (size_t)g + 1), n = DD_LD32(root.meta + 4 * (size_t)g);
+      if (b <= p && p < b + n) {
+        s.gstar = g;
+        s.carry = (int)(p - b);
+      }
+    }
+  }
+  DD_SYNC();
+  u64 k[4];
+  dd_ld_key(root.key + 4 * (size_t)s.gstar, k);
+  // `per` lanes a thread a round: thread i's are base + per · i onwards
+  const int per = 8;
+  int seen = 0;
+  for (int base = 0; base < a.B && s.lane < 0; base += per * DD_TILE) {
+    DD_EACH(i) {
+      int eq = 0;
+      for (int l = base + per * i; l < base + per * (i + 1) && l < a.B; l++) {
+        u64 x[4];
+        dd_key_words(a.key[c], a.B, l, x);
+        eq += dd_key_eq(x, k);
+      }
+      s.sc[i] = eq;
+      s.lead[i] = eq;
+    }
+    DD_SYNC();
+    dd_block_scan(s);
+    DD_EACH(i) {
+      int r = s.carry - seen - s.sc[i];  // the wanted lane's rank among this thread's
+      if (s.lead[i] && r >= 0 && r < s.lead[i])
+        for (int l = base + per * i; l < base + per * (i + 1) && l < a.B; l++) {
+          u64 x[4];
+          dd_key_words(a.key[c], a.B, l, x);
+          if (dd_key_eq(x, k) && r-- == 0) s.lane = l;
+        }
+    }
+    seen += s.tot;
+    DD_SYNC();
+  }
+}
+
+// ---- a block: a tile, the merges it completes, a root, the B row -----------
+
+PK_DEV void dd_block(int blk, const DedupeArgs &a, DedupeSmem &s) {
+  const int c = blk % DD_KEYS, t = blk / DD_KEYS, l0 = t * DD_TILE;
+  const int n = dd_lanes(a, l0, DD_TILE);
+  DD_STAMP(0);
+  DD_EACH(i) dd_tile_load(i, c, l0, n, a, s);
+  DD_SYNC();
+  DD_STAMP(1);
+#ifdef PK_HOST
+  for (int w = 0; w < DD_TILE / 32; w++) dd_tile_rank_warp(w, n, s);
+#else
+  dd_tile_rank_warp(threadIdx.x, n, s);
+#endif
+  DD_SYNC();
+  DD_STAMP(2);
+  dd_block_scan(s);  // the leaders' ranks at their sorted positions
+  DD_EACH(i) {
+    if (i < n) s.grp[i] = s.sc[s.below[i]];
+    for (int q = i; q < s.tot * 32; q += DD_TILE) DD_GS(s)[q >> 5][q & 31] = 0;
+  }
+  DD_SYNC();
+  DD_STAMP(3);
+  DD_EACH(i) {
+    dd_tile_sums(i >> 5, i & 31, n, a.coeff + ((size_t)c * a.B + l0) * 32, s);
+    if (c < DD_BROWS) dd_tile_brow(i, n, (const u32 *)(a.brows + ((size_t)c * a.B + l0) * 32), s);
+  }
+  DD_SYNC();
+  DD_STAMP(4);
+  DD_EACH(i) dd_tile_store(i, n, c, t, a, s);
+  int G = s.tot, h = 0, m = t;
+  DD_STAMP(5);
+  // the last tile of columns 0-2 to finish: the B row, off the columns' path
+  if (c < DD_BROWS) {
+    DD_FENCE();
+    DD_SYNC();
+    DD_EACH(i) {
+      if (i == 0) s.last = dd_arrive(a.ticket + DD_KEYS * DD_LEVELS * a.T, DD_BROWS * a.T);
+      if (i < 32) s.bsum[i] = 0;
+    }
+    DD_SYNC();
+    if (s.last) {
+      DD_FENCE();
+      DD_EACH(i) {
+        u64 v = 0;
+        for (int q = i >> 5; q < DD_BROWS * a.T; q += DD_TILE / 32)
+          v += DD_LD32(a.bpart + (size_t)q * 32 + (i & 31));
+        pk_atomic_add64(&s.bsum[i & 31], v);
+      }
+      DD_SYNC();
+      DD_EACH(i) if (i == 0) agg_table_row(s.bsum, a.red + (size_t)DD_KEYS * a.cap * 32);
+      DD_STAMP(8);
+    }
+  }
+  // up the tree while this block completes a node: span tiles a level-h node
+  for (int span = 1; span < a.T; span *= DD_FAN) {
+    const int nodes = (a.T + span - 1) / span, parent = m / DD_FAN;
+    const int nch = nodes - parent * DD_FAN < DD_FAN ? nodes - parent * DD_FAN : DD_FAN;
+    DD_FENCE();
+    DD_SYNC();
+    DD_EACH(i) if (i == 0) s.last = dd_arrive(a.ticket + dd_idx(a, c, h + 1, parent), nch);
+    DD_SYNC();
+    if (!s.last) return;
+    DD_FENCE();
+    h++;
+    m = parent;
+    G = dd_merge(c, h, m, span, a, s);
+    DD_STAMP(6);
+#ifdef DD_STAMPS
+    if (threadIdx.x == 0) a.stamps[blockIdx.x * DD_NSTAMP + 9] = h;  // the merges it ran
+#endif
+  }
+  // the column's root: level h, node 0. Every tile group's sums into its
+  // slot, then the slots mod L
+  const DdList root = dd_list(a, h, c, 0);
+  DD_EACH(i) dd_root_stage(i, root, G, a, s);
+  DD_SYNC();
+  DD_EACH(i) dd_gather(i >> 5, i & 31, c, G, a, s);
+  DD_SYNC();
+  if (G > a.cap) dd_overflow(c, root, G, a, s);
+  DD_STAMP(15);
+  DD_EACH(i) {
+    if (i < a.cap) dd_finish_slot(i, c, root, G, a, s);
+    if (i == 0) a.ok[c] = G <= a.cap;
+  }
+  DD_STAMP(7);
 }
 
 // ---------------------------------------------------------------------------

@@ -163,7 +163,7 @@ static void agg_tree_host(AggScratch &sc) {
 // card: their Z's are leaves of the tree), in an order the kernel's
 // barriers allow: every role's first phase, AW_H's tree, the phases after
 // AB_ED and AB_INV, c (AB_C), then the products (AB_COEF) and the flags.
-// agg_tables row by row; the msm phase by phase, each phase's threads in
+// the msm phase by phase, each phase's threads in
 // turn (the atomics' places are then in point order), the scan
 // sequential, a big bucket's tree round by round, the tree level by
 // level (each level's reads before its writes), the quads' four
@@ -244,73 +244,66 @@ extern "C" int pk_sc_add(int B, const void *a, const void *b, void *out) {
   return 0;
 }
 
+// host only: agg_table_row over [R][32] int64 column sums -> [R][32]
 extern "C" int pk_agg_tables(int R, const void *raw, void *out, void *) {
-  for (int r = 0; r < R; r++) agg_table_row(r, (const int64_t *)raw, (u8 *)out);
+  for (int r = 0; r < R; r++) {
+    u64 cols[32];
+    for (int k = 0; k < 32; k++) cols[k] = (u64)((const int64_t *)raw)[(size_t)r * 32 + k];
+    agg_table_row(cols, (u8 *)out + (size_t)r * 32);
+  }
   return 0;
 }
 
-// the dedupe column by column: each sort step's compare-exchanges in
-// turn, each gather's reads before its writes, the scan sequential, the
-// slot sums warp by warp and lane by lane (the atomics' sums are
-// integers: any order gives the same); then the B row. The sort's arrays
-// are the host's own, whatever the width (gscr is not read)
-extern "C" int pk_dedupe(int B, int cap, const void *const *keys, const void *coeffs,
-                         const void *pts, const void *brows, void *words, void *, void *raw,
-                         void *tpts, void *ok, void *) {
-  if (B < 1 || B > DD_MAXN || cap < 1 || cap > DD_MAXCAP) return -1;
-  int np = 1;
-  while (np < B) np <<= 1;
-  u64 *sk = new u64[np];
-  u32 *sp = new u32[np], *perm = new u32[np], *got = new u32[np];
-  int *gid = new int[B], *acc = new int[cap * 33];
-  DedupeSmem sm{sk, sp, perm, gid, acc, acc + cap * 32};
-  for (int c = 0; c < DD_KEYS; c++) {
-    DedupeIn in{(CI)keys[c], (const u8 *)coeffs + (size_t)c * B * 32,
-                (CI)pts + (size_t)c * B * 40, (u64 *)words + (size_t)c * 4 * B};
-    for (int l = 0; l < B; l++) dd_pack(l, B, in);
-    for (int i = 0; i < np; i++) perm[i] = (u32)i;
-    auto pass = [&](int w) {
-      for (int i = 0; i < np; i++) dd_load(i, w, B, in, sm);
-      bool desc = false;
-      for (int i = 0; i < np; i++) desc = desc || dd_descent(i, sm);
-      if (!desc) return;
-      for (int kk = 2; kk <= np; kk <<= 1)
-        for (int j = kk >> 1; j > 0; j >>= 1)
-          for (int p = 0; p < np / 2; p++) dd_cmpx(p, j, kk, sm);
-      for (int i = 0; i < np; i++) got[i] = dd_gathered(i, sm);
-      for (int i = 0; i < np; i++) perm[i] = got[i];
-    };
-    pass(0);
-    bool tie = false;
-    for (int i = 0; i < B; i++) tie = tie || dd_tie_differs(i, B, in, sm);
-    if (tie) {
-      for (int i = 0; i < np; i++) perm[i] = (u32)i;
-      for (int w = 3; w >= 0; w--) pass(w);
-    }
-    for (int i = 0; i < B; i++) gid[i] = dd_newgrp(i, B, in, sm);
-    for (int i = 1; i < B; i++) gid[i] += gid[i - 1];
-    for (int i = 0; i < cap * 33; i++) acc[i] = 0;
-    for (int v = 0; v < DD_THREADS / 32; v++)
-      for (int b = 0; b < 32; b++) dd_sums(v, b, DD_THREADS / 32, B, cap, in, sm);
-    DedupeOut o{(int64_t *)raw + (size_t)c * cap * 32, (OI)tpts + (size_t)c * cap * 40,
-                (u8 *)ok};
-    for (int s = 0; s < cap; s++) dd_store(s, B, in, sm, o);
-    ((u8 *)ok)[c] = gid[B - 1] <= cap ? 1 : 0;
+// the dedupe block by block, in `order`: 0 the grid's, -1 reversed, else a
+// shuffle seeded by it. A block runs to its end (its tile, then the merges
+// its tickets hand it, its column's root, the B row) before the next
+// starts, one of the orders the card may take; the scratch and each
+// block's shared memory are filled with 0xA5 first (a read of what no
+// earlier phase wrote gives garbage), the tickets as the caller gives them
+extern "C" int pk_dedupe_order(int order, int B, int cap, const void *k0,
+                               const void *k1, const void *k2, const void *k3,
+                               const void *coeffs, const void *pts, const void *brows,
+                               void *scratch, size_t scratch_bytes, void *tickets, void *red,
+                               void *tpts, void *ok, void *) {
+  if (!dd_shape_ok(B, cap) || scratch_bytes < dd_scratch_bytes(dd_tiles(B))) return -1;
+  const void *keys[DD_KEYS] = {k0, k1, k2, k3};
+  DedupeArgs a = dd_args(B, cap, keys, coeffs, pts, brows, scratch, tickets, red, tpts, ok);
+  for (size_t k = 0; k < scratch_bytes; k++) ((u8 *)scratch)[k] = 0xA5;
+  const int n = DD_KEYS * a.T;
+  int *blocks = new int[n];
+  for (int k = 0; k < n; k++) blocks[k] = order < 0 ? n - 1 - k : k;
+  u64 x = (u64)order * 0x9E3779B97F4A7C15ull + 1;  // a seeded Fisher-Yates shuffle (xorshift)
+  for (int k = n - 1; order > 0 && k > 0; k--) {
+    x ^= x << 13;
+    x ^= x >> 7;
+    x ^= x << 17;
+    int j = (int)(x % (u64)(k + 1)), t = blocks[k];
+    blocks[k] = blocks[j];
+    blocks[j] = t;
   }
-  static int sums[DD_THREADS / 8][32];
-  for (int t = 0; t < DD_THREADS; t++)
-    dd_brow_part(t, DD_BROWS * B, (const u8 *)brows, &sums[t >> 3][4 * (t & 7)]);
-  for (int b = 0; b < 32; b++) {
-    int64_t v = 0;
-    for (int g = 0; g < DD_THREADS / 8; g++) v += sums[g][b];
-    ((int64_t *)raw)[(size_t)DD_KEYS * cap * 32 + b] = v;
+  static DedupeSmem s;
+  for (int k = 0; k < n; k++) {
+    for (size_t q = 0; q < sizeof s; q++) ((u8 *)&s)[q] = 0xA5;
+    dd_block(blocks[k], a, s);
   }
-  delete[] sk;
-  delete[] sp;
-  delete[] perm;
-  delete[] got;
-  delete[] gid;
-  delete[] acc;
+  delete[] blocks;
+  return 0;
+}
+
+extern "C" int pk_dedupe(int B, int cap, const void *k0, const void *k1,
+                         const void *k2, const void *k3, const void *coeffs, const void *pts,
+                         const void *brows, void *scratch, size_t scratch_bytes, void *tickets,
+                         void *red, void *tpts, void *ok, void *stream) {
+  return pk_dedupe_order(1, B, cap, k0, k1, k2, k3, coeffs, pts, brows, scratch,
+                         scratch_bytes, tickets, red, tpts, ok, stream);
+}
+
+// host only: the scratch bytes and tickets of a launch over B lanes
+extern "C" int pk_dedupe_shape(int B, void *out) {
+  int T = dd_tiles(B);
+  ((int64_t *)out)[0] = DD_KEYS * T;
+  ((int64_t *)out)[1] = (int64_t)dd_scratch_bytes(T);
+  ((int64_t *)out)[2] = dd_ticket_count(T);
   return 0;
 }
 

@@ -65,8 +65,7 @@ from . import verify as pv
 # window aggregate's three (ops/pk/aggregate.py, msm.py) count here too
 LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
             "vrf_ladders": 0, "finish": 0, "unpack": 0, "nonce_fold": 0,
-            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "dedupe": 0, "agg_tables": 0,
-            "msm": 0}
+            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "dedupe": 0, "msm": 0}
 
 _BASE8: dict = {}
 
@@ -105,7 +104,10 @@ def _route(device: torch.device) -> str:
 
 
 def _stream(device: torch.device):
-    return torch.cuda.current_stream(device).cuda_stream
+    # the current stream's handle, as current_stream(device).cuda_stream
+    # gives it, without building a Stream object (≈ 10 µs a call)
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if device.index is None else device.index)
 
 
 def _raise_on(rc: int, name: str) -> None:
@@ -551,8 +553,8 @@ def _unpack_and_fold(layout, packed, n_real: int, device, carry):
 def verify_praos_packed_agg(layout, packed, n_real: int, device, carry):
     """The aggregated dispatch of a batch-compatible packed window on
     `device`: as verify_praos_packed_split up to the fold, then the window
-    aggregate (aggregate.aggregate_window: agg_prep, the dedupe,
-    agg_tables, msm) in place of the five stage kernels, and the verdict
+    aggregate (aggregate.aggregate_window: agg_prep, the dedupe with its
+    mod-L reductions, msm) in place of the five stage kernels, and the verdict
     words over its flags. -> ((masks, carry-out), AggregateVerdicts, the
     limb-first columns, which a dirty window's per-lane re-dispatch
     reads)."""

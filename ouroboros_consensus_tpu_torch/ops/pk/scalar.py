@@ -76,7 +76,7 @@ def sum_mod_l(terms) -> torch.Tensor:
     """Sum a list of [32, B] byte scalars over the list and the lanes ->
     [32, 1] bytes mod L. The int64 row sums are exact: a row of T terms
     of bytes stays below 255·T. No path calls it (the aggregate sums its
-    B coefficient's rows itself and reduces them in agg_tables); the
+    B coefficient's rows in the dedupe kernel and reduces them there); the
     tests hold it as the reference's function."""
     acc = None
     for t in terms:

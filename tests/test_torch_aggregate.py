@@ -294,8 +294,8 @@ def test_host_msm_decides_the_aggregate(window, host, kind):
 
     cols = window if kind == "clean" else _corrupt(window, kind, 3)
     pts, scal, _, _, _ = pa.agg_prep_plain(*cols, kes_depth=DEPTH)
-    raw, tpts, ok_cap = pa.window_tables(cols, pts, scal)
+    red, tpts, ok_cap = pa.window_tables(cols, pts, scal)
     assert bool(ok_cap.all())
-    points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, pa.agg_tables_plain(raw))
+    points, scalars, n_small, base = pa.msm_inputs(pts, scal, tpts, red)
     got = _host_msm(host, points, scalars, n_small, base)
     assert int(got["ident"][0]) == (1 if kind == "clean" else 0)

@@ -1,12 +1,18 @@
 """The window aggregate's key dedupe: the `dedupe` kernel's body
-(csrc/agg.cuh, built as host C++ through csrc/host_emu.cpp) byte for
-byte against its plain twin (ouroboros_consensus_tpu_torch/ops/pk/
-aggregate.py: dedupe_columns_plain, window_tables_plain) and the JAX
-package's `_dedupe_column` (seeded numpy inputs into all three): keys
-that share their first 8, 16 or 24 bytes, equal keys at lanes far apart,
-one key in every lane, the cap exactly full and overflowing, at cap 256
-and small caps, and windows wider than a block's shared memory sorts
-(past 8,192 lanes the sort runs in global scratch)."""
+(csrc/agg.cuh, built as host C++ through csrc/host_emu.cpp, its blocks
+one after another in a seeded shuffled order, in reverse or in the
+grid's) byte for byte against its plain twin, the reference's slot sums
+and B coefficient reduced mod L (ouroboros_consensus_tpu_torch/ops/pk/
+aggregate.py: agg_tables_plain of dedupe_columns_plain and
+window_tables_plain), and the JAX package's `_dedupe_column` (seeded
+numpy inputs into all three): keys that share their first 8, 16 or 24
+bytes, equal keys at lanes far apart, one key in every lane, the cap
+exactly full and overflowing, at cap 256 and small caps, windows of one
+tile and of several merge levels up to 70,000 lanes, warps of a few
+keys that share long prefixes (the card's warp-at-a-time ranking), the
+launch's one form at every width and the scratch it keeps."""
+
+import functools
 
 import jax
 import numpy as np
@@ -64,31 +70,41 @@ def _brows(b, seed):
     return torch.from_numpy(rng.integers(0, 256, (3, b, 32)).astype(np.uint8))
 
 
-def _host(host, keys, coeffs, pts, cap, brows):
+def _host(host, keys, coeffs, pts, cap, brows, order=None):
     """The kernel's one entry through the host build: four key columns and
-    the window's B rows."""
-    raw, tpts, ok, rc = pa._dedupe_launch(host.pk_dedupe, None, list(keys), coeffs, pts,
-                                          brows, cap)
+    the window's B rows (`order`: the blocks' order, pk_dedupe_order's;
+    None: pk_dedupe's own, a seeded shuffle) -> (red, slot points, ok)."""
+    fn = host.pk_dedupe if order is None else functools.partial(host.pk_dedupe_order, order)
+    red, tpts, ok, rc = pa._dedupe_launch(fn, None, list(keys), coeffs.data_ptr(),
+                                          pts.data_ptr(), brows.data_ptr(), cap)
     assert rc == 0
-    return raw, tpts, ok
+    return red, tpts, ok
 
 
 def _twin(keys, coeffs, pts, cap, brows):
+    """The reference's outputs: the slot sums and the B row's lane sums
+    (the twin's un-carried rows) reduced mod L, the slot points, ok_cap."""
     raw, tpts, ok = pa.dedupe_columns_plain(keys, coeffs, pts, cap)
-    return torch.cat([raw, brows.to(torch.int64).sum((0, 1))[None]]), tpts, ok
+    raw = torch.cat([raw, brows.to(torch.int64).sum((0, 1))[None]])
+    return pa.agg_tables_plain(raw), tpts, ok
 
 
-def _check_columns(host, cols, cap, seed):
+def _stacked(cols, seed):
     keys = torch.from_numpy(np.stack([c[0] for c in cols]))
     coeffs = torch.from_numpy(np.stack([c[1] for c in cols]))
     pts = torch.from_numpy(np.stack([c[2] for c in cols]))
-    brows = _brows(keys.shape[-1], seed)
-    got = _host(host, keys, coeffs, pts, cap, brows)
+    return keys, coeffs, pts, _brows(keys.shape[-1], seed)
+
+
+def _check_columns(host, cols, cap, seed, order=None):
+    keys, coeffs, pts, brows = _stacked(cols, seed)
+    got = _host(host, keys, coeffs, pts, cap, brows, order)
     want = _twin(keys, coeffs, pts, cap, brows)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     groups = [len({bytes(r) for r in c[0].T.astype(np.uint8)}) for c in cols]
     assert got[2].tolist() == [n <= cap for n in groups]
+    return got
 
 
 @pytest.mark.parametrize("kind,b,distinct,cap", CASES)
@@ -98,33 +114,102 @@ def test_host_dedupe_matches_twin(host, kind, b, distinct, cap):
 
 @pytest.mark.parametrize("b,distinct", [(8193, 300), (20000, 3000), (70000, 70000)])
 def test_host_dedupe_wide_windows(host, b, distinct):
-    """Windows past DEDUPE_SMEM_LANES (the sort in global scratch on the
-    card) and past 65,536 lanes (positions wider than 16 bits): keys
-    tying on their first 8 bytes (the four-word passes), more groups than
-    the cap (the last slot's start summed over many groups), and one key
-    in every lane."""
+    """Windows past 8,192 lanes (the same path: more tiles, one merge
+    level more) and past 65,536 lanes (positions wider than 16 bits): keys
+    tying on their first 8 bytes, more groups than the cap (the last
+    slot's start summed over many groups, its lane found by rank), and one
+    key in every lane."""
     kinds = ("prefix8", "random", "prefix16", "one")
     cols = [_column(kind, b, 1 if kind == "one" else distinct, 80 + c)
             for c, kind in enumerate(kinds)]
     _check_columns(host, cols, pa._DEDUPE_CAP, 85)
 
 
-def test_wide_window_takes_global_scratch():
-    """The launch hands the kernel scratch for its sort (16 bytes a lane
-    of the next power of two, a column) exactly past DEDUPE_SMEM_LANES
-    lanes, and none below."""
+ORDER_CASES = [("prefix8", 8192, 300, 256), ("random", 3000, 256, 256),
+               ("far", 2000, 5, 3), ("random", 600, 600, 2)]
+
+
+@pytest.mark.parametrize("order", [0, -1, 5, 11])
+@pytest.mark.parametrize("kind,b,distinct,cap", ORDER_CASES)
+def test_host_dedupe_any_block_order(host, kind, b, distinct, cap, order):
+    """The outputs do not depend on the order the blocks run in (the grid's,
+    reversed, two seeded shuffles): which tile finishes a merge node last,
+    and which column finishes the B row, changes; the bytes do not."""
+    cols = [_column(kind, b, distinct, 50 + c) for c in range(4)]
+    _check_columns(host, cols, cap, 55, order)
+
+
+WARP_CASES = [  # (kind, lanes, distinct keys): at most 8 keys a warp, then 9
+    ("prefix8", 512, 3), ("prefix16", 700, 8), ("prefix24", 1000, 9), ("prefix31", 300, 6),
+    ("far", 2000, 2),
+]
+
+
+@pytest.mark.parametrize("kind,b,distinct", WARP_CASES)
+def test_host_dedupe_few_keys_a_warp(host, kind, b, distinct):
+    """Warps of a few keys each, the card's warp-at-a-time ranking (a
+    warp's distinct keys in turn, each against the tile; more than 8 keys:
+    a lane's own comparisons), with keys that share their first 8, 16, 24
+    or 31 bytes, differ in one byte only, or sit at the two ends of the
+    column alone."""
+    cols = [_column(kind, b, distinct, 90 + c) for c in range(4)]
+    _check_columns(host, cols, pa._DEDUPE_CAP, 95, 3)
+
+
+@pytest.mark.parametrize("b", [8192, 8193, 70000])
+def test_launch_has_one_form(host, b):
+    """One path for every width: the grid is a block a tile of each column,
+    the scratch and the tickets grow with the tiles by one formula (the
+    wrapper's, the kernel's own), and nothing else changes with the width;
+    each launch leaves its tickets zero for the next."""
+    blocks, scratch, tickets = pa._dedupe_shape(b)
+    tiles = -(-b // pa.DEDUPE_TILE)
+    assert blocks == 4 * tiles
+    assert scratch == tiles * (pa.DEDUPE_TILE * 1104 + 512)
+    assert tickets == 32 * tiles + 1
+    got = np.zeros(3, dtype=np.int64)
+    assert host.pk_dedupe_shape(b, got.ctypes.data) == 0
+    assert got.tolist() == [blocks, scratch, tickets]
     seen = []
 
-    def fn(b, cap, ptrs, coeffs, pts, brows, words, gscr, *rest):
-        seen.append((b, gscr))
+    def fn(*args):
+        seen.append(args)
+        return host.pk_dedupe(*args)
+
+    cols = [_column("random", b, 5, c) for c in range(4)]
+    keys, coeffs, pts, brows = _stacked(cols, 1)
+    pa._WORKSPACE.clear()
+    red, _tpts, _ok, rc = pa._dedupe_launch(fn, None, list(keys), coeffs.data_ptr(),
+                                            pts.data_ptr(), brows.data_ptr(), 256)
+    assert rc == 0 and len(seen) == 1
+    assert seen[0][:2] == (b, 256) and seen[0][10] == scratch
+    assert red.shape == (4 * 256 + 1, 32)
+    ((buf, t),) = pa._WORKSPACE.values()
+    assert t.numel() == tickets and not t.any()
+    assert (buf is None) == (scratch > pa._SCRATCH_KEEP)
+    assert buf is None or buf.numel() == scratch
+
+
+def test_wide_scratch_is_its_calls_own():
+    """The scratch kept between calls stays at most _SCRATCH_KEEP bytes: a
+    window wider than that gets one of its own for its call, and the
+    narrower window's kept scratch is used again after it."""
+    seen = []
+
+    def fn(*args):
+        seen.append(args[10])
         return 0
 
-    for b in (pa.DEDUPE_SMEM_LANES, pa.DEDUPE_SMEM_LANES + 1):
-        cols = [_column("random", b, 5, c) for c in range(4)]
-        pa._dedupe_launch(fn, None, [torch.from_numpy(c[0]) for c in cols],
-                          torch.from_numpy(np.stack([c[1] for c in cols])),
-                          torch.from_numpy(np.stack([c[2] for c in cols])), _brows(b, 1), 256)
-    assert seen[0][1] is None and seen[1][1] is not None
+    widths = (8192, 70000, 8192, 4000)
+    pa._WORKSPACE.clear()
+    for b in widths:
+        keys = [torch.zeros((32, b), dtype=torch.int32)] * 4
+        assert pa._dedupe_launch(fn, None, keys, 0, 0, 0, 256)[3] == 0
+        ((buf, _t),) = pa._WORKSPACE.values()
+        assert buf.numel() == pa._dedupe_shape(8192)[1] <= pa._SCRATCH_KEEP
+    assert seen == [pa._dedupe_shape(b)[1] for b in widths]
+    assert pa._dedupe_shape(70000)[1] > pa._SCRATCH_KEEP
+    assert _t.numel() == pa._dedupe_shape(70000)[2]  # the tickets grow and stay
 
 
 def _limbs13(vals) -> np.ndarray:
@@ -140,8 +225,8 @@ def _int13(col) -> list[int]:
                                                  ("random", 40, 12, 8)])
 def test_host_dedupe_matches_jax(host, kind, b, distinct, cap):
     """The body against the JAX package's `_dedupe_column` (mod-L
-    coefficients, field points) as values: the slot sums mod L, each
-    slot's point, ok_cap."""
+    coefficients, field points) as values: the slots mod L (the kernel's
+    own reduction), each slot's point, ok_cap."""
     rng = np.random.default_rng(60)
     keys = _keys(kind, b, distinct, rng)
     coeff = [int.from_bytes(rng.bytes(32), "little") % sc.L for _ in range(b)]
@@ -153,11 +238,11 @@ def test_host_dedupe_matches_jax(host, kind, b, distinct, cap):
                        dtype=torch.int32)
     cbytes = torch.tensor([list(c.to_bytes(32, "little")) for c in coeff], dtype=torch.uint8)
     four = torch.from_numpy(keys)[None].expand(4, 32, b)  # the column in all four places
-    raw, tp, ok = _host(host, four, cbytes[None].expand(4, b, 32).contiguous(),
+    red, tp, ok = _host(host, four, cbytes[None].expand(4, b, 32).contiguous(),
                         pts[None].expand(4, b, 40).contiguous(), cap, _brows(b, 62))
     assert bool(ok[0]) == bool(jok)
-    raw, tp = raw[:cap], tp[:cap]
-    assert sc.to_int(pa.agg_tables_plain(raw).T) == _int13(jt)
+    red, tp = red[:cap], tp[:cap]
+    assert sc.to_int(red.T) == _int13(jt)
     got = tp.to(torch.int64)
     for k, c in enumerate(jp):
         have = [sum(int(got[j, 10 * k + i]) << fe.OFF[i] for i in range(10)) for j in range(cap)]
@@ -167,7 +252,9 @@ def test_host_dedupe_matches_jax(host, kind, b, distinct, cap):
 @pytest.mark.parametrize("b,distinct", [(96, 3), (900, 400)])
 def test_host_window_tables_match_twin(host, b, distinct, monkeypatch):
     """The window's launch: the four columns at their places among the
-    22 inputs and the B row, against window_tables_plain."""
+    22 inputs and the B row, against window_tables on the CPU (the
+    reference's rows reduced mod L: agg_tables_plain of
+    window_tables_plain)."""
     rng = np.random.default_rng(61)
     cols = [torch.zeros((32, b), dtype=torch.int32) for _ in range(22)]
     for k in pa.DEDUPE_KEYS:
