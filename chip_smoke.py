@@ -7,7 +7,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the fifteen kernel sources (one nvcc per source, in
+   the build of the sixteen kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -51,6 +51,13 @@ Phases (any failure raises and the script exits non-zero):
    bucket shape the replay gives msm, which the tiled window's repeated
    scalars do not), whose times the kernels line reports, each kernel
    beside its bound (msm's from this run's bucket entries, `msm_work`).
+   Then the forge's two kernels (`phase_forge`): `forge_sweep` on 256
+   lanes of three pools under a set epoch nonce and on one full election
+   window (16,384 lanes of the main path's pool under the neutral
+   nonce), `ed_sign` on the main path's two OCert signables and on 256
+   messages of 0 to 200 bytes, each byte for byte against its plain
+   version, timed at the main path's shapes, with the sweep's field work
+   by warp (`forge_role_ops`: its dependent path).
 3. The main paths, each with the launch counts zeroed just before its
    device replay and read just after: every packed window launches
    `unpack`, the five stage kernels and `nonce_fold`, the fold on a
@@ -110,6 +117,14 @@ Phases (any failure raises and the script exits non-zero):
       stand-ins, and the windows that hold a body-width step) must seed
       the nonce carry from the host state again, and every packed window
       launch unpack and nonce_fold.
+   e. the forge (`phase_forge_chains`): once every worker is done, the bc
+      chain and the mixed chain forged again in this process through
+      tools/db_synthesizer.py's device engine (`forge_sweep` an election
+      window, `ed_sign` a window's OCert issues, the assembly on the
+      host), each with the launch counts zeroed just before and read
+      just after; every chunk, index and sidecar file must equal the
+      worker's (the per-slot loop engine). One `forge {...}` line a
+      chain: election s, assembly s, headers/s, against the loop's.
    Each main path logs headers/s over `validate_s` (the validate_chain
    calls) and over `wall_s` (the read as well), the read's own time
    (`read_s`, overlapped) and the time validation waited for it
@@ -119,8 +134,9 @@ Phases (any failure raises and the script exits non-zero):
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
-5. A `kernels` JSON line (thirteen kernels), the card line, and the
-   final status line.
+5. A `kernels` JSON line (fifteen kernels; the forge's two with their
+   launches on each forged chain beside its headers), the card line, and
+   the final status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
 widths (8 and 128 lanes), and phase 1 prints ptxas's registers, stack
@@ -190,13 +206,24 @@ KERNEL_ROWS = (
      "ouroboros_consensus_tpu/ops/pk/aggregate.py:153"),
     ("msm", "ouroboros_consensus_tpu_torch/ops/pk/csrc/msm.cu",
      "ouroboros_consensus_tpu/ops/pk/msm.py:381"),
+    ("forge_sweep", "ouroboros_consensus_tpu_torch/ops/pk/csrc/forge.cu",
+     "ouroboros_consensus_tpu/protocol/forge.py:91"),
+    ("ed_sign", "ouroboros_consensus_tpu_torch/ops/pk/csrc/forge.cu",
+     "ouroboros_consensus_tpu/protocol/forge.py:125"),
 )
+# a row whose LAUNCHES key is not its build name: (build name, kernel)
+KERNEL_SOURCE = {"forge_sweep": ("forge", "forge_sweep_kernel"),
+                 "ed_sign": ("forge", "ed_sign_kernel")}
 # the kernels each path must launch (and the replay kernels it must not)
 WIRE = {"unpack", "nonce_fold"}  # every packed window's, around the stages
 # the reference functions a kernel replaces beside its row's own: the
 # dedupe's launch also reduces the slots and the B coefficient mod L
 ALSO_REPLACES = {"dedupe": ["ouroboros_consensus_tpu/ops/pk/limbs.py:489",
-                            "ouroboros_consensus_tpu/ops/pk/limbs.py:502"]}
+                            "ouroboros_consensus_tpu/ops/pk/limbs.py:502"],
+                 "forge_sweep": ["ouroboros_consensus_tpu/ops/ecvrf_batch.py:83",
+                                 "ouroboros_consensus_tpu/ops/ecvrf_batch.py:130",
+                                 "ouroboros_consensus_tpu/ops/ecvrf_batch.py:265"],
+                 "ed_sign": ["ouroboros_consensus_tpu/ops/ed25519_batch.py:140"]}
 AGG = {"agg_prep", "dedupe", "msm"}  # the window aggregate's
 BC_STAGES = {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"}
 D3_STAGES = {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"}
@@ -212,8 +239,11 @@ PATH_KERNELS = {
     # generically staged windows: no unpack, and the nonces fold on the host
     "generic": BC_STAGES,
     "tools": {"primitives", "fe_bench"},
+    # the device engine's forge of the bc and the mixed chain
+    "forge": {"forge_sweep", "ed_sign"},
 }
 REPLAY_KERNELS = BC_STAGES | D3_STAGES | AGG | WIRE
+PATH_ONLY = REPLAY_KERNELS | PATH_KERNELS["forge"]  # none may launch off its path
 STAGES = ("ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish")
 
 
@@ -260,8 +290,12 @@ def phase_build() -> dict:
         f"{json.dumps({k: round(v, 1) for k, v in build.BUILD_SECONDS.items()})}")
     ptxas = {}
     for name, _src, _rep in KERNEL_ROWS:
-        with open(build.ptxas_report(name)) as f:
+        source, kernel = KERNEL_SOURCE.get(name, (name, None))
+        with open(build.ptxas_report(source)) as f:
             text = f.read()
+        if kernel is not None:  # this kernel's own entries, up to the next kernel's
+            parts = re.split(r"(?=ptxas info\s*: Compiling entry function)", text)
+            text = "".join(p for p in parts if re.search(rf"'_Z\d+{kernel}", p))
         # a source with several kernels reports its largest
         regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
         # the cumulative size where a kernel calls a function, else its frame
@@ -282,7 +316,8 @@ def phase_build() -> dict:
             "stack_bytes": max(stack, default=None),
             "spill_store_bytes": sum(spills),
             "spill_stores_by_function": by_fn,
-            "blocks_per_sm": build.blocks_per_sm(name),
+            "blocks_per_sm": build.blocks_per_sm(source, None if name in (source, "forge_sweep")
+                                                 else name),
         }
         log(f"ptxas {name}: {json.dumps(ptxas[name])}")
     return ptxas
@@ -1698,25 +1733,121 @@ def phase_agg_chain(dev, db: str, stages: dict, lanes: int = 8192, reps: int = 5
 
 
 # ---------------------------------------------------------------------------
+# Phase 2c: the forge's kernels
+# ---------------------------------------------------------------------------
+
+
+def forge_role_ops() -> dict:
+    """Field multiplies and squarings one sweep lane spends on each warp
+    (the Γ warp: hash to the curve, x·H; the k warp: hash to the curve,
+    H's compression, k·B, k·H; then the finish on the k warp: four
+    compressions on one inversion, 8Γ), counted on the twin's pieces on
+    one CPU lane; the dependent path is the k warp and the finish."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
+    from ouroboros_consensus_tpu_torch.ops.pk import field as fe
+    from ouroboros_consensus_tpu_torch.ops.pk import verify as pv
+
+    b = torch.arange(32, dtype=torch.int64).reshape(32, 1)
+    h = pv.hash_to_curve(b, b)
+    parts = {
+        "gamma_warp": lambda: pc.scalar_mul_w4(fe.nibbles_msb(b, 32), pv.hash_to_curve(b, b)),
+        "k_warp": lambda: (pc.compress_many([pv.hash_to_curve(b, b)]), pc.base_mul_w8(b),
+                           pc.scalar_mul_w4(fe.nibbles_msb(b, 32), h)),
+        "finish": lambda: pc.compress_many([h, h, h, pc.mul_cofactor(h)]),
+    }
+    out = {k: count_field_ops(fn) for k, fn in parts.items()}
+    for rec in out.values():
+        rec["wide_products"] = wide_products(rec)
+    out["dependent_path_wide_products"] = (out["k_warp"]["wide_products"]
+                                           + out["finish"]["wide_products"])
+    return out
+
+
+def phase_forge(dev, reps: int = 5) -> dict:
+    """The forge's two kernels against their plain versions on the card:
+    `forge_sweep` on 256 lanes of three pools under a set epoch nonce and
+    on one full election window (window_slots(1) lanes) of the main
+    path's one pool under the neutral nonce, timed there; `ed_sign` on the
+    main path's OCert batch (two signables) and on 256 lanes of messages
+    of 0 to 200 bytes, timed at the path's two. -> {forge_sweep: rec,
+    ed_sign: rec} with the twins' field work a lane (the bound's) and the
+    sweep's split by warp (forge_role_ops)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.ops.pk import prove as pp
+    from ouroboros_consensus_tpu_torch.protocol import forge as pforge
+    from ouroboros_consensus_tpu_torch.testing import synth
+
+    params = bench_params()
+    full = pforge.window_slots(1)
+    recs = {}
+    for tag, seeds, lanes, nonce, r in (("3 pools, set nonce", (0, 1, 2), 256, bytes(range(32)), 1),
+                                        ("1 pool, neutral nonce", (0,), full, None, reps)):
+        pools = [synth.make_pool(n, kes_depth=params.kes_depth) for n in seeds]
+        thr = pforge.pool_thresholds(params, synth.make_ledger_view(pools), pools)
+        table = pforge.device_table(pforge.stage_pools(pools), thr, dev)
+        nt = None if nonce is None else torch.tensor(list(nonce), dtype=torch.uint8, device=dev)
+        slot0 = 40_000
+        recs[lanes] = hold(f"forge_sweep ({tag})", lambda: K.forge_sweep(table, slot0, lanes, nt),
+                           lambda: pp.forge_sweep_plain(table, slot0, lanes, nt),
+                           (table,) if nt is None else (table, nt), lanes, dev, r)
+    sweep = recs[full]
+    sweep["ms_by_lanes"] = {full: sweep.get("ms")}
+    zero = np.zeros((1, 32), np.uint8)
+    cpu = pforge.device_table(pforge.stage_pools([synth.make_pool(0)]), (zero, zero), "cpu")
+    sweep["field_ops"] = count_field_ops(lambda: pp.forge_sweep_plain(cpu, 0, 1, None))
+    sweep["dependent_path"] = forge_role_ops()
+    sign = {}
+    for lanes in (2, 256):
+        seeds = [bytes([k % 256, k // 256]) * 16 for k in range(lanes)]
+        msgs = [bytes(48) if lanes == 2 else bytes(k % 201) for k in range(lanes)]
+        staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in pp.stage_sign_np(seeds, msgs)]
+        sign[lanes] = hold(f"ed_sign ({'OCert signables' if lanes == 2 else '0-200 bytes'})",
+                           lambda: K.ed_sign(*staged), lambda: pp.ed_sign_plain(*staged),
+                           staged, lanes, dev, reps if lanes == 2 else 1)
+    rec = sign[2]
+    rec["ms_by_lanes"] = {n: r.get("ms") for n, r in sign.items()}
+    one = [torch.from_numpy(np.ascontiguousarray(a)) for a in pp.stage_sign_np([bytes(32)], [bytes(48)])]
+    rec["field_ops"] = count_field_ops(lambda: pp.ed_sign_plain(*one))
+    log(f"forge kernels: the sweep's field work a lane {json.dumps(sweep['field_ops'])}, "
+        f"by warp {json.dumps(sweep['dependent_path'])}; ed_sign's {json.dumps(rec['field_ops'])}")
+    return {"forge_sweep": sweep, "ed_sign": rec}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
 
 
+def chain_format(proof_format: str, switch: int):
+    """`proof_format`, or with `switch` > 0 draft-03 proofs below block
+    `switch` and batch-compatible ones from there."""
+    return (lambda k: 80 if k < switch else 128) if switch else proof_format
+
+
 def forge_chain(db: str, headers: int, proof_format: str, switch: int) -> None:
     """Forge one main-path chain at `db` with bench.py's parameters (one
-    pool, made from seed 0 as every phase makes it): `proof_format`'s
-    proofs, or with `switch` > 0 draft-03 proofs below block `switch` and
-    batch-compatible ones from there. Runs in a worker process."""
+    pool, made from seed 0 as every phase makes it) through the per-slot
+    loop (db_synthesizer's "loop" engine, testing/synth.synthesize's), in
+    chain_format's proofs; its ForgeResult's times go to `<db>.forge.json`.
+    Runs in a worker process."""
     from ouroboros_consensus_tpu_torch.testing import synth
+    from ouroboros_consensus_tpu_torch.tools import db_synthesizer
 
     params = bench_params()
     pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
-    fmt = (lambda k: 80 if k < switch else 128) if switch else proof_format
-    t0 = time.monotonic()
-    synth.synthesize(db, params, pools, synth.make_ledger_view(pools), headers,
-                     proof_format=fmt)
+    res = db_synthesizer.synthesize(db, params, pools, synth.make_ledger_view(pools),
+                                    db_synthesizer.ForgeLimit(blocks=headers), engine="loop",
+                                    proof_format=chain_format(proof_format, switch))
+    with open(db + ".forge.json", "w") as f:
+        json.dump({"wall_s": res.wall_s, "election_s": res.elect_s,
+                   "assembly_s": res.assemble_s, "slots": res.n_slots}, f)
     log(f"forged {headers} headers at {os.path.basename(db)} in "
-        f"{time.monotonic() - t0:.1f} s (worker process)")
+        f"{res.wall_s:.1f} s (worker process)")
 
 
 class Forges:
@@ -1732,6 +1863,7 @@ class Forges:
         ctx = multiprocessing.get_context("spawn")
         small = headers // 8
         self.jobs = {}
+        self.formats = {}  # tag -> the chain's proof format (chain_format)
         for tag, n, fmt, switch in (("bc", headers, "bc", 0), ("draft03", headers, "draft03", 0),
                                     ("mixed", small, "bc", small // 2),
                                     ("generic", small, "bc", 0)):
@@ -1739,6 +1871,7 @@ class Forges:
             proc = ctx.Process(target=forge_chain, args=(db, n, fmt, switch), daemon=True)
             proc.start()
             self.jobs[tag] = (db, n, proc)
+            self.formats[tag] = chain_format(fmt, switch)
 
     def get(self, tag: str) -> tuple[str, int]:
         """-> (the chain's directory, its headers), once forged."""
@@ -2489,6 +2622,76 @@ def phase_generic(dev, forges: Forges, max_batch: int) -> dict:
             "device_s": device_s, "native_s": native_s, "middle_launches": mid}
 
 
+def same_files(a: str, b: str) -> int:
+    """Every chunk, index and sidecar file of two chains byte-identical
+    (AssertionError otherwise) -> the files compared."""
+    import filecmp
+
+    da, db = (os.path.join(p, "immutable") for p in (a, b))
+    fa, fb = (sorted(f for f in os.listdir(d) if f.endswith((".chunk", ".index", ".cols")))
+              for d in (da, db))
+    if fa != fb or not fa:
+        raise AssertionError(f"{a} and {b} hold different files")
+    bad = [f for f in fa if not filecmp.cmp(os.path.join(da, f), os.path.join(db, f),
+                                            shallow=False)]
+    if bad:
+        raise AssertionError(f"{b}: files differ from {a}: {bad[:5]}")
+    return len(fa)
+
+
+def phase_forge_chains(dev, forges: "Forges") -> dict:
+    """The forge's main path (phase 3e): the bc chain and the mixed chain
+    forged again through the device engine (tools/db_synthesizer.py:
+    forge_sweep a window, ed_sign a window's OCert issues, the assembly on
+    the host), in this process, with the launch counts zeroed just before
+    each and read just after, once every worker has finished (nothing
+    else uses the card or the host's cores meanwhile); every chunk, index
+    and sidecar must equal the worker-forged chain's (the per-slot loop).
+    Prints one `forge {...}` line a chain: election s, assembly s,
+    headers/s, against the loop's. -> {launches: summed over the two,
+    chains: the lines}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.testing import synth
+    from ouroboros_consensus_tpu_torch.tools import db_synthesizer
+
+    params = bench_params()
+    pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
+    lview = synth.make_ledger_view(pools)
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+    lines = {}
+    for tag in ("bc", "mixed"):
+        db, n = forges.get(tag)
+        with open(db + ".forge.json") as f:
+            loop = json.load(f)
+        dst = db + "_device"
+        torch.cuda.synchronize()
+        K.reset_launches()
+        res = db_synthesizer.synthesize(dst, params, pools, lview,
+                                        db_synthesizer.ForgeLimit(blocks=n), engine="device",
+                                        device=dev, proof_format=forges.formats[tag])
+        torch.cuda.synchronize()
+        got = dict(K.LAUNCHES)
+        for k, v in got.items():
+            launches[k] += v
+        files = same_files(db, dst)
+        if res.n_blocks != n or res.n_slots != loop["slots"]:
+            raise AssertionError(f"{tag}: the device forge made {res.n_blocks} blocks over "
+                                 f"{res.n_slots} slots, the loop {n} over {loop['slots']}")
+        lines[tag] = {
+            "chain": tag, "headers": n, "slots": res.n_slots, "files_identical": files,
+            "election_s": res.elect_s, "assembly_s": res.assemble_s, "wall_s": res.wall_s,
+            "headers_per_s": n / res.wall_s,
+            "launches": {k: got[k] for k in PATH_KERNELS["forge"]},
+            "loop": {**loop, "headers_per_s": n / loop["wall_s"]},
+            "device_over_loop": loop["wall_s"] / res.wall_s,
+        }
+        print("forge " + json.dumps(lines[tag]), flush=True)
+        shutil.rmtree(dst, ignore_errors=True)
+    return {"launches": launches, "chains": lines}
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the tools
 # ---------------------------------------------------------------------------
@@ -2774,9 +2977,11 @@ def main(argv=None) -> int:
         stages.update(phase_agg(dev, workdir=work))
         for key, by_lanes in stage_times(dev, workdir=work).items():
             stages[key]["ms_by_lanes"] = {**by_lanes, stages[key]["lanes"]: stages[key]["ms"]}
+        stages.update(phase_forge(dev))
         phase_agg_chain(dev, forges.get("bc")[0], stages)
         paths = phase_main(dev, forges, 8192)
         generic = phase_generic(dev, forges, 8192)
+        forged = phase_forge_chains(dev, forges)
     finally:
         forges.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -2793,9 +2998,10 @@ def main(argv=None) -> int:
     by_path = {p: out["launches"] for p, out in paths.items()}
     by_path["generic"] = generic["launches"]
     by_path["tools"] = tools["launches"]
+    by_path["forge"] = forged["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
-        stray = sorted(k for k in REPLAY_KERNELS - ks if by_path[path].get(k, 0))
+        stray = sorted(k for k in PATH_ONLY - ks if by_path[path].get(k, 0))
         if missing or stray:
             raise AssertionError(f"{path} path: not launched {missing}, launched {stray}")
     kernels = []
@@ -2843,6 +3049,9 @@ def main(argv=None) -> int:
             "hash_ops_per_lane": st.get("hash_ops"),
             "dependent_path": st.get("dependent_path"),
             "stamps_by_lanes": st.get("stamps_by_lanes"),
+            "launches_by_chain": ({t: {"headers": c["headers"], "launches": c["launches"][name]}
+                                   for t, c in forged["chains"].items()}
+                                  if name in PATH_KERNELS["forge"] else None),
         })
     for p, out in paths.items():
         fill = [{"kernel": k, "lanes": n, "blocks": -(-n // 32)}

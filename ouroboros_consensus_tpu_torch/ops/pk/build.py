@@ -1,4 +1,5 @@
-"""Build and bind the stage, wire, aggregate and tool kernels (csrc/*.cu).
+"""Build and bind the stage, wire, aggregate, forge and tool kernels
+(csrc/*.cu).
 
 Each kernel source is compiled by its own `nvcc` process, all started
 together, into a shared library with a plain C interface:
@@ -49,6 +50,7 @@ ENTRIES = {
     "dedupe": ("pk_dedupe",),
     "dedupe_stamps": ("pk_dedupe_stamps",),  # the instrument: dedupe with clock64 stamps
     "msm": ("pk_msm",),
+    "forge": ("pk_forge_sweep", "pk_ed_sign"),
 }
 KERNELS = tuple(ENTRIES)
 NVCC_FLAGS = [
@@ -83,6 +85,8 @@ ARGTYPES = {
     "pk_dedupe": _DEDUPE + [_P],
     "pk_dedupe_stamps": _DEDUPE + [_P, _P],
     "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
+    "pk_forge_sweep": [_I, _I, ctypes.c_longlong] + [_P] * 5,
+    "pk_ed_sign": [_I, _I] + [_P] * 9,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
     "pk_fe_sq": [_I] + [_P] * 3,
@@ -239,13 +243,15 @@ def kernel_lib(name: str, entry: str | None = None):
     return getattr(_lib(name), entry or ENTRIES[name][0])
 
 
-def blocks_per_sm(name: str) -> int:
+def blocks_per_sm(name: str, kernel: str | None = None) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
-    unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 256),
+    unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 256; forge's
+    sweep 64),
     with its shared memory, from the CUDA occupancy API (registers, stack
-    and shared memory); for a source with several kernels, its heaviest."""
-    fn = getattr(_lib(name), f"pk_{name}_occupancy")
+    and shared memory); for a source with several kernels, its heaviest,
+    or `kernel`'s (forge: "ed_sign")."""
+    fn = getattr(_lib(name), f"pk_{kernel or name}_occupancy")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]
     n = ctypes.c_int(0)

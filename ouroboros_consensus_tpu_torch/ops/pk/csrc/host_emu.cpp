@@ -6,6 +6,7 @@
 // cross-check the device code against the plain PyTorch twins on a
 // machine without nvcc; the replay never calls it.
 #include "agg.cuh"
+#include "forge.cuh"
 #include "tools.cuh"
 #include "wire.cuh"
 
@@ -205,6 +206,34 @@ extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
     AGG_LANES(agg_flags(i, live, l, s, o, sc));
 #undef AGG_LANES
   }
+  return 0;
+}
+
+// the forge sweep group by group, over a scratch filled with 0xA5 first:
+// the Γ role over the group's lanes, then the k role, then the finish (the
+// order the kernel's one barrier allows)
+extern "C" int pk_forge_sweep(int B, int P, long long slot0, const void *base8,
+                              const void *pools, const void *nonce, void *out, void *) {
+  ForgeArgs a{B, P, (int64_t)slot0, (const u8 *)pools, (const u8 *)nonce, (u8 *)out};
+  static ForgeScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    const int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    u8 *raw = (u8 *)&sc;
+    for (size_t k = 0; k < sizeof sc; k++) raw[k] = 0xA5;
+    for (int l = 0; l < n; l++) fs_role_gamma(g + l, l, a, sc);
+    for (int l = 0; l < n; l++) fs_role_k(g + l, l, a, (const u32 *)base8, sc);
+    for (int l = 0; l < n; l++) fs_finish(g + l, l, a, sc);
+  }
+  return 0;
+}
+
+extern "C" int pk_ed_sign(int B, int NB, const void *base8, const void *a,
+                          const void *aenc, const void *rblocks, const void *rnb,
+                          const void *hblocks, const void *hnb, void *out, void *) {
+  for (int i = 0; i < B; i++)
+    ed_sign_lane(i, NB, (const u32 *)base8, (const u8 *)a, (const u8 *)aenc,
+                 (const u8 *)rblocks, (const int32_t *)rnb, (const u8 *)hblocks,
+                 (const int32_t *)hnb, (u8 *)out);
   return 0;
 }
 

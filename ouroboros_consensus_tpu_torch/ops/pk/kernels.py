@@ -58,14 +58,17 @@ import torch
 
 from ...protocol import nonces as pn
 from . import curve as pc
+from . import prove as pp
 from . import verify as pv
 
-# kernel source -> launches on the card (the plain twins do not count);
-# the two tool kernels (tools/debug_pk.py, tools/fe_bench.py) and the
-# window aggregate's three (ops/pk/aggregate.py, msm.py) count here too
+# kernel -> launches on the card (the plain twins do not count): a kernel
+# source's, or for csrc/forge.cu each of its two kernels'; the two tool
+# kernels (tools/debug_pk.py, tools/fe_bench.py) and the window
+# aggregate's three (ops/pk/aggregate.py, msm.py) count here too
 LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
             "vrf_ladders": 0, "finish": 0, "unpack": 0, "nonce_fold": 0,
-            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "dedupe": 0, "msm": 0}
+            "primitives": 0, "fe_bench": 0, "agg_prep": 0, "dedupe": 0, "msm": 0,
+            "forge_sweep": 0, "ed_sign": 0}
 
 _BASE8: dict = {}
 
@@ -825,4 +828,99 @@ def join_fold(fold):
         main = torch.cuda.current_stream(out.device)
         main.wait_event(done)
         out.record_stream(main)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the forge: the leader-election sweep and the OCert signer (csrc/forge.cu)
+# ---------------------------------------------------------------------------
+
+
+def _forge_sweep_launch(fn, stream, pools, slot0: int, b: int, nonce):
+    out = torch.empty((b, pp.OUT_BYTES), dtype=torch.uint8, device=pools.device)
+    rc = fn(b, pools.shape[0], slot0, _p(_base8(pools.device)), _p(pools),
+            None if nonce is None else _p(nonce), _p(out), stream)
+    _raise_on(rc, "forge_sweep")
+    return out
+
+
+def forge_sweep(pools, slot0: int, b: int, nonce):
+    """The leader-election sweep of one election window: pools [P, 160]
+    uint8 (prove.pool_table: x ‖ prefix ‖ pk ‖ lo ‖ hi), lanes 0 .. b - 1
+    (lane i is pool i % P at slot slot0 + i / P, the pairs slot-major),
+    nonce [32] uint8 or None (the neutral nonce) -> [b, 210] uint8 rows
+    Γ ‖ c16 ‖ U ‖ V ‖ s ‖ β ‖ win ‖ amb (prove.COLUMNS).
+
+    Replaces the plain-XLA `forge_sweep` of
+    ouroboros_consensus_tpu/protocol/forge.py:91 (ops/ecvrf_batch.py:83
+    alpha_from_slots, :130 hash_to_curve, :265 prove, and the leader
+    bracket), in one launch (csrc/forge.cu); the per-pool columns are
+    read by lane % P, not tiled. Plain version: prove.forge_sweep_plain.
+    Bound: operations. A lane's field work is two 65-digit ladders, a
+    32-add fixed-base walk, two hashes to the curve (one a warp), and
+    three inversions; 32 lanes a block over two warps, x·H on one, k·B
+    and k·H on the other, so one ladder lies on the path."""
+    dev = pools.device
+    _check("forge_sweep.pools", pools, (pools.shape[0], pp.POOL_BYTES), dev, torch.uint8)
+    if nonce is not None:
+        _check("forge_sweep.nonce", nonce, (32,), dev, torch.uint8)
+    if pools.shape[0] < 1 or b < 0:
+        raise ValueError(f"forge_sweep: {pools.shape[0]} pools, {b} lanes")
+    if not 0 <= slot0 < 1 << 62:
+        raise ValueError(f"forge_sweep: slot0 {slot0} out of range")
+    if _route(dev) == "plain":
+        return pp.forge_sweep_plain(pools, slot0, b, nonce)
+    if b == 0:
+        return torch.empty((0, pp.OUT_BYTES), dtype=torch.uint8, device=dev)
+    from . import build
+
+    out = _forge_sweep_launch(build.kernel_lib("forge", "pk_forge_sweep"), _stream(dev),
+                              pools, slot0, b, nonce)
+    LAUNCHES["forge_sweep"] += 1
+    return out
+
+
+def _ed_sign_launch(fn, stream, a, a_enc, rblocks, rnblocks, hblocks, hnblocks):
+    b, nb = rblocks.shape[0], rblocks.shape[1]
+    out = torch.empty((b, 64), dtype=torch.uint8, device=a.device)
+    rc = fn(b, nb, _p(_base8(a.device)), _p(a), _p(a_enc), _p(rblocks), _p(rnblocks),
+            _p(hblocks), _p(hnblocks), _p(out), stream)
+    _raise_on(rc, "ed_sign")
+    return out
+
+
+def ed_sign(a, a_enc, rblocks, rnblocks, hblocks, hnblocks):
+    """Ed25519 signatures of the OCert signables, one lane each: a, a_enc
+    [B, 32] uint8 (the clamped secret scalar, the public key); rblocks,
+    hblocks [B, NB, 128] uint8 and rnblocks, hnblocks [B] int32
+    (prove.stage_sign_np) -> [B, 64] uint8 R ‖ s.
+
+    Replaces the plain-XLA `forge_sign` of
+    ouroboros_consensus_tpu/protocol/forge.py:125 (ops/ed25519_batch.py:140
+    sign), in one launch (csrc/forge.cu). Plain version: prove.ed_sign_plain.
+    Bound: operations: a 32-add fixed-base walk, one inversion, two
+    SHA-512 and the mod-L products a lane; a thread a lane."""
+    dev = a.device
+    b = a.shape[0]
+    nb = rblocks.shape[1] if rblocks.dim() == 3 else 0
+    for n, t, sh, dt in (("a", a, (b, 32), torch.uint8), ("a_enc", a_enc, (b, 32), torch.uint8),
+                         ("rblocks", rblocks, (b, nb, 128), torch.uint8),
+                         ("rnblocks", rnblocks, (b,), torch.int32),
+                         ("hblocks", hblocks, (b, nb, 128), torch.uint8),
+                         ("hnblocks", hnblocks, (b,), torch.int32)):
+        _check(f"ed_sign.{n}", t, sh, dev, dt)
+    if b:
+        lo, hi = torch.aminmax(torch.cat((rnblocks, hnblocks)))
+        if int(lo) < 1 or int(hi) > nb:
+            raise ValueError(f"ed_sign: a message's SHA-512 block count lies outside "
+                             f"1..{nb} (got {int(lo)}..{int(hi)})")
+    if _route(dev) == "plain":
+        return pp.ed_sign_plain(a, a_enc, rblocks, rnblocks, hblocks, hnblocks)
+    if b == 0:
+        return torch.empty((0, 64), dtype=torch.uint8, device=dev)
+    from . import build
+
+    out = _ed_sign_launch(build.kernel_lib("forge", "pk_ed_sign"), _stream(dev), a, a_enc,
+                          rblocks, rnblocks, hblocks, hnblocks)
+    LAUNCHES["ed_sign"] += 1
     return out

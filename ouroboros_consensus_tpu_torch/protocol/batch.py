@@ -54,6 +54,9 @@ results are on the host.
 
 from __future__ import annotations
 
+import threading
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass
 from fractions import Fraction
 from functools import cached_property, lru_cache
@@ -1170,6 +1173,71 @@ DECLINES: dict[str, int] = {}
 AGG_REDISPATCH = 0
 
 
+class PhaseTally:
+    """What revalidate(collect_phases=True) reports (the reference's
+    _PhaseCollector, tools/db_analyser.py:66-99, over its tracer's
+    events), passed down through validate_chain: wall seconds per phase
+    of the window loop ("stage": a window's host half; "dispatch": its
+    H2D, launches and copies back queued; "materialize": the wait for its
+    verdicts, with a dirty aggregated window's re-dispatch; "epilogue"),
+    the bytes copied to the card and back, and the windows dispatched,
+    packed ones apart. The staging thread adds its phase beside the
+    launching thread's: each `add` takes the lock."""
+
+    def __init__(self):
+        self.wall: dict = {}
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.windows = 0
+        self.packed_windows = 0
+        self._lock = threading.Lock()
+
+    def add(self, label: str, seconds: float) -> None:
+        with self._lock:
+            self.wall[label] = self.wall.get(label, 0.0) + seconds
+
+    def dispatched(self, sw: "StagedWindow", v: "PackedVerdicts") -> None:
+        with self._lock:
+            self.windows += 1
+            self.packed_windows += sw.layout is not None
+            self.h2d_bytes += _nbytes(sw.packed if sw.layout is not None else sw.batch)
+            self.d2h_bytes += v._masks.nbytes + (v._carry.nbytes if v.carried else 0) + (
+                v._eta.nbytes if v._eta is not None else 0)
+
+
+@contextmanager
+def _phase(phases: PhaseTally | None, label: str):
+    """Add the block's wall to phases[label], when a tally is given."""
+    if phases is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        phases.add(label, time.perf_counter() - t0)
+
+
+def _nbytes(x) -> int:
+    """The bytes of the numpy arrays in a (nested) tuple of columns."""
+    if isinstance(x, np.ndarray):
+        return x.nbytes
+    if isinstance(x, tuple):
+        return sum(_nbytes(y) for y in x)
+    return 0
+
+
+def _retire(params: PraosParams, ticked: TickedPraosState, hvs, pre, v: "PackedVerdicts",
+            phases: PhaseTally | None):
+    """A dispatched window's verdicts, waited for (a dirty aggregated
+    window re-dispatched, `materialize`), then its epilogue."""
+    with _phase(phases, "materialize"):
+        v = materialize(v)
+        v.masks  # the wait for the copies back
+    with _phase(phases, "epilogue"):
+        return epilogue(params, ticked, hvs, pre, v)
+
+
 class StagedWindow(NamedTuple):
     """prepare_window's output: a window's host half, all that
     dispatch_prepared needs, so that it can be staged on another thread
@@ -1274,36 +1342,42 @@ def materialize(v: PackedVerdicts) -> PackedVerdicts:
 
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
                     hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
-                    device: torch.device, carry=None, aggregate: bool = True) -> PackedVerdicts:
+                    device: torch.device, carry=None, aggregate: bool = True,
+                    phases: PhaseTally | None = None) -> PackedVerdicts:
     """prepare_window then dispatch_prepared, inline: one window's
     staging (with its prechecks `pre`), kernels, reduce and the copies of
     its results back (the serial loop's step)."""
     device = torch.device(device)
-    sw = prepare_window(params, lview, eta0, hvs, staging_buffer(params, hvs, device), pre)
-    return dispatch_prepared(sw._replace(aggregate=aggregate), device, carry)
+    with _phase(phases, "stage"):
+        sw = prepare_window(params, lview, eta0, hvs, staging_buffer(params, hvs, device), pre)
+    with _phase(phases, "dispatch"):
+        v = dispatch_prepared(sw._replace(aggregate=aggregate), device, carry)
+    if phases is not None:
+        phases.dispatched(sw, v)
+    return v
 
 
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", backend: str,
                    device: torch.device | None, carry=None,
-                   aggregate: bool = True) -> BatchResult:
+                   aggregate: bool = True, phases: PhaseTally | None = None) -> BatchResult:
     """One within-epoch window of one proof format.
     `carry`: the device nonce carry of the previous packed window, None
     to seed the fold from the ticked state (tick only rotates the epoch
     nonce, so a carry stays valid across an epoch boundary). `aggregate`:
-    dispatch_prepared's."""
+    dispatch_prepared's. `phases`: validate_chain's."""
     lview = ticked.ledger_view
     eta0 = ticked.state.epoch_nonce
     pre = host_prechecks(params, lview, hvs)
     if backend == "native":
         v = run_batch_native(params, lview, eta0, hvs, pre)
+        res = epilogue(params, ticked, hvs, pre, v)
     elif backend == "device":
         seed = state_carry(ticked.state) if carry is None else carry
-        v = materialize(dispatch_window(params, lview, eta0, hvs, pre, device, seed,
-                                        aggregate))
+        v = dispatch_window(params, lview, eta0, hvs, pre, device, seed, aggregate, phases)
+        res = _retire(params, ticked, hvs, pre, v, phases)
     else:
         raise ValueError(f"unknown backend {backend!r}")
-    res = epilogue(params, ticked, hvs, pre, v)
     if isinstance(v, PackedVerdicts) and v.carried and res.error is None:
         res.carry = v.carry
     return res
@@ -1360,7 +1434,8 @@ def _windows(params: PraosParams, hvs, max_batch: int) -> list[tuple[int, int, i
 def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", max_batch: int = 8192,
                    backend: str = "device", device=None,
-                   pipeline_depth: int = 3, aggregate: bool = True) -> BatchResult:
+                   pipeline_depth: int = 3, aggregate: bool = True,
+                   phases: PhaseTally | None = None) -> BatchResult:
     """Validate a run of headers (a HeaderView list or ViewColumns):
     windows cut at epoch boundaries, at `max_batch` within an epoch and
     where the proof format changes; the state threads through `tick`
@@ -1376,7 +1451,8 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
     device backend): batch-compatible packed windows take the window
     aggregate, and a dirty one the per-lane stages again (the
     reference's default); False runs the per-lane stages on every
-    window."""
+    window. `phases` (the device backend): a PhaseTally that the window
+    loop adds its phase walls, bytes and windows to."""
     dev = resolve(device) if backend == "device" else None
     windows = _windows(params, hvs, max_batch)
     lviews: dict = {}
@@ -1388,12 +1464,13 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
 
     if backend == "device" and pipeline_depth > 1:
         return _pipeline(params, lview_of, state, hvs, windows, dev, pipeline_depth,
-                         aggregate)
+                         aggregate, phases)
     carry = None
     total = 0
     for epoch, i, j in windows:
         ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
-        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate)
+        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate,
+                             phases)
         state, carry = res.state, res.carry
         total += res.n_valid
         if res.error is not None:
@@ -1402,7 +1479,8 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
 
 
 def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: list,
-              dev: torch.device, depth: int, aggregate: bool = True) -> BatchResult:
+              dev: torch.device, depth: int, aggregate: bool = True,
+              phases: PhaseTally | None = None) -> BatchResult:
     """The device loop of validate_chain (the reference's _device_loop):
     at most `depth` windows staged ahead (`prepare_window` on one staging
     thread, into staging buffers allocated here) and at most `depth` in
@@ -1428,6 +1506,10 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
     total = 0
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="validate-stage")
 
+    def stage(*args) -> StagedWindow:
+        with _phase(phases, "stage"):
+            return prepare_window(*args)
+
     def stage_ahead() -> None:
         nonlocal k_stage
         while k_stage < len(windows) and len(staged) < depth:
@@ -1439,7 +1521,7 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
                                         state).state.epoch_nonce
             whvs = hvs[i:j]
             staged.append((k_stage, pool.submit(
-                prepare_window, params, lview_of(epoch), eta[epoch], whvs,
+                stage, params, lview_of(epoch), eta[epoch], whvs,
                 staging_buffer(params, whvs, dev))))
             k_stage += 1
 
@@ -1455,7 +1537,10 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
                     return  # the generic window that broke the chain retires first
                 carry, carry_ok = state_carry(state), True
             staged.popleft()
-            v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
+            with _phase(phases, "dispatch"):
+                v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
+            if phases is not None:
+                phases.dispatched(sw, v)
             if v.carried:
                 carry = v.carry
             else:
@@ -1472,7 +1557,7 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
             ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
             if ticked.state.epoch_nonce != eta[epoch]:
                 raise RuntimeError(f"window {k} was staged with another epoch nonce")
-            res = epilogue(params, ticked, sw.hvs, sw.pre, materialize(v))
+            res = _retire(params, ticked, sw.hvs, sw.pre, v, phases)
             state = res.state
             total += res.n_valid
             if res.error is not None:

@@ -26,10 +26,10 @@ import zlib
 import numpy as np
 
 from ..block.praos_block import Block, Header
+from ..ops.host_kes import sign as kes_sign
 from ..protocol.batch import LANE_COLUMNS
 from ..storage.immutable import ImmutableDB, chunk_name, index_name
 from ..utils import cbor
-from .synth import kes_sign
 
 FIELDS = ("kes_sig", "vrf_proof", "ocert_sigma", "body_hash")
 

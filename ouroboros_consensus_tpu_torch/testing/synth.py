@@ -17,60 +17,26 @@ draft-03 proofs (Gamma ‖ c ‖ s), and a callable `block_no -> 80 | 128`
 switches format within one chain. Both formats certify the same output
 beta, so the leader schedule does not depend on the format.
 
-CompactSum KES (cardano-crypto-class `KES.CompactSum`): seeds split top
-down (left = Blake2b-256(0x01 ‖ seed), right = Blake2b-256(0x02 ‖ seed)),
-a node's vk is Blake2b-256(vk_left ‖ vk_right), and a signature is the
-leaf Ed25519 signature ‖ leaf vk ‖ one sibling vk per level, bottom-up.
+KES signatures are CompactSum (ops/host_kes.py). Blocks are assembled
+by protocol/forge.BlockAssembler, the one definition of the header
+format, whatever the engine.
+
+`synthesize` is the per-slot loop, the "loop" engine of
+tools/db_synthesizer.py (which also has the windowed "device" and "host"
+engines, with the same bytes).
 """
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from fractions import Fraction
-from functools import cached_property, lru_cache
+from functools import cached_property
 
 from .. import native
-from ..block.praos_block import Block, Header, HeaderBody, body_hash
-from ..protocol import nonces, praos
-from ..protocol.leader import is_leader
+from ..ops import host_kes
 from ..protocol.praos import PraosParams, PraosState
 from ..protocol.views import IndividualPoolStake, LedgerView, OCert, hash_key, hash_vrf_vk
-from ..storage import sidecar
-from ..storage.immutable import ImmutableDB
 from ..utils.hashes import blake2b_256
-
-
-def _kes_left(seed: bytes) -> bytes:
-    return blake2b_256(b"\x01" + seed)
-
-
-def _kes_right(seed: bytes) -> bytes:
-    return blake2b_256(b"\x02" + seed)
-
-
-@lru_cache(maxsize=1 << 14)
-def kes_derive_vk(seed: bytes, depth: int) -> bytes:
-    """Verification key of the KES subtree rooted at `seed`."""
-    if depth == 0:
-        return native.ed25519_public(seed)
-    return blake2b_256(
-        kes_derive_vk(_kes_left(seed), depth - 1)
-        + kes_derive_vk(_kes_right(seed), depth - 1)
-    )
-
-
-def kes_sign(seed: bytes, depth: int, period: int, msg: bytes) -> bytes:
-    """CompactSum signature for `period` (0 <= period < 2^depth)."""
-    if not 0 <= period < (1 << depth):
-        raise ValueError(f"period {period} out of range for depth {depth}")
-    if depth == 0:
-        return native.ed25519_sign(seed, msg) + native.ed25519_public(seed)
-    half = 1 << (depth - 1)
-    s0, s1 = _kes_left(seed), _kes_right(seed)
-    if period < half:
-        return kes_sign(s0, depth - 1, period, msg) + kes_derive_vk(s1, depth - 1)
-    return kes_sign(s1, depth - 1, period - half, msg) + kes_derive_vk(s0, depth - 1)
 
 
 def _seed(tag: bytes, n: int) -> bytes:
@@ -96,7 +62,7 @@ class PoolCredentials:
 
     @cached_property
     def kes_vk(self) -> bytes:
-        return kes_derive_vk(self.kes_seed, self.kes_depth)
+        return host_kes.derive_vk(self.kes_seed, self.kes_depth)
 
     @cached_property
     def pool_id(self) -> bytes:
@@ -114,35 +80,16 @@ def make_pool(n: int, kes_depth: int = 6) -> PoolCredentials:
     )
 
 
-def make_ledger_view(pools: list[PoolCredentials]) -> LedgerView:
-    """Equal stake for every pool."""
-    share = Fraction(1, len(pools))
+def make_ledger_view(pools: list[PoolCredentials], stakes=None) -> LedgerView:
+    """Each pool's stake (equal shares by default) and VRF key hash."""
+    if stakes is None:
+        stakes = [Fraction(1, len(pools))] * len(pools)
     return LedgerView(
         pool_distr={
-            p.pool_id: IndividualPoolStake(share, hash_vrf_vk(p.vrf_vk))
-            for p in pools
+            p.pool_id: IndividualPoolStake(Fraction(st), hash_vrf_vk(p.vrf_vk))
+            for p, st in zip(pools, stakes)
         }
     )
-
-
-def forge_block(params: PraosParams, pool: PoolCredentials, *, slot: int,
-                block_no: int, prev_hash: bytes | None, txs: tuple = (),
-                ocert_counter: int = 0, vrf_output: bytes,
-                vrf_proof: bytes) -> Block:
-    """Assemble and KES-sign the block of a won slot. The OCert is issued
-    at the containing evolution-window start, so 0 <= t < max evolutions."""
-    kp = params.kes_period_of(slot)
-    c0 = max(0, kp - (kp % params.max_kes_evolutions))
-    ocert = pool.make_ocert(ocert_counter, c0)
-    body = HeaderBody(
-        block_no=block_no, slot=slot, prev_hash=prev_hash,
-        issuer_vk=pool.vk_cold, vrf_vk=pool.vrf_vk,
-        vrf_output=vrf_output, vrf_proof=vrf_proof,
-        body_size=sum(len(t) for t in txs), body_hash=body_hash(txs),
-        ocert=ocert,
-    )
-    kes_sig = kes_sign(pool.kes_seed, pool.kes_depth, kp - c0, body.signed_bytes)
-    return Block(Header(body, kes_sig), tuple(txs))
 
 
 def proof_length(proof_format, block_no: int) -> int:
@@ -157,50 +104,16 @@ def proof_length(proof_format, block_no: int) -> int:
     return n
 
 
-_PROVERS = {80: native.ecvrf_prove, 128: native.ecvrf_prove_bc}
-
-
 def synthesize(db_path: str, params: PraosParams, pools: list[PoolCredentials],
                lview: LedgerView, n_blocks: int, chunk_size: int = 21600,
                txs_per_block: int = 0, proof_format="bc") -> PraosState:
-    """Forge `n_blocks` blocks into `<db_path>/immutable`; -> final state.
-    Per slot the first winning credential forges (one block per slot);
+    """Forge `n_blocks` blocks into `<db_path>/immutable` with the per-slot
+    loop (db_synthesizer's "loop" engine); -> the final state. Per slot
+    the first winning credential forges (one block per slot);
     `proof_format` picks each block's VRF proof format (module doc)."""
-    proof_length(proof_format, 0)  # refuse an unknown format before forging
-    imm = ImmutableDB(os.path.join(db_path, "immutable"), chunk_size=chunk_size)
-    if not imm.is_empty:
-        raise RuntimeError(f"refusing to forge into non-empty DB at {db_path}")
-    st = PraosState()
-    prev_hash = None
-    block_no = slot = 0
-    counters: dict[bytes, int] = {}
-    while block_no < n_blocks:
-        ticked = praos.tick(params, lview, slot, st)
-        alpha = nonces.mk_input_vrf(slot, ticked.state.epoch_nonce)
-        for pool in pools:
-            entry = lview.pool_distr.get(pool.pool_id)
-            if entry is None:
-                continue
-            prove = _PROVERS[proof_length(proof_format, block_no)]
-            proof = prove(pool.vrf_seed, alpha)
-            beta = native.proof_to_hash(proof)
-            if not is_leader(nonces.vrf_leader_value(beta), entry.stake,
-                             params.active_slot_coeff):
-                continue
-            n = counters.get(pool.pool_id, 0)
-            txs = tuple(b"tx-%d-%d" % (slot, i) for i in range(txs_per_block))
-            block = forge_block(
-                params, pool, slot=slot, block_no=block_no,
-                prev_hash=prev_hash, txs=txs, ocert_counter=n,
-                vrf_output=beta, vrf_proof=proof,
-            )
-            imm.append_block(slot, block_no, block.hash_, block.bytes_)
-            st = praos.reupdate(params, block.header.to_view(), slot, ticked)
-            counters[pool.pool_id] = n
-            prev_hash = block.hash_
-            block_no += 1
-            break
-        slot += 1
-    imm.flush()
-    sidecar.backfill_store(imm, walked=True)
-    return st
+    from ..tools import db_synthesizer
+
+    return db_synthesizer.synthesize(
+        db_path, params, pools, lview, db_synthesizer.ForgeLimit(blocks=n_blocks),
+        txs_per_block=txs_per_block, chunk_size=chunk_size, engine="loop",
+        proof_format=proof_format).final_state

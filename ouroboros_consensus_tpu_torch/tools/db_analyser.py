@@ -28,7 +28,13 @@ prefix into pieces, cut where a span width changes. Same-width pieces
 of an epoch merge into one segment. With `columnar=False` the scan
 yields one HeaderView list per chunk instead (the per-header path the
 tests compare against), and no sidecar is read. A replay never writes a
-sidecar: the forge seals them.
+sidecar: the forge seals them. That read is `validate_all="stream"`;
+False checks only the most recent chunk (its CRCs), as the reference's
+shallow open; the reference's True, a repair open that writes
+truncations to disk, raises until the port has a repair plane.
+`max_headers` caps the read, `collect_phases` fills the result's phase
+walls, bytes and windows, and `trace` reports progress (bench.py's
+replay keywords).
 
 On the device backend the read runs on a prefetch thread
 (`_prefetch_iter`) that reads the next epoch segment while
@@ -71,6 +77,16 @@ class ValidationResult:
     # the time validation waited for the next segment: on the prefetch
     # queue, or the read itself when it runs inline
     wait_s: float = 0.0
+    # the store's open (every chunk's index loaded), inside read_s
+    open_s: float = 0.0
+    # filled by collect_phases=True (batch.PhaseTally): wall s per phase
+    # (the read, and the window loop's stage, dispatch, materialize and
+    # epilogue), bytes copied to the card and back, windows dispatched
+    phases: dict | None = None
+    h2d_bytes: int = 0
+    d2h_bytes: int = 0
+    n_windows: int = 0
+    packed_windows: int = 0
 
 
 def read_header_views(db_path: str) -> list:
@@ -160,18 +176,41 @@ def _chunk_good(imm: ImmutableDB, n: int, data: bytes, entries: list, use_sideca
     return good, sc
 
 
+def _chunk_shallow(imm: ImmutableDB, n: int, data: bytes, entries: list, use_sidecar: bool,
+                   last: bool):
+    """One chunk of a shallow read (validate_all=False), as the
+    reference's open checks it: the most recent chunk by the CRC sweep
+    alone, the others not at all -> (good, sc) as `_chunk_good`'s."""
+    good = len(entries)
+    if last:
+        rc = native_scan.crc32_first_bad(
+            data, [e.offset for e in entries], [e.size for e in entries],
+            [e.crc32 for e in entries])
+        good = good if rc < 0 else rc
+    sc = None
+    if use_sidecar and good == len(entries):
+        sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries))
+        sidecar_mod.record(outcome)
+    return good, sc
+
+
 def _stream_windows(imm: ImmutableDB, res: ValidationResult, columnar: bool = True,
-                    sidecar: bool = True):
+                    sidecar: bool = True, deep: bool = True):
     """The chain's headers chunk by chunk, in slot order, each chunk
-    checked by `_chunk_good`: a sidecar hit yields its pieces (tier 1),
+    checked by `_chunk_good` (`deep`, validate_all="stream"), or by
+    `_chunk_shallow`: a sidecar hit yields its pieces (tier 1),
     else the good prefix is scanned natively and yielded as ViewColumns
     pieces (`columnar`; a chunk whose sigmas do not columnarize falls to
     a list) or as one HeaderView list. The stream ends with the first
     chunk that holds a failing block."""
     use_sidecar = sidecar and columnar
+    last = imm._chunks[-1] if imm._chunks else None
     for n, entries in imm.chunk_entries():
         data = imm.read_chunk(n)
-        good, sc = _chunk_good(imm, n, data, entries, use_sidecar)
+        if deep:
+            good, sc = _chunk_good(imm, n, data, entries, use_sidecar)
+        else:
+            good, sc = _chunk_shallow(imm, n, data, entries, use_sidecar, n == last)
         pieces = sc.pieces(data) if sc is not None else None
         if pieces is not None:
             res.n_blocks += sc.n
@@ -186,6 +225,20 @@ def _stream_windows(imm: ImmutableDB, res: ValidationResult, columnar: bool = Tr
                 yield from pieces
         if good < len(entries):
             return
+
+
+def _cap_windows(wins, cap: int):
+    """The window stream cut to its first `cap` headers (the reference's
+    `_cap_windows`, tools/db_analyser.py:433)."""
+    left = cap
+    for win in wins:
+        if left <= 0:
+            return
+        if len(win) > left:
+            yield win[:left]
+            return
+        left -= len(win)
+        yield win
 
 
 def _epoch_window_segments(params: PraosParams, wins):
@@ -294,14 +347,19 @@ def _prefetch_iter(gen, depth: int = 2):
 
 
 def _timed_segments(params: PraosParams, db_path: str, tally: ValidationResult,
-                    columnar: bool, sidecar: bool):
-    """The epoch segments of the chain at `db_path`, each with the blocks
-    read so far (the storage prefix when the consumer stops after it), the
-    time spent producing them (the index parse of the open included)
-    summed into `tally.read_s`."""
+                    columnar: bool, sidecar: bool, deep: bool, max_headers: int | None):
+    """The epoch segments of the chain at `db_path` (its first
+    `max_headers` headers, when given), each with the blocks read so far
+    (the storage prefix when the consumer stops after it), the time spent
+    producing them (the index parse of the open included) summed into
+    `tally.read_s`, the open's alone into `tally.open_s`."""
     t0 = time.perf_counter()
     imm = ImmutableDB(os.path.join(db_path, "immutable"))
-    segs = _epoch_window_segments(params, _stream_windows(imm, tally, columnar, sidecar))
+    tally.open_s = time.perf_counter() - t0
+    wins = _stream_windows(imm, tally, columnar, sidecar, deep)
+    if max_headers is not None:
+        wins = _cap_windows(wins, max_headers)
+    segs = _epoch_window_segments(params, wins)
     while True:
         seg = next(segs, None)
         tally.read_s += time.perf_counter() - t0
@@ -315,9 +373,22 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
                backend: str = "device", max_batch: int = 8192,
                device=None, columnar: bool = True, sidecar: bool = True,
                prefetch: bool = True, pipeline_depth: int = 3,
-               aggregate: bool = True) -> ValidationResult:
+               aggregate: bool = True, validate_all="stream",
+               max_headers: int | None = None, trace=lambda s: None,
+               collect_phases: bool = False) -> ValidationResult:
     """Full-chain revalidation from genesis against a constant ledger
     view; -> n_valid, the first error (or None) and the final state.
+    `validate_all` (the reference's, tools/db_analyser.py:577-606):
+    "stream" checks every chunk inside the replay's own reads (CRCs and
+    body hashes, the reference's ValidateAllChunks verdicts and
+    truncation points); False checks only the most recent chunk, by its
+    CRCs, as the reference's shallow open does; True, the reference's
+    default, opens the store for repair (truncations written to disk),
+    which the port does not have yet: it raises. `max_headers`: replay
+    the first max_headers headers only (`n_blocks` is at most that).
+    `trace`: called with a progress line after each epoch segment.
+    `collect_phases`: fill `phases`, `h2d_bytes`, `d2h_bytes`,
+    `n_windows` and `packed_windows` (batch.PhaseTally).
     `sidecar`: read a chunk's sealed columns where they hold (tier 1;
     `columnar=False` reads none). `prefetch` (device backend): read the
     next epoch segment on a thread while this one validates.
@@ -327,10 +398,18 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
     dirty one through the per-lane stages again (validate_chain's).
     Read-only: it writes nothing
     to disk. `validate_s` sums the validate_chain calls (one an epoch
-    segment), `read_s` the read's own time, `wait_s` the time validation
-    waited for it, and `wall_s` is the whole call."""
+    segment), `read_s` the read's own time (`open_s` of it the store's
+    open, every index loaded), `wait_s` the time validation waited for
+    it, and `wall_s` is the whole call."""
     if backend not in ("device", "native"):
         raise ValueError(f"unknown backend {backend!r}")
+    if validate_all is True:
+        raise ValueError(
+            "validate_all=True opens the store for repair (ValidateAllChunks with "
+            "on-disk truncation) and the port has no repair plane yet; pass "
+            "validate_all='stream' (every chunk checked in the replay's reads) or False")
+    if validate_all not in ("stream", False):
+        raise ValueError(f"unknown validate_all {validate_all!r}")
     if backend == "device":
         from ..device import resolve
 
@@ -339,9 +418,11 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
     t0 = time.monotonic()
     st = PraosState()
     tally = ValidationResult()  # the reader's counts, on the reader's thread
-    segs = _timed_segments(params, db_path, tally, columnar, sidecar)
+    segs = _timed_segments(params, db_path, tally, columnar, sidecar,
+                           validate_all == "stream", max_headers)
     if backend == "device" and prefetch:
         segs = _prefetch_iter(segs, depth=2)
+    phases = pbatch.PhaseTally() if collect_phases else None
     try:
         while True:
             tw = time.perf_counter()
@@ -354,18 +435,25 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
             out = pbatch.validate_chain(params, lambda _e: lview, st, seg,
                                         max_batch=max_batch, backend=backend,
                                         device=device, pipeline_depth=pipeline_depth,
-                                        aggregate=aggregate)
+                                        aggregate=aggregate, phases=phases)
             res.validate_s += time.monotonic() - ts
             st = out.state
             res.n_valid += out.n_valid
             if out.error is not None:
                 res.error = out.error
                 break
+            trace(f"validated {res.n_valid} headers")
     finally:
         segs.close()  # stops and joins the prefetch thread
     if res.error is None:
         res.n_blocks = tally.n_blocks
-    res.read_s = tally.read_s
+    if max_headers is not None:
+        res.n_blocks = min(res.n_blocks, max_headers)
+    res.read_s, res.open_s = tally.read_s, tally.open_s
+    if phases is not None:
+        res.phases = {"read": tally.read_s, **phases.wall}
+        res.h2d_bytes, res.d2h_bytes = phases.h2d_bytes, phases.d2h_bytes
+        res.n_windows, res.packed_windows = phases.windows, phases.packed_windows
     res.final_state = st
     res.wall_s = time.monotonic() - t0
     return res

@@ -68,10 +68,12 @@ def test_scan_covers_the_tools_and_every_kernel_source():
     scanned = {p.relative_to(PORT).as_posix() for p in _sources()[:-1]}
     assert {"tools/debug_pk.py", "tools/fe_bench.py", "tools/bench.py",
             "tools/db_analyser.py", "testing/corrupt.py", "native_scan.py",
-            "protocol/views.py", "ops/pk/kernels.py", "ops/pk/build.py"} <= scanned
+            "protocol/views.py", "ops/pk/kernels.py", "ops/pk/build.py",
+            "ops/pk/prove.py", "ops/host_kes.py", "protocol/forge.py",
+            "tools/db_synthesizer.py"} <= scanned
     csrc = PORT / "ops" / "pk" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
-    assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench"} <= set(build.KERNELS)
+    assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench", "forge"} <= set(build.KERNELS)
     local = {p.name for p in csrc.iterdir()}
     system = {"stddef.h", "stdint.h"}
     for p in sorted(csrc.iterdir()):
@@ -143,6 +145,12 @@ def test_device_entry_point_refuses_without_cuda(tmp_path, monkeypatch):
         bench.main(["--db", str(tmp_path)])
     with pytest.raises(ValueError):
         bench.measure(str(tmp_path), device="cpu")
+    from ouroboros_consensus_tpu_torch.tools import db_synthesizer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        db_synthesizer.synthesize(str(tmp_path / "forge"), PraosParams(kes_depth=2), pools,
+                                  synth.make_ledger_view(pools), db_synthesizer.ForgeLimit(slots=4))
+    assert not os.path.exists(tmp_path / "forge")
     assert device.resolve("cpu").type == "cpu"
 
 
