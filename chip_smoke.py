@@ -125,6 +125,22 @@ Phases (any failure raises and the script exits non-zero):
       just after; every chunk, index and sidecar file must equal the
       worker's (the per-slot loop engine). One `forge {...}` line a
       chain: election s, assembly s, headers/s, against the loop's.
+   f. the store's crash protocol and the self-healing replay
+      (`phase_recovery`, one `recovery {...}` line): the bc chain with
+      validate_all=True (revalidate's default: a writer's deep open) and
+      "stream" in turns, equal to the native replay; three corrupted
+      copies of the 4,096-header chain (a flipped byte under its index
+      CRC, a torn tail, a torn index) repaired at the open, device ==
+      native and the files identical; four chaos faults on the bc
+      chain's replay (a dispatch, the finish kernel, the staging thread,
+      a chunk read), each healed on the card by its first rung; a replay
+      and a device-engine forge killed by SIGKILL in child processes and
+      resumed in others, to the clean state and the uninterrupted
+      forge's files.
+   The main paths' replays use revalidate's default (validate_all=True);
+   the read's measurements (`sidecar_checks`, `read_breakdown`,
+   `overlap_turns`, `pipeline_timeline`, `layer_breakdown`) and the
+   bench use the read-only "stream", the bench's path.
    Each main path logs headers/s over `validate_s` (the validate_chain
    calls) and over `wall_s` (the read as well), the read's own time
    (`read_s`, overlapped) and the time validation waited for it
@@ -241,6 +257,8 @@ PATH_KERNELS = {
     "tools": {"primitives", "fe_bench"},
     # the device engine's forge of the bc and the mixed chain
     "forge": {"forge_sweep", "ed_sign"},
+    # phase 3f's replays: the aggregate, and the stages of its finish fault
+    "recovery": AGG | BC_STAGES | WIRE,
 }
 REPLAY_KERNELS = BC_STAGES | D3_STAGES | AGG | WIRE
 PATH_ONLY = REPLAY_KERNELS | PATH_KERNELS["forge"]  # none may launch off its path
@@ -2157,7 +2175,8 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev,
     try:
         res = db_analyser.revalidate(db, params, lview, backend="device",
                                      max_batch=max_batch, device=dev, prefetch=False,
-                                     pipeline_depth=1, aggregate=aggregate)
+                                     pipeline_depth=1, aggregate=aggregate,
+                                     validate_all="stream")
         if dev.type == "cuda":
             torch.cuda.synchronize()
     finally:
@@ -2179,7 +2198,8 @@ def layer_breakdown(db: str, params, lview, max_batch: int, dev,
 def read_breakdown(db: str, params, lview, dev, use_sidecar: bool) -> dict:
     """Host wall per part of the read of one more device replay, inline
     (`prefetch=False`, `pipeline_depth=1`, so that the reader has the
-    host to itself): the open's index parse (`index_load`), the file
+    host to itself): the open's validation (`index_load`: every index
+    parsed, the most recent chunk's CRCs), the file
     reads; on the sidecar's hit path the probe
     (`load_sidecar`: the map and the seals) with its chunk and payload
     CRCs, the body-hash sweep (`native.blake2b_spans`) and `pieces`; on
@@ -2195,7 +2215,7 @@ def read_breakdown(db: str, params, lview, dev, use_sidecar: bool) -> dict:
     spent: dict = {}
     crcs = [0]  # load_sidecar's CRC calls: the chunk's, then the payload's
     targets = [
-        (immutable.ImmutableDB, "_load", "index_load"),
+        (immutable.ImmutableDB, "_validate", "index_load"),
         (immutable.ImmutableDB, "read_chunk", "file_read"), (sidecar, "load_sidecar", "probe"),
         (sidecar, "_crc32", None), (native, "blake2b_spans", "body_hash_sweep"),
         (sidecar.SidecarColumns, "pieces", "pieces"),
@@ -2232,7 +2252,7 @@ def read_breakdown(db: str, params, lview, dev, use_sidecar: bool) -> dict:
         sidecar.reset_counters()
         res = db_analyser.revalidate(db, params, lview, backend="device", max_batch=8192,
                                      device=dev, sidecar=use_sidecar, prefetch=False,
-                                     pipeline_depth=1)
+                                     pipeline_depth=1, validate_all="stream")
         counts = sidecar.counters()
     finally:
         for owner, name, fn in saved:
@@ -2266,7 +2286,8 @@ def overlap_turns(db: str, params, lview, dev, pairs: int = 5) -> dict:
         else:
             pauses.append((info["generation"], time.perf_counter() - _t[0]))
 
-    sides = {"overlap": {}, "serial": {"prefetch": False, "pipeline_depth": 1}}
+    sides = {"overlap": {"validate_all": "stream"},
+             "serial": {"prefetch": False, "pipeline_depth": 1, "validate_all": "stream"}}
     order = [("overlap", "serial")[(k + k // 2) % 2] for k in range(2 * pairs)]
     runs: dict = {k: [] for k in sides}
     gc.callbacks.append(on_gc)
@@ -2355,7 +2376,8 @@ def pipeline_timeline(db: str, params, lview, dev) -> dict:
         ref.record()
         torch.cuda.synchronize()
         t0[0] = time.perf_counter()
-        res = db_analyser.revalidate(db, params, lview, backend="device", device=dev)
+        res = db_analyser.revalidate(db, params, lview, backend="device", device=dev,
+                                     validate_all="stream")
         torch.cuda.synchronize()
     finally:
         for owner, name, fn in saved:
@@ -2392,9 +2414,12 @@ def sidecar_checks(tag: str, db: str, params, lview, max_batch: int, dev, cols) 
     from ouroboros_consensus_tpu_torch.tools import db_analyser
 
     def replay(path, backend="device", **kw):
+        # the bench's read-only read: a writer's open would seal the
+        # spoiled copy's two chunks again
         sidecar.reset_counters()
         r = db_analyser.revalidate(path, params, lview, backend=backend, max_batch=max_batch,
-                                   device=dev if backend == "device" else None, **kw)
+                                   device=dev if backend == "device" else None,
+                                   validate_all="stream", **kw)
         return r, {k: v for k, v in sidecar.counters().items() if v}
 
     scan, counts = replay(db, sidecar=False)
@@ -2441,10 +2466,11 @@ def sidecar_checks(tag: str, db: str, params, lview, max_batch: int, dev, cols) 
     return out
 
 
-def phase_main(dev, forges: Forges, max_batch: int) -> dict:
+def phase_main(dev, forges: Forges, max_batch: int, natives: dict) -> dict:
     """The three main paths (bc, draft03, mixed) on the chains `forges`
     makes; -> {path: replay_path's dict, with the layer split for the two
-    single-format chains}."""
+    single-format chains}; each chain's native replay goes into
+    `natives`."""
     from ouroboros_consensus_tpu_torch import carry
     from ouroboros_consensus_tpu_torch.testing import synth
     from ouroboros_consensus_tpu_torch.tools import bench as port_bench
@@ -2525,7 +2551,7 @@ def phase_main(dev, forges: Forges, max_batch: int) -> dict:
             corrupted_replay(tag, db, n, "vrf_proof", "VRFKeyBadProof",
                              params, lview, max_batch, dev, pool=pools[0])
         out.pop("result")
-        out.pop("native")
+        natives[tag] = out.pop("native")
         paths[tag] = out
     return paths
 
@@ -2690,6 +2716,242 @@ def phase_forge_chains(dev, forges: "Forges") -> dict:
         print("forge " + json.dumps(lines[tag]), flush=True)
         shutil.rmtree(dst, ignore_errors=True)
     return {"launches": launches, "chains": lines}
+
+
+_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from ouroboros_consensus_tpu_torch.obs import recovery
+from ouroboros_consensus_tpu_torch.testing import synth
+from ouroboros_consensus_tpu_torch.tools import bench, db_analyser, db_synthesizer
+
+job, db, arg, spec, resume, out, device, batch = sys.argv[2:10]
+params = bench.bench_params()
+pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
+lview = synth.make_ledger_view(pools)
+t0 = time.monotonic()
+if job == "replay":
+    r = db_analyser.revalidate(db, params, lview, max_batch=int(batch), checkpoint=arg,
+                               resume=resume == "1", chaos=spec or None, device=device)
+    doc = {"n_valid": r.n_valid, "error": repr(r.error) if r.error else None,
+           "state": recovery.encode_state(r.final_state), "resumed_headers": r.resumed_headers,
+           "opened_dirty": r.opened_dirty, "repairs": r.repairs, "wall_s": r.wall_s}
+else:
+    r = db_synthesizer.synthesize(db, params, pools, lview,
+                                  db_synthesizer.ForgeLimit(blocks=int(arg)), engine="device",
+                                  resume=resume == "1", chaos=spec or None, device=device)
+    doc = {"n_blocks": r.n_blocks, "wall_s": r.wall_s}
+doc["process_s"] = time.monotonic() - t0
+with open(out, "w") as f:
+    json.dump(doc, f)
+"""
+
+
+def child(job: str, db: str, arg, dev, batch: int = 0, spec: str = "", resume: bool = False,
+          killed: bool = False) -> dict | None:
+    """Run one replay ("replay": revalidate in windows of `batch` with
+    the checkpoint `arg`) or forge ("forge": synthesize `arg` blocks on
+    the device engine) on `dev` in a process of its own, under the chaos
+    spec `spec`; a `killed` child must die of SIGKILL and report
+    nothing. -> its report."""
+    import signal
+
+    out = db + f".{job}.{int(resume)}.json"
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", _CHILD, REPO, job, db, str(arg), spec,
+                           "1" if resume else "0", out, str(dev), str(batch)],
+                          capture_output=True, text=True, timeout=600)
+    want = -signal.SIGKILL if killed else 0
+    if proc.returncode != want:
+        raise AssertionError(f"{job} child ({spec or 'no fault'}): exit {proc.returncode}, "
+                             f"want {want}: {proc.stderr[-2000:]}")
+    if killed:
+        return {"child_s": time.monotonic() - t0}
+    with open(out) as f:
+        return {**json.load(f), "child_s": time.monotonic() - t0}
+
+
+def phase_recovery(dev, forges: "Forges", native_bc, max_batch: int = 8192) -> dict:
+    """The store's crash protocol and the self-healing replay on the card
+    (phase 3f), its replays held to the C++ verifier as every path's:
+    a. the bc chain (forged by the guarded synthesize) replayed with
+       validate_all=True (the default: a writer's deep open) and "stream",
+       in turns: the same verdicts and state, equal to the native replay
+       of phase 3a; `open_s`, walls, `opened_dirty`, `repairs`;
+    b. copies of the 4,096-header chain with a flipped byte under its
+       index CRC, a torn tail and a torn index, each opened with True on
+       the card and its twin by the native backend: the same verdicts,
+       state, repairs and chunk, index and sidecar bytes;
+    c. chaos on the bc chain's default replay (depth 3, the aggregate on):
+       device-error@dispatch:2, device-error@stage:finish (aggregate off),
+       staging-thread-death@window:3, chunk-corrupt@epoch:1; each fault
+       must fire and the replay end in the clean replay's n_valid, error
+       and state, by device rungs only; the rungs and the walls;
+    d. a child process replays the 4,096-header chain in windows of an
+       eighth of it with a checkpoint and sigkill@window:3 and dies; a
+       new process resumes it: the clean replay's state, resumed_headers
+       > 0, and the walls;
+    e. a device-engine forge of that chain in a child killed by
+       sigkill@append at five eighths of it and resumed in another: every
+       chunk, index and sidecar equal to the uninterrupted forge's.
+    The launch counts are zeroed before a-c (this process's device work)
+    and read after. -> {launches, lines}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch import carry
+    from ouroboros_consensus_tpu_torch.obs import recovery
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.storage import guard
+    from ouroboros_consensus_tpu_torch.storage.immutable import ImmutableDB, index_name
+    from ouroboros_consensus_tpu_torch.testing import chaos, synth
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+
+    params = bench_params()
+    pools = [synth.make_pool(0, kes_depth=params.kes_depth)]
+    lview = synth.make_ledger_view(pools)
+    bc, n_bc = forges.get("bc")
+    small, n_small = forges.get("generic")
+    lines: dict = {}
+
+    def replay(db, backend="device", **kw):
+        kw.setdefault("max_batch", max_batch)
+        torch.cuda.synchronize()
+        r = db_analyser.revalidate(db, params, lview, backend=backend,
+                                   device=dev if backend == "device" else None, **kw)
+        torch.cuda.synchronize()
+        return r
+
+    def key(r):
+        return (r.n_valid, carry.error_to_plain(r.error), carry.state_to_plain(r.final_state))
+
+    K.reset_launches()
+    # a. the reference's default against the bench's read, in turns
+    if not guard.was_clean_shutdown(bc):
+        raise AssertionError("the guarded forge left its store dirty")
+    turns = {True: [], "stream": []}
+    for policy in (True, "stream", "stream", True):
+        r = replay(bc, validate_all=policy)
+        if key(r) != key(native_bc) or r.opened_dirty or r.repairs:
+            raise AssertionError(f"validate_all={policy!r}: {r.n_valid} valid, {r.error!r}, "
+                                 f"dirty {r.opened_dirty}, repairs {r.repairs}")
+        turns[policy].append(r)
+    lines["a"] = {"headers": n_bc, **{
+        ("true" if p is True else p): {"open_s": [r.open_s for r in rs],
+                                       "wall_s": [r.wall_s for r in rs],
+                                       "opened_dirty": rs[0].opened_dirty,
+                                       "repairs": rs[0].repairs}
+        for p, rs in turns.items()}}
+    log(f"recovery a: validate_all=True == 'stream' == native on {n_bc} headers: "
+        f"{json.dumps(lines['a'])}")
+
+    # b. three corruptions of the 4,096-header chain, opened with True
+    imm = ImmutableDB(os.path.join(small, "immutable"))
+    (last, entries), = list(imm.chunk_entries())[-1:]
+    cpath = os.path.join(small, "immutable", f"{last:05d}.chunk")
+    flip_at = entries[len(entries) * 3 // 4]
+
+    def bitflip(db):  # a byte of a block's body, its index CRC kept
+        p = os.path.join(db, "immutable", os.path.basename(cpath))
+        raw = bytearray(open(p, "rb").read())
+        raw[flip_at.offset + flip_at.size - 3] ^= 0x01
+        open(p, "wb").write(bytes(raw))
+
+    def torn_tail(db):  # half a block past the indexed end
+        with open(os.path.join(db, "immutable", os.path.basename(cpath)), "ab") as f:
+            f.write(open(cpath, "rb").read()[entries[-1].offset:][: entries[-1].size // 2])
+
+    def torn_index(db):  # the last index entry cut mid-way
+        p = os.path.join(db, "immutable", index_name(last))
+        os.truncate(p, os.path.getsize(p) - 17)
+
+    lines["b"] = {}
+    for name, spoil in (("bitflip", bitflip), ("torn_tail", torn_tail),
+                        ("torn_index", torn_index)):
+        a, b = small + f"_{name}_dev", small + f"_{name}_native"
+        try:
+            for d in (a, b):
+                shutil.copytree(small, d)
+                spoil(d)
+            dres = replay(a, validate_all=True)
+            nres = replay(b, "native", validate_all=True)
+            compare(f"recovery b, {name}", dres, nres)
+            if dres.repairs != nres.repairs or dres.error is not None:
+                raise AssertionError(f"{name}: repairs {dres.repairs} != {nres.repairs}")
+            files = same_files(a, b)
+            lines["b"][name] = {"n_valid": dres.n_valid, "repairs": dres.repairs,
+                                "files_identical": files, "wall_s": dres.wall_s,
+                                "open_s": dres.open_s}
+        finally:
+            for d in (a, b):
+                shutil.rmtree(d, ignore_errors=True)
+    if lines["b"]["bitflip"]["n_valid"] != n_small - len(entries) + entries.index(flip_at) \
+            or lines["b"]["torn_tail"]["n_valid"] != n_small:
+        raise AssertionError(f"recovery b: {lines['b']}")
+    log(f"recovery b: {json.dumps(lines['b'])}")
+
+    # c. chaos on the default pipeline
+    clean = {True: turns[True][-1], False: replay(bc, aggregate=False)}
+    lines["c"] = {"clean_wall_s": {"aggregate": clean[True].wall_s,
+                                   "lanes": clean[False].wall_s}}
+    for spec, aggregate in (("device-error@dispatch:2", True),
+                            ("device-error@stage:finish", False),
+                            ("staging-thread-death@window:3", True),
+                            (f"chunk-corrupt@epoch:{min(1, chunk_count(bc) - 1)}", True)):
+        plan = chaos.ChaosPlan(chaos.parse_spec(spec))
+        r = replay(bc, aggregate=aggregate, chaos=plan)
+        rungs = [e.action for e in r.recoveries]
+        if len(plan.fired()) != 1 or key(r) != key(clean[aggregate]):
+            raise AssertionError(f"chaos {spec}: fired {plan.fired()}, {r.n_valid} valid, "
+                                 f"{r.error!r}, rungs {rungs}")
+        if not rungs or rungs[-1] != "recovered" or set(rungs) - {
+                "retry", "stage-split", "chunk-reread", "recovered"}:
+            raise AssertionError(f"chaos {spec}: rungs {rungs}")
+        lines["c"][spec] = {"rungs": rungs, "host_rung": "host-reference" in rungs,
+                            "wall_s": r.wall_s,
+                            "over_clean": r.wall_s / clean[aggregate].wall_s}
+    log(f"recovery c: {json.dumps(lines['c'])}")
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+
+    # d. a replay killed in a child, resumed in another
+    db = small + "_resume"
+    ck = db + ".ck.json"
+    batch = max(8, n_small // 8)
+    shutil.copytree(small, db)
+    try:
+        want = replay(db, max_batch=batch)
+        nres = replay(db, "native")
+        compare("recovery d, the clean replay", want, nres)
+        killed = child("replay", db, ck, dev, batch, "sigkill@window:3", killed=True)
+        rec = recovery.read_checkpoint(ck)
+        resumed = child("replay", db, ck, dev, batch, resume=True)
+        if (resumed["n_valid"], resumed["error"], resumed["state"]) != (
+                want.n_valid, None, recovery.encode_state(want.final_state)) \
+                or not 0 < resumed["resumed_headers"] == rec["headers"]:
+            raise AssertionError(f"recovery d: the resumed replay {resumed} differs")
+        lines["d"] = {"headers": n_small, "record": {k: rec[k] for k in ("headers", "windows")},
+                      "killed_child_s": killed["child_s"], "resumed": resumed,
+                      "clean_wall_s": want.wall_s}
+    finally:
+        shutil.rmtree(db, ignore_errors=True)
+    log(f"recovery d: {json.dumps(lines['d'])}")
+
+    # e. a forge killed in a child, resumed in another
+    db = small + "_forge"
+    try:
+        killed = child("forge", db, n_small, dev, spec=f"sigkill@append:{n_small * 5 // 8}",
+                       killed=True)
+        if guard.was_clean_shutdown(db):
+            raise AssertionError("recovery e: the killed forge left a clean store")
+        resumed = child("forge", db, n_small, dev, resume=True)
+        files = same_files(small, db)
+        lines["e"] = {"headers": n_small, "files_identical": files,
+                      "killed_child_s": killed["child_s"], "resumed": resumed}
+    finally:
+        shutil.rmtree(db, ignore_errors=True)
+    log(f"recovery e: {json.dumps(lines['e'])}")
+    print("recovery " + json.dumps(lines), flush=True)
+    return {"launches": launches, "lines": lines}
 
 
 # ---------------------------------------------------------------------------
@@ -2879,7 +3141,8 @@ dev = torch.device("cuda")
 runs = []
 for _ in range(3):
     torch.cuda.synchronize()
-    r = db_analyser.revalidate(db, params, lview, backend="device", max_batch=8192, device=dev)
+    r = db_analyser.revalidate(db, params, lview, backend="device", max_batch=8192, device=dev,
+                               validate_all="stream")
     torch.cuda.synchronize()
     assert r.error is None and r.n_valid > 0, (r.n_valid, r.error)
     runs.append({"n_valid": r.n_valid, "wall_s": r.wall_s, "validate_s": r.validate_s,
@@ -2979,9 +3242,11 @@ def main(argv=None) -> int:
             stages[key]["ms_by_lanes"] = {**by_lanes, stages[key]["lanes"]: stages[key]["ms"]}
         stages.update(phase_forge(dev))
         phase_agg_chain(dev, forges.get("bc")[0], stages)
-        paths = phase_main(dev, forges, 8192)
+        natives: dict = {}
+        paths = phase_main(dev, forges, 8192, natives)
         generic = phase_generic(dev, forges, 8192)
         forged = phase_forge_chains(dev, forges)
+        recovered = phase_recovery(dev, forges, natives["bc"])
     finally:
         forges.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -2999,6 +3264,7 @@ def main(argv=None) -> int:
     by_path["generic"] = generic["launches"]
     by_path["tools"] = tools["launches"]
     by_path["forge"] = forged["launches"]
+    by_path["recovery"] = recovered["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
         stray = sorted(k for k in PATH_ONLY - ks if by_path[path].get(k, 0))

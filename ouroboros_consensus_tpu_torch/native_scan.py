@@ -2,13 +2,15 @@
 
 Built with g++ on first use into the port's build directory, as
 `native.py` builds the host crypto; a failed build raises (there is no
-slower per-block path to fall to). Three entry points:
+slower per-block path to fall to). Four entry points:
 
 - `extract_headers`: one chunk's blocks parsed into `HeaderColumns` (the
   fixed-width header fields as numpy columns, the variable-width ones as
   (offset, length) spans into the chunk's bytes);
 - `crc32_first_bad`: the CRC sweep of the index's spans;
-- `parse_index`: a chunk index's CBOR entries as columns.
+- `parse_index`: a chunk index's CBOR entries as columns;
+- `scan_items`: the spans of a chunk's complete top-level CBOR items
+  (the index rebuild of storage/immutable.py).
 """
 
 from __future__ import annotations
@@ -50,6 +52,11 @@ def lib():
         ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int64,
         *([ctypes.c_void_p] * 6),
     ]
+    so.ocx_scan_items.restype = ctypes.c_int
+    so.ocx_scan_items.argtypes = [
+        ctypes.c_char_p, ctypes.c_size_t, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
     _lib = so
     return _lib
 
@@ -73,6 +80,18 @@ def parse_index(buf: bytes):
         buf, len(buf), cap, _ptr(slots), _ptr(block_nos), _ptr(hashes),
         _ptr(offsets), _ptr(sizes), _ptr(crcs)))
     return slots[:n], block_nos[:n], hashes[:n], offsets[:n], sizes[:n], crcs[:n]
+
+
+def scan_items(buf: bytes, max_items: int = 1 << 20):
+    """(offsets, sizes, end) of the complete top-level CBOR items at the
+    start of `buf`: `end` is where the well-formed prefix stops (len(buf)
+    when the whole buffer parses; past it lies a torn tail)."""
+    offsets = np.zeros(max_items, np.int64)
+    sizes = np.zeros(max_items, np.int64)
+    end = np.zeros(1, np.int64)
+    n = int(lib().ocx_scan_items(buf, len(buf), _ptr(offsets), _ptr(sizes), max_items,
+                                 _ptr(end)))
+    return offsets[:n].copy(), sizes[:n].copy(), int(end[0])
 
 
 def crc32_first_bad(buf: bytes, offsets, sizes, expected) -> int:

@@ -18,7 +18,8 @@ launches on the current stream without synchronising, raises when the
 launcher's cudaGetLastError() is not 0, and adds one to LAUNCHES[name].
 For CPU tensors it runs the plain PyTorch twin instead (verify.py — the
 same integer operations in the same order); any other device raises.
-There is no fallback between the two.
+There is no fallback between the two. Each stage wrapper is a chaos
+seam (``stage-call``, testing/chaos.py: device-error@stage:<name>).
 
 Layout is the JAX package's: limb-first int32 [rows, B] with lanes last;
 byte rows hold 0..255; ok rows are [1, B]. Inputs and the final outputs
@@ -57,6 +58,7 @@ import math
 import torch
 
 from ...protocol import nonces as pn
+from ...testing import chaos
 from . import curve as pc
 from . import prove as pp
 from . import verify as pv
@@ -153,6 +155,7 @@ def ed_points(pk, s, hblocks, hnblocks):
     On an H100 80GB HBM3 at 700 W: 1,670 multiplies and 1,279 squarings a
     lane (237,345 wide products) bound it at 0.23 ms per 8192 lanes
     (PERF.md has chip_smoke.py's times)."""
+    chaos.fire("stage-call", stage="ed")  # device-error@stage:ed
     dev = pk.device
     b, nb = pk.shape[-1], hblocks.shape[0]
     for n, t, sh in (("pk", pk, (32, b)), ("s", s, (32, b)),
@@ -202,6 +205,7 @@ def kes_points(vk, period, s, vk_leaf, siblings, hblocks, hnblocks, depth):
     operation a warp.
     On an H100 80GB HBM3 at 700 W: the ed stage's 237,345 wide products a
     lane bound it at 0.23 ms per 8192 lanes; chip_smoke.py measured 1.03 ms."""
+    chaos.fire("stage-call", stage="kes")  # device-error@stage:kes
     dev = vk.device
     b, nb = vk.shape[-1], hblocks.shape[0]
     for n, t, sh in (("vk", vk, (32, b)), ("period", period, (1, b)),
@@ -253,6 +257,7 @@ def vrf_prep(pk, gamma, s, alpha):
     On an H100 80GB HBM3 at 700 W: 79 multiplies and 778 squarings a lane
     (50,690 wide products) bound it at 0.050 ms per 8192 lanes;
     chip_smoke.py measured 0.14 ms at 8 lanes and 0.18 ms at 8192."""
+    chaos.fire("stage-call", stage="vrf_prep")  # device-error@stage:vrf_prep
     dev = pk.device
     b = pk.shape[-1]
     for n, t in (("pk", pk), ("gamma", gamma), ("s", s), ("alpha", alpha)):
@@ -295,6 +300,7 @@ def vrf_bc_prep(pk, gamma, u, v, s, alpha):
     On an H100 80GB HBM3 at 700 W: 92 multiplies and 1,032 squarings a lane
     (65,960 wide products) bound it at 0.065 ms per 8192 lanes
     (PERF.md has chip_smoke.py's times)."""
+    chaos.fire("stage-call", stage="vrf_bc_prep")  # device-error@stage:vrf_bc_prep
     dev = pk.device
     b = pk.shape[-1]
     for n, t in (("pk", pk), ("gamma", gamma), ("u", u), ("v", v),
@@ -334,6 +340,7 @@ def vrf_ladders(c16, s, prep):
     On an H100 80GB HBM3 at 700 W: 2,699 multiplies and 1,548 squarings a
     lane (355,040 wide products) bound it at 0.35 ms per 8192 lanes;
     chip_smoke.py measured 1.59 ms."""
+    chaos.fire("stage-call", stage="vrf_ladders")  # device-error@stage:vrf_ladders
     dev = c16.device
     b = c16.shape[-1]
     _check("vrf_ladders.c16", c16, (16, b), dev)
@@ -399,6 +406,7 @@ def finish(ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts,
     squarings a lane (18,270 wide products, one inversion) bound it at
     0.018 ms per 8192 lanes; chip_smoke.py measured 0.12 ms at 8 lanes
     and 0.17 ms at 8192."""
+    chaos.fire("stage-call", stage="finish")  # device-error@stage:finish
     dev = c.device
     b = c.shape[-1]
     args = (ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts, c,

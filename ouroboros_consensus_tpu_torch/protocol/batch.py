@@ -67,6 +67,7 @@ import torch
 
 from .. import native
 from ..device import resolve
+from ..testing import chaos
 from ..ops import stage_np
 from ..ops.pk import hashes as ph
 from ..ops.pk import kernels as pk_kernels
@@ -1266,6 +1267,7 @@ def prepare_window(params: PraosParams, lview: LedgerView, eta0,
     not depend on the nonce fold, only on the epoch nonce `eta0` and the
     ledger view, and touches host memory only: the window pipeline runs
     it on its staging thread."""
+    chaos.fire("stage")  # staging-thread-death@window:N
     if pre is None:
         pre = host_prechecks(params, lview, hvs)
     b = len(hvs)
@@ -1298,6 +1300,7 @@ def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> Pac
     carry-in: the previous packed window's device carry-out, or a host
     seed (`state_carry`); None is the neutral one. A generic window runs
     the five stage kernels and ships its eta bytes (no fold, no carry)."""
+    chaos.fire("dispatch")  # device-error@dispatch:N, compile-stall@window:N
     b = sw.b
     if sw.layout is None:
         cols = batch_columns(sw.batch, device)
@@ -1435,7 +1438,7 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
                    hvs: "Sequence[HeaderView] | ViewColumns", max_batch: int = 8192,
                    backend: str = "device", device=None,
                    pipeline_depth: int = 3, aggregate: bool = True,
-                   phases: PhaseTally | None = None) -> BatchResult:
+                   phases: PhaseTally | None = None, supervisor=None) -> BatchResult:
     """Validate a run of headers (a HeaderView list or ViewColumns):
     windows cut at epoch boundaries, at `max_batch` within an epoch and
     where the proof format changes; the state threads through `tick`
@@ -1452,8 +1455,15 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
     aggregate, and a dirty one the per-lane stages again (the
     reference's default); False runs the per-lane stages on every
     window. `phases` (the device backend): a PhaseTally that the window
-    loop adds its phase walls, bytes and windows to."""
+    loop adds its phase walls, bytes and windows to. `supervisor`: the
+    obs/recovery.RecoverySupervisor that a window whose validation
+    raises a RECOVER-class error goes to, in retire order (None: a
+    default one). As each window retires, the checkpoint seam
+    (`recovery.note_window`) and then the chaos ``retire`` seam run."""
+    from ..obs import recovery
+
     dev = resolve(device) if backend == "device" else None
+    sup = supervisor if supervisor is not None else recovery.RecoverySupervisor()
     windows = _windows(params, hvs, max_batch)
     lviews: dict = {}
 
@@ -1464,23 +1474,58 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
 
     if backend == "device" and pipeline_depth > 1:
         return _pipeline(params, lview_of, state, hvs, windows, dev, pipeline_depth,
-                         aggregate, phases)
+                         aggregate, phases, sup)
     carry = None
     total = 0
-    for epoch, i, j in windows:
+    for k, (epoch, i, j) in enumerate(windows):
         ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
-        res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate,
-                             phases)
+        try:
+            res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate,
+                                 phases)
+        except Exception as e:  # noqa: BLE001 — the supervisor decides
+            res = sup.recover_window(params, ticked, hvs[i:j], e, backend, dev, aggregate, k)
+            res.carry = None  # the next packed window seeds from the state
         state, carry = res.state, res.carry
         total += res.n_valid
         if res.error is not None:
             return BatchResult(state, total, res.error)
+        _retired(state, res.n_valid)
     return BatchResult(state, total, None)
+
+
+def _retired(state: PraosState, n_valid: int) -> None:
+    """A window retired: its progress record, then the kill seam (a
+    chaos kill lands after the checkpoint, at the window boundary)."""
+    from ..obs import recovery
+
+    recovery.note_window(state, n_valid)
+    chaos.fire("retire")
+
+
+class _FailedWindow(NamedTuple):
+    """An in-flight slot for a window whose staging or dispatch raised a
+    RECOVER-class error: raised again where the window retires, where
+    the supervisor has the exact fold state (the reference's
+    _FailedDispatch)."""
+
+    exc: BaseException
+
+
+def _done(value=None, exc: BaseException | None = None):
+    """A finished future holding `value` (or raising `exc`)."""
+    from concurrent.futures import Future
+
+    f: Future = Future()
+    if exc is not None:
+        f.set_exception(exc)
+    else:
+        f.set_result(value)
+    return f
 
 
 def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: list,
               dev: torch.device, depth: int, aggregate: bool = True,
-              phases: PhaseTally | None = None) -> BatchResult:
+              phases: PhaseTally | None = None, sup=None) -> BatchResult:
     """The device loop of validate_chain (the reference's _device_loop):
     at most `depth` windows staged ahead (`prepare_window` on one staging
     thread, into staging buffers allocated here) and at most `depth` in
@@ -1492,12 +1537,25 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
     has retired, so the pipeline drains at an epoch boundary. After a
     generic window (no carry) the next packed window waits until it has
     retired and seeds its carry from the host state. On the first error
-    the windows after it are discarded and their staging cancelled."""
+    the windows after it are discarded and their staging cancelled.
+
+    A window whose staging or dispatch raises a RECOVER-class error
+    takes a `_FailedWindow` slot; a fault that shows only when the
+    window's results are read (a kernel's error surfaces at the next
+    synchronisation) raises where it retires. Either way the supervisor
+    validates the window again at its retire slot. The windows in
+    flight behind it were dispatched with a carry that chained through
+    it, so their device results are dropped: they go back to the head of
+    the staging queue, as staged (their buffers are their own), and are
+    dispatched again behind a carry seeded from the recovered state."""
     from collections import deque
     from concurrent.futures import ThreadPoolExecutor
 
+    from ..obs import recovery
+
+    sup = sup if sup is not None else recovery.RecoverySupervisor()
     staged: deque = deque()  # (window index, staging future)
-    inflight: deque = deque()  # (window index, StagedWindow, PackedVerdicts)
+    inflight: deque = deque()  # (window index, StagedWindow | None, PackedVerdicts | _FailedWindow)
     eta: dict = {}  # epoch -> the epoch nonce its windows stage with
     carry = state_carry(state)  # a host seed, or the last packed window's device carry
     carry_ok = True
@@ -1525,20 +1583,38 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
                 staging_buffer(params, whvs, dev))))
             k_stage += 1
 
+    def failed(e: BaseException) -> bool:
+        return sup.enabled and recovery.recoverable(e)
+
     def dispatch_ready() -> None:
         nonlocal carry, carry_ok
         while staged and len(inflight) < depth:
             k, fut = staged[0]
             if inflight and not fut.done():
                 return  # retire a window while the staging thread works
-            sw = fut.result()._replace(aggregate=aggregate)
+            try:
+                sw = fut.result()._replace(aggregate=aggregate)
+            except Exception as e:  # noqa: BLE001 — the staging thread's death
+                if not failed(e):
+                    raise
+                staged.popleft()
+                carry_ok = False
+                inflight.append((k, None, _FailedWindow(e)))
+                continue
             if sw.layout is not None and not carry_ok:
                 if inflight:
-                    return  # the generic window that broke the chain retires first
+                    return  # the window that broke the chain retires first
                 carry, carry_ok = state_carry(state), True
             staged.popleft()
-            with _phase(phases, "dispatch"):
-                v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
+            try:
+                with _phase(phases, "dispatch"):
+                    v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
+            except Exception as e:  # noqa: BLE001 — recovered where it retires
+                if not failed(e):
+                    raise
+                carry_ok = False
+                inflight.append((k, sw, _FailedWindow(e)))
+                continue
             if phases is not None:
                 phases.dispatched(sw, v)
             if v.carried:
@@ -1553,16 +1629,31 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
             dispatch_ready()
             stage_ahead()  # refill what the launches freed before waiting below
             k, sw, v = inflight.popleft()
-            epoch, i, _j = windows[k]
+            epoch, i, j = windows[k]
             ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
             if ticked.state.epoch_nonce != eta[epoch]:
-                raise RuntimeError(f"window {k} was staged with another epoch nonce")
-            res = _retire(params, ticked, sw.hvs, sw.pre, v, phases)
+                raise AssertionError(f"window {k} was staged with another epoch nonce")
+            try:
+                if isinstance(v, _FailedWindow):
+                    raise v.exc
+                res = _retire(params, ticked, sw.hvs, sw.pre, v, phases)
+            except Exception as e:  # noqa: BLE001 — the supervisor decides
+                if not failed(e):
+                    raise
+                res = sup.recover_window(params, ticked, hvs[i:j], e, "device", dev,
+                                         aggregate, k)
+                # what is in flight behind it chained its carry: stage it again
+                staged.extendleft(reversed([
+                    (k2, _done(exc=v2.exc) if sw2 is None else _done(sw2))
+                    for k2, sw2, v2 in inflight]))
+                inflight.clear()
+                carry_ok = False
             state = res.state
             total += res.n_valid
             if res.error is not None:
                 return BatchResult(state, total, res.error)
             retired += 1
+            _retired(state, res.n_valid)
         return BatchResult(state, total, None)
     finally:
         for _k, fut in staged:

@@ -28,8 +28,17 @@ change), a short or unreadable file is ``torn``, a missing one ``miss``;
 only ``hit`` returns columns. A FLAG_WALKED seal was built over bytes
 that a full integrity walk had passed (forge time), so a hit on it
 skips the per-block CRC sweep: the chunk CRC shows the bytes are the
-walked ones. Sidecars are written only by writers (the forge,
-`backfill_store`); a replay never writes one.
+walked ones. Sidecars are written only by writers: the forge
+(`backfill_store`), db_truncater's repair, and a replay that opened the
+store as a writer (validate_all=True, `repair`, or a dirty open), which
+backfills the chunks it had to scan; a read-only replay never writes one.
+
+Every file operation goes through the fs seam (utils/fs.py: `fs=None` is
+the real filesystem). The chaos seams (testing/chaos.py) are the
+reference's: ``sidecar-torn@build:N`` lands a torn prefix at the final
+name, ``sigkill@build:N`` kills the process between the tmp write and
+the rename, ``sidecar-stale@open:N`` makes the Nth probe say stale. None
+of them may change a verdict: a rejected sidecar costs one scan.
 """
 
 from __future__ import annotations
@@ -38,12 +47,13 @@ import hashlib
 import mmap
 import os
 import struct
-import tempfile
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from .. import native, native_scan
+from ..testing import chaos
+from ..utils.fs import REAL_FS, RealFS
 from .immutable import sidecar_name
 
 MAGIC = b"OCTCOLS1"
@@ -179,23 +189,30 @@ def build_bytes(hc, chunk_bytes, walked: bool = False) -> bytes | None:
     return header + payload
 
 
-def write_sidecar(db_dir: str, chunk: int, blob: bytes) -> None:
-    """Land a sealed sidecar at its name: a temporary file in the same
-    directory, fsync, then an atomic rename (a crash leaves the old file
-    or the new one, never a torn one at the name)."""
-    fd, tmp = tempfile.mkstemp(prefix=sidecar_name(chunk) + ".", suffix=".tmp", dir=db_dir)
-    try:
-        with os.fdopen(fd, "wb") as f:
-            f.write(blob)
-            f.flush()
-            os.fsync(f.fileno())
-        os.replace(tmp, sidecar_path(db_dir, chunk))
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+def write_sidecar(db_dir: str, chunk: int, blob: bytes, fs=None) -> bool:
+    """Land a sealed sidecar at its name through `fs.write_atomic` (tmp
+    ``NNNNN.cols.tmp``, fsync, atomic rename: a crash leaves the old file
+    or the new one, never a torn one at the name; a stranded tmp is swept
+    by the next writer open). The sidecar-build chaos seam fires here.
+    -> True when the sealed sidecar landed."""
+    fs = fs if fs is not None else REAL_FS
+    path = sidecar_path(db_dir, chunk)
+    kind = chaos.sidecar_fault("sidecar-build", chunk=chunk)
+    if kind == "sidecar-torn":
+        cut = min(len(blob) - 1, max(HEADER_SIZE + 7, len(blob) // 3))
+        fs.write_bytes(path, blob[:cut])
+        return False
+    if kind == "sigkill":
+        import signal
+
+        fs.write_bytes(path + ".tmp", blob)
+        os.kill(os.getpid(), signal.SIGKILL)
+    fs.write_atomic(path, blob)
+    return True
 
 
-def backfill(db_dir: str, chunk: int, hc, chunk_bytes, walked: bool = False) -> bool:
+def backfill(db_dir: str, chunk: int, hc, chunk_bytes, walked: bool = False,
+             fs=None) -> bool:
     """Build and write chunk `chunk`'s sidecar from a scan in hand.
     `walked` stamps FLAG_WALKED: pass it only when a full integrity walk
     of these bytes backs the seal. True when a sidecar landed; an
@@ -205,10 +222,9 @@ def backfill(db_dir: str, chunk: int, hc, chunk_bytes, walked: bool = False) -> 
     if blob is None:
         return False
     try:
-        write_sidecar(db_dir, chunk, blob)
+        return write_sidecar(db_dir, chunk, blob, fs=fs)
     except OSError:
         return False
-    return True
 
 
 def backfill_store(imm, walked: bool = False) -> int:
@@ -218,15 +234,18 @@ def backfill_store(imm, walked: bool = False) -> int:
     cannot parse get none. -> the number of sidecars written."""
     wrote = 0
     for n, entries in imm.chunk_entries():
-        data = imm.read_chunk(n)
-        sc, _outcome = load_sidecar(imm.path, n, data, len(entries))
+        try:
+            data = imm.read_chunk(n)
+        except OSError:
+            continue
+        sc, _outcome = load_sidecar(imm.path, n, data, len(entries), fs=imm.fs)
         if sc is not None:
             continue
         try:
             hc = native_scan.extract_headers(data, [e.offset for e in entries])
         except native_scan.MalformedBlock:
             continue
-        if backfill(imm.path, n, hc, data, walked=walked):
+        if backfill(imm.path, n, hc, data, walked=walked, fs=imm.fs):
             record("rebuilt")
             wrote += 1
     return wrote
@@ -244,12 +263,18 @@ def _payload_size(n: int, kes_w: int, sgn_w: int, flags: int) -> int:
     return size
 
 
-def _map_bytes(path: str):
-    """The file mapped read-only (pages come in as the columns are read),
-    or b"" when it vanished or is empty. The arrays over the map hold it
-    open; it is unmapped when the last of them goes."""
+def _map_bytes(fs, path: str):
+    """The file mapped read-only on the real filesystem (pages come in as
+    the columns are read), a plain read through any other fs; b"" when
+    it vanished or is empty. The arrays over a map hold it open; it is
+    unmapped when the last of them goes."""
+    if not isinstance(fs, RealFS):
+        try:
+            return fs.read_bytes(path)
+        except OSError:
+            return b""
     try:
-        with open(path, "rb") as f:
+        with open(fs._p(path), "rb") as f:
             mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
     except (OSError, ValueError):
         return b""
@@ -310,16 +335,19 @@ class SidecarColumns:
         return out
 
 
-def load_sidecar(db_dir: str, chunk: int, chunk_bytes,
-                 n_entries: int) -> tuple[SidecarColumns | None, str]:
+def load_sidecar(db_dir: str, chunk: int, chunk_bytes, n_entries: int,
+                 fs=None) -> tuple[SidecarColumns | None, str]:
     """Probe and map chunk `chunk`'s sidecar against the live chunk
     bytes -> (columns, "hit") when every seal holds, else (None, "miss")
     for no file, "torn" for a short or unreadable one, "stale" for a seal,
-    layout or entry-count mismatch."""
+    layout or entry-count mismatch (or the sidecar-open chaos seam)."""
+    fs = fs if fs is not None else REAL_FS
     path = sidecar_path(db_dir, chunk)
-    if not os.path.exists(path):
+    if chaos.sidecar_fault("sidecar-open", chunk=chunk) == "sidecar-stale":
+        return None, "stale"
+    if not fs.exists(path):
         return None, "miss"
-    buf = _map_bytes(path)
+    buf = _map_bytes(fs, path)
     if len(buf) < HEADER_SIZE:
         return None, "torn"
     (magic, version, flags, n, kes_w, sgn_w, chunk_len, chunk_crc,
@@ -358,16 +386,16 @@ def load_sidecar(db_dir: str, chunk: int, chunk_bytes,
 
 
 def integrity_batch_hook(sc: SidecarColumns):
-    """`db_analyser.check_integrity_batch` without the scan: (data,
+    """`open.default_check_integrity_batch` without the scan: (data,
     entries) -> the index of the first block whose Blake2b-256 over
     [header end, block end) differs from its sealed body hash and that
-    the per-block check (`db_analyser._block_intact`) also fails
+    the per-block check (`open.default_check_integrity`) also fails
     (len(entries) when none does). A walked seal's hit calls it alone;
-    an unwalked one's runs it under `ImmutableDB.deep_check`, after the
+    an unwalked one's runs it under `ImmutableDB.deep_check_loaded`, after the
     CRC sweep."""
 
     def hook(data, entries) -> int:
-        from ..tools.db_analyser import _block_intact
+        from .open import default_check_integrity
 
         m = len(entries)
         ends = np.asarray([e.offset + e.size for e in entries], np.int64)
@@ -375,7 +403,7 @@ def integrity_batch_hook(sc: SidecarColumns):
         bad = (digests != sc.arrays["body_hash"][:m]).any(axis=1)
         for i in np.flatnonzero(bad).tolist():
             e = entries[i]
-            if not _block_intact(data[e.offset: e.offset + e.size]):
+            if not default_check_integrity(data[e.offset: e.offset + e.size]):
                 return i
         return m
 

@@ -1,11 +1,12 @@
 """db-analyser's revalidation: stream a stored chain and validate it.
 
 Reference: `Cardano.Tools.DBAnalyser` only-validation (Analysis.hs:75-88,
-Run.hs:42-151): every chunk is validated as it is read (index tiling,
-CRC and body hash per block — ValidateAllChunks, the chain ends at the
-first block that fails), then the headers are revalidated from genesis,
-one epoch segment at a time, cut into windows at `max_batch` and at a
-proof-format switch:
+Run.hs:42-151); the JAX package's tools/db_analyser.py is the port's
+reference. The store is opened under its crash protocol
+(storage/guard.py: lock, chain magic, clean-shutdown marker), every
+chunk is validated (index tiling, CRC and body hash per block), and the
+headers are revalidated from genesis, one epoch segment at a time, cut
+into windows at `max_batch` and at a proof-format switch:
 
   backend="device": the stage kernels on `device` (None -> the CUDA
                     card, raising when it is absent; "cpu" runs the plain
@@ -15,25 +16,36 @@ proof-format switch:
                     (128-byte) proofs runs vrf_bc_prep in vrf_prep's place;
   backend="native": the C++ verifier (native/hostcrypto.cpp).
 
+`validate_all` is the reference's validation policy. True (its default,
+`ValidateAllChunks`) opens the store as a writer and deep-checks every
+chunk at the open, writing the cut at the first bad block to disk (the
+snipped bytes quarantined; storage/immutable.py). "stream" runs the same
+checks inside the replay's own chunk reads and is read-only unless
+`repair` (then the cut it finds is written back). False checks the most
+recent chunk's CRCs at the open. An open that finds no clean-shutdown
+marker (the last writer died) escalates to all chunks with repair.
+
 The read is columnar, in the reference's tiers (its `_stream_windows`).
 Tier 1: a chunk whose sidecar (`NNNNN.cols`, storage/sidecar.py) is a
 `hit` becomes `ViewColumns` pieces of the mapped columns, with no header
-scan; a walked seal runs only the body-hash compare from its sealed
-columns, an unwalked one the native CRC sweep first. A hit whose checks
-stop short of the chunk's end takes the exact tier 2 check, without the
-sidecar. Tier 2 (no sidecar, a stale or torn one, or `sidecar=False`):
-one native CRC sweep, one native header scan (native/headerscan.cpp)
-and one Blake2b sweep of the bodies, then a second scan of the good
-prefix into pieces, cut where a span width changes. Same-width pieces
-of an epoch merge into one segment. With `columnar=False` the scan
-yields one HeaderView list per chunk instead (the per-header path the
-tests compare against), and no sidecar is read. A replay never writes a
-sidecar: the forge seals them. That read is `validate_all="stream"`;
-False checks only the most recent chunk (its CRCs), as the reference's
-shallow open; the reference's True, a repair open that writes
-truncations to disk, raises until the port has a repair plane.
-`max_headers` caps the read, `collect_phases` fills the result's phase
-walls, bytes and windows, and `trace` reports progress (bench.py's
+scan; in "stream" a walked seal runs only the body-hash compare from its
+sealed columns, an unwalked one the native CRC sweep first, and a hit
+whose checks stop short of the chunk's end takes the exact tier 2 check,
+without the sidecar. Tier 2 (no sidecar, a stale or torn one, or
+`sidecar=False`): one native header scan of the good prefix into pieces,
+cut where a span width changes (after, in "stream", one native CRC
+sweep, one header scan and one Blake2b sweep of the bodies). A writer
+open seals the sidecar of each chunk it scanned. Same-width pieces of an
+epoch merge into one segment. With `columnar=False` the scan yields one
+HeaderView list per chunk instead, and no sidecar is read.
+
+The self-healing replay (obs/recovery.py): a window that fails with a
+RECOVER-class error is validated again by the supervisor's ladder
+(`recovery`, `backoff_s`); a chunk read that fails is read once more;
+`checkpoint` keeps a progress record as windows retire and `resume`
+starts from it. `chaos` arms a fault plan (testing/chaos.py) for the
+call. `max_headers` caps the read, `collect_phases` fills the result's
+phase walls, bytes and windows, and `trace` reports progress (bench.py's
 replay keywords).
 
 On the device backend the read runs on a prefetch thread
@@ -49,17 +61,22 @@ import os
 import queue
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import native, native_scan
+from .. import native_scan
 from ..block.praos_block import Block
+from ..obs import recovery as recovery_mod
 from ..protocol import batch as pbatch
 from ..protocol.praos import PraosParams, PraosState
 from ..protocol.views import HeaderView, LedgerView, OCert, ViewColumns
+from ..storage import guard as guard_mod
+from ..storage import open as open_mod
+from ..storage import repair as repair_mod
 from ..storage import sidecar as sidecar_mod
 from ..storage.immutable import ImmutableDB
+from ..testing import chaos as chaos_mod
 
 
 @dataclass
@@ -87,48 +104,39 @@ class ValidationResult:
     d2h_bytes: int = 0
     n_windows: int = 0
     packed_windows: int = 0
+    resumed_headers: int = 0  # headers a checkpoint vouched for (in n_valid)
+    opened_dirty: bool = False  # no clean-shutdown marker: escalated open
+    repairs: dict | None = None  # {action: count} of the repairs applied
+    # the supervisor's RecoveryEvents (obs/recovery.py), in order
+    recoveries: list = field(default_factory=list)
 
 
 def read_header_views(db_path: str) -> list:
     """Every header view of the chain, in slot order, up to the first
     block that fails storage validation: the per-block walk (a CBOR
-    decode and a body hash a block)."""
+    decode and a body hash a block). Read-only."""
     imm = ImmutableDB(os.path.join(db_path, "immutable"))
     blocks = imm.stream_validated(Block.from_bytes, Block.check_integrity)
     return [b.header.to_view() for b in blocks]
 
 
-def _block_intact(raw: bytes) -> bool:
-    """The per-block integrity check: the block decodes and its body
-    hash matches."""
-    try:
-        return Block.from_bytes(raw).check_integrity()
-    except Exception:  # noqa: BLE001 — any decode failure means not intact
-        return False
-
-
-def check_integrity_batch(data: bytes, entries: list) -> int:
-    """The integrity check of a chunk's blocks at once: the index of the
-    first block that fails it (len(entries) when none does). One native
-    header scan (a block that does not parse fails) and one Blake2b-256
-    sweep over each block's [header end, block end) span against its
-    body hash; a mismatch is settled by the per-block check, so that the
-    chain ends where the per-block walk ends it."""
-    offsets = np.asarray([e.offset for e in entries], np.int64)
-    ends = offsets + np.asarray([e.size for e in entries], np.int64)
-    limit = len(entries)
-    try:
-        cols = native_scan.extract_headers(data, offsets)
-    except native_scan.MalformedBlock as exc:
-        limit = exc.index
-        if limit == 0:
-            return 0
-        cols = native_scan.extract_headers(data, offsets[:limit])
-    digests = native.blake2b_spans(data, cols.header_end, ends[:limit])
-    for i in np.flatnonzero((digests != cols.body_hash).any(axis=1)).tolist():
-        if not _block_intact(data[offsets[i]: ends[i]]):
-            return i
-    return limit
+def open_immutable(db_path: str, validate_all=True, repair: bool = False) -> ImmutableDB:
+    """The store under a policy (the reference's open_immutable): True
+    deep-checks every chunk at the open and writes its cuts (a writer's
+    open); "stream" defers the same checks to the reader, read-only
+    unless `repair` (then the reader writes back the cut it finds,
+    `ImmutableDB.repair_to`); False checks the most recent chunk's CRCs.
+    Only a deep open or `repair` may write."""
+    stream = validate_all == "stream"
+    deep = bool(validate_all) and not stream
+    return ImmutableDB(
+        os.path.join(db_path, "immutable"),
+        check_integrity=open_mod.default_check_integrity if deep else None,
+        validate_all=deep,
+        check_integrity_batch=open_mod.default_check_integrity_batch if deep else None,
+        repair=deep or bool(repair), stream_deep=stream,
+        stream_repair=stream and bool(repair),
+    )
 
 
 def _views_from_columns(cols) -> list:
@@ -157,60 +165,70 @@ def _views_from_columns(cols) -> list:
 
 
 def _chunk_good(imm: ImmutableDB, n: int, data: bytes, entries: list, use_sidecar: bool):
-    """One chunk's checks, in the reference's tiers -> (good, sc): the
-    number of leading entries that pass, and the chunk's sidecar columns
-    when it is a hit and every entry passed (else None)."""
+    """One chunk's checks in "stream", in the reference's tiers ->
+    (good, sc): the number of leading entries that pass, and the chunk's
+    sidecar columns when it is a hit and every entry passed (else None)."""
     sc = None
     if use_sidecar:
-        sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries))
+        sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries), fs=imm.fs)
         sidecar_mod.record(outcome)
+    def exact():
+        return imm.deep_check_loaded(data, entries, open_mod.default_check_integrity,
+                                     open_mod.default_check_integrity_batch)
+
     if sc is None:
-        return imm.deep_check(data, entries, check_integrity_batch), None
+        return exact(), None
     hook = sidecar_mod.integrity_batch_hook(sc)
     # a walked seal: the chunk CRC shows these are the walked bytes, so
     # only the body-hash compare runs; an unwalked one pays the CRC sweep
-    good = hook(data, entries) if sc.walked else imm.deep_check(data, entries, hook)
+    good = (hook(data, entries) if sc.walked else
+            imm.deep_check_loaded(data, entries, open_mod.default_check_integrity, hook))
     if good < len(entries):
-        # an anomaly: the exact scan decides where the chain ends
-        return imm.deep_check(data, entries, check_integrity_batch), None
+        return exact(), None  # an anomaly: the exact scan decides where the chain ends
     return good, sc
 
 
-def _chunk_shallow(imm: ImmutableDB, n: int, data: bytes, entries: list, use_sidecar: bool,
-                   last: bool):
-    """One chunk of a shallow read (validate_all=False), as the
-    reference's open checks it: the most recent chunk by the CRC sweep
-    alone, the others not at all -> (good, sc) as `_chunk_good`'s."""
-    good = len(entries)
-    if last:
-        rc = native_scan.crc32_first_bad(
-            data, [e.offset for e in entries], [e.size for e in entries],
-            [e.crc32 for e in entries])
-        good = good if rc < 0 else rc
-    sc = None
-    if use_sidecar and good == len(entries):
-        sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries))
-        sidecar_mod.record(outcome)
-    return good, sc
+def _read_chunk(imm: ImmutableDB, n: int, chunk_idx: int, sup) -> bytes:
+    """Chunk n's bytes behind the chaos ``chunk`` seam
+    (chunk-corrupt@epoch:N, N the chunk's place in the store), with one
+    re-read by the supervisor when the read fails with a RECOVER-class
+    error; a second failure propagates (the reference's _read_chunk)."""
+    try:
+        chaos_mod.fire("chunk", chunk=chunk_idx)
+        return imm.read_chunk(n)
+    except (chaos_mod.ChaosError, OSError) as e:
+        return sup.reread_chunk(lambda: imm.read_chunk(n), chunk_idx, e)
 
 
-def _stream_windows(imm: ImmutableDB, res: ValidationResult, columnar: bool = True,
-                    sidecar: bool = True, deep: bool = True):
-    """The chain's headers chunk by chunk, in slot order, each chunk
-    checked by `_chunk_good` (`deep`, validate_all="stream"), or by
-    `_chunk_shallow`: a sidecar hit yields its pieces (tier 1),
-    else the good prefix is scanned natively and yielded as ViewColumns
-    pieces (`columnar`; a chunk whose sigmas do not columnarize falls to
-    a list) or as one HeaderView list. The stream ends with the first
-    chunk that holds a failing block."""
+def _stream_windows(imm: ImmutableDB, res: ValidationResult, columnar: bool, sidecar: bool,
+                    sup):
+    """The chain's headers chunk by chunk, in slot order. In "stream"
+    (`imm.stream_deep`) each chunk is checked by `_chunk_good`, and a
+    repairing reader (`imm.stream_repair`) writes back the cut it finds;
+    otherwise the open validated the chunks already. A sidecar hit
+    yields its pieces (tier 1); else the good prefix is scanned natively
+    and yielded as ViewColumns pieces (`columnar`; a chunk whose sigmas
+    do not columnarize falls to a list) or as one HeaderView list, and a
+    writer's open seals the chunk's sidecar from that scan (walked when
+    this read checked the chunk). The stream ends with the first chunk
+    that holds a failing block."""
     use_sidecar = sidecar and columnar
-    last = imm._chunks[-1] if imm._chunks else None
-    for n, entries in imm.chunk_entries():
-        data = imm.read_chunk(n)
-        if deep:
+    for chunk_idx, n in enumerate(list(imm._chunks)):
+        entries = imm._entries.get(n)
+        if not entries:
+            continue
+        data = _read_chunk(imm, n, chunk_idx, sup)
+        if imm.stream_deep:
             good, sc = _chunk_good(imm, n, data, entries, use_sidecar)
         else:
-            good, sc = _chunk_shallow(imm, n, data, entries, use_sidecar, n == last)
+            good, sc = len(entries), None
+            if use_sidecar:
+                sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries),
+                                                       fs=imm.fs)
+                sidecar_mod.record(outcome)
+        truncated = good < len(entries)
+        if truncated and imm.stream_repair:
+            imm.repair_to(n, good, data=data)
         pieces = sc.pieces(data) if sc is not None else None
         if pieces is not None:
             res.n_blocks += sc.n
@@ -218,12 +236,16 @@ def _stream_windows(imm: ImmutableDB, res: ValidationResult, columnar: bool = Tr
         elif good:
             cols = native_scan.extract_headers(data, [e.offset for e in entries[:good]])
             res.n_blocks += cols.n
+            if use_sidecar and sc is None and not truncated and imm._repair:
+                if sidecar_mod.backfill(imm.path, n, cols, data, walked=imm.stream_deep,
+                                        fs=imm.fs):
+                    sidecar_mod.record("rebuilt")
             pieces = ViewColumns.pieces_from_header_columns(cols) if columnar else None
             if pieces is None:
                 yield _views_from_columns(cols)
             else:
                 yield from pieces
-        if good < len(entries):
+        if truncated:
             return
 
 
@@ -346,19 +368,34 @@ def _prefetch_iter(gen, depth: int = 2):
         t.join()
 
 
-def _timed_segments(params: PraosParams, db_path: str, tally: ValidationResult,
-                    columnar: bool, sidecar: bool, deep: bool, max_headers: int | None):
-    """The epoch segments of the chain at `db_path` (its first
-    `max_headers` headers, when given), each with the blocks read so far
-    (the storage prefix when the consumer stops after it), the time spent
-    producing them (the index parse of the open included) summed into
-    `tally.read_s`, the open's alone into `tally.open_s`."""
+def _skip_headers(wins, n: int):
+    """The window stream without its first `n` headers (a resume: the
+    record vouches for them); ViewColumns windows are sliced, so the
+    stream stays columnar across the resume point."""
+    left = n
+    for win in wins:
+        if left <= 0:
+            yield win
+        elif len(win) <= left:
+            left -= len(win)
+        else:
+            yield win[left:]
+            left = 0
+
+
+def _timed_segments(params: PraosParams, imm: ImmutableDB, tally: ValidationResult,
+                    columnar: bool, sidecar: bool, max_headers: int | None, skip: int,
+                    sup):
+    """The epoch segments of the opened store (its first `max_headers`
+    headers, when given, less the first `skip`), each with the blocks
+    read so far (the storage prefix when the consumer stops after it),
+    the time spent producing them summed into `tally.read_s`."""
     t0 = time.perf_counter()
-    imm = ImmutableDB(os.path.join(db_path, "immutable"))
-    tally.open_s = time.perf_counter() - t0
-    wins = _stream_windows(imm, tally, columnar, sidecar, deep)
+    wins = _stream_windows(imm, tally, columnar, sidecar, sup)
     if max_headers is not None:
         wins = _cap_windows(wins, max_headers)
+    if skip:
+        wins = _skip_headers(wins, skip)
     segs = _epoch_window_segments(params, wins)
     while True:
         seg = next(segs, None)
@@ -373,22 +410,31 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
                backend: str = "device", max_batch: int = 8192,
                device=None, columnar: bool = True, sidecar: bool = True,
                prefetch: bool = True, pipeline_depth: int = 3,
-               aggregate: bool = True, validate_all="stream",
+               aggregate: bool = True, validate_all=True,
                max_headers: int | None = None, trace=lambda s: None,
-               collect_phases: bool = False) -> ValidationResult:
-    """Full-chain revalidation from genesis against a constant ledger
-    view; -> n_valid, the first error (or None) and the final state.
-    `validate_all` (the reference's, tools/db_analyser.py:577-606):
-    "stream" checks every chunk inside the replay's own reads (CRCs and
-    body hashes, the reference's ValidateAllChunks verdicts and
-    truncation points); False checks only the most recent chunk, by its
-    CRCs, as the reference's shallow open does; True, the reference's
-    default, opens the store for repair (truncations written to disk),
-    which the port does not have yet: it raises. `max_headers`: replay
-    the first max_headers headers only (`n_blocks` is at most that).
-    `trace`: called with a progress line after each epoch segment.
-    `collect_phases`: fill `phases`, `h2d_bytes`, `d2h_bytes`,
-    `n_windows` and `packed_windows` (batch.PhaseTally).
+               collect_phases: bool = False, resume: bool = False,
+               repair: bool = False, network_magic: int | None = None,
+               checkpoint: str | None = None, recovery: bool = True,
+               backoff_s: float = 0.05, chaos=None) -> ValidationResult:
+    """Full-chain revalidation from genesis (or from a checkpoint)
+    against a constant ledger view; -> n_valid, the first error (or
+    None) and the final state.
+    `validate_all` (the reference's, tools/db_analyser.py:577-606): True
+    (the default) opens the store as a writer and deep-checks every
+    chunk at the open, cutting the chain on disk at the first bad block
+    (quarantined, `repairs` counts the actions); "stream" runs the same
+    checks in the replay's own reads, read-only unless `repair` (then the
+    cut is written back); False checks only the most recent chunk's
+    CRCs. The open takes the store's lock (DbLocked when another process
+    holds it), checks its chain magic against `network_magic` (None
+    accepts any; DbMarkerMismatch), and, when the clean-shutdown marker
+    is missing, escalates to all chunks with repair (`opened_dirty`). A
+    writer's open of a path with no store raises FileNotFoundError. The
+    store is closed clean only after a walk that proved all of it.
+    `max_headers`: replay the first max_headers headers only (`n_blocks`
+    is at most that). `trace`: called with a progress line after each
+    epoch segment. `collect_phases`: fill `phases`, `h2d_bytes`,
+    `d2h_bytes`, `n_windows` and `packed_windows` (batch.PhaseTally).
     `sidecar`: read a chunk's sealed columns where they hold (tier 1;
     `columnar=False` reads none). `prefetch` (device backend): read the
     next epoch segment on a thread while this one validates.
@@ -396,30 +442,92 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
     validate_chain (1 is the serial loop). `aggregate` (device backend):
     batch-compatible packed windows through the window aggregate, a
     dirty one through the per-lane stages again (validate_chain's).
-    Read-only: it writes nothing
-    to disk. `validate_s` sums the validate_chain calls (one an epoch
-    segment), `read_s` the read's own time (`open_s` of it the store's
-    open, every index loaded), `wait_s` the time validation waited for
-    it, and `wall_s` is the whole call."""
+    `recovery`: a window that fails with a RECOVER-class error goes down
+    the supervisor's ladder (obs/recovery.py; False raises it), after a
+    retry backoff of `backoff_s` (jittered); the events land on
+    `recoveries`. `checkpoint`: a path where the progress record is
+    rewritten as each window retires; with `resume`, a record of this
+    chain there seeds the fold and its headers are skipped
+    (`resumed_headers`, counted in `n_valid`). `chaos`: a fault plan
+    (testing/chaos.py spec or ChaosPlan) armed for the call.
+    `validate_s` sums the validate_chain calls (one an epoch segment),
+    `read_s` the read's own time (`open_s` of it the store's open),
+    `wait_s` the time validation waited for it, and `wall_s` is the
+    whole call."""
     if backend not in ("device", "native"):
         raise ValueError(f"unknown backend {backend!r}")
-    if validate_all is True:
-        raise ValueError(
-            "validate_all=True opens the store for repair (ValidateAllChunks with "
-            "on-disk truncation) and the port has no repair plane yet; pass "
-            "validate_all='stream' (every chunk checked in the replay's reads) or False")
-    if validate_all not in ("stream", False):
+    if validate_all not in ("stream", False, True):
         raise ValueError(f"unknown validate_all {validate_all!r}")
+    if resume and checkpoint is None:
+        raise ValueError("resume needs the checkpoint path")
     if backend == "device":
         from ..device import resolve
 
         device = resolve(device)
-    res = ValidationResult()
+    with chaos_mod.arming(chaos):
+        return _revalidate_guarded(
+            db_path, params, lview, backend, max_batch, device, columnar, sidecar, prefetch,
+            pipeline_depth, aggregate, validate_all, max_headers, trace, collect_phases,
+            resume, repair, network_magic, checkpoint,
+            recovery_mod.RecoverySupervisor(backoff_s, enabled=recovery))
+
+
+def _revalidate_guarded(db_path, params, lview, backend, max_batch, device, columnar,
+                        sidecar, prefetch, pipeline_depth, aggregate, policy, max_headers,
+                        trace, collect_phases, resume, repair, network_magic, checkpoint,
+                        sup) -> ValidationResult:
+    """The store's crash protocol around the replay (the reference's
+    _revalidate_impl): the guard is a writer iff the open may write
+    (True, or `repair`); a dirty open escalates the policy, takes the
+    writer's half and forces repair; an exception leaves the store
+    dirty, and a replay closes it clean only when its walk proved the
+    whole store (a deep open, or an uncapped stream that reached its end
+    without a validation error) or when it was clean already."""
     t0 = time.monotonic()
+    guard = guard_mod.StoreGuard(db_path, network_magic=network_magic,
+                                 writer=bool(repair) or policy is True)
+    if guard.writer and not os.path.exists(os.path.join(db_path, "immutable")):
+        raise FileNotFoundError(f"no store at {db_path} (refusing to create one)")
+    guard.open()
+    try:
+        if guard.opened_dirty:
+            policy = open_mod.escalate_policy(policy, True)
+            guard.promote_writer()
+            repair = True
+        imm = open_immutable(db_path, validate_all=policy, repair=repair)
+        res = _replay(imm, db_path, params, lview, backend, max_batch, device, columnar,
+                      sidecar, prefetch, pipeline_depth, aggregate, max_headers, trace,
+                      collect_phases, resume, checkpoint, sup, time.monotonic() - t0)
+        res.opened_dirty = guard.opened_dirty
+        counts: dict = {"dirty-open-escalated": 1} if guard.opened_dirty else {}
+        counts.update(repair_mod.count_actions(imm.repairs))
+        res.repairs = counts or None
+    except BaseException:
+        guard.close(clean=False)
+        raise
+    full_walk = policy is True or (policy == "stream" and max_headers is None
+                                   and res.error is None)
+    guard.close(clean=full_walk or not res.opened_dirty)
+    res.wall_s = time.monotonic() - t0
+    return res
+
+
+def _replay(imm, db_path, params, lview, backend, max_batch, device, columnar, sidecar,
+            prefetch, pipeline_depth, aggregate, max_headers, trace, collect_phases, resume,
+            checkpoint, sup, open_s: float) -> ValidationResult:
+    """The replay of an opened store, from genesis or from a checkpoint;
+    the open's time counts in `read_s`, as the reader's."""
+    res = ValidationResult(open_s=open_s)
     st = PraosState()
-    tally = ValidationResult()  # the reader's counts, on the reader's thread
-    segs = _timed_segments(params, db_path, tally, columnar, sidecar,
-                           validate_all == "stream", max_headers)
+    tag = recovery_mod.chain_tag(db_path, params)
+    doc = recovery_mod.resume_record(tag, checkpoint) if resume else None
+    skip = int(doc["headers"]) if doc is not None else 0
+    recovery_mod.arm_writer(checkpoint, tag, skip, int(doc["windows"]) if doc else 0)
+    if doc is not None:
+        st = recovery_mod.decode_state(doc["state"])
+        res.n_valid = res.resumed_headers = skip
+    tally = ValidationResult(read_s=open_s)  # the reader's counts, on its thread
+    segs = _timed_segments(params, imm, tally, columnar, sidecar, max_headers, skip, sup)
     if backend == "device" and prefetch:
         segs = _prefetch_iter(segs, depth=2)
     phases = pbatch.PhaseTally() if collect_phases else None
@@ -435,7 +543,7 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
             out = pbatch.validate_chain(params, lambda _e: lview, st, seg,
                                         max_batch=max_batch, backend=backend,
                                         device=device, pipeline_depth=pipeline_depth,
-                                        aggregate=aggregate, phases=phases)
+                                        aggregate=aggregate, phases=phases, supervisor=sup)
             res.validate_s += time.monotonic() - ts
             st = out.state
             res.n_valid += out.n_valid
@@ -443,17 +551,20 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
                 res.error = out.error
                 break
             trace(f"validated {res.n_valid} headers")
+        if recovery_mod._WRITER is not None:
+            recovery_mod._WRITER.finalize(st, res.error)
     finally:
         segs.close()  # stops and joins the prefetch thread
+        recovery_mod.disarm_writer()
     if res.error is None:
         res.n_blocks = tally.n_blocks
     if max_headers is not None:
         res.n_blocks = min(res.n_blocks, max_headers)
-    res.read_s, res.open_s = tally.read_s, tally.open_s
+    res.read_s = tally.read_s
     if phases is not None:
         res.phases = {"read": tally.read_s, **phases.wall}
         res.h2d_bytes, res.d2h_bytes = phases.h2d_bytes, phases.d2h_bytes
         res.n_windows, res.packed_windows = phases.windows, phases.packed_windows
+    res.recoveries = list(sup.events)
     res.final_state = st
-    res.wall_s = time.monotonic() - t0
     return res

@@ -48,8 +48,12 @@ from ..protocol import nonces, praos
 from ..protocol.leader import is_leader
 from ..protocol.praos import PraosParams, PraosState
 from ..protocol.views import LedgerView
+from ..block.praos_block import Block
+from ..storage import guard as guard_mod
 from ..storage import sidecar
 from ..storage.immutable import ImmutableDB
+from ..storage.open import open_repair_store
+from ..testing import chaos as chaos_mod
 from ..testing import synth
 
 ENGINES = ("device", "host", "loop")
@@ -227,24 +231,87 @@ def _forge_pipeline(imm, params, pools, lview, limit, res, ch: _Chain, txs_per_b
 def synthesize(db_path: str, params: PraosParams, pools: list, lview: LedgerView,
                limit: ForgeLimit, txs_per_block: int = 0, chunk_size: int = 21600,
                engine: str = "device", device=None, proof_format="bc",
-               trace=lambda s: None) -> ForgeResult:
-    """Forge into `<db_path>/immutable` (which must be empty) until
-    `limit`, with `engine` (module doc) on `device` (the device engine's:
-    None is the CUDA card); `trace` gets a line every 1,000 blocks.
-    -> ForgeResult. Flushes the store and seals every chunk's walked
-    sidecar at the end."""
+               trace=lambda s: None, resume: bool = False,
+               network_magic: int | None = None, chaos=None) -> ForgeResult:
+    """Forge into `<db_path>/immutable` until `limit`, with `engine`
+    (module doc) on `device` (the device engine's: None is the CUDA
+    card); `trace` gets a line every 1,000 blocks. -> ForgeResult.
+    Flushes the store and seals every chunk's walked sidecar at the end.
+
+    The forge speaks the store's crash protocol (storage/guard.py, the
+    reference's synthesize): the lock is held throughout, a virgin
+    store's chain-magic marker is written (`network_magic`, None: the
+    default magic, or whatever marker exists), and the clean-shutdown
+    marker is absent while it forges and written back after the last
+    flush, so a killed forge leaves a dirty store. The store must be
+    empty (checked read-only first, so a refusal touches nothing)
+    unless `resume`: then a dirty store is opened with the deep repair
+    (torn tails cut and quarantined, lagging indexes rebuilt), the
+    forging state is rebuilt by folding `reupdate` over the surviving
+    chain, and the forge goes on from its tip; forging is
+    deterministic, so a killed forge resumed gives the bytes of one
+    that ran through. `chaos`: a fault plan (testing/chaos.py) armed
+    for the call; the store writer's seams are its append and sidecar
+    build."""
     if engine not in ENGINES:
         raise ValueError(f"unknown forge engine {engine!r}")
     if limit.slots is None and limit.blocks is None and limit.epochs is None:
         raise ValueError("the forge limit sets none of slots, blocks, epochs")
     proof_formats(proof_format)  # refuse an unknown format before forging
     dev = resolve(device) if engine == "device" else None
-    imm = ImmutableDB(os.path.join(db_path, "immutable"), chunk_size=chunk_size)
-    if not imm.is_empty:
-        raise RuntimeError(f"refusing to forge into non-empty DB at {db_path}")
-    res = ForgeResult()
+    os.makedirs(db_path, exist_ok=True)
+    with chaos_mod.arming(chaos):
+        # a reader first: a refusal below must leave the store untouched
+        guard = guard_mod.StoreGuard(db_path, network_magic=network_magic, writer=False)
+        guard.open()
+        try:
+            if resume:
+                guard.promote_writer()
+                if guard.opened_dirty:
+                    imm = open_repair_store(db_path, chunk_size=chunk_size)
+                else:
+                    imm = ImmutableDB(os.path.join(db_path, "immutable"),
+                                      chunk_size=chunk_size, repair=True)
+            else:
+                imm = ImmutableDB(os.path.join(db_path, "immutable"), chunk_size=chunk_size)
+                if not imm.is_empty:
+                    raise RuntimeError(f"refusing to forge into non-empty DB at {db_path} "
+                                       "(pass resume=True to continue a killed forge)")
+                if imm.repairs:
+                    raise RuntimeError(f"refusing to forge into corrupted store at {db_path} "
+                                       "(pass resume=True to repair and continue)")
+                guard.promote_writer()
+                imm.prepare_write()
+            res = _forge(imm, params, pools, lview, limit, txs_per_block, proof_format,
+                         engine, dev, trace)
+        except BaseException:
+            guard.close(clean=False)
+            raise
+        guard.close(clean=True)
+    return res
+
+
+def _resumed_chain(params: PraosParams, lview: LedgerView, imm) -> _Chain:
+    """The forging state at the surviving chain's tip: the crypto-free
+    `reupdate` folded over its blocks (the forge signed them itself)."""
     ch = _Chain()
+    for _e, raw in imm.stream_all():
+        b = Block.from_bytes(raw)
+        ticked = praos.tick(params, lview, b.slot, ch.state)
+        ch.state = praos.reupdate(params, b.header.to_view(), b.slot, ticked)
+        ch.prev_hash, ch.block_no, ch.slot = b.hash_, b.block_no + 1, b.slot + 1
+    ch.counters = dict(ch.state.ocert_counters)
+    return ch
+
+
+def _forge(imm, params, pools, lview, limit, txs_per_block, proof_format, engine, dev,
+           trace) -> ForgeResult:
+    res = ForgeResult()
     t0 = time.monotonic()
+    ch = _Chain()
+    if not imm.is_empty:
+        ch = _resumed_chain(params, lview, imm)
+        trace(f"resuming the forge at slot {ch.slot} ({ch.block_no} blocks survive)")
     if engine == "loop":
         _forge_loop(imm, params, pools, lview, limit, res, ch, txs_per_block, proof_format,
                     trace)
@@ -272,13 +339,18 @@ def main(argv=None) -> int:
     p.add_argument("--txs-per-block", type=int, default=0)
     p.add_argument("--engine", choices=ENGINES, default="device")
     p.add_argument("--proof-format", choices=("bc", "draft03"), default="bc")
+    p.add_argument("--resume", action="store_true",
+                   help="continue a killed forge into its store (deep repair first)")
+    p.add_argument("--network-magic", type=int, default=None,
+                   help="the chain magic the store's marker binds it to")
     a = p.parse_args(argv)
     params = default_params(kes_depth=a.kes_depth)
     pools, lview = make_credentials(a.pools, kes_depth=a.kes_depth)
     res = synthesize(a.out, params, pools, lview,
                      ForgeLimit(slots=a.slots, blocks=a.blocks, epochs=a.epochs),
                      txs_per_block=a.txs_per_block, engine=a.engine,
-                     proof_format=a.proof_format, trace=print)
+                     proof_format=a.proof_format, trace=print, resume=a.resume,
+                     network_magic=a.network_magic)
     print(f"forged {res.n_blocks} blocks over {res.n_slots} slots in {res.wall_s:.1f}s "
           f"(election {res.elect_s:.1f}s, assembly {res.assemble_s:.1f}s; engine {a.engine})",
           flush=True)

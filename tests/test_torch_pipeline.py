@@ -25,6 +25,7 @@ from ouroboros_consensus_tpu.protocol import batch as rbatch
 from ouroboros_consensus_tpu.protocol import praos as rpraos
 from ouroboros_consensus_tpu_torch import native_scan
 from ouroboros_consensus_tpu_torch import carry
+from ouroboros_consensus_tpu_torch.obs import recovery
 from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
 from ouroboros_consensus_tpu_torch.protocol.praos import PraosState
 from ouroboros_consensus_tpu_torch.protocol.views import ViewColumns
@@ -174,10 +175,12 @@ def test_staging_thread_exception_reaches_the_caller(views, monkeypatch):
         return prepare(*args, **kw)
 
     monkeypatch.setattr(pbatch, "prepare_window", failing)
+    # with the recovery ladder off: on, it would validate the window again
     with pytest.raises(RuntimeError, match="staging failed"):
         pbatch.validate_chain(PPARAMS, lambda _e: carry.lview_from_reference(lview),
                               PraosState(), hvs[:16], max_batch=4, device="cpu",
-                              pipeline_depth=3)
+                              pipeline_depth=3,
+                              supervisor=recovery.RecoverySupervisor(enabled=False))
     assert calls and all(name.startswith("validate-stage") for name in calls)
     assert _ours() == set()
 

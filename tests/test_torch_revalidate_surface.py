@@ -1,8 +1,8 @@
 """The port's `revalidate` keywords that bench.py's replay protocol uses
 (tools/db_analyser.py of the port against the JAX package's, :577-606):
-`max_headers`, `validate_all` ("stream", False; True raises until the
-repair plane is ported), `collect_phases` and `trace`, on the 48-block
-test chain the JAX synthesizer forges."""
+`max_headers`, `validate_all` (True, the default, "stream" and False),
+`collect_phases` and `trace`, on the 48-block test chain the JAX
+synthesizer forges."""
 
 import os
 import shutil
@@ -126,10 +126,8 @@ def test_open_is_timed_inside_the_read(chain):
     assert 0 < got.open_s <= got.read_s <= got.wall_s
 
 
-def test_validate_all_true_raises_without_the_repair_plane(chain):
+def test_validate_all_unknown_value_raises(chain):
     path, lview = chain
-    with pytest.raises(ValueError, match="repair plane"):
-        _port(path, lview, validate_all=True)
     with pytest.raises(ValueError, match="validate_all"):
         _port(path, lview, validate_all="deep")
 
@@ -155,7 +153,7 @@ def _flip_unsealed(src: str, dst: str, index: int) -> None:
     raise AssertionError("index past the chain")
 
 
-@pytest.mark.parametrize("validate_all", ["stream", False])
+@pytest.mark.parametrize("validate_all", [True, "stream", False])
 def test_validate_all_clean_chain(chain, validate_all):
     path, lview = chain
     ref = _ref(path, lview, validate_all=validate_all)
@@ -163,18 +161,22 @@ def test_validate_all_clean_chain(chain, validate_all):
     _same(ref, _port(path, lview, backend="native", validate_all=validate_all))
 
 
-@pytest.mark.parametrize("validate_all", ["stream", False])
+@pytest.mark.parametrize("validate_all", [True, "stream", False])
 @pytest.mark.parametrize("where", ["middle", "last"])
 def test_validate_all_on_an_unsealed_flip(chain, tmp_path, validate_all, where):
-    """In a middle chunk: the stream's CRC sweep ends the chain before
-    the block, a shallow read replays it and fails its KES signature. In
-    the most recent chunk both end the chain there."""
+    """In a middle chunk: the deep open's and the stream's CRC sweeps end
+    the chain before the block (the deep open cuts the store there on
+    disk), a shallow read replays it and fails its KES signature. In the
+    most recent chunk all three end the chain there. Each package
+    replays a twin copy."""
     path, lview = chain
     bad = 20 if where == "middle" else N_BLOCKS - 2
-    db = str(tmp_path / "db")
+    db, twin = str(tmp_path / "db"), str(tmp_path / "twin")
     _flip_unsealed(path, db, bad)
+    shutil.copytree(db, twin)
     ref = _ref(db, lview, validate_all=validate_all)
-    got = _port(db, lview, backend="native", validate_all=validate_all)
+    got = _port(twin, lview, backend="native", validate_all=validate_all)
     assert ref.n_valid == bad
-    assert (ref.error is None) == (validate_all == "stream" or where == "last")
+    assert (ref.error is None) == (validate_all in (True, "stream") or where == "last")
     _same(ref, got, blocks=ref.error is None)
+    assert got.repairs == ref.repairs

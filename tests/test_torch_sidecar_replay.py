@@ -37,7 +37,9 @@ SWITCH = 24  # the mixed chain's first batch-compatible block
 
 
 def counted(path: str, lview, backend: str, **kw):
-    """The port's replay, with the sidecar outcomes it counted."""
+    """The port's read-only replay (validate_all="stream", unless `kw`
+    says otherwise), with the sidecar outcomes it counted."""
+    kw.setdefault("validate_all", "stream")
     sidecar.reset_counters()
     res = pda.revalidate(path, PPARAMS, carry.lview_from_reference(lview), backend=backend,
                          max_batch=16, device="cpu" if backend == "device" else None, **kw)

@@ -93,3 +93,92 @@ def assert_same_replay(ref, got) -> None:
     """assert_same, and the same storage prefix (blocks read)."""
     assert got.n_blocks == ref.n_blocks
     assert_same(ref, got)
+
+
+def forge_faulted(path: str, fault: str | None):
+    """Forge the test chain with the JAX synthesizer under the chaos
+    spec `fault` (its OCT_CHAOS) -> the ChaosError the writer died of,
+    or None (it survived: a silent fault such as a bitflip)."""
+    from ouroboros_consensus_tpu.testing import chaos as rchaos
+
+    with pytest.MonkeyPatch.context() as mp:
+        if fault:
+            mp.setenv("OCT_CHAOS", fault)
+        rchaos.reset()
+        try:
+            forge(path)
+        except rchaos.ChaosError as e:
+            return e
+        finally:
+            mp.delenv("OCT_CHAOS", raising=False)
+            rchaos.reset()
+    return None
+
+
+def lview_of_chain():
+    """The test chain's ledger view (the JAX package's)."""
+    return jds.make_credentials(1, kes_depth=PARAMS.kes_depth)[1]
+
+
+def tree(path: str) -> dict:
+    """Every file under `path` (relative name) with its bytes."""
+    import os
+
+    out = {}
+    for root, _dirs, names in os.walk(path):
+        for name in names:
+            p = os.path.join(root, name)
+            with open(p, "rb") as f:
+                out[os.path.relpath(p, path)] = f.read()
+    return out
+
+
+def port_native(path: str, lview, **kw):
+    """The port's replay on the native backend (keywords revalidate's)."""
+    kw.setdefault("max_batch", 16)
+    return pda.revalidate(path, carry.params_from_reference(PARAMS),
+                          carry.lview_from_reference(lview), backend="native", **kw)
+
+
+def assert_same_store(ref, got, ref_path: str, got_path: str) -> None:
+    """Two replays of twin stores agree: verdicts, state, the repairs and
+    the dirty flag, and the directories byte for byte afterwards
+    (chunks, indexes, sidecars, quarantine, markers)."""
+    assert_same(ref, got)
+    assert (got.repairs, got.opened_dirty) == (ref.repairs, ref.opened_dirty)
+    assert tree(got_path) == tree(ref_path)
+
+
+_FORGE_CHILD = r"""
+import os, sys
+from fractions import Fraction
+sys.path.insert(0, sys.argv[1])
+from ouroboros_consensus_tpu_torch.protocol.praos import PraosParams
+from ouroboros_consensus_tpu_torch.testing import synth
+from ouroboros_consensus_tpu_torch.tools import db_synthesizer as ds
+
+params = PraosParams(slots_per_kes_period=20, max_kes_evolutions=62, security_param=2,
+                     active_slot_coeff=Fraction(1, 2), epoch_length=32, kes_depth=3)
+pool = synth.make_pool(0, kes_depth=3)
+ds.synthesize(sys.argv[2], params, [pool], synth.make_ledger_view([pool]),
+              ds.ForgeLimit(blocks=48), chunk_size=24, engine="host",
+              chaos=sys.argv[3] or None, resume=sys.argv[4] == "1")
+"""
+
+
+def port_forge_child(path: str, fault: str | None = None, resume: bool = False):
+    """Forge the test chain with the port's synthesizer (the host engine)
+    in a child process, under the chaos spec `fault`; a sigkill fault
+    must kill it. -> the finished process."""
+    import os
+    import signal
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _FORGE_CHILD, repo, path, fault or "", "1" if resume else "0"],
+        capture_output=True, timeout=300)
+    want = -signal.SIGKILL if fault and fault.startswith("sigkill") else 0
+    assert proc.returncode == want, proc.stderr.decode()[-2000:]
+    return proc
