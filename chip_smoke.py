@@ -137,6 +137,26 @@ Phases (any failure raises and the script exits non-zero):
       and a device-engine forge killed by SIGKILL in child processes and
       resumed in others, to the clean state and the uninterrupted
       forge's files.
+   g. the serving plane (`phase_serve`, `serve {...}` lines): many
+      peers' real-crypto candidate suffixes (testing/traffic.py, forged
+      on the card: `forge_sweep` elects each pool's slots, `ed_sign`
+      issues the OCerts) batched into shared windows by
+      node/serve.ValidationService, against a window per suffix
+      (`validate_batch`, "per-peer"), at bench.py's parameters:
+      serve-64 (64 tenants, 4 rounds of 8-header suffixes, 4 pools,
+      256-lane windows, every 2nd tenant bc, a fork storm of 8 with 2
+      equivocating pairs, a counter jump every 16th tenant, an unknown
+      pool every 32nd), also on the host plane; serve-1024 (1,024 bc
+      tenants, 2 rounds of 8, 16 pools, 8,192-lane windows) clean and
+      with a counter jump every 64th tenant. Each tenant's verdict rows
+      and final state must equal the per-peer discipline's (and on
+      serve-64 the host plane's); serve-64 with
+      `device-error@serve-dispatch:1` must shed to the ladder and heal
+      with the same verdicts, its degraded interval closed; a child
+      serving serve-64 killed by `sigkill@serve:4` and another resuming
+      it on the checkpoint must end in the uninterrupted verdicts and
+      states. The launch counts are zeroed before each batched run and
+      read after it.
    The main paths' replays use revalidate's default (validate_all=True);
    the read's measurements (`sidecar_checks`, `read_breakdown`,
    `overlap_turns`, `pipeline_timeline`, `layer_breakdown`) and the
@@ -151,7 +171,8 @@ Phases (any failure raises and the script exits non-zero):
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
 5. A `kernels` JSON line (fifteen kernels; the forge's two with their
-   launches on each forged chain beside its headers), the card line, and
+   launches on each forged chain beside its headers; every kernel's
+   launches by path, the serving plane's included), the card line, and
    the final status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
@@ -259,6 +280,9 @@ PATH_KERNELS = {
     "forge": {"forge_sweep", "ed_sign"},
     # phase 3f's replays: the aggregate, and the stages of its finish fault
     "recovery": AGG | BC_STAGES | WIRE,
+    # phase 3g's batched serving runs: draft-03 and bc windows, a dirty
+    # bc window's re-dispatch
+    "serve": D3_STAGES | BC_STAGES | AGG | WIRE,
 }
 REPLAY_KERNELS = BC_STAGES | D3_STAGES | AGG | WIRE
 PATH_ONLY = REPLAY_KERNELS | PATH_KERNELS["forge"]  # none may launch off its path
@@ -2954,6 +2978,221 @@ def phase_recovery(dev, forges: "Forges", native_bc, max_batch: int = 8192) -> d
     return {"launches": launches, "lines": lines}
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 3g: the serving plane
+# ---------------------------------------------------------------------------
+
+SERVE_64 = dict(n_tenants=64, rounds=4, suffix_len=8, n_pools=4, bc_every=2, fork_storm=8,
+                equivocators=2, bad_lane_every=16, unknown_pool_every=32, kes_depth=7)
+SERVE_1024 = dict(n_tenants=1024, rounds=2, suffix_len=8, n_pools=16, bc_every=1, kes_depth=7)
+
+_SERVE_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+from ouroboros_consensus_tpu_torch.testing import chaos, traffic
+from ouroboros_consensus_tpu_torch.tools import bench, serve_bench
+
+ck, spec, out, cfg, window = sys.argv[2:7]
+t0 = time.monotonic()
+tr = traffic.make_traffic(params=bench.bench_params(), device="cuda", **json.loads(cfg))
+with chaos.arming(spec or None):
+    line = serve_bench.run_batched(tr, device="cuda", max_window=int(window), checkpoint=ck)
+line["process_s"] = time.monotonic() - t0
+with open(out, "w") as f:
+    json.dump(line, f)
+"""
+
+
+def serve_child(ck: str, spec: str, cfg: dict, window: int, killed: bool = False) -> dict:
+    """Serve `cfg`'s traffic in a process of its own with the checkpoint
+    `ck`, under the chaos spec `spec`; a `killed` child must die of
+    SIGKILL and report nothing. -> its line."""
+    import signal
+
+    out = ck + f".{len(spec)}.{int(killed)}.json"
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-c", _SERVE_CHILD, REPO, ck, spec, out,
+                           json.dumps(cfg), str(window)],
+                          capture_output=True, text=True, timeout=600)
+    want = -signal.SIGKILL if killed else 0
+    if proc.returncode != want:
+        raise AssertionError(f"serve child ({spec or 'no fault'}): exit {proc.returncode}, "
+                             f"want {want}: {proc.stderr[-2000:]}")
+    if killed:
+        return {"child_s": time.monotonic() - t0}
+    with open(out) as f:
+        return {**json.load(f), "child_s": time.monotonic() - t0}
+
+
+def serve_split(tr, dev, window: int) -> dict:
+    """Where one more batched serving run's wall goes: each layer's wall
+    by its own name, nested layers inside their callers, the card
+    synchronised around the three that launch or wait for it (so this is
+    not the timed run; the host layers run with the card idle, and take
+    no synchronisation, which would cost more than a tenant's fold): `submit` (the
+    door, every suffix), `prepare_window` (with `host_prechecks`,
+    `stage_packed` and `pad_packed_into` inside it), `dispatch_prepared`
+    (the upload, the kernels, the reduce, waited for), `materialize` (a
+    dirty window's re-dispatch), `full` (the per-lane flags, eta and
+    leader values copied back), `segment_epilogue` (a tenant's slice
+    folded; `epilogue` the fold alone) and a solo window's `epilogue`;
+    `rest` is the wall less the top-level layers (the scheduler's fill,
+    the bookkeeping)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.node import serve
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.tools import serve_bench as sb
+
+    spent: dict = {}
+    inside = [0]
+    saved = []
+
+    def wrap(owner, name, layer, nested=False, device=False):
+        fn = getattr(owner, name)
+
+        def timed(*args, **kw):
+            if device:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if nested:
+                inside[0] += 1
+            try:
+                return fn(*args, **kw)
+            finally:
+                if nested:
+                    inside[0] -= 1
+                if device:
+                    torch.cuda.synchronize()
+                key = ("epilogue" if inside[0] else "solo_epilogue") if layer == "epilogue" \
+                    else layer
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, timed)
+
+    for name in ("prepare_window", "host_prechecks", "stage_packed", "pad_packed_into",
+                 "epilogue"):
+        wrap(pbatch, name, name)
+    for name in ("dispatch_prepared", "materialize"):
+        wrap(pbatch, name, name, device=True)
+    wrap(pbatch.PackedVerdicts, "full", "full", device=True)
+    wrap(serve.ValidationService, "_segment_epilogue", "segment_epilogue", nested=True)
+    wrap(serve.ValidationService, "submit", "submit")
+    try:
+        line = sb.run_batched(tr, device=dev, max_window=window)
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+    top = ("submit", "prepare_window", "dispatch_prepared", "materialize", "full",
+           "segment_epilogue", "solo_epilogue")
+    spent["rest"] = line["wall_s"] - sum(spent.get(k, 0.0) for k in top)
+    return {"wall_s": line["wall_s"], "windows": line["windows"], "lanes": line["lanes"],
+            "layers_s": spent}
+
+
+def phase_serve(dev, card: str, workdir: str) -> dict:
+    """The serving plane on the card (phase 3g; module doc): serve-64
+    batched, per peer and on the host plane, under a dispatch fault, and
+    killed and resumed in children; serve-1024 clean and with counter
+    jumps, batched and per peer; each cell's batched wall split by layer
+    (`serve_split`). Every batched run's verdicts and states must equal
+    the per-peer discipline's. The launch counts are zeroed
+    just before each batched run and read just after it. -> {launches,
+    lines}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.testing import chaos, traffic
+    from ouroboros_consensus_tpu_torch.tools import serve_bench as sb
+
+    params = bench_params()
+    launches = {k: 0 for k in K.LAUNCHES}
+    lines: dict = {}
+
+    def batched(tr, window, **kw):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        line = sb.run_batched(tr, device=dev, max_window=window, **kw)
+        torch.cuda.synchronize()
+        for k, v in K.LAUNCHES.items():
+            launches[k] += v
+        return line
+
+    def forged(cfg):
+        t0 = time.monotonic()
+        tr = traffic.make_traffic(params=params, device=dev, **cfg)
+        n = sum(len(s.hvs) for s in tr.suffixes())
+        tr.reset()
+        return tr, {"headers": n, "forge_s": time.monotonic() - t0, "elect_s": tr.elect_s,
+                    "assemble_s": tr.assemble_s}
+
+    def same(tag, a, b):
+        if not sb.same_verdicts(a, b):
+            bad = sorted(t for t in a["rows"] if (a["rows"][t], a["states"][t])
+                         != (b["rows"].get(t), b["states"].get(t)))
+            raise AssertionError(f"{tag}: {a['mode']} and {b['mode']} differ on {bad[:8]}")
+
+    def report(tag, forge, lines_, extra=None):
+        doc = {"cell": tag, "card": card, **forge,
+               **{ln["mode"]: sb.public(ln) for ln in lines_}, **(extra or {})}
+        doc["batched_over_per_peer"] = (doc["batched"]["headers_per_s"]
+                                        / doc["per-peer"]["headers_per_s"])
+        lines[tag] = doc
+        print("serve " + json.dumps(doc), flush=True)
+
+    # serve-64: batched, per peer, the host plane
+    tr, forge = forged(SERVE_64)
+    sb.warm_up(tr, dev)
+    b64 = batched(tr, 256, scrape=True)
+    p64 = sb.run_per_peer(tr, device=dev)
+    h64 = sb.run_batched(tr, plane="host", max_window=256)
+    split64 = serve_split(tr, dev, 256)
+    same("serve-64", b64, p64)
+    same("serve-64", b64, h64)
+    errors = [r[2].split(":")[0] for rs in b64["rows"].values() for r in rs if r[2]]
+    if {"CounterOverIncrementedOCERT", "NoCounterForKeyHashOCERT"} - set(errors) \
+            or not b64["agg_redispatch"]:
+        raise AssertionError(f"serve-64: errors {sorted(set(errors))}, "
+                             f"re-dispatched {b64['agg_redispatch']}")
+    # a dispatch fault: shed to the ladder, healed, the same verdicts
+    plan = chaos.ChaosPlan(chaos.parse_spec("device-error@serve-dispatch:1"))
+    with chaos.arming(plan):
+        c64 = sb.run_batched(tr, device=dev, max_window=256)
+    same("serve-64 shed", b64, c64)
+    (iv,) = c64["degraded_intervals"]
+    if plan.fired() != ["device-error@serve-dispatch:1"] or iv[1] is None:
+        raise AssertionError(f"serve-64 shed: fired {plan.fired()}, interval {iv}")
+    # killed after a window's checkpoint in a child, resumed in another
+    ck = os.path.join(workdir, "serve64.ck.json")
+    killed = serve_child(ck, "sigkill@serve:4", SERVE_64, 256, killed=True)
+    from ouroboros_consensus_tpu_torch.node import serve
+
+    rec = serve.read_serve_checkpoint(ck)
+    resumed = serve_child(ck, "", SERVE_64, 256)
+    if not resumed["resumed"] or rec is None or rec["windows"] != 5:
+        raise AssertionError(f"serve-64 resume: record {rec and rec['windows']}")
+    same("serve-64 resumed", b64, resumed)
+    report("serve-64", forge, [b64, p64, h64], {
+        "split": split64,
+        "shed": {"wall_s": c64["wall_s"], "interval": iv,
+                 "over_clean": c64["wall_s"] / b64["wall_s"]},
+        "resume": {"record_windows": rec["windows"],
+                   "banked": sum(len(t["verdicts"]) for t in rec["tenants"].values()),
+                   "killed_child_s": killed["child_s"], "resumed_child_s": resumed["child_s"],
+                   "resumed_process_s": resumed["process_s"]}})
+    # serve-1024, clean and with counter jumps
+    for tag, cfg in (("serve-1024", SERVE_1024),
+                     ("serve-1024-jumps", {**SERVE_1024, "bad_lane_every": 64})):
+        tr, forge = forged(cfg)
+        sb.warm_up(tr, dev)
+        b = batched(tr, 8192, scrape=True)
+        p = sb.run_per_peer(tr, device=dev)
+        same(tag, b, p)
+        report(tag, forge, [b, p], {"split": serve_split(tr, dev, 8192)})
+    return {"launches": launches, "lines": lines}
+
 # ---------------------------------------------------------------------------
 # Phase 4: the tools
 # ---------------------------------------------------------------------------
@@ -3247,6 +3486,7 @@ def main(argv=None) -> int:
         generic = phase_generic(dev, forges, 8192)
         forged = phase_forge_chains(dev, forges)
         recovered = phase_recovery(dev, forges, natives["bc"])
+        served = phase_serve(dev, card, work)
     finally:
         forges.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -3265,6 +3505,7 @@ def main(argv=None) -> int:
     by_path["tools"] = tools["launches"]
     by_path["forge"] = forged["launches"]
     by_path["recovery"] = recovered["launches"]
+    by_path["serve"] = served["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
         stray = sorted(k for k in PATH_ONLY - ks if by_path[path].get(k, 0))

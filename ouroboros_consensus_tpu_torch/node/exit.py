@@ -8,8 +8,9 @@ replay can raise falls in one DISPOSITION, which the recovery
 supervisor (obs/recovery.py) consults:
 
     REFUSE     another process holds the DB lock, the DB belongs to
-               another chain, a quarantine copy cannot be made: the
-               operator asked for something the store must not do.
+               another chain, a quarantine copy cannot be made, a
+               serving tenant submits a malformed suffix: the caller
+               asked for something the system must not do.
     REPAIR     on-disk corruption that the open-with-repair scan owns
                (storage/immutable.py); never absorbed by the per-window
                ladder.
@@ -53,6 +54,7 @@ DISPOSITIONS: dict[str, Disposition] = {
     "DbLocked": Disposition.REFUSE,
     "DbMarkerMismatch": Disposition.REFUSE,
     "QuarantineError": Disposition.REFUSE,
+    "AdmissionRefused": Disposition.REFUSE,  # a malformed serve submission
     "ImmutableDBError": Disposition.REPAIR,
     "MalformedBlock": Disposition.REPAIR,  # native_scan: unparseable block bytes
     "ChaosError": Disposition.RECOVER,  # the whole injected-fault taxonomy

@@ -50,6 +50,15 @@ Sidecar faults (storage/sidecar.py), which may never change a verdict:
     sigkill@build:1               SIGKILL between the 2nd build's tmp
                                   write and its rename
 
+Serving-plane faults, at the scheduler's seams (node/serve.py):
+
+    device-error@serve-dispatch:2 raise DeviceChaosError at the 3rd
+                                  shared window's dispatch, before its
+                                  staging; each tenant segment of it
+                                  sheds down the recovery ladder
+    sigkill@serve:10              SIGKILL self right after the 11th
+                                  serving window's checkpoint landed
+
 Each injection fires once (``xN`` after the arg: N times), so a retried
 operation succeeds: the faults are transient by construction. The
 reference's ``aot-reject`` and ``probe-timeout`` have no seam in the
@@ -84,9 +93,9 @@ FAULT_KINDS = (
 # the seams each fault kind is checked at
 _KIND_SITES = {
     "compile-stall": ("dispatch", "stage-call"),
-    "device-error": ("dispatch", "stage-call"),
+    "device-error": ("dispatch", "stage-call", "serve-dispatch"),
     "staging-thread-death": ("stage",),
-    "sigkill": ("retire", "append", "sidecar-build"),
+    "sigkill": ("retire", "append", "sidecar-build", "serve"),
     "chunk-corrupt": ("chunk",),
     "torn-write": ("append",),
     "bitflip": ("append",),
@@ -108,6 +117,8 @@ _SITE_TRIGGER_KEYS = {
     "marker": ("marker",),
     "sidecar-build": ("build", "chunk"),
     "sidecar-open": ("open", "chunk"),
+    "serve": ("serve",),
+    "serve-dispatch": ("serve-dispatch",),
 }
 
 # the trigger keys a seam's own sequence counter answers for
@@ -119,6 +130,8 @@ _SITE_SEQ_KEYS = {
     "append": ("append",),
     "sidecar-build": ("build",),
     "sidecar-open": ("open",),
+    "serve": ("serve",),  # one serving window's checkpoint a seq
+    "serve-dispatch": ("serve-dispatch",),  # one shared window a seq
 }
 
 

@@ -20,6 +20,7 @@ ACCEPTED = [
     "partial-rename@marker:clean", "sidecar-torn@build:2", "sidecar-torn@chunk:1",
     "sidecar-stale@open:0", "sigkill@build:1",
     "device-error@dispatch:1, chunk-corrupt@epoch:0", " ,sigkill@window:0,",
+    "device-error@serve-dispatch:2", "sigkill@serve:3",
 ]
 REJECTED = [
     "bogus@window:1", "device-error", "device-error@dispatch:", "device-error@:3",
@@ -29,7 +30,7 @@ REJECTED = [
 # the reference's faults and triggers with no seam in the port
 PORT_REFUSES = [
     "aot-reject@stage:aggregate", "probe-timeout", "device-error@shard:0",
-    "device-error@forge-dispatch:0", "sigkill@forge:10", "sigkill@serve:3",
+    "device-error@forge-dispatch:0", "sigkill@forge:10",
 ]
 
 

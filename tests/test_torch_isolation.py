@@ -70,7 +70,9 @@ def test_scan_covers_the_tools_and_every_kernel_source():
             "tools/db_analyser.py", "testing/corrupt.py", "native_scan.py",
             "protocol/views.py", "ops/pk/kernels.py", "ops/pk/build.py",
             "ops/pk/prove.py", "ops/host_kes.py", "protocol/forge.py",
-            "tools/db_synthesizer.py"} <= scanned
+            "tools/db_synthesizer.py", "obs/registry.py", "obs/server.py",
+            "protocol/admission.py", "node/serve.py", "testing/traffic.py",
+            "tools/serve_bench.py"} <= scanned
     csrc = PORT / "ops" / "pk" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
     assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench", "forge"} <= set(build.KERNELS)
@@ -159,3 +161,20 @@ def test_kernel_wrappers_refuse_unknown_devices():
 
     with pytest.raises(ValueError):
         kernels._route(torch.device("meta"))
+
+
+def test_serving_entry_points_refuse_without_cuda(monkeypatch):
+    from ouroboros_consensus_tpu_torch.node import serve
+    from ouroboros_consensus_tpu_torch.testing import traffic
+    from ouroboros_consensus_tpu_torch.tools import serve_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    params = traffic.traffic_params(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.ValidationService(params, None, bytes(32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        traffic.make_traffic(kes_depth=3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_bench.main(["--tenants", "2", "--kes-depth", "3"])
+    host = serve.ValidationService(params, None, bytes(32), plane="host")
+    assert host.device is None and not host.pump()
