@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch + CUDA port of the Praos replay on one NVIDIA card.
+"""Drive the PyTorch + CUDA port of the Praos replay and of the mixed-era
+composite on one NVIDIA card.
 
     python3 chip_smoke.py                 # the full run (needs one CUDA card)
     python3 chip_smoke.py --headers 4096  # shorter chains, same phases
@@ -7,7 +8,7 @@
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the sixteen kernel sources (one nvcc per source, in
+   the build of the seventeen kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -157,6 +158,30 @@ Phases (any failure raises and the script exits non-zero):
       it on the checkpoint must end in the uninterrupted verdicts and
       states. The launch counts are zeroed before each batched run and
       read after it.
+   h. the hard-fork composite (`phase_ed_verify`, `phase_cardano`, one
+      `cardano {...}` line): the batched Ed25519 verify kernel
+      (`ed_verify`) against its plain version byte for byte at 8, 128 and
+      8,192 lanes of 0- to 300-byte messages (one to three SHA-512 blocks in
+      one batch) with one corrupted lane of each kind (a flipped R byte,
+      s + L, a flipped message byte, an off-curve A, a non-canonical A,
+      x = 0 with the sign bit), which its verdicts must flag exactly, and
+      at the Byron segment's 21,600 lanes, there and at 65,536 lanes of
+      32-byte messages (64k standalone witness signatures) also against the
+      C++ verifier; then a mainnet-shaped Byron (PBFT) → Shelley (TPraos) →
+      Babbage (Praos) chain (k = 2,160, 21,600-slot epochs, 7 genesis
+      delegates, a 0.22 signing threshold, CompactSum7 KES, d = 1/2; one
+      epoch an era, 64,800 slots) forged by `composite.synthesize` in a
+      worker and replayed by `composite.revalidate` on the card (each era's
+      launches counted from its trace: Byron `ed_verify`, Shelley the five
+      stages of its epoch's generic window, Babbage its packed window's
+      unpack, stages and fold) and through the C++ verifier, which must
+      agree; each of those seven kernels held to its plain version on the
+      replay's own Shelley and Babbage windows at their 22,528-lane bucket,
+      with every corrupt kind of phase 2 (and of `unpack`'s wire); three
+      tampered copies (a Byron signature byte, a Shelley
+      KES-signature byte, a Babbage VRF-proof byte with the header
+      KES-signed again) that stop the card's replay at their index with
+      the reference's error class; and both `--cardano` CLIs.
    The main paths' replays use revalidate's default (validate_all=True);
    the read's measurements (`sidecar_checks`, `read_breakdown`,
    `overlap_turns`, `pipeline_timeline`, `layer_breakdown`) and the
@@ -170,7 +195,7 @@ Phases (any failure raises and the script exits non-zero):
 4. The tools: the primitive harness (tools/debug_pk.py, all seven
    bodies OK on the card) and the field-op microbenchmark
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
-5. A `kernels` JSON line (fifteen kernels; the forge's two with their
+5. A `kernels` JSON line (sixteen kernels; the forge's two with their
    launches on each forged chain beside its headers; every kernel's
    launches by path, the serving plane's included), the card line, and
    the final status line.
@@ -247,6 +272,8 @@ KERNEL_ROWS = (
      "ouroboros_consensus_tpu/protocol/forge.py:91"),
     ("ed_sign", "ouroboros_consensus_tpu_torch/ops/pk/csrc/forge.cu",
      "ouroboros_consensus_tpu/protocol/forge.py:125"),
+    ("ed_verify", "ouroboros_consensus_tpu_torch/ops/pk/csrc/ed_verify.cu",
+     "ouroboros_consensus_tpu/ops/ed25519_batch.py:96"),
 )
 # a row whose LAUNCHES key is not its build name: (build name, kernel)
 KERNEL_SOURCE = {"forge_sweep": ("forge", "forge_sweep_kernel"),
@@ -260,7 +287,9 @@ ALSO_REPLACES = {"dedupe": ["ouroboros_consensus_tpu/ops/pk/limbs.py:489",
                  "forge_sweep": ["ouroboros_consensus_tpu/ops/ecvrf_batch.py:83",
                                  "ouroboros_consensus_tpu/ops/ecvrf_batch.py:130",
                                  "ouroboros_consensus_tpu/ops/ecvrf_batch.py:265"],
-                 "ed_sign": ["ouroboros_consensus_tpu/ops/ed25519_batch.py:140"]}
+                 "ed_sign": ["ouroboros_consensus_tpu/ops/ed25519_batch.py:140"],
+                 "ed_verify": ["ouroboros_consensus_tpu/ops/ed25519_batch.py:71",
+                               "ouroboros_consensus_tpu/ops/ed25519_batch.py:192"]}
 AGG = {"agg_prep", "dedupe", "msm"}  # the window aggregate's
 BC_STAGES = {"ed", "kes", "vrf_bc_prep", "vrf_ladders", "finish"}
 D3_STAGES = {"ed", "kes", "vrf_prep", "vrf_ladders", "finish"}
@@ -283,9 +312,14 @@ PATH_KERNELS = {
     # phase 3g's batched serving runs: draft-03 and bc windows, a dirty
     # bc window's re-dispatch
     "serve": D3_STAGES | BC_STAGES | AGG | WIRE,
+    # phase 3h's composite replay: the Byron signatures' batch verify, the
+    # TPraos epoch's five stages (the generic staging), the Babbage epoch's
+    # packed window (unpack, the five stages, the fold beside them)
+    "cardano": {"ed_verify"} | BC_STAGES | WIRE,
 }
 REPLAY_KERNELS = BC_STAGES | D3_STAGES | AGG | WIRE
-PATH_ONLY = REPLAY_KERNELS | PATH_KERNELS["forge"]  # none may launch off its path
+# none may launch off its path
+PATH_ONLY = REPLAY_KERNELS | PATH_KERNELS["forge"] | {"ed_verify"}
 STAGES = ("ed", "kes", "vrf_prep", "vrf_bc_prep", "vrf_ladders", "finish")
 
 
@@ -796,21 +830,22 @@ def hold(key: str, kern, plain, inputs, lanes: int, dev, reps: int) -> dict:
     return rec
 
 
-def phase_kernels(dev, lanes: int = 8192, distinct: int = 256, seed: int = 7,
-                  reps: int = 5, workdir: str | None = None):
-    """Kernel vs plain version, byte for byte, at the main path's shapes.
-    -> {key: dict(ms, plain_ms, max_abs_err, field_ops, lanes, bytes)}."""
+def hold_stages(tag: str, cols, kinds: dict, dev, reps: int, depth: int,
+                no_leader=None) -> tuple[dict, dict]:
+    """The five bc stage kernels against their plain versions (hold) on
+    the limb-first columns `cols` on `dev`, which corrupt_columns marked as
+    `kinds` says; then every corrupted lane fails its kind's check row and
+    every other lane passes rows 0-3 (row 3, the leader check, is not
+    asked of the lanes of the bool mask `no_leader`). `tag` names the
+    window in the log. -> ({key: hold's record}, the plain versions'
+    outputs that the operation count reads)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
     from ouroboros_consensus_tpu_torch.ops.pk import verify as pv
 
-    depth = 7
-    cols, rng = tiled_window(lanes, distinct, seed, workdir, "bc")
-    kinds = corrupt_columns(cols, rng, depth)
-    log("corrupt lanes: " + json.dumps({k: len(v) for k, v in kinds.items()}))
-    cols = [c.to(dev).contiguous() for c in cols]
+    lanes = cols[0].shape[-1]
     (ed_pk, ed_r, ed_s, ed_hb, ed_hnb, kes_vk, kes_per, kes_r, kes_s,
      kes_leaf, kes_sib, kes_hb, kes_hnb, vrf_pk, vrf_g, vrf_u, vrf_v,
      vrf_s, vrf_al, beta, tlo, thi) = cols
@@ -871,7 +906,8 @@ def phase_kernels(dev, lanes: int = 8192, distinct: int = 256, seed: int = 7,
                    beta, tlo, thi),
     }
     for key, (kern, plain) in runs.items():
-        stages[key] = hold(key, kern, plain, inputs[key], lanes, dev, reps)
+        stages[key] = hold(f"{key} ({tag})" if tag else key, kern, plain, inputs[key],
+                           lanes, dev, reps)
     # the verdicts must flag the corrupted lanes as the kinds dictate
     f = flags_plain[0].cpu()
     for kind, ls in kinds.items():
@@ -879,10 +915,40 @@ def phase_kernels(dev, lanes: int = 8192, distinct: int = 256, seed: int = 7,
                "kes_sig": 1, "noncanon_y": 1, "kes_period_range": 1,
                "kes_sibling": 1}.get(kind, 2)
         if f[row, ls].any():
-            raise AssertionError(f"corrupt lanes of kind {kind} passed check row {row}")
-    clean = np.setdiff1d(np.arange(lanes), np.concatenate(list(kinds.values())))
-    if not bool(f[:4, clean].all()):
-        raise AssertionError("an uncorrupted lane failed a check")
+            raise AssertionError(f"{tag or 'phase 2'}: corrupt lanes of kind {kind} "
+                                 f"passed check row {row}")
+    clean = np.ones(lanes, bool)
+    clean[np.concatenate(list(kinds.values()))] = False
+    asked = np.ones((4, lanes), bool)
+    if no_leader is not None:
+        asked[3] = ~np.asarray(no_leader, bool)
+    if not bool(f[:4].numpy()[asked & clean].all()):
+        raise AssertionError(f"{tag or 'phase 2'}: an uncorrupted lane failed a check")
+    return stages, {"ed_ok": ed_ok, "ed_pt": ed_pt, "kes_ok": kes_ok, "kes_pt": kes_pt,
+                    "vrf_ok": vrf_ok, "c16": c16, "prep": prep, "pts": pts}
+
+
+def phase_kernels(dev, lanes: int = 8192, distinct: int = 256, seed: int = 7,
+                  reps: int = 5, workdir: str | None = None):
+    """Kernel vs plain version, byte for byte, at the main path's shapes.
+    -> {key: dict(ms, plain_ms, max_abs_err, field_ops, lanes, bytes)}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
+    from ouroboros_consensus_tpu_torch.ops.pk import verify as pv
+
+    depth = 7
+    cols, rng = tiled_window(lanes, distinct, seed, workdir, "bc")
+    kinds = corrupt_columns(cols, rng, depth)
+    log("corrupt lanes: " + json.dumps({k: len(v) for k, v in kinds.items()}))
+    cols = [c.to(dev).contiguous() for c in cols]
+    stages, pl = hold_stages("", cols, kinds, dev, reps, depth)
+    ed_ok, ed_pt, kes_ok, kes_pt = pl["ed_ok"], pl["ed_pt"], pl["kes_ok"], pl["kes_pt"]
+    vrf_ok, c16, prep, pts = pl["vrf_ok"], pl["c16"], pl["prep"], pl["pts"]
+
+    def i64(t):
+        return t.to(torch.int64)
+
     # multiply counts per lane (data-independent) for the operation bound
     one = [c[..., :1].clone() for c in cols]
     for key, fn in (("ed", lambda: pv.ed_core(one[0], one[2], one[3], one[4][0])),
@@ -1860,6 +1926,130 @@ def phase_forge(dev, reps: int = 5) -> dict:
     return {"forge_sweep": sweep, "ed_sign": rec}
 
 
+ED_VERIFY_KINDS = ("r_byte", "s_plus_l", "msg_byte", "offcurve_a", "noncanon_a", "x0_sign")
+BYRON_LANES = 21_600  # the mainnet-shaped Byron segment's signatures (phase 3h)
+WITNESS_LANES = 65_536  # 64k standalone tx-witness signatures, 32-byte messages
+
+
+def ed_verify_inputs(lanes: int, rng: np.random.Generator, msg_len, corrupt: bool):
+    """`lanes` natively signed (pk, sig, msg) triples over 256 seeded keys,
+    message lengths from `msg_len(rng, n)`; with `corrupt`, one lane of
+    each ED_VERIFY_KINDS kind. -> (pks, sigs, msgs, {kind: lane})."""
+    from ouroboros_consensus_tpu_torch import native
+    from ouroboros_consensus_tpu_torch.ops.pk import field as fe
+
+    seeds = [rng.bytes(32) for _ in range(min(lanes, 256))]
+    keys = [native.ed25519_public(sd) for sd in seeds]
+    lens = msg_len(rng, lanes)
+    msgs = [rng.bytes(int(n)) for n in lens]
+    pks = [keys[i % len(keys)] for i in range(lanes)]
+    sigs = [native.ed25519_sign(seeds[i % len(seeds)], m) for i, m in enumerate(msgs)]
+    kinds = {}
+    if corrupt:
+        picked = rng.choice(lanes, size=len(ED_VERIFY_KINDS), replace=False).tolist()
+        for kind, i in zip(ED_VERIFY_KINDS, picked):
+            if kind == "r_byte":
+                sigs[i] = bytes([sigs[i][0] ^ 0x10]) + sigs[i][1:]
+            elif kind == "s_plus_l":
+                s_big = int.from_bytes(sigs[i][32:], "little") + fe.L
+                sigs[i] = sigs[i][:32] + s_big.to_bytes(32, "little")
+            elif kind == "msg_byte":
+                m = msgs[i] or b"\x00"
+                msgs[i] = bytes([m[0] ^ 1]) + m[1:]
+            elif kind == "offcurve_a":
+                pks[i] = offcurve_y().to_bytes(32, "little")
+            elif kind == "noncanon_a":
+                pks[i] = fe.P.to_bytes(32, "little")  # y = p: not canonical
+            else:  # y = 1, x = 0, sign bit set
+                pks[i] = bytes([1]) + bytes(30) + bytes([0x80])
+            kinds[kind] = i
+    return pks, sigs, msgs, kinds
+
+
+def phase_ed_verify(dev, reps: int = 5) -> dict:
+    """Phase 3h-a: the batched Ed25519 verify kernel (`ed_verify`) against
+    its plain version on the card, byte for byte, at 8, 128 and 8,192
+    lanes of messages of 0 to 300 bytes (1 to 3 SHA-512 blocks side by side)
+    with one corrupted lane of each kind (a flipped R byte, s + L, a flipped
+    message byte, an off-curve A, a non-canonical A, x = 0 with the sign
+    bit), whose verdict row must flag exactly those lanes; at the Byron
+    segment's 21,600 lanes (messages of 100 to 120 bytes) also against the
+    plain version, and there and at 65,536 lanes of 32-byte messages (the
+    standalone witness batch) against the C++ verifier
+    (native.ed25519_verify) lane by lane. Every size timed with CUDA events;
+    the C++ verifier's host time beside it. -> the kernels line's record
+    (the main path's 21,600 lanes)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch import native
+    from ouroboros_consensus_tpu_torch.ops import ed25519_batch as eb
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    rng = np.random.default_rng(23)
+    sizes = ((8, True, True), (128, True, True), (8192, True, True),
+             (BYRON_LANES, False, True), (WITNESS_LANES, False, False))
+    recs, native_ms = {}, {}
+    for lanes, corrupt, twin in sizes:
+        if lanes == WITNESS_LANES:
+            msg_len = lambda r, n: np.full(n, 32)  # noqa: E731
+        elif lanes == BYRON_LANES:
+            msg_len = lambda r, n: r.integers(100, 121, n)  # noqa: E731
+        else:
+            # lengths 0, 150 and 300 first: one, two and three blocks in every batch
+            msg_len = lambda r, n: np.concatenate([[0, 150, 300], r.integers(0, 301, n - 3)])  # noqa: E731
+        pks, sigs, msgs, kinds = ed_verify_inputs(lanes, rng, msg_len, corrupt)
+        staged = eb.stage_np(pks, sigs, msgs)
+        cols = eb.limb_columns(staged, dev)
+        counts = sorted(set(staged.hnblocks.tolist()))
+        if corrupt and counts != [1, 2, 3]:
+            raise AssertionError(f"ed_verify at {lanes} lanes: block counts {counts}")
+        kern = lambda c=cols: K.ed_verify(*c)  # noqa: E731
+        if twin:
+            rec = hold(f"ed_verify ({lanes} lanes)", kern, lambda c=cols: K.ed_verify_plain(*c),
+                       cols, lanes, dev, reps)
+        else:
+            from ouroboros_consensus_tpu_torch.device import time_ms
+
+            rec = {"lanes": lanes,
+                   "bytes": sum(t.numel() * t.element_size() for t in cols) + 4 * lanes}
+            if dev.type == "cuda":
+                rec["ms"] = time_ms(kern, reps)
+        if dev.type == "cuda":
+            # the launch alone (the wrapper adds its block-count check,
+            # which waits for the card): `ms`; the wrapper's: `wrapper_ms`
+            from ouroboros_consensus_tpu_torch.device import time_ms
+            from ouroboros_consensus_tpu_torch.ops.pk import build
+
+            fn = build.kernel_lib("ed_verify")
+            rec["wrapper_ms"] = rec["ms"]
+            rec["ms"] = time_ms(lambda c=cols: K._ed_verify_launch(fn, K._stream(dev), *c), reps)
+        got = kern()[0].cpu().numpy() != 0
+        t0 = time.perf_counter()
+        ref = np.array([native.ed25519_verify(p, sg, m) for p, sg, m in zip(pks, sigs, msgs)])
+        native_ms[lanes] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(got, ref):
+            bad = np.flatnonzero(got != ref)[:8].tolist()
+            raise AssertionError(f"ed_verify at {lanes} lanes disagrees with the C++ "
+                                 f"verifier on lanes {bad}")
+        flagged = sorted(np.flatnonzero(~got).tolist())
+        if flagged != sorted(kinds.values()):
+            raise AssertionError(f"ed_verify at {lanes} lanes flagged {flagged}, "
+                                 f"corrupted {kinds}")
+        recs[lanes] = rec
+        log(f"ed_verify {lanes} lanes: blocks a lane {counts}, {rec.get('ms')} ms, "
+            f"C++ verifier {native_ms[lanes]:.1f} ms (host, one thread); flagged "
+            f"exactly {json.dumps(kinds)}")
+    rec = dict(recs[BYRON_LANES])
+    rec["ms_by_lanes"] = {n: r.get("ms") for n, r in recs.items()}
+    rec["wrapper_ms_by_lanes"] = {n: r.get("wrapper_ms") for n, r in recs.items()}
+    rec["plain_ms_by_lanes"] = {n: r["plain_ms"] for n, r in recs.items() if "plain_ms" in r}
+    rec["native_host_ms_by_lanes"] = native_ms
+    one = [c[..., :1].cpu().clone() for c in eb.limb_columns(eb.stage_np(
+        [bytes(range(32))], [bytes(64)], [bytes(110)]), "cpu")]
+    rec["field_ops"] = count_field_ops(lambda: K.ed_verify_plain(*one))
+    return rec
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -1892,12 +2082,46 @@ def forge_chain(db: str, headers: int, proof_format: str, switch: int) -> None:
         f"{res.wall_s:.1f} s (worker process)")
 
 
+# phase 3h: the mixed-era composite at mainnet's Byron shape (k = 2,160,
+# 21,600-slot epochs, 7 genesis delegates, a 0.22 signing threshold,
+# CompactSum7 KES), one epoch an era over 64,800 slots. Cuts against
+# mainnet (PERF.md §4): f = 1 in Shelley and Babbage over 21,600-slot
+# epochs (mainnet's 21,600 blocks an epoch), one pool, and the
+# reference composite's fixed 100 slots a KES period
+CARDANO = dict(byron_epochs=1, byron_epoch_length=21_600, shelley_epochs=1,
+               epoch_length=21_600, n_delegs=7, shelley_d=(1, 2), k=2160, kes_depth=7,
+               pbft_threshold=(22, 100))
+CARDANO_SLOTS = 64_800
+
+
+def cardano_config(**over):
+    from fractions import Fraction
+
+    from ouroboros_consensus_tpu_torch.hardfork import composite
+
+    kw = {k: Fraction(*v) if isinstance(v, tuple) else v for k, v in {**CARDANO, **over}.items()}
+    return composite.CardanoMockConfig(**kw)
+
+
+def forge_cardano(db: str) -> None:
+    """Forge phase 3h's composite at `db` through composite.synthesize;
+    its wall goes to `<db>.forge.json`. Runs in a worker process."""
+    from ouroboros_consensus_tpu_torch.hardfork import composite
+
+    t0 = time.monotonic()
+    n = composite.synthesize(db, cardano_config(), CARDANO_SLOTS)
+    with open(db + ".forge.json", "w") as f:
+        json.dump({"wall_s": time.monotonic() - t0, "blocks": n}, f)
+    log(f"forged the composite: {n} blocks over {CARDANO_SLOTS} slots in "
+        f"{time.monotonic() - t0:.1f} s (worker process)")
+
+
 class Forges:
     """The main paths' four chains (bc and draft-03 of `headers` headers,
-    the mixed chain and the stand-in-body chain of an eighth as many),
-    each forged in a process of its own (spawned: the parent holds a CUDA
-    context) while phase 2 runs; `get` waits for one, `close` stops any
-    still running."""
+    the mixed chain and the stand-in-body chain of an eighth as many) and
+    phase 3h's composite, each forged in a process of its own (spawned:
+    the parent holds a CUDA context) while phase 2 runs; `get` waits for
+    one, `close` stops any still running."""
 
     def __init__(self, workdir: str, headers: int):
         import multiprocessing
@@ -1914,6 +2138,11 @@ class Forges:
             proc.start()
             self.jobs[tag] = (db, n, proc)
             self.formats[tag] = chain_format(fmt, switch)
+        # phase 3h's mainnet-shaped composite
+        db = os.path.join(workdir, "chain_cardano")
+        proc = ctx.Process(target=forge_cardano, args=(db,), daemon=True)
+        proc.start()
+        self.jobs["cardano"] = (db, CARDANO_SLOTS, proc)
 
     def get(self, tag: str) -> tuple[str, int]:
         """-> (the chain's directory, its headers), once forged."""
@@ -3198,6 +3427,213 @@ def phase_serve(dev, card: str, workdir: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def cardano_outcome(res) -> dict:
+    from ouroboros_consensus_tpu_torch import carry
+
+    return {"n_blocks": res.n_blocks, "n_valid": res.n_valid, "per_era": res.per_era,
+            "error": carry.error_to_plain(res.error),
+            "state": carry.state_to_plain(res.final_state)}
+
+
+def hold_composite_windows(dev, cm, captured: list, seed: int = 23, reps: int = 0) -> dict:
+    """Phase 3h's kernels held to their plain versions at the composite's
+    own width, on the windows that batch.dispatch_prepared got in the
+    clean device replay (`captured`: its (StagedWindow, carry-in) pairs,
+    each window padded to its bucket). The Shelley (TPraos) epoch's
+    generic window: the five bc stages (hold_stages) on its staged
+    columns with every corrupt_columns kind on four lanes each, the
+    overlay lanes' leader row not asked (the host sets it). The Babbage
+    (Praos) epoch's packed window: `unpack` on it with every WIRE_KINDS
+    corruption on four lanes each (hold_unpack), `nonce_fold` over its
+    real lanes from the replay's carry-in (hold_fold), and the five
+    stages on its unpacked columns with every corrupt_columns kind. -> {era: {kernel: hold's record}}"""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops import stage_np
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.protocol import nonces, tpraos
+    from ouroboros_consensus_tpu_torch.testing.corrupt import corrupt_packed
+
+    generic = [w for w in captured if w[0].layout is None]
+    packed = [w for w in captured if w[0].layout is not None]
+    if len(generic) != 1 or len(packed) != 1:
+        raise AssertionError(f"cardano: {len(generic)} generic and {len(packed)} packed "
+                             f"windows dispatched, expected one of each "
+                             f"({[(w.b, w.hvs[0].slot) for w, _c in captured]})")
+    rng = np.random.default_rng(seed)
+    cpu = torch.device("cpu")
+    out = {}
+    (sw, _carry), = generic
+    if not isinstance(sw.batch.vrf, stage_np.EcvrfBcBatch):
+        raise AssertionError("cardano: the Shelley window is not batch-compatible")
+    width, depth = sw.batch.beta.shape[0], sw.batch.kes.siblings.shape[1]
+    cols = [c.contiguous().clone()
+            for c in K.staged_to_limb_first_bc(*pbatch.batch_columns(sw.batch, cpu))]
+    kinds = corrupt_columns(cols, rng, depth)
+    overlay = [tpraos.overlay_position(cm.tpraos_params, hv.slot) is not None for hv in sw.hvs]
+    overlay += overlay[:1] * (width - sw.b)  # the padding lanes copy lane 0
+    out["shelley"], _ = hold_stages(f"shelley epoch, {sw.b} of {width} lanes",
+                                    [c.to(dev).contiguous() for c in cols], kinds, dev,
+                                    reps, depth, no_leader=overlay)
+    (sw, carry), = packed
+    layout = sw.layout
+    if layout.vrf_proof_len != 128:
+        raise AssertionError("cardano: the Babbage window is not batch-compatible")
+    host = pbatch.Packed(*(a.copy() for a in sw.packed))  # off the staging buffer
+    width, depth = host.body.shape[0], layout.kes_depth
+    tag = f"babbage epoch, {sw.b} of {width} lanes"
+    rec = {}
+    rec["unpack"], _ = hold_unpack("babbage epoch", layout, corrupt_packed(layout, host, rng),
+                                   width, dev, reps)
+    cols = [c.contiguous().clone()
+            for c in K.staged_to_limb_first_bc(*pbatch.unpack_packed(layout, host, cpu))]
+    if carry is None:
+        carry = nonces.pack_carry(None, None)
+    cin = carry if isinstance(carry, torch.Tensor) else pbatch.to_device(carry, dev)
+    within = torch.from_numpy(host.within).to(dev)
+    rec["nonce_fold"] = hold_fold("babbage epoch", cols[K.UNPACK_BETA].to(dev), within, sw.b,
+                                  cin.to(dev), dev, reps)
+    kinds = corrupt_columns(cols, rng, depth)
+    stages, _ = hold_stages(tag, [c.to(dev).contiguous() for c in cols], kinds, dev, reps,
+                            depth)
+    out["babbage"] = {**rec, **stages}
+    return out
+
+
+def phase_cardano(dev, forges: "Forges", workdir: str) -> dict:
+    """Phase 3h: the hard-fork composite on the card.
+    a. `phase_ed_verify` (the batched Ed25519 verify kernel, called by main).
+    b. The mainnet-shaped composite (CARDANO, forged by `forge_cardano` in
+       a worker): `composite.revalidate(backend="device")` with the launch
+       counts zeroed just before and read just after (by era, from its
+       trace), against `backend="native"`: n_blocks, n_valid, per_era and
+       the final state equal. Each era's launches: Byron `ed_verify` once,
+       Shelley (TPraos) the five stages once, Babbage (Praos) `unpack`,
+       `nonce_fold` and the five stages once, nothing else. The windows
+       that replay dispatched are kept, and each of those seven kernels is
+       held to its plain version on them, at their bucket, with one
+       corruption of each kind (hold_composite_windows). Then three
+       tampered copies (testing/corrupt.flip_mixed_byte): a Byron signature
+       byte mid-era, a Shelley KES-signature byte mid-era and a Babbage
+       VRF-proof byte a third of the way in (the header KES-signed again),
+       each stopping the device replay at its index with the reference's
+       error class (PBftInvalidSignature, InvalidKesSignatureOCERT,
+       VRFKeyBadProof).
+    c. The CLIs: `db_synthesizer --cardano --slots 230` and `db_analyser
+       --cardano` (the device backend) in child processes, exit 0, a JSON
+       line with valid == blocks over three eras.
+    -> {"launches": the clean device replay's counts, "line": the
+    `cardano {...}` record}."""
+    from ouroboros_consensus_tpu_torch.hardfork import composite
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.testing import corrupt
+
+    db, _slots = forges.get("cardano")
+    with open(db + ".forge.json") as f:
+        forged = json.load(f)
+    cfg = cardano_config()
+    by_era, marks = {}, {}
+
+    def trace(era, headers):
+        now = dict(K.LAUNCHES)
+        by_era[era] = {k: v - marks.get(k, 0) for k, v in now.items() if v - marks.get(k, 0)}
+        marks.update(now)
+
+    captured = []
+    dispatch = pbatch.dispatch_prepared
+
+    def spy(sw, device, carry=None):  # keeps each window's host half for the holds
+        captured.append((sw, carry))
+        return dispatch(sw, device, carry)
+
+    K.reset_launches()
+    marks.update(K.LAUNCHES)
+    pbatch.dispatch_prepared = spy
+    try:
+        t0 = time.monotonic()
+        dres = composite.revalidate(db, cfg, "device", device=dev, trace=trace)
+        device_wall = time.monotonic() - t0
+    finally:
+        pbatch.dispatch_prepared = dispatch
+    launches = dict(K.LAUNCHES)
+    t0 = time.monotonic()
+    nres = composite.revalidate(db, cfg, "native")
+    native_wall = time.monotonic() - t0
+    d, n = cardano_outcome(dres), cardano_outcome(nres)
+    if d != n or d["error"] is not None or d["n_valid"] != forged["blocks"]:
+        raise AssertionError(f"cardano: device {d['n_valid']} {d['per_era']} {d['error']} "
+                             f"!= native {n['n_valid']} {n['per_era']} {n['error']} "
+                             f"(forged {forged['blocks']})")
+    want = {"byron": {"ed_verify": 1},
+            "shelley": {k: 1 for k in BC_STAGES},
+            "babbage": {**{k: 1 for k in BC_STAGES}, "unpack": 1, "nonce_fold": 1}}
+    if dev.type == "cuda" and by_era != want:  # the CPU's twins launch nothing
+        raise AssertionError(f"cardano: launches by era {by_era}, expected {want}")
+    log(f"cardano: device == native over {d['n_valid']} headers {json.dumps(d['per_era'])}; "
+        f"launches by era {json.dumps(by_era)}")
+    held = hold_composite_windows(dev, composite.CardanoMock(cfg, device=dev), captured)
+    captured.clear()
+    # the tampered copies: (field, era, where in the era, the reference's error)
+    cm = composite.CardanoMock(cfg, device=dev)
+    per = d["per_era"]
+    starts = {"byron": 0, "shelley": per["byron"], "babbage": per["byron"] + per["shelley"]}
+    tampered = {}
+    for field, era, frac, err in (("byron_sig", "byron", 1 / 2, "PBftInvalidSignature"),
+                                  ("kes_sig", "shelley", 1 / 2, "InvalidKesSignatureOCERT"),
+                                  ("vrf_proof", "babbage", 1 / 3, "VRFKeyBadProof")):
+        idx = starts[era] + int(per[era] * frac)
+        bad = os.path.join(workdir, f"cardano_{field}")
+        shutil.copytree(db, bad)
+        try:
+            if field == "vrf_proof":
+                corrupt.flip_mixed_byte(bad, idx, field, params=cm.praos_params,
+                                        pool=cm.pools[0])
+            else:
+                corrupt.flip_mixed_byte(bad, idx, field)
+            t0 = time.monotonic()
+            r = composite.revalidate(bad, cfg, "device", device=dev)
+            wall = time.monotonic() - t0
+        finally:
+            shutil.rmtree(bad, ignore_errors=True)
+        got = type(r.error).__name__ if r.error is not None else None
+        if r.n_valid != idx or got != err:
+            raise AssertionError(f"cardano {field}: n_valid {r.n_valid} error {got}, "
+                                 f"expected {idx} {err}")
+        tampered[field] = {"index": idx, "error": got, "wall_s": wall}
+        log(f"cardano {field} flipped at header {idx}: the device replay stops there "
+            f"with {got} ({wall:.1f} s)")
+    # the CLIs, as a user runs them
+    cli_db = os.path.join(workdir, "cardano_cli")
+    env = {**os.environ, "PYTHONPATH": REPO + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    synth = subprocess.run([sys.executable, "-m", "ouroboros_consensus_tpu_torch.tools."
+                            "db_synthesizer", "--out", cli_db, "--cardano", "--slots", "230"],
+                           capture_output=True, text=True, env=env)
+    ana = subprocess.run([sys.executable, "-m", "ouroboros_consensus_tpu_torch.tools."
+                          "db_analyser", "--db", cli_db, "--cardano"]
+                         + (["--device", "cpu"] if dev.type == "cpu" else []),
+                         capture_output=True, text=True, env=env)
+    if synth.returncode != 0 or ana.returncode != 0:
+        print(synth.stdout[-2000:], synth.stderr[-2000:], ana.stdout[-2000:],
+              ana.stderr[-2000:], file=sys.stderr)
+        raise AssertionError(f"cardano CLIs: exit {synth.returncode}, {ana.returncode}")
+    doc = json.loads(ana.stdout.strip().splitlines()[-1])
+    if doc["valid"] != doc["blocks"] or len(doc["per_era"]) != 3 or doc["error"] is not None:
+        raise AssertionError(f"cardano CLI line {doc}")
+    log(f"cardano CLIs: {synth.stdout.strip()}; {json.dumps(doc)}")
+    line = {"headers_by_era": per, "forge_s": forged["wall_s"],
+            "device_headers_per_wall_s": d["n_valid"] / device_wall,
+            "native_headers_per_wall_s": n["n_valid"] / native_wall,
+            "device_wall_s": device_wall, "native_wall_s": native_wall,
+            "device_era_s": dres.era_seconds, "native_era_s": nres.era_seconds,
+            "launches_by_era": by_era, "tampered": tampered, "cli": doc,
+            "held_at_width": {era: {k: {f: r[f] for f in ("lanes", "max_abs_err")}
+                                    for k, r in recs.items()} for era, recs in held.items()}}
+    print("cardano " + json.dumps(line), flush=True)
+    return {"launches": launches, "line": line}
+
+
 def phase_tools(dev, reps: int = 5) -> dict:
     """The primitive harness (all seven bodies OK on the card) and the
     field-op microbenchmark, with the launch counts zeroed just before and
@@ -3487,6 +3923,8 @@ def main(argv=None) -> int:
         forged = phase_forge_chains(dev, forges)
         recovered = phase_recovery(dev, forges, natives["bc"])
         served = phase_serve(dev, card, work)
+        stages["ed_verify"] = phase_ed_verify(dev)
+        cardano = phase_cardano(dev, forges, work)
     finally:
         forges.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -3506,6 +3944,7 @@ def main(argv=None) -> int:
     by_path["forge"] = forged["launches"]
     by_path["recovery"] = recovered["launches"]
     by_path["serve"] = served["launches"]
+    by_path["cardano"] = cardano["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
         stray = sorted(k for k in PATH_ONLY - ks if by_path[path].get(k, 0))
@@ -3548,6 +3987,8 @@ def main(argv=None) -> int:
             "library_ms": None, "field_ops_per_lane": st.get("field_ops"),
             "wide_products_per_lane": per_lane,
             "ms_by_lanes": st.get("ms_by_lanes"), "wrapper_ms": st.get("wrapper_ms"),
+            "plain_ms_by_lanes": st.get("plain_ms_by_lanes"),
+            "native_host_ms_by_lanes": st.get("native_host_ms_by_lanes"),
             "wrapper_ms_by_lanes": st.get("wrapper_ms_by_lanes"),
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
             "msm_work": st.get("work"), "tiled": st.get("tiled"),

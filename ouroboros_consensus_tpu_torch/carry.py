@@ -1,9 +1,11 @@
 """Carry the reference package's constants and protocol objects across.
 
 This system has no weights: what crosses from the JAX package is its
-fixed-base table and its protocol objects. Everything here reads plain
-Python and numpy values by attribute (duck typing), so the port never
-imports the JAX package; only the tests hand objects of both over.
+fixed-base table and its protocol objects (Praos, TPraos and PBFT
+parameters, views and states, the hard-fork state, the composite's
+config). Everything here reads plain Python and numpy values by
+attribute (duck typing), so the port never imports the JAX package; only
+the tests hand objects of both over.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 
 from .ops.pk import field as fe
+from .protocol.instances import PBftParams, PBftState
 from .protocol.praos import PraosParams, PraosState
+from .protocol.tpraos import GenDeleg, TPraosLedgerView, TPraosParams, TPraosState
 from .protocol.views import IndividualPoolStake, LedgerView
 
 _REF_BITS = 13
@@ -81,10 +85,70 @@ def state_from_reference(st) -> PraosState:
     )
 
 
+def tparams_from_reference(p) -> TPraosParams:
+    return TPraosParams(praos=params_from_reference(p.praos),
+                        decentralization=Fraction(p.decentralization))
+
+
+def tlview_from_reference(lv) -> TPraosLedgerView:
+    base = lview_from_reference(lv)
+    return TPraosLedgerView(
+        pool_distr=base.pool_distr, max_header_size=base.max_header_size,
+        max_body_size=base.max_body_size, protocol_version=base.protocol_version,
+        gen_delegs=[GenDeleg(bytes(d.vk_cold), bytes(d.vrf_key_hash)) for d in lv.gen_delegs])
+
+
+def tstate_from_reference(st) -> TPraosState:
+    return TPraosState(**vars(state_from_reference(st)))
+
+
+def pbft_params_from_reference(p) -> PBftParams:
+    return PBftParams(num_genesis_keys=int(p.num_genesis_keys), threshold=Fraction(p.threshold),
+                      window=int(p.window), security_param=int(p.security_param))
+
+
+def pbft_state_from_reference(st) -> PBftState:
+    return PBftState(tuple((int(s), int(g)) for s, g in st.signers))
+
+
+def _inner_from_reference(st):
+    """A reference era state by its class: PBftState, TPraosState, else a
+    PraosState."""
+    name = type(st).__name__
+    if name == "PBftState":
+        return pbft_state_from_reference(st)
+    if name == "TPraosState":
+        return tstate_from_reference(st)
+    return state_from_reference(st)
+
+
+def hfstate_from_reference(st):
+    from .hardfork.combinator import HFState
+
+    return HFState(int(st.era), _inner_from_reference(st.inner))
+
+
+def cardano_config_from_reference(cfg):
+    """The reference's CardanoMockConfig as the port's, field by field."""
+    from .hardfork.composite import CardanoMockConfig
+
+    return CardanoMockConfig(**{f.name: getattr(cfg, f.name)
+                                for f in dataclasses.fields(CardanoMockConfig)})
+
+
 def state_to_plain(st) -> dict | None:
-    """A PraosState of either package as a plain dict."""
+    """A protocol state of either package as a plain dict: a Praos or
+    TPraos state (its fields, the nonces as bytes), a PBFT state (its
+    signing window), a BFT or leader-schedule state (its last slot), or
+    a hard-fork state (its era and its era's state)."""
     if st is None:
         return None
+    if hasattr(st, "era") and hasattr(st, "inner"):
+        return {"era": int(st.era), "inner": state_to_plain(st.inner)}
+    if hasattr(st, "signers"):
+        return {"signers": [(int(s), int(g)) for s, g in st.signers]}
+    if not hasattr(st, "ocert_counters"):
+        return {"last_slot": st.last_slot}
     return {
         "last_slot": st.last_slot,
         "ocert_counters": {bytes(k): int(v) for k, v in st.ocert_counters.items()},
@@ -97,8 +161,13 @@ def state_to_plain(st) -> dict | None:
 
 
 def error_to_plain(e) -> tuple | None:
-    """A validation error of either package as (class name, fields)."""
+    """A validation error of either package as (class name, fields): the
+    Praos, TPraos (WrongGenesisDelegate, NonActiveSlot, WrongGenesisVRFKey),
+    PBFT, BFT and leader-schedule errors are dataclasses; any other
+    exception gives its args."""
     if e is None:
         return None
+    if not dataclasses.is_dataclass(e):
+        return type(e).__name__, {"args": tuple(e.args)}
     fields = {f.name: getattr(e, f.name) for f in dataclasses.fields(e)}
     return type(e).__name__, fields

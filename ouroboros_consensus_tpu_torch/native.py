@@ -5,8 +5,9 @@ Built with g++ on first use into the port's build directory (listed in
 concurrent first uses never load a half-written library. The slice uses
 the sign side (Ed25519 keys and signatures, draft-03 and
 batch-compatible ECVRF proofs) for the forger, `validate_praos` as the
-native replay backend and `blake2b_spans` for the reader's body-hash
-sweep.
+native replay backend, `ed25519_verify` as the native backend's Ed25519
+verifier (the Byron segments of the mixed-era composite) and
+`blake2b_spans` for the reader's body-hash sweep.
 """
 
 from __future__ import annotations
@@ -61,6 +62,10 @@ def lib():
     so = ctypes.CDLL(build())
     so.oc_ed25519_public.restype = None
     so.oc_ed25519_public.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    so.oc_ed25519_verify.restype = ctypes.c_int
+    so.oc_ed25519_verify.argtypes = [
+        ctypes.c_char_p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t,
+    ]
     so.oc_ed25519_sign.restype = None
     so.oc_ed25519_sign.argtypes = [
         ctypes.c_char_p, ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
@@ -102,6 +107,14 @@ def ed25519_sign(seed: bytes, msg: bytes) -> bytes:
     out = ctypes.create_string_buffer(64)
     lib().oc_ed25519_sign(seed, msg, len(msg), out)
     return out.raw
+
+
+def ed25519_verify(pk: bytes, sig: bytes, msg: bytes) -> bool:
+    """Cofactorless RFC 8032 verify of one signature (the native backend's
+    verifier: the reference's native_loader.native_ed25519_verify)."""
+    if len(pk) != 32 or len(sig) != 64:
+        return False
+    return bool(lib().oc_ed25519_verify(pk, sig, msg, len(msg)))
 
 
 def ecvrf_prove(seed: bytes, alpha: bytes) -> bytes:

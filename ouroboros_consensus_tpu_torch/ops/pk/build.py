@@ -1,5 +1,5 @@
-"""Build and bind the stage, wire, aggregate, forge and tool kernels
-(csrc/*.cu).
+"""Build and bind the stage, wire, aggregate, forge, batch-verify and tool
+kernels (csrc/*.cu).
 
 Each kernel source is compiled by its own `nvcc` process, all started
 together, into a shared library with a plain C interface:
@@ -35,6 +35,7 @@ BUILD_DIR = os.path.join(
 # kernel source (csrc/<name>.cu) -> its C entry points
 ENTRIES = {
     "ed": ("pk_ed",),
+    "ed_verify": ("pk_ed_verify",),
     "kes": ("pk_kes",),
     "vrf_prep": ("pk_vrf_prep",),
     "vrf_bc_prep": ("pk_vrf_bc_prep",),
@@ -64,6 +65,7 @@ _Z = ctypes.c_size_t
 _DEDUPE = [_I, _I] + [_P] * 8 + [_Z] + [_P] * 4  # pk_dedupe up to its stream
 ARGTYPES = {
     "pk_ed": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "pk_ed_verify": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
     "pk_kes": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pk_vrf_prep": [_I] + [_P] * 7,
     "pk_vrf_bc_prep": [_I] + [_P] * 10,
@@ -245,7 +247,7 @@ def kernel_lib(name: str, entry: str | None = None):
 
 def blocks_per_sm(name: str, kernel: str | None = None) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
-    (128 threads; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
+    (128 threads: ed, kes, ed_verify; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
     unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 256; forge's
     sweep 64),
     with its shared memory, from the CUDA occupancy API (registers, stack

@@ -37,6 +37,25 @@ extern "C" int pk_ed(int B, const void *base8, const void *pk, const void *s,
   return 0;
 }
 
+// ed_verify: ed's phase 1, then the chain and the compare on a quad
+extern "C" int pk_ed_verify(int B, const void *base8, const void *pk, const void *r,
+                            const void *s, const void *hb, int nb, const void *hnb,
+                            void *ok, void *) {
+  EdScratch sc;
+  for (int g = 0; g < B; g += PK_GROUP) {
+    int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+    for (int l = 0; l < n; l++) ed_role_hash(g + l, B, l, (CI)hb, nb, (CI)hnb, sc);
+    for (int l = 0; l < n; l++) ed_role_table(g + l, B, l, (CI)pk, sc);
+    for (int l = 0; l < n; l++)
+      ed_role_base(g + l, B, l, (const u32 *)base8, (CI)s, sc);
+    for (int l = 0; l < n; l++) {
+      Quad qd{sc.qx, -1, l, 0, 0};
+      ed_quad_verify(g + l, B, true, sc, qd, (CI)r, (OI)ok);
+    }
+  }
+  return 0;
+}
+
 extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
                       const void *period, const void *s, const void *leaf,
                       const void *sib, const void *hb, int nb,

@@ -127,11 +127,9 @@ PK_DEV void kes_role_merkle(int i, int B, int lane, int depth,
   sc.ok[2 * PK_GROUP + lane] = kes_merkle(i, B, depth, vk, period, leaf, sib) ? 1 : 0;
 }
 
-// phase 2 on the quad of the block's four warps; ok ANDs the first
-// `flags` rows of sc.ok (ed 2, kes 3); lanes past B (live false) run
-// along for the barriers and store nothing
-PK_DEV void ed_quad_chain(int i, int B, bool live, int flags, EdScratch &sc,
-                          Quad &qd, int32_t *ok, int32_t *pt) {
+// P = s·B − h·A from the phase-1 scratch, on the quad of the block's four
+// warps (every warp holds P after the last step)
+PK_DEV ge ed_quad_point(EdScratch &sc, Quad &qd) {
   int lane = qd.lane;
   u8 h[32], hd[64];
   for (int k = 0; k < 32; k++) h[k] = (u8)sc.h[(k << 5) + lane];
@@ -140,11 +138,40 @@ PK_DEV void ed_quad_chain(int i, int B, bool live, int flags, EdScratch &sc,
   ge nha = qscalar_mul_w4(qd, hd, 64, tab);
   ge p;
   qadd(qd, p, load_point(sc.sb, lane, PK_GROUP), nha);
+  return p;
+}
+
+// phase 2 on the quad of the block's four warps; ok ANDs the first
+// `flags` rows of sc.ok (ed 2, kes 3); lanes past B (live false) run
+// along for the barriers and store nothing
+PK_DEV void ed_quad_chain(int i, int B, bool live, int flags, EdScratch &sc,
+                          Quad &qd, int32_t *ok, int32_t *pt) {
+  int lane = qd.lane;
+  ge p = ed_quad_point(sc, qd);
   if (live && qd.w <= 0) {
     store_point(pt, i, B, p);
     int32_t o = 1;
     for (int f = 0; f < flags; f++) o &= sc.ok[f * PK_GROUP + lane];
     ok[i] = o;
+  }
+}
+
+// ed_verify's phase 2: P on the quad as in ed_quad_chain, then on warp 0
+// alone (the host's one pass) P's compression, one inversion, against the
+// signature's R bytes: ok = A decodes ∧ s < L ∧ compress(P) == R. A
+// canonical compression equals no non-canonical or off-curve R, so the
+// byte compare is RFC 8032's cofactorless check.
+PK_DEV void ed_quad_verify(int i, int B, bool live, EdScratch &sc, Quad &qd,
+                           const int32_t *r, int32_t *ok) {
+  int lane = qd.lane;
+  ge p = ed_quad_point(sc, qd);
+  if (live && qd.w <= 0) {
+    u8 enc[32], rb[32];
+    ge_compress_many(&p, 1, enc);
+    load_bytes(r, 32, i, B, rb);
+    bool eq = sc.ok[lane] != 0 && sc.ok[PK_GROUP + lane] != 0;
+    for (int k = 0; k < 32; k++) eq = eq && enc[k] == rb[k];
+    ok[i] = eq ? 1 : 0;
   }
 }
 

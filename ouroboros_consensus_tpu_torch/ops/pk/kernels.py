@@ -65,12 +65,13 @@ from . import verify as pv
 
 # kernel -> launches on the card (the plain twins do not count): a kernel
 # source's, or for csrc/forge.cu each of its two kernels'; the two tool
-# kernels (tools/debug_pk.py, tools/fe_bench.py) and the window
-# aggregate's three (ops/pk/aggregate.py, msm.py) count here too
+# kernels (tools/debug_pk.py, tools/fe_bench.py), the window aggregate's
+# three (ops/pk/aggregate.py, msm.py) and the batched Ed25519 verify
+# (ops/ed25519_batch.py) count here too
 LAUNCHES = {"ed": 0, "kes": 0, "vrf_prep": 0, "vrf_bc_prep": 0,
             "vrf_ladders": 0, "finish": 0, "unpack": 0, "nonce_fold": 0,
             "primitives": 0, "fe_bench": 0, "agg_prep": 0, "dedupe": 0, "msm": 0,
-            "forge_sweep": 0, "ed_sign": 0}
+            "forge_sweep": 0, "ed_sign": 0, "ed_verify": 0}
 
 _BASE8: dict = {}
 
@@ -169,6 +170,57 @@ def ed_points(pk, s, hblocks, hnblocks):
 
     out = _ed_launch(build.kernel_lib("ed"), _stream(dev), pk, s, hblocks, hnblocks)
     LAUNCHES["ed"] += 1
+    return out
+
+
+def _ed_verify_launch(fn, stream, pk, r, s, hblocks, hnblocks):
+    b, nb = pk.shape[-1], hblocks.shape[0]
+    ok = torch.empty((1, b), dtype=torch.int32, device=pk.device)
+    rc = fn(b, _p(_base8(pk.device)), _p(pk), _p(r), _p(s), _p(hblocks), nb,
+            _p(hnblocks), _p(ok), stream)
+    _raise_on(rc, "ed_verify")
+    return ok
+
+
+def ed_verify_plain(pk, r, s, hblocks, hnblocks):
+    """ed_verify's plain twin: verify.ed_core, P's compression
+    (curve.compress_many) and the byte compare with R."""
+    ok_pre, p = pv.ed_core(pk, s, hblocks, hnblocks[0])
+    (enc,) = pc.compress_many([p])
+    eq = (enc.to(torch.int64) == r.to(torch.int64)).all(dim=0)
+    return (ok_pre & eq).to(torch.int32)[None]
+
+
+def ed_verify(pk, r, s, hblocks, hnblocks):
+    """Standalone RFC 8032 cofactorless Ed25519 verify, one verdict a lane.
+    pk, r, s [32, B]; hblocks [NB, 128, B] (the padded R ‖ A ‖ M);
+    hnblocks [1, B], each lane's own block count -> ok [1, B] int32.
+
+    Replaces the plain-XLA verify of ouroboros_consensus_tpu/ops/
+    ed25519_batch.py:71-103 (csrc/ed_verify.cu): ed's four-warp design
+    (the hash, A's decompression and table, and s·B beside each other,
+    then the h·(−A) chain on a quad), then P's compression (one inversion
+    a lane) and its compare with R on one warp. Operations-bound: ed's
+    field work and one inversion a lane. A lane hashes block 0 and each
+    later block below its count, in the kernel and the twin alike, so no
+    count reads past the NB blocks; ed25519_batch.limb_columns checks the
+    counts on the host, where no wait for the card is needed."""
+    dev = pk.device
+    b, nb = pk.shape[-1], hblocks.shape[0]
+    for n, t, sh in (("pk", pk, (32, b)), ("r", r, (32, b)), ("s", s, (32, b)),
+                     ("hblocks", hblocks, (nb, 128, b)),
+                     ("hnblocks", hnblocks, (1, b))):
+        _check(f"ed_verify.{n}", t, sh, dev)
+    if b == 0:
+        _route(dev)
+        return torch.empty((1, 0), dtype=torch.int32, device=dev)
+    if _route(dev) == "plain":
+        return ed_verify_plain(pk, r, s, hblocks, hnblocks)
+    from . import build
+
+    out = _ed_verify_launch(build.kernel_lib("ed_verify"), _stream(dev), pk, r, s, hblocks,
+                            hnblocks)
+    LAUNCHES["ed_verify"] += 1
     return out
 
 

@@ -1031,12 +1031,14 @@ def _epilogue_columns_fast(params, ticked, vc: ViewColumns, pre: ColumnChecks, v
 
 def epilogue(params: PraosParams, ticked: TickedPraosState,
              hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
-             v) -> BatchResult:
+             v, lane_error_fn=None) -> BatchResult:
     """Sequential epilogue: counters + nonce fold, stop at the first
     failure with the reference's error. A ViewColumns window first tries
     the columnar fast path; when that declines, the window's HeaderViews
     take the exact per-header fold (the packed fast path, which checks
-    the same gates, is skipped)."""
+    the same gates, is skipped). `lane_error_fn`: the per-lane error rule
+    in place of `lane_error` (TPraos's genesis-delegate counter default)."""
+    err_of = lane_error if lane_error_fn is None else lane_error_fn
     columns_declined = isinstance(hvs, ViewColumns)
     if columns_declined:
         res = _epilogue_columns_fast(params, ticked, hvs, pre, v)
@@ -1057,7 +1059,7 @@ def epilogue(params: PraosParams, ticked: TickedPraosState,
     lab, last_slot = st.lab_nonce, st.last_slot
     etas = np.ascontiguousarray(np.asarray(v.eta).astype(np.uint8))
     for i, hv in enumerate(hvs):
-        err = lane_error(params, lview, eta0, hv, pre, v, i, counters)
+        err = err_of(params, lview, eta0, hv, pre, v, i, counters)
         if err is not None:
             state = PraosState(
                 last_slot=last_slot, ocert_counters=counters,

@@ -8,6 +8,9 @@ proof lies inside the KES-signed header body); given the forging
 credentials, the header body is KES-signed again after the flip, so that
 the VRF check is the one that fails.
 
+`flip_mixed_byte` does the same to a block of a mixed-era chain (a
+Byron signature, a Praos-class KES signature or VRF proof).
+
 `standin_views` rewrites parsed views instead: each view's KES-signed
 body becomes a stand-in that embeds none of the header's fields (as the
 JAX package's fixture views carry), so the packed staging declines the
@@ -66,12 +69,64 @@ def flip_header_byte(db_path: str, index: int, field: str, offset: int = 40,
         if len(new) != len(blob):
             raise AssertionError("the re-signed block changed length")
         data[e.offset: e.offset + e.size] = new
+    _rewrite(imm, n, k, e, data)
+
+
+def _rewrite(imm, n: int, k: int, e, data: bytearray) -> None:
+    """Write chunk n's bytes back with entry k's CRC re-sealed."""
+    cpath = os.path.join(imm.path, chunk_name(n))
     with open(cpath, "wb") as f:
         f.write(bytes(data))
     rows = [e2.to_cbor_obj() for e2 in imm._entries[n]]
     rows[k][5] = zlib.crc32(bytes(data[e.offset: e.offset + e.size]))
     with open(os.path.join(imm.path, index_name(n)), "wb") as f:
         f.write(b"".join(cbor.encode(r) for r in rows))
+
+
+MIXED_FIELDS = ("byron_sig", "kes_sig", "vrf_proof")
+
+
+def flip_mixed_byte(db_path: str, index: int, field: str, offset: int = 7,
+                    params=None, pool=None) -> None:
+    """flip_header_byte for a mixed-era chain (hardfork/composite.py):
+    flip byte `offset` of block `index`'s `field` (one of MIXED_FIELDS:
+    a Byron header's signature, a Praos-class header's KES signature or
+    VRF proof), the index CRC re-sealed. With `params` and `pool` (the
+    credentials that forged the block) a flipped VRF proof's header body
+    is KES-signed again, so that the VRF check is the one that fails."""
+    from ..hardfork.byron_mock import ByronMockBlock
+    from ..hardfork.combinator import HardForkBlock
+
+    if field not in MIXED_FIELDS:
+        raise ValueError(f"unknown field {field!r}")
+    imm = ImmutableDB(os.path.join(db_path, "immutable"))
+    entries = [(n, k, e) for n in imm._chunks for k, e in enumerate(imm._entries[n])]
+    n, k, e = entries[index]
+    data = bytearray(imm.read_chunk(n))
+    blob = bytes(data[e.offset: e.offset + e.size])
+    era, inner = cbor.decode(blob)
+    if (field == "byron_sig") != (era == 0):
+        raise ValueError(f"block {index} is of era {era}: no {field}")
+    if field == "byron_sig":
+        target = ByronMockBlock.from_bytes(inner).header.sig
+    else:
+        block = Block.from_bytes(inner)
+        target = block.header.kes_sig if field == "kes_sig" else block.header.body.vrf_proof
+    if pool is None:
+        data[e.offset + blob.index(target) + offset] ^= 0x01
+    else:
+        if field != "vrf_proof":
+            raise ValueError("only a flipped VRF proof is KES-signed again")
+        flipped = bytearray(target)
+        flipped[offset] ^= 0x01
+        body = dataclasses.replace(block.header.body, vrf_proof=bytes(flipped))
+        t = params.kes_period_of(body.slot) - body.ocert.kes_period
+        sig = kes_sign(pool.kes_seed, pool.kes_depth, t, body.signed_bytes)
+        new = HardForkBlock(era, Block(Header(body, sig), block.txs)).bytes_
+        if len(new) != len(blob):
+            raise AssertionError("the re-signed block changed length")
+        data[e.offset: e.offset + e.size] = new
+    _rewrite(imm, n, k, e, data)
 
 
 def standin_views(hvs: list, params, pool, body: bytes = b"") -> list:

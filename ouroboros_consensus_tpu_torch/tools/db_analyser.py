@@ -53,6 +53,10 @@ On the device backend the read runs on a prefetch thread
 `validate_chain` validates this one, whose window pipeline
 (`pipeline_depth`) stages windows on a thread of its own ahead of the
 card.
+
+`main` is the reference's CLI (only-validation): `python -m
+ouroboros_consensus_tpu_torch.tools.db_analyser --db DB`, or with
+`--cardano` a mixed-era composite chain (hardfork/composite.py).
 """
 
 from __future__ import annotations
@@ -568,3 +572,91 @@ def _replay(imm, db_path, params, lview, backend, max_batch, device, columnar, s
     res.recoveries = list(sup.events)
     res.final_state = st
     return res
+
+
+def _write_csv(path: str, header: list, rows: list) -> None:
+    import csv
+
+    with open(path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+
+
+def main(argv=None) -> int:
+    """CLI (the reference's tools/db_analyser.py:1311-1390, its
+    only-validation analysis): revalidate a synthesized chain (the
+    reference CLI's parameters and credentials, db_synthesizer's
+    `default_params` and `make_credentials`), or with `--cardano` a
+    mixed-era composite chain (CardanoMockConfig's defaults), whose JSON
+    line is the reference's."""
+    import argparse
+    import json
+
+    from .db_synthesizer import default_params, make_credentials
+
+    p = argparse.ArgumentParser(prog="db_analyser", description=__doc__.split("\n\n")[0])
+    p.add_argument("--db", required=True)
+    p.add_argument("--pools", type=int, default=2,
+                   help="credential count the chain was synthesized with")
+    p.add_argument("--kes-depth", type=int, default=7)
+    p.add_argument("--backend", choices=["device", "native"], default="device")
+    p.add_argument("--device", default=None,
+                   help="the device backend's device (default: the CUDA card; cpu: the "
+                        "plain PyTorch versions)")
+    p.add_argument("--checkpoint", default=None,
+                   help="the progress record's path, rewritten as windows retire")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the --checkpoint record when it matches this chain")
+    p.add_argument("--repair", action="store_true",
+                   help="write back the corrupted-tail cut the validation walk finds")
+    p.add_argument("--out-csv", default=None,
+                   help="write the result as CSV (with --cardano: a row an era)")
+    p.add_argument("--cardano", action="store_true",
+                   help="the DB holds the mixed-era composite (era-tagged blocks, "
+                        "per-era protocols)")
+    p.add_argument("--with-ledgers", action="store_true",
+                   help="with --cardano: fold the era ledgers too (not ported yet)")
+    a = p.parse_args(argv)
+    if a.with_ledgers and not a.cardano:
+        p.error("--with-ledgers requires --cardano")
+    if a.resume and a.checkpoint is None:
+        p.error("--resume requires --checkpoint")
+    if a.cardano:
+        from ..hardfork import composite as cardano
+
+        if a.repair or a.resume or a.checkpoint:
+            # a silently ignored flag would fake a repair or a resume
+            p.error("--cardano does not support --repair/--resume/--checkpoint (the "
+                    "composite replay opens its store read-only)")
+        try:
+            cfg = cardano.CardanoMockConfig(with_ledgers=a.with_ledgers)
+            res = cardano.revalidate(a.db, cfg, backend=a.backend, device=a.device)
+        except ValueError as e:
+            p.error(str(e))
+        print(json.dumps({"blocks": res.n_blocks, "valid": res.n_valid,
+                          "per_era": res.per_era,
+                          "error": None if res.error is None else repr(res.error)}))
+        if a.out_csv:
+            _write_csv(a.out_csv, ["era", "valid", "seconds"],
+                       [[k, v, res.era_seconds[k]] for k, v in res.per_era.items()])
+        return 0
+    params = default_params(kes_depth=a.kes_depth)
+    _pools, lview = make_credentials(a.pools, kes_depth=a.kes_depth)
+    res = revalidate(a.db, params, lview, backend=a.backend, device=a.device,
+                     trace=print, resume=a.resume, checkpoint=a.checkpoint, repair=a.repair)
+    status = "OK" if res.error is None else f"INVALID at {res.n_valid}: {res.error!r}"
+    if res.repairs:
+        acts = ", ".join(f"{k}={v}" for k, v in sorted(res.repairs.items()))
+        print(("dirty open — " if res.opened_dirty else "") + f"store repairs: {acts}")
+    print(f"validated {res.n_valid}/{res.n_blocks} headers in {res.wall_s:.1f}s "
+          f"(validate {res.validate_s:.1f}s) -> {status}")
+    if a.out_csv:
+        _write_csv(a.out_csv, ["blocks", "valid", "error", "wall_s", "validate_s", "read_s"],
+                   [[res.n_blocks, res.n_valid, None if res.error is None else repr(res.error),
+                     res.wall_s, res.validate_s, res.read_s]])
+    return 0 if res.error is None else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

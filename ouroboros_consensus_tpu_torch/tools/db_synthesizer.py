@@ -343,7 +343,26 @@ def main(argv=None) -> int:
                    help="continue a killed forge into its store (deep repair first)")
     p.add_argument("--network-magic", type=int, default=None,
                    help="the chain magic the store's marker binds it to")
+    p.add_argument("--cardano", action="store_true",
+                   help="forge the mixed-era composite (era-tagged blocks crossing the "
+                        "Byron/Shelley/Babbage boundaries); pairs with db_analyser --cardano")
+    p.add_argument("--with-ledgers", action="store_true",
+                   help="with --cardano: the era ledgers in the loop (not ported yet)")
     a = p.parse_args(argv)
+    if a.with_ledgers and not a.cardano:
+        p.error("--with-ledgers requires --cardano")
+    if a.cardano:
+        from ..hardfork import composite as cardano
+
+        if not a.slots:
+            p.error("--cardano forges by --slots")
+        try:
+            n = cardano.synthesize(a.out, cardano.CardanoMockConfig(with_ledgers=a.with_ledgers),
+                                   a.slots)
+        except ValueError as e:
+            p.error(str(e))
+        print(f"forged {n} blocks over {a.slots} slots at {a.out}")
+        return 0
     params = default_params(kes_depth=a.kes_depth)
     pools, lview = make_credentials(a.pools, kes_depth=a.kes_depth)
     res = synthesize(a.out, params, pools, lview,

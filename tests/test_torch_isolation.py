@@ -72,10 +72,15 @@ def test_scan_covers_the_tools_and_every_kernel_source():
             "ops/pk/prove.py", "ops/host_kes.py", "protocol/forge.py",
             "tools/db_synthesizer.py", "obs/registry.py", "obs/server.py",
             "protocol/admission.py", "node/serve.py", "testing/traffic.py",
-            "tools/serve_bench.py"} <= scanned
+            "tools/serve_bench.py", "protocol/abstract.py", "protocol/select.py",
+            "protocol/instances.py", "protocol/tpraos.py", "ops/ed25519_batch.py",
+            "block/forge.py", "hardfork/__init__.py", "hardfork/history.py",
+            "hardfork/combinator.py", "hardfork/byron_mock.py",
+            "hardfork/composite.py"} <= scanned
     csrc = PORT / "ops" / "pk" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
-    assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench", "forge"} <= set(build.KERNELS)
+    assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench", "forge",
+            "ed_verify"} <= set(build.KERNELS)
     local = {p.name for p in csrc.iterdir()}
     system = {"stddef.h", "stdint.h"}
     for p in sorted(csrc.iterdir()):
@@ -178,3 +183,18 @@ def test_serving_entry_points_refuse_without_cuda(monkeypatch):
         serve_bench.main(["--tenants", "2", "--kes-depth", "3"])
     host = serve.ValidationService(params, None, bytes(32), plane="host")
     assert host.device is None and not host.pump()
+
+
+def test_composite_entry_points_refuse_without_cuda(tmp_path, monkeypatch):
+    from ouroboros_consensus_tpu_torch.hardfork import composite
+    from ouroboros_consensus_tpu_torch.ops import ed25519_batch
+
+    cfg = composite.CardanoMockConfig(byron_epochs=1, byron_epoch_length=4, shelley_epochs=1,
+                                      epoch_length=4, k=3)
+    composite.synthesize(str(tmp_path / "db"), cfg, 10)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        composite.revalidate(str(tmp_path / "db"), cfg, "device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ed25519_batch.verify_batch([bytes(32)], [bytes(64)], [b""])
+    assert composite.revalidate(str(tmp_path / "db"), cfg, "native").n_valid == 10
