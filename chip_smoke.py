@@ -8,7 +8,7 @@ composite on one NVIDIA card.
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the seventeen kernel sources (one nvcc per source, in
+   the build of the nineteen kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -58,7 +58,8 @@ Phases (any failure raises and the script exits non-zero):
    nonce), `ed_sign` on the main path's two OCert signables and on 256
    messages of 0 to 200 bytes, each byte for byte against its plain
    version, timed at the main path's shapes, with the sweep's field work
-   by warp (`forge_role_ops`: its dependent path).
+   by part (`forge_role_ops`) and its stamped build's timeline by warp at
+   one block and a full window (`forge_stamps`: its dependent path).
 3. The main paths, each with the launch counts zeroed just before its
    device replay and read just after: every packed window launches
    `unpack`, the five stage kernels and `nonce_fold`, the fold on a
@@ -167,7 +168,8 @@ Phases (any failure raises and the script exits non-zero):
       x = 0 with the sign bit), which its verdicts must flag exactly, and
       at the Byron segment's 21,600 lanes, there and at 65,536 lanes of
       32-byte messages (64k standalone witness signatures) also against the
-      C++ verifier; then a mainnet-shaped Byron (PBFT) → Shelley (TPraos) →
+      C++ verifier, with its stamped build's timeline by warp at 8, 21,600
+      and 65,536 lanes (`ed_verify_stamps`); then a mainnet-shaped Byron (PBFT) → Shelley (TPraos) →
       Babbage (Praos) chain (k = 2,160, 21,600-slot epochs, 7 genesis
       delegates, a 0.22 signing threshold, CompactSum7 KES, d = 1/2; one
       epoch an era, 64,800 slots) forged by `composite.synthesize` in a
@@ -209,7 +211,10 @@ and spill stores of each launched kernel with its resident blocks per SM.
 runs, on one card and in turns (parent, this tree, this tree, parent),
 one process per turn: each tree's own phase 1 and phase 2 and the six
 stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), the
-two wire kernels alone where the tree has them (`wire_times`), and
+two wire kernels alone where the tree has them (`wire_times`), `ed_verify`
+at its five widths and `forge_sweep` at its two (`verify_forge_times`,
+`A/B ed_verify` and `A/B forge_sweep` lines; the two trees' outputs must
+be equal), and
 `agg_prep`, `msm` and the dedupe with its mod-L reductions on a full
 window of a chain forged once for all turns, on tiled windows, on
 20,000 lanes and on 256 and 300 distinct keys (`agg_times`); one `AB
@@ -368,35 +373,39 @@ def phase_build() -> dict:
     for name, _src, _rep in KERNEL_ROWS:
         source, kernel = KERNEL_SOURCE.get(name, (name, None))
         with open(build.ptxas_report(source)) as f:
-            text = f.read()
-        if kernel is not None:  # this kernel's own entries, up to the next kernel's
-            parts = re.split(r"(?=ptxas info\s*: Compiling entry function)", text)
-            text = "".join(p for p in parts if re.search(rf"'_Z\d+{kernel}", p))
-        # a source with several kernels reports its largest
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
-        # the cumulative size where a kernel calls a function, else its frame
-        stack = [int(x) for x in
-                 re.findall(r"(\d+) bytes (?:cumulative stack size|stack frame)", text)]
-        spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
-        # each function's own spill stores, by its name (of the mangled
-        # `_Z<length><name>...`), where it spills
-        by_fn = {}
-        for fn, n in re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
-                                r"(\d+) bytes spill stores", text):
-            m = re.match(r"_Z(\d+)(\w+)", fn)
-            key = m.group(2)[:int(m.group(1))] if m else fn
-            if int(n):
-                by_fn[key] = by_fn.get(key, 0) + int(n)
-        ptxas[name] = {
-            "registers": max(regs, default=None),
-            "stack_bytes": max(stack, default=None),
-            "spill_store_bytes": sum(spills),
-            "spill_stores_by_function": by_fn,
-            "blocks_per_sm": build.blocks_per_sm(source, None if name in (source, "forge_sweep")
-                                                 else name),
-        }
+            ptxas[name] = ptxas_record(f.read(), kernel)
+        ptxas[name]["blocks_per_sm"] = build.blocks_per_sm(
+            source, None if name in (source, "forge_sweep") else name)
         log(f"ptxas {name}: {json.dumps(ptxas[name])}")
+    for name, kernel in (("ed_verify_stamps", None), ("forge_stamps", "forge_sweep_kernel")):
+        with open(build.ptxas_report(name)) as f:  # the instruments' own lines
+            log(f"ptxas {name}: {json.dumps(ptxas_record(f.read(), kernel))}")
     return ptxas
+
+
+def ptxas_record(text: str, kernel: str | None) -> dict:
+    """ptxas's registers, stack and spill stores from its -v report of one
+    source (`kernel`: that kernel's own entries, up to the next kernel's;
+    else the source's largest)."""
+    if kernel is not None:
+        parts = re.split(r"(?=ptxas info\s*: Compiling entry function)", text)
+        text = "".join(p for p in parts if re.search(rf"'_Z\d+{kernel}", p))
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    # the cumulative size where a kernel calls a function, else its frame
+    stack = [int(x) for x in
+             re.findall(r"(\d+) bytes (?:cumulative stack size|stack frame)", text)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    # each function's own spill stores, by its name (of the mangled
+    # `_Z<length><name>...`), where it spills
+    by_fn = {}
+    for fn, n in re.findall(r"Function properties for (\S+)\n\s*\d+ bytes stack frame, "
+                            r"(\d+) bytes spill stores", text):
+        m = re.match(r"_Z(\d+)(\w+)", fn)
+        key = m.group(2)[:int(m.group(1))] if m else fn
+        if int(n):
+            by_fn[key] = by_fn.get(key, 0) + int(n)
+    return {"registers": max(regs, default=None), "stack_bytes": max(stack, default=None),
+            "spill_store_bytes": sum(spills), "spill_stores_by_function": by_fn}
 
 
 # ---------------------------------------------------------------------------
@@ -1846,11 +1855,14 @@ def phase_agg_chain(dev, db: str, stages: dict, lanes: int = 8192, reps: int = 5
 
 
 def forge_role_ops() -> dict:
-    """Field multiplies and squarings one sweep lane spends on each warp
-    (the Γ warp: hash to the curve, x·H; the k warp: hash to the curve,
-    H's compression, k·B, k·H; then the finish on the k warp: four
-    compressions on one inversion, 8Γ), counted on the twin's pieces on
-    one CPU lane; the dependent path is the k warp and the finish."""
+    """Field multiplies and squarings one sweep lane spends on each part of
+    the kernel (warp 0: the hash to the curve; warp 2: H's compression;
+    pair A: Γ = x·H with its table, 8Γ; pair B: k·B, k·H; the finish: the
+    four compressions), counted on the twin's pieces on one CPU lane. A
+    pair splits each point operation's products over its two warps, so the
+    dependent path in wide products a warp is the hash, H's compression,
+    half of pair B's, and the finish (the finish's inversion counted whole,
+    though the kernel batches it over the block)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
@@ -1860,16 +1872,18 @@ def forge_role_ops() -> dict:
     b = torch.arange(32, dtype=torch.int64).reshape(32, 1)
     h = pv.hash_to_curve(b, b)
     parts = {
-        "gamma_warp": lambda: pc.scalar_mul_w4(fe.nibbles_msb(b, 32), pv.hash_to_curve(b, b)),
-        "k_warp": lambda: (pc.compress_many([pv.hash_to_curve(b, b)]), pc.base_mul_w8(b),
-                           pc.scalar_mul_w4(fe.nibbles_msb(b, 32), h)),
-        "finish": lambda: pc.compress_many([h, h, h, pc.mul_cofactor(h)]),
+        "hash_to_curve": lambda: pv.hash_to_curve(b, b),
+        "h_compression": lambda: pc.compress_many([h]),
+        "pair_a": lambda: pc.mul_cofactor(pc.scalar_mul_w4(fe.nibbles_msb(b, 32), h)),
+        "pair_b": lambda: (pc.base_mul_w8(b), pc.scalar_mul_w4(fe.nibbles_msb(b, 32), h)),
+        "finish": lambda: pc.compress_many([h, h, h, h]),
     }
     out = {k: count_field_ops(fn) for k, fn in parts.items()}
     for rec in out.values():
         rec["wide_products"] = wide_products(rec)
-    out["dependent_path_wide_products"] = (out["k_warp"]["wide_products"]
-                                           + out["finish"]["wide_products"])
+    out["dependent_path_wide_products"] = (
+        out["hash_to_curve"]["wide_products"] + out["h_compression"]["wide_products"]
+        + out["pair_b"]["wide_products"] // 2 + out["finish"]["wide_products"])
     return out
 
 
@@ -1891,7 +1905,7 @@ def phase_forge(dev, reps: int = 5) -> dict:
 
     params = bench_params()
     full = pforge.window_slots(1)
-    recs = {}
+    recs, tabs = {}, {}
     for tag, seeds, lanes, nonce, r in (("3 pools, set nonce", (0, 1, 2), 256, bytes(range(32)), 1),
                                         ("1 pool, neutral nonce", (0,), full, None, reps)):
         pools = [synth.make_pool(n, kes_depth=params.kes_depth) for n in seeds]
@@ -1902,12 +1916,21 @@ def phase_forge(dev, reps: int = 5) -> dict:
         recs[lanes] = hold(f"forge_sweep ({tag})", lambda: K.forge_sweep(table, slot0, lanes, nt),
                            lambda: pp.forge_sweep_plain(table, slot0, lanes, nt),
                            (table,) if nt is None else (table, nt), lanes, dev, r)
+        tabs[lanes] = (table, slot0, lanes, nt)
     sweep = recs[full]
     sweep["ms_by_lanes"] = {full: sweep.get("ms")}
     zero = np.zeros((1, 32), np.uint8)
     cpu = pforge.device_table(pforge.stage_pools([synth.make_pool(0)]), (zero, zero), "cpu")
     sweep["field_ops"] = count_field_ops(lambda: pp.forge_sweep_plain(cpu, 0, 1, None))
     sweep["dependent_path"] = forge_role_ops()
+    if dev.type == "cuda":  # the stamped build at one block and at a full window
+        from ouroboros_consensus_tpu_torch.ops.pk import build
+
+        fn = build.kernel_lib("forge_stamps")
+        sweep["stamps_by_lanes"] = {n: forge_stamps(fn, *args[:2], n, args[3])
+                                    for n, args in ((32, tabs[256]), (full, tabs[full]))}
+        for n, tl in sweep["stamps_by_lanes"].items():
+            log(f"forge_sweep stamps {n} lanes: {json.dumps(tl['path'])}")
     sign = {}
     for lanes in (2, 256):
         seeds = [bytes([k % 256, k // 256]) * 16 for k in range(lanes)]
@@ -1926,15 +1949,206 @@ def phase_forge(dev, reps: int = 5) -> dict:
     return {"forge_sweep": sweep, "ed_sign": rec}
 
 
+# the stamped builds' steps (csrc/ed_verify.cu, csrc/forge.cu: EDV_STAMP,
+# FS_STAMP): {warp: {stamp: the step it ends}}; a step after a wait
+# includes the wait
+_EDV_AFTER = {2: "s·B parts' sum, table of −A (quad), with the barrier's wait",
+              3: "h·(−A) chain", 4: "s·B windows 25-31 and the addition (quad)", 5: "compare"}
+EDV_STEPS = {0: {1: "hash h, s·B windows 0-9", **_EDV_AFTER,
+                 6: "P compressed (the first version's tail, off the path)"},
+             1: {1: "A", **_EDV_AFTER},
+             2: {1: "R", **_EDV_AFTER},
+             3: {1: "s < L, s·B windows 10-24", **_EDV_AFTER}}
+FS_STEPS = {0: {1: "H (hash to the curve)", 2: "table of H (pair A)",
+                3: "k·B windows 0-13 (pair A)", 4: "Γ, 8Γ (pair A)",
+                8: "wait, points stored, tree, root inverse", 9: "encodings", 10: "c, s"},
+            1: {2: "table of H (pair A)", 3: "k·B windows 0-13 (pair A)", 4: "Γ, 8Γ (pair A)",
+                10: "wait, β, leader value"},
+            2: {2: "H's tree, k", 3: "k·H (pair B)", 5: "k·B windows 14-31 (pair B)"},
+            3: {3: "k·H (pair B)", 5: "k·B windows 14-31 (pair B)"}}
+
+
+def stamp_timeline(stamps, steps: dict) -> dict:
+    """clock64 stamps [blocks][warps][n] -> each warp's steps as µs from its
+    block's first stamp (the mean over blocks, at the card's maximum SM
+    clock), each step's own µs, and the block's span."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz
+
+    us = 1e6 / max_sm_clock_hz()
+    t = stamps.cpu().to(torch.float64)
+    start = t[:, :, 0].min(1).values
+    out = {"blocks": int(t.shape[0]), "warps": {}}
+    ends = []
+    for w, named in steps.items():
+        at, own, prev = {}, {}, t[:, w, 0]
+        for k, name in sorted(named.items()):
+            at[name] = float((t[:, w, k] - start).mean()) * us
+            own[name] = float((t[:, w, k] - prev).mean()) * us
+            prev = t[:, w, k]
+            ends.append(t[:, w, k])
+        out["warps"][str(w)] = {"at_us": at, "step_us": own}
+    out["block_us"] = float((torch.stack(ends).max(0).values - start).mean()) * us
+    return out
+
+
+def ed_verify_stamps(fn, cols) -> dict:
+    """One launch of the stamped ed_verify (`fn`: ed_verify_stamps.cu's
+    entry) on these columns, its verdicts held to the shipped kernel's:
+    the timeline by warp (EDV_STEPS), phase 1's longest role, the chain,
+    the additions and the compare (warp 0), and the first version's tail
+    (P's compression, timed after the verdict: what the design took off
+    the path)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    b, dev = cols[0].shape[-1], cols[0].device
+    stamps = torch.zeros((-(-b // 32), 4, 8), dtype=torch.int64, device=dev)
+    got = K._ed_verify_launch(lambda *a: fn(*a[:-1], K._p(stamps), a[-1]), K._stream(dev),
+                              *cols)
+    torch.cuda.synchronize()
+    if not torch.equal(got, K.ed_verify(*cols)):
+        raise AssertionError("the stamped ed_verify differs from the shipped kernel")
+    tl = stamp_timeline(stamps, EDV_STEPS)
+    w = tl["warps"]
+    phase1 = {r: w[r]["at_us"][EDV_STEPS[int(r)][1]] for r in w}
+    tl["path"] = {"phase1_us": max(phase1.values()), "phase1_by_warp_us": phase1,
+                  "table_us": w["0"]["step_us"][_EDV_AFTER[2]],
+                  "chain_us": w["0"]["step_us"]["h·(−A) chain"],
+                  "sb_rest_us": w["0"]["step_us"][_EDV_AFTER[4]],
+                  "compare_us": w["0"]["step_us"]["compare"],
+                  "verdict_at_us": w["0"]["at_us"]["compare"],
+                  "first_version_tail_us": w["0"]["step_us"][EDV_STEPS[0][6]]}
+    return tl
+
+
+def forge_stamps(fn, table, slot0: int, b: int, nonce) -> dict:
+    """One launch of the stamped sweep (`fn`: forge_stamps.cu's entry), its
+    rows held to the shipped kernel's: the timeline by warp (FS_STEPS) and
+    the dependent path."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    dev = table.device
+    stamps = torch.zeros((-(-b // 32), 4, 11), dtype=torch.int64, device=dev)
+    got = K._forge_sweep_launch(lambda *a: fn(*a[:-1], K._p(stamps), a[-1]), K._stream(dev),
+                                table, slot0, b, nonce)
+    torch.cuda.synchronize()
+    if not torch.equal(got, K.forge_sweep(table, slot0, b, nonce)):
+        raise AssertionError("the stamped forge_sweep differs from the shipped kernel")
+    tl = stamp_timeline(stamps, FS_STEPS)
+    w = tl["warps"]
+    a_end, b_end = w["0"]["at_us"][FS_STEPS[0][4]], w["2"]["at_us"][FS_STEPS[2][5]]
+    tl["path"] = {"h_us": w["0"]["at_us"]["H (hash to the curve)"],
+                  "table_us": w["0"]["at_us"]["table of H (pair A)"],
+                  "k_us": w["2"]["at_us"]["H's tree, k"],
+                  "gamma_end_us": w["0"]["at_us"]["Γ, 8Γ (pair A)"],
+                  "v_end_us": w["2"]["at_us"]["k·H (pair B)"],
+                  "pair_a_end_us": a_end, "pair_b_end_us": b_end,
+                  "tree_us": w["0"]["at_us"][FS_STEPS[0][8]] - max(a_end, b_end),
+                  "encodings_us": w["0"]["step_us"]["encodings"],
+                  "challenge_us": w["0"]["step_us"]["c, s"],
+                  "end_us": max(w["0"]["at_us"]["c, s"], w["1"]["at_us"][FS_STEPS[1][10]])}
+    return tl
+
+
+def verify_forge_inputs(dev, seed: int = 29) -> dict:
+    """The seeded inputs `verify_forge_times` times: ed_verify's
+    columns at 8, 128 and 8,192 lanes (messages of 0 to 300 bytes), the
+    Byron segment's 21,600 (100 to 120) and 65,536 (32 bytes), no lane
+    corrupted; the sweep's pool table of three pools under a set nonce
+    (256 lanes) and of the main path's one pool under the neutral nonce (a
+    full election window). -> {"ed_verify": {lanes: cols}, "forge_sweep":
+    {tag: (table, slot0, lanes, nonce)}}."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops import ed25519_batch as eb
+    from ouroboros_consensus_tpu_torch.protocol import forge as pforge
+    from ouroboros_consensus_tpu_torch.testing import synth
+
+    rng = np.random.default_rng(seed)
+    ed = {}
+    for lanes in (8, 128, 8192, BYRON_LANES, WITNESS_LANES):
+        if lanes == WITNESS_LANES:
+            msg_len = lambda r, n: np.full(n, 32)  # noqa: E731
+        elif lanes == BYRON_LANES:
+            msg_len = lambda r, n: r.integers(100, 121, n)  # noqa: E731
+        else:
+            msg_len = lambda r, n: np.concatenate([[0, 150, 300], r.integers(0, 301, n - 3)])[:n]  # noqa: E731
+        pks, sigs, msgs, _ = ed_verify_inputs(lanes, rng, msg_len)
+        ed[lanes] = eb.limb_columns(eb.stage_np(pks, sigs, msgs), dev)
+    params = bench_params()
+    sweep = {}
+    for tag, seeds, lanes, nonce in (("256x3", (0, 1, 2), 256, bytes(range(32))),
+                                     (str(pforge.window_slots(1)), (0,), pforge.window_slots(1),
+                                      None)):
+        pools = [synth.make_pool(n, kes_depth=params.kes_depth) for n in seeds]
+        thr = pforge.pool_thresholds(params, synth.make_ledger_view(pools), pools)
+        table = pforge.device_table(pforge.stage_pools(pools), thr, dev)
+        nt = None if nonce is None else torch.tensor(list(nonce), dtype=torch.uint8, device=dev)
+        sweep[tag] = (table, 40_000, lanes, nt)
+    return {"ed_verify": ed, "forge_sweep": sweep}
+
+
+def verify_forge_times(dev, reps: int = 5) -> dict:
+    """`ed_verify` at its five widths and `forge_sweep` at its two through
+    the wrappers of the tree this process imports (CUDA events over `reps`
+    calls), with a digest of each output so that two trees' turns can be
+    held to each other. -> {"ed_verify": {lanes: ms}, "forge_sweep": {tag:
+    ms}, "digests": {...}}."""
+    import hashlib
+
+    from ouroboros_consensus_tpu_torch.device import time_ms
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    ins = verify_forge_inputs(dev)
+    out = {"ed_verify": {}, "forge_sweep": {}, "digests": {}}
+    for lanes, cols in ins["ed_verify"].items():
+        out["ed_verify"][str(lanes)] = time_ms(lambda c=cols: K.ed_verify(*c), reps)
+        got = K.ed_verify(*cols).cpu().numpy()
+        out["digests"][f"ed_verify {lanes}"] = hashlib.sha256(got.tobytes()).hexdigest()[:16]
+    for tag, args in ins["forge_sweep"].items():
+        out["forge_sweep"][tag] = time_ms(lambda a=args: K.forge_sweep(*a), reps)
+        got = K.forge_sweep(*args).cpu().numpy()
+        out["digests"][f"forge_sweep {tag}"] = hashlib.sha256(got.tobytes()).hexdigest()[:16]
+    return out
+
+
 ED_VERIFY_KINDS = ("r_byte", "s_plus_l", "msg_byte", "offcurve_a", "noncanon_a", "x0_sign")
+# R's encodings where a byte compare of P's compression and a decoded R
+# compared projectively could part (tests/test_torch_ed_verify_edges.py
+# holds the host build to the JAX package on these and more): with s = h·a,
+# s·B − h·A is the identity, so R's decoding alone decides the verdict
+ED_VERIFY_R_KINDS = ("r_identity_p1", "r_x0_sign", "r_y_p", "r_order8", "r_identity")
+ED_VERIFY_TRUE = ("r_identity",)  # the kinds whose verdict is true
+# a point of order 8 (compressed): L·Q for the curve point Q of smallest y
+ORDER8 = bytes.fromhex("c7176a703d4dd84fba3c0b760d10670f2a2053fa2c39ccc64ec7fd7792ac037a")
 BYRON_LANES = 21_600  # the mainnet-shaped Byron segment's signatures (phase 3h)
 WITNESS_LANES = 65_536  # 64k standalone tx-witness signatures, 32-byte messages
 
 
-def ed_verify_inputs(lanes: int, rng: np.random.Generator, msg_len, corrupt: bool):
+def sign_with_r(seed: bytes, pk: bytes, msg: bytes, r_enc: bytes) -> bytes:
+    """A signature of `msg` under `seed` whose R bytes are `r_enc` and
+    s = h·a mod L (h = SHA-512(R ‖ A ‖ M), a the clamped secret scalar), so
+    s·B = h·A: true exactly where R decodes to the identity."""
+    import hashlib
+
+    from ouroboros_consensus_tpu_torch.ops.pk import field as fe
+
+    a = int.from_bytes(hashlib.sha512(seed).digest()[:32], "little")
+    a = (a & ((1 << 254) - 8)) | (1 << 254)
+    h = int.from_bytes(hashlib.sha512(r_enc + pk + msg).digest(), "little") % fe.L
+    return r_enc + (h * a % fe.L).to_bytes(32, "little")
+
+
+def ed_verify_inputs(lanes: int, rng: np.random.Generator, msg_len, kinds=()):
     """`lanes` natively signed (pk, sig, msg) triples over 256 seeded keys,
-    message lengths from `msg_len(rng, n)`; with `corrupt`, one lane of
-    each ED_VERIFY_KINDS kind. -> (pks, sigs, msgs, {kind: lane})."""
+    message lengths from `msg_len(rng, n)`, one lane of each of `kinds`
+    (of ED_VERIFY_KINDS and ED_VERIFY_R_KINDS) corrupted or re-signed.
+    -> (pks, sigs, msgs, {kind: lane})."""
     from ouroboros_consensus_tpu_torch import native
     from ouroboros_consensus_tpu_torch.ops.pk import field as fe
 
@@ -1944,35 +2158,43 @@ def ed_verify_inputs(lanes: int, rng: np.random.Generator, msg_len, corrupt: boo
     msgs = [rng.bytes(int(n)) for n in lens]
     pks = [keys[i % len(keys)] for i in range(lanes)]
     sigs = [native.ed25519_sign(seeds[i % len(seeds)], m) for i, m in enumerate(msgs)]
-    kinds = {}
-    if corrupt:
-        picked = rng.choice(lanes, size=len(ED_VERIFY_KINDS), replace=False).tolist()
-        for kind, i in zip(ED_VERIFY_KINDS, picked):
-            if kind == "r_byte":
-                sigs[i] = bytes([sigs[i][0] ^ 0x10]) + sigs[i][1:]
-            elif kind == "s_plus_l":
-                s_big = int.from_bytes(sigs[i][32:], "little") + fe.L
-                sigs[i] = sigs[i][:32] + s_big.to_bytes(32, "little")
-            elif kind == "msg_byte":
-                m = msgs[i] or b"\x00"
-                msgs[i] = bytes([m[0] ^ 1]) + m[1:]
-            elif kind == "offcurve_a":
-                pks[i] = offcurve_y().to_bytes(32, "little")
-            elif kind == "noncanon_a":
-                pks[i] = fe.P.to_bytes(32, "little")  # y = p: not canonical
-            else:  # y = 1, x = 0, sign bit set
-                pks[i] = bytes([1]) + bytes(30) + bytes([0x80])
-            kinds[kind] = i
-    return pks, sigs, msgs, kinds
+    enc = lambda y, sign=0: (y | sign << 255).to_bytes(32, "little")  # noqa: E731
+    r_of = {"r_identity_p1": enc(fe.P + 1), "r_x0_sign": enc(1, 1), "r_order8": ORDER8,
+            "r_identity": enc(1)}
+    picked = rng.choice(lanes, size=len(kinds), replace=False).tolist() if kinds else []
+    for kind, i in zip(kinds, picked):
+        if kind == "r_byte":
+            sigs[i] = bytes([sigs[i][0] ^ 0x10]) + sigs[i][1:]
+        elif kind == "s_plus_l":
+            s_big = int.from_bytes(sigs[i][32:], "little") + fe.L
+            sigs[i] = sigs[i][:32] + s_big.to_bytes(32, "little")
+        elif kind == "msg_byte":
+            m = msgs[i] or b"\x00"
+            msgs[i] = bytes([m[0] ^ 1]) + m[1:]
+        elif kind == "offcurve_a":
+            pks[i] = offcurve_y().to_bytes(32, "little")
+        elif kind == "noncanon_a":
+            pks[i] = fe.P.to_bytes(32, "little")  # y = p: not canonical
+        elif kind == "x0_sign":  # y = 1, x = 0, sign bit set
+            pks[i] = bytes([1]) + bytes(30) + bytes([0x80])
+        elif kind == "r_y_p":  # y = p: a point of order 4, not canonical
+            sigs[i] = enc(fe.P) + sigs[i][32:]
+        else:
+            sigs[i] = sign_with_r(seeds[i % len(seeds)], pks[i], msgs[i], r_of[kind])
+    return pks, sigs, msgs, dict(zip(kinds, picked))
 
 
 def phase_ed_verify(dev, reps: int = 5) -> dict:
     """Phase 3h-a: the batched Ed25519 verify kernel (`ed_verify`) against
     its plain version on the card, byte for byte, at 8, 128 and 8,192
     lanes of messages of 0 to 300 bytes (1 to 3 SHA-512 blocks side by side)
-    with one corrupted lane of each kind (a flipped R byte, s + L, a flipped
-    message byte, an off-curve A, a non-canonical A, x = 0 with the sign
-    bit), whose verdict row must flag exactly those lanes; at the Byron
+    with one lane of each kind: ED_VERIFY_KINDS (a flipped R byte, s + L, a
+    flipped message byte, an off-curve A, a non-canonical A, x = 0 with the
+    sign bit) and ED_VERIFY_R_KINDS (R the identity as y = p + 1, R with
+    x = 0 and the sign bit, R with y = p, R of order 8, each false, and R
+    the identity, true: all but R with y = p with s = h·a), whose verdict
+    row must flag exactly the false ones (at 8 lanes the two sets in two
+    batches); at the Byron
     segment's 21,600 lanes (messages of 100 to 120 bytes) also against the
     plain version, and there and at 65,536 lanes of 32-byte messages (the
     standalone witness batch) against the C++ verifier
@@ -1986,10 +2208,11 @@ def phase_ed_verify(dev, reps: int = 5) -> dict:
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
 
     rng = np.random.default_rng(23)
-    sizes = ((8, True, True), (128, True, True), (8192, True, True),
-             (BYRON_LANES, False, True), (WITNESS_LANES, False, False))
-    recs, native_ms = {}, {}
-    for lanes, corrupt, twin in sizes:
+    every = ED_VERIFY_KINDS + ED_VERIFY_R_KINDS
+    sizes = ((8, ED_VERIFY_KINDS, True), (8, ED_VERIFY_R_KINDS, True), (128, every, True),
+             (8192, every, True), (BYRON_LANES, (), True), (WITNESS_LANES, (), False))
+    recs, native_ms, stamp_cols = {}, {}, {}
+    for lanes, planted, twin in sizes:
         if lanes == WITNESS_LANES:
             msg_len = lambda r, n: np.full(n, 32)  # noqa: E731
         elif lanes == BYRON_LANES:
@@ -1997,11 +2220,12 @@ def phase_ed_verify(dev, reps: int = 5) -> dict:
         else:
             # lengths 0, 150 and 300 first: one, two and three blocks in every batch
             msg_len = lambda r, n: np.concatenate([[0, 150, 300], r.integers(0, 301, n - 3)])  # noqa: E731
-        pks, sigs, msgs, kinds = ed_verify_inputs(lanes, rng, msg_len, corrupt)
+        pks, sigs, msgs, kinds = ed_verify_inputs(lanes, rng, msg_len, planted)
         staged = eb.stage_np(pks, sigs, msgs)
         cols = eb.limb_columns(staged, dev)
+        stamp_cols.setdefault(lanes, cols)
         counts = sorted(set(staged.hnblocks.tolist()))
-        if corrupt and counts != [1, 2, 3]:
+        if planted and counts != [1, 2, 3]:
             raise AssertionError(f"ed_verify at {lanes} lanes: block counts {counts}")
         kern = lambda c=cols: K.ed_verify(*c)  # noqa: E731
         if twin:
@@ -2026,20 +2250,30 @@ def phase_ed_verify(dev, reps: int = 5) -> dict:
         got = kern()[0].cpu().numpy() != 0
         t0 = time.perf_counter()
         ref = np.array([native.ed25519_verify(p, sg, m) for p, sg, m in zip(pks, sigs, msgs)])
-        native_ms[lanes] = (time.perf_counter() - t0) * 1e3
+        native_ms.setdefault(lanes, (time.perf_counter() - t0) * 1e3)
         if not np.array_equal(got, ref):
             bad = np.flatnonzero(got != ref)[:8].tolist()
             raise AssertionError(f"ed_verify at {lanes} lanes disagrees with the C++ "
                                  f"verifier on lanes {bad}")
         flagged = sorted(np.flatnonzero(~got).tolist())
-        if flagged != sorted(kinds.values()):
+        if flagged != sorted(i for k, i in kinds.items() if k not in ED_VERIFY_TRUE):
             raise AssertionError(f"ed_verify at {lanes} lanes flagged {flagged}, "
-                                 f"corrupted {kinds}")
-        recs[lanes] = rec
+                                 f"planted {kinds} ({ED_VERIFY_TRUE} true)")
+        recs.setdefault(lanes, rec)
+        said = (f"; planted {json.dumps(kinds)}, flagged exactly those but "
+                f"{[k for k in kinds if k in ED_VERIFY_TRUE]}") if kinds else ""
         log(f"ed_verify {lanes} lanes: blocks a lane {counts}, {rec.get('ms')} ms, "
-            f"C++ verifier {native_ms[lanes]:.1f} ms (host, one thread); flagged "
-            f"exactly {json.dumps(kinds)}")
+            f"C++ verifier {native_ms[lanes]:.1f} ms (host, one thread){said}")
     rec = dict(recs[BYRON_LANES])
+    if dev.type == "cuda":  # the stamped build at one block and at the two wide widths
+        from ouroboros_consensus_tpu_torch.ops.pk import build
+
+        fn = build.kernel_lib("ed_verify_stamps")
+        rec["stamps_by_lanes"] = {n: ed_verify_stamps(fn, stamp_cols[n])
+                                  for n in (8, BYRON_LANES, WITNESS_LANES)}
+        rec["dependent_path"] = {n: tl["path"] for n, tl in rec["stamps_by_lanes"].items()}
+        for n, path in rec["dependent_path"].items():
+            log(f"ed_verify stamps {n} lanes: {json.dumps(path)}")
     rec["ms_by_lanes"] = {n: r.get("ms") for n, r in recs.items()}
     rec["wrapper_ms_by_lanes"] = {n: r.get("wrapper_ms") for n, r in recs.items()}
     rec["plain_ms_by_lanes"] = {n: r["plain_ms"] for n, r in recs.items() if "plain_ms" in r}
@@ -3706,6 +3940,7 @@ rec["phase2_ms"] = {k: v["ms"] for k, v in st.items()}
 rec["stage_ms"] = new.stage_times(dev, lanes, workdir=w)
 rec["stage_ms"].update(new.wire_times(dev, lanes, workdir=w))
 rec["agg_ms"] = new.agg_times(dev, sys.argv[4], w)
+rec["verify_forge"] = new.verify_forge_times(dev)
 print("AB " + json.dumps(rec), flush=True)
 """
 
@@ -3754,7 +3989,8 @@ def agg_times(dev, db: str, workdir: str, reps: int = 20) -> dict:
 def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
     """This tree against `parent` (a checkout of another commit), in turns
     parent, this, this, parent; one process per turn, each building its
-    own tree's kernels. Prints each turn's `AB {...}` line and the card."""
+    own tree's kernels. Prints each turn's `AB {...}` line, the A/B lines
+    (each side's minimum over its two turns) and the card."""
     this = os.path.abspath(__file__)
     recs = []
     work = tempfile.mkdtemp(prefix="chip_smoke_ab_")
@@ -3773,6 +4009,17 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
             print(line[0], flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    digests = {json.dumps(r["verify_forge"]["digests"], sort_keys=True) for r in recs}
+    if len(digests) != 1:
+        raise AssertionError("the two trees' ed_verify or forge_sweep outputs differ")
+    for key in ("ed_verify", "forge_sweep"):
+        row = []
+        for n in recs[0]["verify_forge"][key]:
+            par = [r["verify_forge"][key][n] for r in (recs[0], recs[3])]
+            cur = [r["verify_forge"][key][n] for r in (recs[1], recs[2])]
+            row.append(f"{n}: parent {min(par):.4f} this {min(cur):.4f} "
+                       f"({min(par) / min(cur):.2f}x)")
+        log(f"A/B {key}: " + "; ".join(row) + " (outputs equal)")
     pair = ("dedupe_tables",)
     for tag, keys in (("chain", ("agg_prep", "msm", *pair)), ("8", ("agg_prep", "msm", *pair)),
                       ("128", ("agg_prep",)), ("8192", ("agg_prep", *pair)), ("20000", pair),

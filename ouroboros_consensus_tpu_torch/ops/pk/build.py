@@ -36,6 +36,7 @@ BUILD_DIR = os.path.join(
 ENTRIES = {
     "ed": ("pk_ed",),
     "ed_verify": ("pk_ed_verify",),
+    "ed_verify_stamps": ("pk_ed_verify_stamps",),  # the instrument: ed_verify with clock64 stamps
     "kes": ("pk_kes",),
     "vrf_prep": ("pk_vrf_prep",),
     "vrf_bc_prep": ("pk_vrf_bc_prep",),
@@ -52,6 +53,7 @@ ENTRIES = {
     "dedupe_stamps": ("pk_dedupe_stamps",),  # the instrument: dedupe with clock64 stamps
     "msm": ("pk_msm",),
     "forge": ("pk_forge_sweep", "pk_ed_sign"),
+    "forge_stamps": ("pk_forge_sweep_stamps",),  # the instrument: the sweep with clock64 stamps
 }
 KERNELS = tuple(ENTRIES)
 NVCC_FLAGS = [
@@ -66,6 +68,7 @@ _DEDUPE = [_I, _I] + [_P] * 8 + [_Z] + [_P] * 4  # pk_dedupe up to its stream
 ARGTYPES = {
     "pk_ed": [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pk_ed_verify": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P],
+    "pk_ed_verify_stamps": [_I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pk_kes": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P],
     "pk_vrf_prep": [_I] + [_P] * 7,
     "pk_vrf_bc_prep": [_I] + [_P] * 10,
@@ -88,6 +91,7 @@ ARGTYPES = {
     "pk_dedupe_stamps": _DEDUPE + [_P, _P],
     "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
     "pk_forge_sweep": [_I, _I, ctypes.c_longlong] + [_P] * 5,
+    "pk_forge_sweep_stamps": [_I, _I, ctypes.c_longlong] + [_P] * 6,
     "pk_ed_sign": [_I, _I] + [_P] * 9,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
@@ -109,7 +113,9 @@ ARGTYPES = {
     "pk_dedupe_shape": [_I, _P],
     "pk_agg_tables": [_I, _P, _P, _P],
 }
-DEVICE_ONLY = ("pk_agg_prep_stamps", "pk_dedupe_stamps")  # the instruments: no host build
+# the instruments: no host build
+DEVICE_ONLY = ("pk_agg_prep_stamps", "pk_dedupe_stamps", "pk_ed_verify_stamps",
+               "pk_forge_sweep_stamps")
 
 _LIBS: dict = {}
 # wall seconds from the start of the parallel build to each source's nvcc exit
@@ -249,7 +255,7 @@ def blocks_per_sm(name: str, kernel: str | None = None) -> int:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads: ed, kes, ed_verify; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
     unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 256; forge's
-    sweep 64),
+    sweep 128),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest,
     or `kernel`'s (forge: "ed_sign")."""

@@ -11,26 +11,144 @@
 //                 ed25519_batch.sign, :140).
 //
 // Bound: operations. A prove is two 65-digit variable-base ladders (x·H,
-// k·H), a 32-add fixed-base walk (k·B), the Elligator2 exponentiation
-// and two inversions; the sweep splits the two ladders over two warps of
-// a 32-lane block (x·H beside k·B and k·H), so the dependent path is one
-// hash to the curve, one inversion, k·B, one ladder and the final
-// inversion. A sign is one fixed-base walk and one inversion.
-// Not used: tensor cores and TMA, for the reasons pk.cuh gives; shared
-// memory holds only the points that cross from the Γ warp to the k warp.
+// k·H), a 32-add fixed-base walk (k·B), the Elligator2 exponentiation,
+// H's inversion and the finish's compressions: 463,980 wide products a
+// lane (the twin's count, which hashes to the curve once), over 132 SMs ×
+// 32 a clock × 1,980 MHz (0.91 ms at a full election window of 16,384
+// lanes). What held the first
+// version at 3.9x that bound: two warps a block, each hashing to the
+// curve and building its own table of H in local memory (3,632 bytes of
+// stack), one whole ladder on each, and the k warp also compressing H,
+// deriving k, walking k·B and running the finish (272,460 of a lane's
+// 463,980 products on one thread's dependent path), at 8 warps an SM.
+//
+// The sweep's design (forge.cuh): 32 lanes a block over four warps, two
+// pairs (pk.cuh: Pair, two of each point operation's four products a warp,
+// so each ladder's dependent path is near half a one-thread ladder's).
+// Warp 0 hashes to the curve once a lane; pair A builds the one table of H
+// in shared memory (LaneTab), which both ladders read, while warp 2
+// compresses H and derives k. Pair A then runs part of k·B, Γ = x·H and
+// 8Γ, pair B k·H and the rest of k·B beside it. The finish compresses the lane's four points on one
+// inversion a block: a product tree over the block's 32 lanes in shared
+// memory, its root inverted by the whole of warp 0 (a field element over
+// ten lanes), then the challenge and s on warp 0 beside β and the leader
+// value on warp 1. H's compression takes its inversion from a product
+// tree over the block's lanes too (warp 2, beside the table), and k·B is
+// split between the pairs (pair A's first FS_KA windows before x·H, pair
+// B's rest walked onto them after k·H), so the two pairs end together. The dependent path:
+// the hash to the curve, the table, a ladder and half the walk, the
+// tree, the challenge.
+// Barriers: __syncthreads after H and after the ladders; named barriers
+// between the warps that hand something on (FS_BAR_*: the producer
+// arrives, its readers wait). Sums and differences carry on 32-bit words
+// (pk.cuh: fe_carry32). 56 KB of shared memory a block (one exchange
+// buffer a pair; the finish's tree, points and encodings in the table's
+// space once both ladders are done), so the registers decide the blocks an
+// SM: __launch_bounds__(128, 4) holds ptxas to 128 registers, 4 blocks, 16
+// warps and 128 lanes an SM, its spill stores in the one-time
+// exponentiations, none in the ladders: the ladders' products are
+// dependent IMAD chains, so warps in flight count more than registers a
+// thread, and at 4 a full window is one wave (16,384 lanes, 512 blocks of
+// the 528 resident).
+// Not used: tensor cores and TMA, for the reasons pk.cuh gives.
 #include "forge.cuh"
 
-__global__ void __launch_bounds__(2 * PK_GROUP) forge_sweep_kernel(ForgeArgs a,
-                                                                   const u32 *base8) {
-  __shared__ ForgeScratch sc;
+// named barrier helpers: a producer arrives, its readers wait
+PK_DEV void fs_arrive(int id, int n) {
+  __syncwarp();
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+PK_DEV void fs_sync(int id, int n) {
+  __syncwarp();
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// the instrument build (forge_stamps.cu): lane 0 of each warp stamps
+// clock64 into [block][warp][FS_NSTAMP] after each of its steps, none
+// right after a wait (ptxas may read the clock before it), so a step
+// after a wait includes it: 0 start; warp 0: 1 H; pair A: 2 the table of
+// H (with the wait for H), 3 its part of k·B (with the wait for k), 4 Γ
+// and 8Γ; warp 2: 2 H's tree and k; pair B: 3 V = k·H (with the wait for
+// the table and k), 5 the rest of k·B; warp 0: 8 the pairs' wait, the
+// points stored, the leaves and the tree, 9 the encodings, 10 c and s;
+// warp 1: 10 β and the leader value
+#define FS_NSTAMP 11
+#ifdef FS_STAMPS
+#define FS_STAMP(k)                                                               \
+  do {                                                                            \
+    if (lane == 0)                                                                \
+      stamps[((size_t)blockIdx.x * 4 + role) * FS_NSTAMP + (k)] = clock64();      \
+  } while (0)
+#else
+#define FS_STAMP(k) ((void)0)
+#endif
+
+__global__ void __launch_bounds__(4 * PK_GROUP, 4) forge_sweep_kernel(
+    ForgeArgs a, const u32 *base8, u64 *stamps) {
+  extern __shared__ __align__(16) u32 smem[];
+  ForgeScratch &sc = *reinterpret_cast<ForgeScratch *>(smem);
   const int lane = threadIdx.x % PK_GROUP, role = threadIdx.x / PK_GROUP;
   const int i = blockIdx.x * PK_GROUP + lane;
   const bool live = i < a.B;
-  const int ii = live ? i : a.B - 1;  // lanes past B run along for the barrier
-  if (role == 0) fs_role_k(ii, lane, a, base8, sc);
-  else fs_role_gamma(ii, lane, a, sc);
+  const int ii = live ? i : a.B - 1;  // lanes past B run along for the barriers
+  (void)stamps;
+  FS_STAMP(0);
+  if (role == 0) {
+    fs_role_h(ii, lane, a, sc);
+    FS_STAMP(1);
+  }
   __syncthreads();
-  if (role == 0 && live) fs_finish(i, lane, a, sc);
+  ge g, g8, v;
+  if (role < 2) {
+    Pair pa{sc.x[0], role, lane, FS_BAR_A, 0};
+    fs_pair_table(lane, sc, pa);
+    FS_STAMP(2);
+    fs_arrive(FS_BAR_TAB, 4 * PK_GROUP);
+    fs_sync(FS_BAR_K, 3 * PK_GROUP);  // k, and warp 2 done with U's space
+    fs_pair_ua(lane, base8, sc, pa);
+    FS_STAMP(3);
+    fs_arrive(FS_BAR_U, 4 * PK_GROUP);
+    fs_pair_gamma(ii, lane, a, sc, pa, g, g8);
+    FS_STAMP(4);
+  } else {
+    if (role == 2) {
+      fs_k_leaf(lane, sc);
+      fs_tree(sc.ht.node, lane);
+      fs_k_derive(ii, lane, a, sc);
+      FS_STAMP(2);
+      fs_arrive(FS_BAR_K, 3 * PK_GROUP);
+    }
+    fs_sync(FS_BAR_TAB, 4 * PK_GROUP);  // the table, and k
+    Pair pb{sc.x[1], role - 2, lane, FS_BAR_B, 0};
+    v = fs_pair_v(lane, sc, pb);
+    FS_STAMP(3);
+    fs_sync(FS_BAR_U, 4 * PK_GROUP);  // pair A's part of k·B
+    fs_pair_u(lane, base8, sc, pb);
+    FS_STAMP(5);
+  }
+  __syncthreads();  // both pairs done: no warp reads the table now
+  if (role == 0) {
+    fs_put_xyz(sc.fin.pts[0], lane, g);
+    fs_put_xyz(sc.fin.pts[2], lane, g8);
+  } else if (role == 2) {
+    fs_put_xyz(sc.fin.pts[1], lane, v);
+  }
+  __syncthreads();
+  if (role == 0) {
+    fs_leaf(lane, sc);
+    fs_tree(sc.fin.node, lane);
+    FS_STAMP(8);
+    fs_compress(lane, sc);
+    FS_STAMP(9);
+    fs_arrive(FS_BAR_FIN, 2 * PK_GROUP);
+    if (live) fs_challenge(i, lane, a, sc);
+    FS_STAMP(10);
+  } else if (role == 1) {
+    fs_sync(FS_BAR_FIN, 2 * PK_GROUP);
+    if (live) fs_beta(i, lane, a, sc);
+    FS_STAMP(10);
+  }
 }
 
 __global__ void __launch_bounds__(PK_GROUP) ed_sign_kernel(
@@ -40,13 +158,34 @@ __global__ void __launch_bounds__(PK_GROUP) ed_sign_kernel(
   if (i < B) ed_sign_lane(i, NB, base8, a, aenc, rblocks, rnb, hblocks, hnb, out);
 }
 
+static cudaError_t sweep_smem() {
+  return cudaFuncSetAttribute(forge_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(ForgeScratch));
+}
+
+static int forge_sweep_launch(int B, int P, long long slot0, const void *base8,
+                              const void *pools, const void *nonce, void *out, void *stamps,
+                              void *stream) {
+  cudaError_t e = sweep_smem();
+  if (e != cudaSuccess) return (int)e;
+  ForgeArgs a{B, P, (int64_t)slot0, (const u8 *)pools, (const u8 *)nonce, (u8 *)out};
+  forge_sweep_kernel<<<(B + PK_GROUP - 1) / PK_GROUP, 4 * PK_GROUP, sizeof(ForgeScratch),
+                       (cudaStream_t)stream>>>(a, (const u32 *)base8, (u64 *)stamps);
+  return (int)cudaGetLastError();
+}
+
+#ifdef FS_STAMPS
+// stamps: [ceil(B / 32)][4][FS_NSTAMP] u64, zeroed by the caller
+extern "C" int pk_forge_sweep_stamps(int B, int P, long long slot0, const void *base8,
+                                     const void *pools, const void *nonce, void *out,
+                                     void *stamps, void *stream) {
+  return forge_sweep_launch(B, P, slot0, base8, pools, nonce, out, stamps, stream);
+}
+#else
 extern "C" int pk_forge_sweep(int B, int P, long long slot0, const void *base8,
                               const void *pools, const void *nonce, void *out,
                               void *stream) {
-  ForgeArgs a{B, P, (int64_t)slot0, (const u8 *)pools, (const u8 *)nonce, (u8 *)out};
-  forge_sweep_kernel<<<(B + PK_GROUP - 1) / PK_GROUP, 2 * PK_GROUP, 0,
-                       (cudaStream_t)stream>>>(a, (const u32 *)base8);
-  return (int)cudaGetLastError();
+  return forge_sweep_launch(B, P, slot0, base8, pools, nonce, out, nullptr, stream);
 }
 
 extern "C" int pk_ed_sign(int B, int NB, const void *base8, const void *a,
@@ -60,10 +199,13 @@ extern "C" int pk_ed_sign(int B, int NB, const void *base8, const void *a,
 
 // Resident blocks per SM of the sweep, the source's heavier kernel.
 extern "C" int pk_forge_occupancy(int *blocks) {
+  cudaError_t e = sweep_smem();
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, forge_sweep_kernel, 2 * PK_GROUP, 0);
+      blocks, forge_sweep_kernel, 4 * PK_GROUP, sizeof(ForgeScratch));
 }
 
 extern "C" int pk_ed_sign_occupancy(int *blocks) {
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ed_sign_kernel, PK_GROUP, 0);
 }
+#endif

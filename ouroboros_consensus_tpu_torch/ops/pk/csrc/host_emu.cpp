@@ -37,20 +37,31 @@ extern "C" int pk_ed(int B, const void *base8, const void *pk, const void *s,
   return 0;
 }
 
-// ed_verify: ed's phase 1, then the chain and the compare on a quad
+// ed_verify over a scratch filled with 0xA5 a group: the four phase-1
+// roles over the group's lanes one after another, then the table of −A,
+// the chain, s·B's other windows, the addition and the compare on a quad
 extern "C" int pk_ed_verify(int B, const void *base8, const void *pk, const void *r,
                             const void *s, const void *hb, int nb, const void *hnb,
                             void *ok, void *) {
-  EdScratch sc;
+  static VerifyScratch sc;
+  const u32 *t = (const u32 *)base8;
   for (int g = 0; g < B; g += PK_GROUP) {
     int n = B - g < PK_GROUP ? B - g : PK_GROUP;
-    for (int l = 0; l < n; l++) ed_role_hash(g + l, B, l, (CI)hb, nb, (CI)hnb, sc);
-    for (int l = 0; l < n; l++) ed_role_table(g + l, B, l, (CI)pk, sc);
-    for (int l = 0; l < n; l++)
-      ed_role_base(g + l, B, l, (const u32 *)base8, (CI)s, sc);
+    u8 *raw = (u8 *)&sc;
+    for (size_t k = 0; k < sizeof sc; k++) raw[k] = 0xA5;
     for (int l = 0; l < n; l++) {
-      Quad qd{sc.qx, -1, l, 0, 0};
-      ed_quad_verify(g + l, B, true, sc, qd, (CI)r, (OI)ok);
+      ed_role_hash(g + l, B, l, (CI)hb, nb, (CI)hnb, sc);
+      edv_base_part(g + l, B, l, t, (CI)s, 0, EDV_W0, edv_part0(sc));
+    }
+    for (int l = 0; l < n; l++) edv_role_a(g + l, B, l, (CI)pk, sc);
+    for (int l = 0; l < n; l++) edv_role_r(g + l, B, l, (CI)r, sc);
+    for (int l = 0; l < n; l++) edv_role_s(g + l, B, l, t, (CI)s, sc);
+    for (int l = 0; l < n; l++) {
+      Quad1 qd{sc.qx, -1, l, 0, 0};
+      edv_quad_table(sc, qd);
+      ge p = edv_quad_chain(sc, qd);
+      p = edv_quad_sb(g + l, B, t, (CI)s, p, sc, qd);
+      edv_quad_compare(g + l, true, p, sc, qd, (OI)ok);
     }
   }
   return 0;
@@ -228,20 +239,52 @@ extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
   return 0;
 }
 
-// the forge sweep group by group, over a scratch filled with 0xA5 first:
-// the Γ role over the group's lanes, then the k role, then the finish (the
-// order the kernel's one barrier allows)
+// the forge sweep group by group, over a scratch filled with 0xA5 first,
+// in an order the kernel's barriers allow: H (warp 0), the table (pair
+// A), H's tree and k (warp 2), pair A's part of k·B, Γ and 8Γ, pair B's
+// k·H and the rest of k·B, the points stored, the leaves, the tree, the
+// encodings, then c and s (warp 0) and β (warp 1)
 extern "C" int pk_forge_sweep(int B, int P, long long slot0, const void *base8,
                               const void *pools, const void *nonce, void *out, void *) {
   ForgeArgs a{B, P, (int64_t)slot0, (const u8 *)pools, (const u8 *)nonce, (u8 *)out};
+  const u32 *t = (const u32 *)base8;
   static ForgeScratch sc;
-  for (int g = 0; g < B; g += PK_GROUP) {
-    const int n = B - g < PK_GROUP ? B - g : PK_GROUP;
+  ge g[PK_GROUP], g8[PK_GROUP], v[PK_GROUP];
+  for (int q = 0; q < B; q += PK_GROUP) {
+    const int n = B - q < PK_GROUP ? B - q : PK_GROUP;
     u8 *raw = (u8 *)&sc;
     for (size_t k = 0; k < sizeof sc; k++) raw[k] = 0xA5;
-    for (int l = 0; l < n; l++) fs_role_gamma(g + l, l, a, sc);
-    for (int l = 0; l < n; l++) fs_role_k(g + l, l, a, (const u32 *)base8, sc);
-    for (int l = 0; l < n; l++) fs_finish(g + l, l, a, sc);
+    // lanes past B run along (clamped), as on the card: the trees have 32 leaves
+    int ii[PK_GROUP];
+    for (int l = 0; l < PK_GROUP; l++) ii[l] = q + l < B ? q + l : B - 1;
+    for (int l = 0; l < PK_GROUP; l++) fs_role_h(ii[l], l, a, sc);
+    for (int l = 0; l < PK_GROUP; l++) {
+      Pair pa{sc.x[0], -1, l, 0, 0};
+      fs_pair_table(l, sc, pa);
+    }
+    for (int l = 0; l < PK_GROUP; l++) fs_k_leaf(l, sc);
+    fs_tree(sc.ht.node, 0);
+    for (int l = 0; l < PK_GROUP; l++) fs_k_derive(ii[l], l, a, sc);
+    for (int l = 0; l < PK_GROUP; l++) {
+      Pair pa{sc.x[0], -1, l, 0, 0};
+      fs_pair_ua(l, t, sc, pa);
+      fs_pair_gamma(ii[l], l, a, sc, pa, g[l], g8[l]);
+    }
+    for (int l = 0; l < PK_GROUP; l++) {
+      Pair pb{sc.x[1], -1, l, 0, 0};
+      v[l] = fs_pair_v(l, sc, pb);
+      fs_pair_u(l, t, sc, pb);
+    }
+    for (int l = 0; l < PK_GROUP; l++) {
+      fs_put_xyz(sc.fin.pts[0], l, g[l]);
+      fs_put_xyz(sc.fin.pts[1], l, v[l]);
+      fs_put_xyz(sc.fin.pts[2], l, g8[l]);
+    }
+    for (int l = 0; l < PK_GROUP; l++) fs_leaf(l, sc);
+    fs_tree(sc.fin.node, 0);
+    for (int l = 0; l < PK_GROUP; l++) fs_compress(l, sc);
+    for (int l = 0; l < n; l++) fs_challenge(q + l, l, a, sc);
+    for (int l = 0; l < n; l++) fs_beta(q + l, l, a, sc);
   }
   return 0;
 }

@@ -88,27 +88,39 @@ PK_DEV fe fe_const(const u32 *c) {
 PK_DEV fe fe_zero() { fe r; for (int i = 0; i < 10; i++) r.v[i] = 0; return r; }
 PK_DEV fe fe_one() { fe r = fe_zero(); r.v[0] = 1; return r; }
 
-PK_DEV fe fe_add(const fe &a, const fe &b) {
-  u64 h[10]; fe r;
+// one carry pass on 32-bit words: a sum or a difference of loose limbs
+// (each < 2^27) stays under 2^29, so this is fe_carry<1>'s pass on 64-bit
+// words bit for bit, with one add, shift and mask a limb where 64-bit
+// words take two of each
+PK_DEV void fe_carry32(const u32 h[10], fe &o) {
+  u32 c[10];
 #pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = (u64)a.v[i] + b.v[i];
-  fe_carry<1>(h, r);
+  for (int i = 0; i < 10; i++) c[i] = h[i] >> FE_W(i);
+#pragma unroll
+  for (int i = 0; i < 10; i++) o.v[i] = (h[i] & (u32)FE_M(i)) + (i == 0 ? 19 * c[9] : c[i - 1]);
+}
+
+PK_DEV fe fe_add(const fe &a, const fe &b) {
+  u32 h[10]; fe r;
+#pragma unroll
+  for (int i = 0; i < 10; i++) h[i] = a.v[i] + b.v[i];
+  fe_carry32(h, r);
   return r;
 }
 
 PK_DEV fe fe_sub(const fe &a, const fe &b) {
-  u64 h[10]; fe r;
+  u32 h[10]; fe r;
 #pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = (u64)a.v[i] + PK_TWO_P[i] - b.v[i];
-  fe_carry<1>(h, r);
+  for (int i = 0; i < 10; i++) h[i] = a.v[i] + PK_TWO_P[i] - b.v[i];
+  fe_carry32(h, r);
   return r;
 }
 
 PK_DEV fe fe_neg(const fe &a) {
-  u64 h[10]; fe r;
+  u32 h[10]; fe r;
 #pragma unroll
-  for (int i = 0; i < 10; i++) h[i] = (u64)PK_TWO_P[i] - a.v[i];
-  fe_carry<1>(h, r);
+  for (int i = 0; i < 10; i++) h[i] = PK_TWO_P[i] - a.v[i];
+  fe_carry32(h, r);
   return r;
 }
 
@@ -543,8 +555,10 @@ PK_NOINLINE ge ge_scalar_mul_w4(const u8 *digits, int k, const Tab &tab) {
 // at one named barrier. The cheap sums between the steps run on all four
 // warps. Every product is the same integer operation, on the same
 // operands, as in the one-thread code above, so the results are equal
-// limb for limb (T is always formed: a skipped T is never read). The
-// host build runs the four products of a step one after another.
+// limb for limb (T formed where the one-thread code forms it: a doubling
+// followed by a doubling skips it, and a skipped T is never read). A warp
+// keeps its own product in registers and reads the other three. The host
+// build runs the four products of a step one after another.
 
 #define PK_QUAD_WORDS (2 * 4 * 10 * 32)
 
@@ -568,26 +582,98 @@ PK_DEV void quad_step(Quad &qd, fe out[4], F f) {
   for (int l = 0; l < 10; l++) x[((qd.w * 10 + l) << 5) + qd.lane] = mine.v[l];
   asm volatile("bar.sync %0, 128;" ::"r"(qd.bar) : "memory");
 #pragma unroll
-  for (int k = 0; k < 4; k++)
+  for (int k = 0; k < 4; k++) {
+    if (k == qd.w) {  // this warp's own product stays in registers
+      out[k] = mine;
+      continue;
+    }
 #pragma unroll
     for (int l = 0; l < 10; l++) out[k].v[l] = x[((k * 10 + l) << 5) + qd.lane];
+  }
 #endif
   qd.buf ^= 1;
 }
 
+// A team of one exchange buffer: a pair (two warps of a block over the
+// same 32 lanes, each warp two of a step's four products, k = 2w, 2w + 1:
+// two independent products in flight a thread) or a quad of one buffer
+// (as Quad), exchanged at a named barrier of the team's threads, with a
+// second barrier after the reads (so the next step's writes wait for
+// them): half the exchange memory of a double-buffered quad. Two pairs of
+// one block run two ladders side by side (the forge's sweep), with half
+// the quad's redundant sums a product; ed_verify's quad is one-buffer so
+// that four of its blocks share an SM. The other quad kernels (ed, kes,
+// vrf_ladders, msm) keep Quad: registers, not shared memory, set their
+// blocks an SM, so one buffer buys them nothing, and on an H100 their
+// quads on one buffer took 0.99-1.03x Quad's time (vrf_ladders 1.03x at
+// 8,192 lanes), within the spread of unchanged kernels. The host build
+// runs the four products in order, as for a quad.
+#define PK_TEAM1_WORDS (4 * 10 * 32)
+
+template <int N>  // warps: 2 (a pair) or 4 (a quad)
+struct Team1 {
+  u32 *x;    // exchange area of PK_TEAM1_WORDS words
+  int w;     // this warp, 0 .. N - 1; -1 on the host (all four products)
+  int lane;
+  int bar;   // named barrier of the team's 32 N threads
+  int buf;   // unused (one buffer)
+};
+typedef Team1<2> Pair;
+typedef Team1<4> Quad1;
+
+template <int N, class F>
+PK_DEV void quad_step(Team1<N> &t, fe out[4], F f) {
+#ifdef PK_HOST
+  for (int k = 0; k < 4; k++) out[k] = f(k);
+#else
+  fe m[4 / N];
+#pragma unroll
+  for (int j = 0; j < 4 / N; j++) {
+    const int k = (4 / N) * t.w + j;
+    m[j] = f(k);
+#pragma unroll
+    for (int l = 0; l < 10; l++) t.x[((k * 10 + l) << 5) + t.lane] = m[j].v[l];
+  }
+  asm volatile("bar.sync %0, %1;" ::"r"(t.bar), "r"(32 * N) : "memory");
+#pragma unroll
+  for (int k = 0; k < 4; k++) {
+    if (k / (4 / N) == t.w) {  // this warp's own products stay in registers
+      out[k] = m[k % (4 / N)];
+      continue;
+    }
+#pragma unroll
+    for (int l = 0; l < 10; l++) out[k].v[l] = t.x[((k * 10 + l) << 5) + t.lane];
+  }
+  asm volatile("bar.sync %0, %1;" ::"r"(t.bar), "r"(32 * N) : "memory");
+#endif
+}
+
+// a barrier of the team's warps alone (none on the host)
+template <int N>
+PK_DEV void team_sync(const Team1<N> &t) {
+#ifndef PK_HOST
+  asm volatile("bar.sync %0, %1;" ::"r"(t.bar), "r"(32 * N) : "memory");
+#endif
+}
+
 // the second step of a doubling or an addition: X = e·f, Y = g·h,
 // Z = f·g, T = e·h
-PK_DEV void quad_efgh(Quad &qd, ge &r, const fe &e, const fe &f, const fe &g,
-                      const fe &h) {
+template <class Team>
+PK_DEV void quad_efgh(Team &qd, ge &r, const fe &e, const fe &f, const fe &g,
+                      const fe &h, bool with_t = true) {
   fe o[4];
   quad_step(qd, o, [&](int k) {
+    if (k == 3 && !with_t) return h;  // T not formed: nothing reads it
     return fe_mul(k == 0 || k == 3 ? e : k == 1 ? g : f, k == 0 ? f : k == 2 ? g : h);
   });
   r.x = o[0]; r.y = o[1]; r.z = o[2]; r.t = o[3];
 }
 
-// ge_dbl over a quad: the four squarings, then the four products
-PK_DEV void qdbl(Quad &qd, ge &r, const ge &p) {
+// ge_dbl over a quad (or a pair): the four squarings, then the four
+// products, T's only when the next operation reads it (as ge_dbl's
+// with_t; a doubling reads X, Y, Z alone)
+template <class Team>
+PK_DEV void qdbl(Team &qd, ge &r, const ge &p, bool with_t = true) {
   fe s[4];
   quad_step(qd, s, [&](int k) {
     return fe_sq(k == 0 ? p.x : k == 1 ? p.y : k == 2 ? p.z : fe_add(p.x, p.y));
@@ -597,11 +683,12 @@ PK_DEV void qdbl(Quad &qd, ge &r, const ge &p) {
   fe e = fe_sub(h, s[3]);
   fe g = fe_sub(s[0], s[1]);
   fe f = fe_add(c, g);
-  quad_efgh(qd, r, e, f, g, h);
+  quad_efgh(qd, r, e, f, g, h, with_t);
 }
 
-// ge_add_cached over a quad
-PK_DEV void qadd_cached(Quad &qd, ge &r, const ge &p, const gec &q) {
+// ge_add_cached over a quad (or a pair)
+template <class Team>
+PK_DEV void qadd_cached(Team &qd, ge &r, const ge &p, const gec &q) {
   fe s[4];
   quad_step(qd, s, [&](int k) {
     fe a = k == 0 ? fe_sub(p.y, p.x) : k == 1 ? fe_add(p.y, p.x) : k == 2 ? p.t : p.z;
@@ -612,8 +699,9 @@ PK_DEV void qadd_cached(Quad &qd, ge &r, const ge &p, const gec &q) {
   quad_efgh(qd, r, e, f, g, h);
 }
 
-// ge_add over a quad (its third product is (T1·T2)·2d, two in a row)
-PK_DEV void qadd(Quad &qd, ge &r, const ge &p, const ge &q) {
+// ge_add over a quad or a pair (its third product is (T1·T2)·2d, two in a row)
+template <class Team>
+PK_DEV void qadd(Team &qd, ge &r, const ge &p, const ge &q) {
   fe s[4];
   quad_step(qd, s, [&](int k) {
     fe a = k == 0 ? fe_sub(p.y, p.x) : k == 1 ? fe_add(p.y, p.x)
@@ -628,10 +716,11 @@ PK_DEV void qadd(Quad &qd, ge &r, const ge &p, const ge &q) {
   quad_efgh(qd, r, e, f, g, h);
 }
 
-// ge_scalar_mul_w4 over a quad (the digit loop of the one-thread version)
-template <class Tab>
-PK_NOINLINE ge qscalar_mul_w4(Quad &qref, const u8 *digits, int k, const Tab &tab) {
-  Quad qd = qref;
+// ge_scalar_mul_w4 over a quad or a pair (the digit loop of the one-thread
+// version)
+template <class Team, class Tab>
+PK_NOINLINE ge qscalar_mul_w4(Team &qref, const u8 *digits, int k, const Tab &tab) {
+  Team qd = qref;
   int8_t e[65];
   recode_signed(digits, k, e);
   ge q = ge_identity();
@@ -639,7 +728,7 @@ PK_NOINLINE ge qscalar_mul_w4(Quad &qref, const u8 *digits, int k, const Tab &ta
 #pragma unroll 1
   for (int i = 1; i <= k; i++) {
 #pragma unroll 1
-    for (int j = 0; j < 4; j++) qdbl(qd, q, q);
+    for (int j = 0; j < 4; j++) qdbl(qd, q, q, j == 3);
     qadd_cached(qd, q, q, tab_select(tab, e[i]));
   }
   qref.buf = qd.buf;
@@ -661,7 +750,7 @@ PK_NOINLINE ge qdouble_scalar_mul_w4(Quad &qref, const u8 *da, int ka,
   for (int i = 0; i <= ka; i++) {
     if (i > 0) {
 #pragma unroll 1
-      for (int j = 0; j < 4; j++) qdbl(qd, q, q);
+      for (int j = 0; j < 4; j++) qdbl(qd, q, q, j == 3);
     }
     int jb = i - (ka - kb);
     qadd_cached(qd, q, q, tab_select(ta, ea[i]));
@@ -671,12 +760,14 @@ PK_NOINLINE ge qdouble_scalar_mul_w4(Quad &qref, const u8 *da, int ka,
   return q;
 }
 
-// ge_base_mul_w8 over a quad
-PK_NOINLINE ge qbase_mul_w8(Quad &qref, const u32 *table, const u8 *s) {
-  Quad qd = qref;
-  ge q = ge_identity();
+// ge_base_mul_w8 over a quad or a pair; with q, w0 and w1, q plus the sum
+// over windows w0 .. w1 - 1 alone (a part of s·B walked onto a point)
+template <class Team>
+PK_NOINLINE ge qbase_mul_w8(Team &qref, const u32 *table, const u8 *s, ge q = ge_identity(),
+                            int w0 = 0, int w1 = 32) {
+  Team qd = qref;
 #pragma unroll 1
-  for (int w = 0; w < 32; w++) {
+  for (int w = w0; w < w1; w++) {
     const u32 *e = table + ((size_t)w * 256 + s[w]) * 40;
     ge p;
 #pragma unroll
@@ -692,11 +783,47 @@ PK_NOINLINE ge qbase_mul_w8(Quad &qref, const u32 *table, const u8 *s) {
   return q;
 }
 
-// s·B from 32 little-endian scalar bytes; table [32][256][40] limbs
-PK_NOINLINE ge ge_base_mul_w8(const u32 *table, const u8 *s) {
+// coordinate k of a cached point: Y+X, Y−X, 2d·T, 2Z
+PK_DEV fe gec_coord(const gec &c, int k) {
+  return k == 0 ? c.ypx : k == 1 ? c.ymx : k == 2 ? c.t2d : c.z2;
+}
+
+// whether coordinate k of a table entry is this warp's to store (a quad's
+// warp one, a pair's two; the host's one pass all four)
+template <int N>
+PK_DEV bool team_owns(const Team1<N> &t, int k) { return t.w < 0 || k / (4 / N) == t.w; }
+
+// the table of P (ge_table8's seven cached additions) on a one-buffer
+// team, each warp storing its own coordinates of every entry, then a
+// barrier of the team before any of its warps reads the table
+template <int N>
+PK_NOINLINE void qtable8(Team1<N> &qref, const LaneTab &tab, const ge &p) {
+  Team1<N> qd = qref;
+  ge acc = p;
+  const gec p1 = ge_cache(acc);
+  gec c = p1;
+#pragma unroll 1
+  for (int j = 0; j < 8; j++) {
+    if (j > 0) {
+      qadd_cached(qd, acc, acc, p1);
+      c = ge_cache(acc);
+    }
+    for (int k = 0; k < 4; k++) {
+      if (!team_owns(qd, k)) continue;
+      const fe v = gec_coord(c, k);
+      for (int l = 0; l < 10; l++) tab.at(j, k, l) = v.v[l];
+    }
+  }
+  team_sync(qd);
+  qref.buf = qd.buf;
+}
+
+// s·B from 32 little-endian scalar bytes; table [32][256][40] limbs; with
+// w0, w1 the sum over windows w0 .. w1 - 1 alone (a part of s·B)
+PK_NOINLINE ge ge_base_mul_w8(const u32 *table, const u8 *s, int w0 = 0, int w1 = 32) {
   ge q = ge_identity();
 #pragma unroll 1
-  for (int w = 0; w < 32; w++) {
+  for (int w = w0; w < w1; w++) {
     const u32 *e = table + ((size_t)w * 256 + s[w]) * 40;
     ge p;
 #pragma unroll

@@ -94,8 +94,9 @@ struct EdScratch {
   u32 qx[PK_QUAD_WORDS];      // the quad's exchange area
 };
 
+template <class S>
 PK_DEV void ed_role_hash(int i, int B, int lane, const int32_t *hb, int nb,
-                         const int32_t *hnb, EdScratch &sc) {
+                         const int32_t *hnb, S &sc) {
   u8 dig[64], h[32];
   sha512_columns(hb, nb, hnb[i], i, B, dig);
   sc_reduce512(dig, h);
@@ -156,22 +157,128 @@ PK_DEV void ed_quad_chain(int i, int B, bool live, int flags, EdScratch &sc,
   }
 }
 
-// ed_verify's phase 2: P on the quad as in ed_quad_chain, then on warp 0
-// alone (the host's one pass) P's compression, one inversion, against the
-// signature's R bytes: ok = A decodes ∧ s < L ∧ compress(P) == R. A
-// canonical compression equals no non-canonical or off-curve R, so the
-// byte compare is RFC 8032's cofactorless check.
-PK_DEV void ed_quad_verify(int i, int B, bool live, EdScratch &sc, Quad &qd,
-                           const int32_t *r, int32_t *ok) {
-  int lane = qd.lane;
-  ge p = ed_quad_point(sc, qd);
+// ed_verify (csrc/ed_verify.cu) over the four warps of a block. Phase 1,
+// beside each other, each warp's share near one exponentiation: the
+// SHA-512 and its reduction h, then s·B's windows below EDV_W0 (warp 0);
+// A's decompression (warp 1); R's decompression (warp 2); s < L and s·B's
+// windows EDV_W0 .. EDV_W1 - 1 (warp 3). Phase 2 on a quad of one exchange
+// buffer (pk.cuh: Quad1): the two parts of s·B added, the table of −A
+// (seven additions, each warp storing one coordinate of each entry), the
+// h·(−A) chain, s·B's last windows walked onto it, the parts' sum added,
+// then one step forms x_R·Z_P and y_R·Z_P, and P = R iff X_P = x_R·Z_P and
+// Y_P = y_R·Z_P. R's decoding refuses y >= p, an off-curve y and x = 0
+// with the sign bit set, exactly the encodings no canonical compression
+// equals, and a decoded R is the one point whose compression is R's
+// bytes; so the projective compare is RFC 8032's compress(P) == R, with no
+// inversion on the path.
+#define EDV_W0 10  // s·B's windows below EDV_W0 on warp 0,
+#define EDV_W1 25  // then below EDV_W1 on warp 3, the rest on the quad
+enum { EDV_OK_A, EDV_OK_S, EDV_OK_R, EDV_OK_N };
+struct VerifyScratch {
+  u32 tab[PK_LANETAB_WORDS];  // table of −A (built on the quad); in phase 1
+                              // warp 0's part of s·B and −A's point rows
+  int32_t sb[40 * PK_GROUP];  // warp 3's part of s·B, then both parts' sum
+  u32 r[20 * PK_GROUP];       // R's affine x, y (limb-major, lane-minor)
+  u8 h[32 * PK_GROUP];        // h bytes
+  int32_t ok[EDV_OK_N * PK_GROUP];
+  u32 qx[PK_TEAM1_WORDS];     // the quad's exchange area
+};
+
+// the table's space in phase 1: warp 0's part of s·B, then −A's rows
+PK_DEV int32_t *edv_part0(VerifyScratch &sc) { return (int32_t *)sc.tab; }
+PK_DEV int32_t *edv_neg_a(VerifyScratch &sc) { return (int32_t *)sc.tab + 40 * PK_GROUP; }
+
+// s·B's windows w0 .. w1 - 1 into a part's rows
+PK_DEV void edv_base_part(int i, int B, int lane, const u32 *base8, const int32_t *s, int w0,
+                          int w1, int32_t *part) {
+  u8 sb[32];
+  load_bytes(s, 32, i, B, sb);
+  store_point(part, lane, PK_GROUP, ge_base_mul_w8(base8, sb, w0, w1));
+}
+
+// warp 1: A decoded (and whether it decodes), −A for the quad's table
+PK_DEV void edv_role_a(int i, int B, int lane, const int32_t *key, VerifyScratch &sc) {
+  u8 kb[32];
+  load_bytes(key, 32, i, B, kb);
+  ge a;
+  sc.ok[EDV_OK_A * PK_GROUP + lane] = ge_decompress(a, kb) ? 1 : 0;
+  store_point(edv_neg_a(sc), lane, PK_GROUP, ge_neg(a));
+}
+
+// warp 2: R decoded (its affine x and y, and whether it decodes)
+PK_DEV void edv_role_r(int i, int B, int lane, const int32_t *r, VerifyScratch &sc) {
+  u8 rb[32];
+  load_bytes(r, 32, i, B, rb);
+  ge rp;
+  sc.ok[EDV_OK_R * PK_GROUP + lane] = ge_decompress(rp, rb) ? 1 : 0;
+  for (int l = 0; l < 10; l++) {
+    sc.r[l * PK_GROUP + lane] = rp.x.v[l];
+    sc.r[(10 + l) * PK_GROUP + lane] = rp.y.v[l];
+  }
+}
+
+// warp 3: s < L, and s·B's windows EDV_W0 .. EDV_W1 - 1
+PK_DEV void edv_role_s(int i, int B, int lane, const u32 *base8, const int32_t *s,
+                       VerifyScratch &sc) {
+  u8 sb[32];
+  load_bytes(s, 32, i, B, sb);
+  sc.ok[EDV_OK_S * PK_GROUP + lane] = sc_lt_l(sb) ? 1 : 0;
+  store_point(sc.sb, lane, PK_GROUP, ge_base_mul_w8(base8, sb, EDV_W0, EDV_W1));
+}
+
+// phase 2's start on the quad: −A and both parts read (the quad's first
+// step waits for every warp's reads, so the table may then write over
+// them), the parts' sum into sc.sb (warp 0, the host's one pass), then
+// the table of −A (pk.cuh: qtable8)
+PK_DEV void edv_quad_table(VerifyScratch &sc, Quad1 &qd) {
+  const int lane = qd.lane;
+  const ge na = load_point(edv_neg_a(sc), lane, PK_GROUP);
+  ge sum;
+  qadd(qd, sum, load_point(edv_part0(sc), lane, PK_GROUP), load_point(sc.sb, lane, PK_GROUP));
+  if (qd.w <= 0) store_point(sc.sb, lane, PK_GROUP, sum);
+  LaneTab tab{sc.tab, lane};
+  qtable8(qd, tab, na);
+}
+
+// the h·(−A) chain on the quad after the table
+PK_DEV ge edv_quad_chain(VerifyScratch &sc, Quad1 &qd) {
+  const int lane = qd.lane;
+  u8 h[32], hd[64];
+  for (int k = 0; k < 32; k++) h[k] = sc.h[(k << 5) + lane];
+  nibbles_msb(h, 32, hd);
+  LaneTab tab{sc.tab, lane};
+  return qscalar_mul_w4(qd, hd, 64, tab);
+}
+
+// P = h·(−A) + s·B: s·B's windows from EDV_W1 walked onto the chain's
+// point, then the phase-1 parts' sum added (every warp holds P after the
+// last step)
+PK_DEV ge edv_quad_sb(int i, int B, const u32 *base8, const int32_t *s, const ge &nha,
+                      VerifyScratch &sc, Quad1 &qd) {
+  u8 sb[32];
+  load_bytes(s, 32, i, B, sb);
+  ge p = qbase_mul_w8(qd, base8, sb, nha, EDV_W1);
+  qadd(qd, p, p, load_point(sc.sb, qd.lane, PK_GROUP));
+  return p;
+}
+
+// the compare on the quad: one step forms x_R·Z_P (products 0, 2) and
+// y_R·Z_P (1, 3); warp 0 (the host's one pass) stores ok = A decodes ∧
+// s < L ∧ R decodes ∧ P = R. Lanes past B (live false) run along for the
+// barrier and store nothing.
+PK_DEV void edv_quad_compare(int i, bool live, const ge &p, VerifyScratch &sc, Quad1 &qd,
+                             int32_t *ok) {
+  const int lane = qd.lane;
+  fe rz[4];
+  quad_step(qd, rz, [&](int k) {
+    fe c;
+    for (int l = 0; l < 10; l++) c.v[l] = sc.r[((k & 1) * 10 + l) * PK_GROUP + lane];
+    return fe_mul(c, p.z);
+  });
   if (live && qd.w <= 0) {
-    u8 enc[32], rb[32];
-    ge_compress_many(&p, 1, enc);
-    load_bytes(r, 32, i, B, rb);
-    bool eq = sc.ok[lane] != 0 && sc.ok[PK_GROUP + lane] != 0;
-    for (int k = 0; k < 32; k++) eq = eq && enc[k] == rb[k];
-    ok[i] = eq ? 1 : 0;
+    bool eq = sc.ok[EDV_OK_A * PK_GROUP + lane] != 0 && sc.ok[EDV_OK_S * PK_GROUP + lane] != 0 &&
+              sc.ok[EDV_OK_R * PK_GROUP + lane] != 0;
+    ok[i] = eq && fe_eq(p.x, rz[0]) && fe_eq(p.y, rz[1]) ? 1 : 0;
   }
 }
 

@@ -197,14 +197,16 @@ def ed_verify(pk, r, s, hblocks, hnblocks):
     hnblocks [1, B], each lane's own block count -> ok [1, B] int32.
 
     Replaces the plain-XLA verify of ouroboros_consensus_tpu/ops/
-    ed25519_batch.py:71-103 (csrc/ed_verify.cu): ed's four-warp design
-    (the hash, A's decompression and table, and s·B beside each other,
-    then the h·(−A) chain on a quad), then P's compression (one inversion
-    a lane) and its compare with R on one warp. Operations-bound: ed's
-    field work and one inversion a lane. A lane hashes block 0 and each
-    later block below its count, in the kernel and the twin alike, so no
-    count reads past the NB blocks; ed25519_batch.limb_columns checks the
-    counts on the host, where no wait for the card is needed."""
+    ed25519_batch.py:71-103 (csrc/ed_verify.cu): 32 lanes a block on four
+    warps; the hash, A's and R's decompressions and a part of s·B beside
+    each other, then on a quad the table of −A, the h·(−A) chain, the rest
+    of s·B and a projective compare of P with the decompressed R (no
+    inversion after the chain; the twin compresses P and compares bytes,
+    which gives the same verdicts). Operations-bound: ed's field work and
+    R's decompression a lane. A lane hashes block 0 and each later block
+    below its count, in the kernel and the twin alike, so no count reads
+    past the NB blocks; ed25519_batch.limb_columns checks the counts on the
+    host, where no wait for the card is needed."""
     dev = pk.device
     b, nb = pk.shape[-1], hblocks.shape[0]
     for n, t, sh in (("pk", pk, (32, b)), ("r", r, (32, b)), ("s", s, (32, b)),
@@ -917,9 +919,11 @@ def forge_sweep(pools, slot0: int, b: int, nonce):
     bracket), in one launch (csrc/forge.cu); the per-pool columns are
     read by lane % P, not tiled. Plain version: prove.forge_sweep_plain.
     Bound: operations. A lane's field work is two 65-digit ladders, a
-    32-add fixed-base walk, two hashes to the curve (one a warp), and
-    three inversions; 32 lanes a block over two warps, x·H on one, k·B
-    and k·H on the other, so one ladder lies on the path."""
+    32-add fixed-base walk, one hash to the curve and H's and the finish's
+    inversions; 32 lanes a block over four warps as two pairs (one table
+    of H in shared memory; x·H and 8Γ on one pair, k·B and k·H on the
+    other, two of each point operation's four products a warp), the
+    finish's compressions on one inversion a block."""
     dev = pools.device
     _check("forge_sweep.pools", pools, (pools.shape[0], pp.POOL_BYTES), dev, torch.uint8)
     if nonce is not None:

@@ -118,12 +118,13 @@ def _tile(t: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([t] * reps, dim=-1)[..., :n].contiguous()
 
 
-@pytest.mark.parametrize("n", [1, 31, 32, 40, 65])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 40, 65, 70])
 def test_device_lane_code_matches_plain_twin(lanes, port_ok, n):
     """ed_verify over `n` lanes around its 32-lane block, compiled as host
-    C++ (the three phase-1 roles one after another over each group's
-    scratch, then the chain on a quad and the compare), equals the twin,
-    and the twin equals the batch's own verdicts tiled."""
+    C++ (the four phase-1 roles one after another over each group's
+    scratch, then the chain, the two additions and the projective compare
+    on a quad), equals the twin, and the twin equals the batch's own
+    verdicts tiled."""
     emu = build.build_host_emu()
     cols = [_tile(c, n) for c in eb.limb_columns(eb.stage_np(*lanes), "cpu")]
     got = K._ed_verify_launch(emu.pk_ed_verify, None, *cols)

@@ -98,14 +98,17 @@ def test_sweep_twin_matches_jax_host_prover(eta):
         assert bool(col["amb"][i, 0]) == (lv >= lo and lv < hi)
 
 
-def test_sweep_host_build_matches_twin():
-    """The lane bodies as host C++ against the twin: 37 lanes (a second
-    32-lane group), 3 pools, a slot past 2^32, both nonces."""
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 37, 70])
+def test_sweep_host_build_matches_twin(n):
+    """The lane bodies as host C++ against the twin around the sweep's
+    32-lane block (1 lane, one short of a block, a block, a block and one,
+    a second group, two blocks and a ragged tail), 3 pools, a slot past
+    2^32, both nonces."""
     pools = [synth.make_pool(n, kes_depth=3) for n in range(3)]
     tab = _table([p.vrf_seed for p in pools], [Fraction(1, 2)] * 3)
     for slot0, eta in ((5, None), ((1 << 33) + 7, ETA)):
-        twin = K.forge_sweep(tab, slot0, 37, _nonce(eta))
-        emu = K._forge_sweep_launch(_emu().pk_forge_sweep, None, tab, slot0, 37, _nonce(eta))
+        twin = K.forge_sweep(tab, slot0, n, _nonce(eta))
+        emu = K._forge_sweep_launch(_emu().pk_forge_sweep, None, tab, slot0, n, _nonce(eta))
         assert torch.equal(twin, emu)
 
 
