@@ -8,7 +8,7 @@ composite on one NVIDIA card.
 Phases (any failure raises and the script exits non-zero):
 
 1. Card: name and power limit (nvidia-smi), torch / CUDA versions, and
-   the build of the nineteen kernel sources (one nvcc per source, in
+   the build of the twenty kernel sources (one nvcc per source, in
    parallel) and of the C++ host crypto, with ptxas's registers and
    local memory per thread.
 2. Kernels against their plain versions: 256 port-forged headers tiled
@@ -55,11 +55,17 @@ Phases (any failure raises and the script exits non-zero):
    Then the forge's two kernels (`phase_forge`): `forge_sweep` on 256
    lanes of three pools under a set epoch nonce and on one full election
    window (16,384 lanes of the main path's pool under the neutral
-   nonce), `ed_sign` on the main path's two OCert signables and on 256
-   messages of 0 to 200 bytes, each byte for byte against its plain
-   version, timed at the main path's shapes, with the sweep's field work
-   by part (`forge_role_ops`) and its stamped build's timeline by warp at
-   one block and a full window (`forge_stamps`: its dependent path).
+   nonce), `ed_sign` on the main path's two OCert signables, on serve-
+   1024's 34 and on 256 and 4,096 messages of 0 to 200 bytes (one of the
+   256 of 400 bytes: `hold_ed_sign`), each byte for byte against its
+   plain version,
+   timed at the main path's shapes (`ed_sign` at each of its four
+   widths: the launch alone, the wrapper, and the wrapper with its
+   caller's read of the signatures), with the sweep's field work by part
+   (`forge_role_ops`) and its stamped build's timeline by warp at one
+   block and a full window (`forge_stamps`: its dependent path), and the
+   signer's stamped build's phases at 2 and 256 signables
+   (`ed_sign_stamps`).
 3. The main paths, each with the launch counts zeroed just before its
    device replay and read just after: every packed window launches
    `unpack`, the five stage kernels and `nonce_fold`, the fold on a
@@ -212,9 +218,10 @@ runs, on one card and in turns (parent, this tree, this tree, parent),
 one process per turn: each tree's own phase 1 and phase 2 and the six
 stage kernels of each tree at 8, 128 and 8192 lanes (`stage_times`), the
 two wire kernels alone where the tree has them (`wire_times`), `ed_verify`
-at its five widths and `forge_sweep` at its two (`verify_forge_times`,
-`A/B ed_verify` and `A/B forge_sweep` lines; the two trees' outputs must
-be equal), and
+at its five widths, `forge_sweep` at its two and `ed_sign` at 2, 256
+and 4,096 signables (`verify_forge_times`, `A/B ed_verify`, `A/B
+forge_sweep` and `A/B ed_sign launch | wrapper | read` lines; the two
+trees' outputs must be equal), and
 `agg_prep`, `msm` and the dedupe with its mod-L reductions on a full
 window of a chain forged once for all turns, on tiled windows, on
 20,000 lanes and on 256 and 300 distinct keys (`agg_times`); one `AB
@@ -377,7 +384,8 @@ def phase_build() -> dict:
         ptxas[name]["blocks_per_sm"] = build.blocks_per_sm(
             source, None if name in (source, "forge_sweep") else name)
         log(f"ptxas {name}: {json.dumps(ptxas[name])}")
-    for name, kernel in (("ed_verify_stamps", None), ("forge_stamps", "forge_sweep_kernel")):
+    for name, kernel in (("ed_verify_stamps", None), ("forge_stamps", "forge_sweep_kernel"),
+                         ("ed_sign_stamps", "ed_sign_kernel")):
         with open(build.ptxas_report(name)) as f:  # the instruments' own lines
             log(f"ptxas {name}: {json.dumps(ptxas_record(f.read(), kernel))}")
     return ptxas
@@ -1891,11 +1899,10 @@ def phase_forge(dev, reps: int = 5) -> dict:
     """The forge's two kernels against their plain versions on the card:
     `forge_sweep` on 256 lanes of three pools under a set epoch nonce and
     on one full election window (window_slots(1) lanes) of the main
-    path's one pool under the neutral nonce, timed there; `ed_sign` on the
-    main path's OCert batch (two signables) and on 256 lanes of messages
-    of 0 to 200 bytes, timed at the path's two. -> {forge_sweep: rec,
-    ed_sign: rec} with the twins' field work a lane (the bound's) and the
-    sweep's split by warp (forge_role_ops)."""
+    path's one pool under the neutral nonce, timed there; `ed_sign` as
+    `hold_ed_sign` holds it. -> {forge_sweep: rec, ed_sign: rec} with the
+    twins' field work a lane (the bound's) and the sweep's split by warp
+    (forge_role_ops)."""
     import torch
 
     from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
@@ -1931,22 +1938,134 @@ def phase_forge(dev, reps: int = 5) -> dict:
                                     for n, args in ((32, tabs[256]), (full, tabs[full]))}
         for n, tl in sweep["stamps_by_lanes"].items():
             log(f"forge_sweep stamps {n} lanes: {json.dumps(tl['path'])}")
-    sign = {}
-    for lanes in (2, 256):
-        seeds = [bytes([k % 256, k // 256]) * 16 for k in range(lanes)]
-        msgs = [bytes(48) if lanes == 2 else bytes(k % 201) for k in range(lanes)]
-        staged = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                  for a in pp.stage_sign_np(seeds, msgs)]
-        sign[lanes] = hold(f"ed_sign ({'OCert signables' if lanes == 2 else '0-200 bytes'})",
-                           lambda: K.ed_sign(*staged), lambda: pp.ed_sign_plain(*staged),
-                           staged, lanes, dev, reps if lanes == 2 else 1)
-    rec = sign[2]
-    rec["ms_by_lanes"] = {n: r.get("ms") for n, r in sign.items()}
-    one = [torch.from_numpy(np.ascontiguousarray(a)) for a in pp.stage_sign_np([bytes(32)], [bytes(48)])]
-    rec["field_ops"] = count_field_ops(lambda: pp.ed_sign_plain(*one))
+    rec = hold_ed_sign(dev, reps)
     log(f"forge kernels: the sweep's field work a lane {json.dumps(sweep['field_ops'])}, "
         f"by warp {json.dumps(sweep['dependent_path'])}; ed_sign's {json.dumps(rec['field_ops'])}")
     return {"forge_sweep": sweep, "ed_sign": rec}
+
+
+# ed_sign's widths: the main path's OCert batch (two signables), serve-1024's
+# election span ((16 pools + 1) x 2 counters), and 256 and 4,096 messages of 0
+# to 200 bytes (1 to 3 SHA-512 blocks)
+ED_SIGN_LANES = (2, 34, 256, 4096)
+ED_SIGN_STEPS = ("r's hash", "r mod L", "R = r·B", "R compressed", "h's hash",
+                 "h mod L, s = r + h·a")
+
+
+def ed_sign_inputs(lanes: int, dev, long_last: bool = False) -> list:
+    """The seeded signer inputs at `lanes` (stage_sign_np's six arrays on
+    `dev`): 48-byte OCert signables at 2 and 34 lanes, else messages of
+    k mod 201 bytes; with `long_last` the last message has 400 bytes (four
+    SHA-512 blocks a side: h's fourth is read from global memory)."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import prove as pp
+
+    seeds = [bytes([k % 256, k // 256]) * 16 for k in range(lanes)]
+    msgs = [bytes(48) if lanes <= 34 else bytes([k % 251]) * (k % 201) for k in range(lanes)]
+    if long_last:
+        msgs[-1] = bytes([lanes % 251]) * 400
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in pp.stage_sign_np(seeds, msgs)]
+
+
+def ed_sign_stamps(fn, staged) -> dict:
+    """The stamped signer (`fn`: ed_sign_stamps.cu's entry) on these
+    inputs, its second launch's signatures held to the shipped kernel's: each
+    phase's µs (ED_SIGN_STEPS, the mean over the signables at the card's
+    maximum SM clock, from the phase before's stamp), when each ends, and
+    the span."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.device import max_sm_clock_hz
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    dev, b = staged[0].device, staged[0].shape[0]
+    stamps = torch.zeros((b, len(ED_SIGN_STEPS) + 1), dtype=torch.int64, device=dev)
+    for _ in range(2):  # the second launch's stamps: the first warms the caches
+        got, _bad = K._ed_sign_launch(lambda *a: fn(*a[:-1], K._p(stamps), a[-1]),
+                                      K._stream(dev), *staged)
+    torch.cuda.synchronize()
+    if not torch.equal(got, K.ed_sign(*staged)):
+        raise AssertionError("the stamped ed_sign differs from the shipped kernel")
+    us = 1e6 / max_sm_clock_hz()
+    t = stamps.cpu().to(torch.float64)
+    start = t[:, 0]
+    step = {n: float((t[:, k + 1] - t[:, k]).mean()) * us for k, n in enumerate(ED_SIGN_STEPS)}
+    at = {n: float((t[:, k + 1] - start).mean()) * us for k, n in enumerate(ED_SIGN_STEPS)}
+    return {"lanes": b, "step_us": step, "at_us": at,
+            "span_us": float((t[:, -1] - start).max()) * us}
+
+
+def ed_sign_times(dev, lanes, reps: int) -> dict:
+    """`ed_sign` of the tree this process imports at each of `lanes`: the
+    launch alone (`kernels._ed_sign_launch`, the tree's own entry), the
+    wrapper, and the wrapper with its caller's read of the signatures
+    (`.cpu()`, as `forge.sign_ocerts_batch` reads them), CUDA events over
+    `reps` calls, and a digest of the wrapper's signatures. -> {lanes:
+    {"launch_ms", "wrapper_ms", "read_ms", "digest"}}."""
+    import hashlib
+
+    from ouroboros_consensus_tpu_torch.device import time_ms
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+
+    fn = build.kernel_lib("forge", "pk_ed_sign")
+    out = {}
+    for n in lanes:
+        staged = ed_sign_inputs(n, dev)
+        st = K._stream(dev)
+        got = K.ed_sign(*staged).cpu().numpy()
+        out[str(n)] = {
+            "launch_ms": time_ms(lambda s=staged: K._ed_sign_launch(fn, st, *s), reps),
+            "wrapper_ms": time_ms(lambda s=staged: K.ed_sign(*s), reps),
+            "read_ms": time_ms(lambda s=staged: K.ed_sign(*s).cpu(), reps),
+            "digest": hashlib.sha256(got.tobytes()).hexdigest()[:16]}
+    return out
+
+
+def hold_ed_sign(dev, reps: int = 5) -> dict:
+    """`ed_sign` against its plain version (`hold`) at ED_SIGN_LANES (at
+    256, the last message of 400 bytes), the launch alone and the wrapper timed at each on the card (CUDA events;
+    the plain version timed at 2 lanes), and the stamped build
+    (`ed_sign_stamps`) at 2 and 256. -> the record at 2 lanes (`ms` the
+    launch alone, `wrapper_ms` the wrapper's), with `ms_by_lanes`,
+    `wrapper_ms_by_lanes`, `stamps_by_lanes` and the twin's field work a
+    lane."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.ops.pk import prove as pp
+
+    sign = {}
+    for lanes in ED_SIGN_LANES:
+        long_last = lanes == 256  # NB = 4: h's blocks past the staged three
+        staged = ed_sign_inputs(lanes, dev, long_last)
+        sign[lanes] = hold(f"ed_sign ({lanes} signables{', one of 400 bytes' * long_last})",
+                           lambda: K.ed_sign(*staged), lambda: pp.ed_sign_plain(*staged),
+                           staged, lanes, dev, reps if lanes == 2 else 0)
+    rec = sign[2]
+    if dev.type == "cuda":
+        from ouroboros_consensus_tpu_torch.ops.pk import build
+
+        times = ed_sign_times(dev, ED_SIGN_LANES, max(reps, 20))
+        rec["ms"] = times["2"]["launch_ms"]
+        rec["wrapper_ms"] = times["2"]["wrapper_ms"]
+        rec["ms_by_lanes"] = {n: times[str(n)]["launch_ms"] for n in ED_SIGN_LANES}
+        rec["wrapper_ms_by_lanes"] = {n: times[str(n)]["wrapper_ms"] for n in ED_SIGN_LANES}
+        rec["read_ms_by_lanes"] = {n: times[str(n)]["read_ms"] for n in ED_SIGN_LANES}
+        fn = build.kernel_lib("ed_sign_stamps")
+        rec["stamps_by_lanes"] = {n: ed_sign_stamps(fn, ed_sign_inputs(n, dev)) for n in (2, 256)}
+        for n in ED_SIGN_LANES:
+            log(f"ed_sign {n} signables: the launch alone {times[str(n)]['launch_ms']:.4f} ms, "
+                f"the wrapper {times[str(n)]['wrapper_ms']:.4f} ms, with the caller's read "
+                f"{times[str(n)]['read_ms']:.4f} ms")
+        for n, tl in rec["stamps_by_lanes"].items():
+            log(f"ed_sign stamps {n} signables: {json.dumps(tl)}")
+    one = [torch.from_numpy(np.ascontiguousarray(a))
+           for a in pp.stage_sign_np([bytes(32)], [bytes(48)])]
+    rec["field_ops"] = count_field_ops(lambda: pp.ed_sign_plain(*one))
+    return rec
 
 
 # the stamped builds' steps (csrc/ed_verify.cu, csrc/forge.cu: EDV_STAMP,
@@ -2096,9 +2215,11 @@ def verify_forge_inputs(dev, seed: int = 29) -> dict:
 def verify_forge_times(dev, reps: int = 5) -> dict:
     """`ed_verify` at its five widths and `forge_sweep` at its two through
     the wrappers of the tree this process imports (CUDA events over `reps`
-    calls), with a digest of each output so that two trees' turns can be
-    held to each other. -> {"ed_verify": {lanes: ms}, "forge_sweep": {tag:
-    ms}, "digests": {...}}."""
+    calls), and `ed_sign` at 2, 256 and 4,096 signables (`ed_sign_times`:
+    the launch alone, the wrapper, with the caller's read), with a digest
+    of each output so that two trees' turns can be held to each other.
+    -> {"ed_verify": {lanes: ms}, "forge_sweep": {tag: ms}, "ed_sign":
+    {lanes: {...}}, "digests": {...}}."""
     import hashlib
 
     from ouroboros_consensus_tpu_torch.device import time_ms
@@ -2114,6 +2235,9 @@ def verify_forge_times(dev, reps: int = 5) -> dict:
         out["forge_sweep"][tag] = time_ms(lambda a=args: K.forge_sweep(*a), reps)
         got = K.forge_sweep(*args).cpu().numpy()
         out["digests"][f"forge_sweep {tag}"] = hashlib.sha256(got.tobytes()).hexdigest()[:16]
+    out["ed_sign"] = ed_sign_times(dev, (2, 256, 4096), max(reps, 20))
+    for n, rec in out["ed_sign"].items():
+        out["digests"][f"ed_sign {n}"] = rec.pop("digest")
     return out
 
 
@@ -4011,7 +4135,7 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
         shutil.rmtree(work, ignore_errors=True)
     digests = {json.dumps(r["verify_forge"]["digests"], sort_keys=True) for r in recs}
     if len(digests) != 1:
-        raise AssertionError("the two trees' ed_verify or forge_sweep outputs differ")
+        raise AssertionError("the two trees' ed_verify, forge_sweep or ed_sign outputs differ")
     for key in ("ed_verify", "forge_sweep"):
         row = []
         for n in recs[0]["verify_forge"][key]:
@@ -4020,6 +4144,14 @@ def ab_main(parent: str, lanes=(8, 128, 8192)) -> int:
             row.append(f"{n}: parent {min(par):.4f} this {min(cur):.4f} "
                        f"({min(par) / min(cur):.2f}x)")
         log(f"A/B {key}: " + "; ".join(row) + " (outputs equal)")
+    for part in ("launch_ms", "wrapper_ms", "read_ms"):
+        row = []
+        for n in recs[0]["verify_forge"]["ed_sign"]:
+            par = [r["verify_forge"]["ed_sign"][n][part] for r in (recs[0], recs[3])]
+            cur = [r["verify_forge"]["ed_sign"][n][part] for r in (recs[1], recs[2])]
+            row.append(f"{n}: parent {min(par):.4f} this {min(cur):.4f} "
+                       f"({min(par) / min(cur):.2f}x)")
+        log(f"A/B ed_sign {part[:-3]}: " + "; ".join(row) + " (outputs equal)")
     pair = ("dedupe_tables",)
     for tag, keys in (("chain", ("agg_prep", "msm", *pair)), ("8", ("agg_prep", "msm", *pair)),
                       ("128", ("agg_prep",)), ("8192", ("agg_prep", *pair)), ("20000", pair),
@@ -4237,6 +4369,7 @@ def main(argv=None) -> int:
             "plain_ms_by_lanes": st.get("plain_ms_by_lanes"),
             "native_host_ms_by_lanes": st.get("native_host_ms_by_lanes"),
             "wrapper_ms_by_lanes": st.get("wrapper_ms_by_lanes"),
+            "read_ms_by_lanes": st.get("read_ms_by_lanes"),
             "lanes": st["lanes"], "bytes": st["bytes"], "ptxas": ptxas.get(name),
             "msm_work": st.get("work"), "tiled": st.get("tiled"),
             "split_by_lanes": st.get("split_by_lanes"), "windows": st.get("windows"),

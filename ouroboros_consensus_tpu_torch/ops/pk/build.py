@@ -54,6 +54,7 @@ ENTRIES = {
     "msm": ("pk_msm",),
     "forge": ("pk_forge_sweep", "pk_ed_sign"),
     "forge_stamps": ("pk_forge_sweep_stamps",),  # the instrument: the sweep with clock64 stamps
+    "ed_sign_stamps": ("pk_ed_sign_stamps",),  # the instrument: the signer with clock64 stamps
 }
 KERNELS = tuple(ENTRIES)
 NVCC_FLAGS = [
@@ -92,13 +93,17 @@ ARGTYPES = {
     "pk_msm": [_I, _I, _I, _I] + [_P] * 21,
     "pk_forge_sweep": [_I, _I, ctypes.c_longlong] + [_P] * 5,
     "pk_forge_sweep_stamps": [_I, _I, ctypes.c_longlong] + [_P] * 6,
-    "pk_ed_sign": [_I, _I] + [_P] * 9,
+    "pk_ed_sign": [_I, _I] + [_P] * 10,
+    "pk_ed_sign_stamps": [_I, _I] + [_P] * 11,
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
     "pk_fe_sq": [_I] + [_P] * 3,
     "pk_b2b_one": [_I] + [_P] * 3,
     # host build only: msm's Horner chain on the warp and on one thread
     "pk_msm_horner": [_I] + [_P] * 4,
+    # host build only: the signer's R = r·B (its teams' walks and sums)
+    # over [B, 32] scalars -> [B, 40] limbs
+    "pk_ed_sign_walk": [_I] + [_P] * 3,
     # host build only: sc_mul and sc_add over [B, 32] byte rows
     "pk_sc_mul": [_I] + [_P] * 3,
     "pk_sc_add": [_I] + [_P] * 3,
@@ -115,7 +120,7 @@ ARGTYPES = {
 }
 # the instruments: no host build
 DEVICE_ONLY = ("pk_agg_prep_stamps", "pk_dedupe_stamps", "pk_ed_verify_stamps",
-               "pk_forge_sweep_stamps")
+               "pk_forge_sweep_stamps", "pk_ed_sign_stamps")
 
 _LIBS: dict = {}
 # wall seconds from the start of the parallel build to each source's nvcc exit

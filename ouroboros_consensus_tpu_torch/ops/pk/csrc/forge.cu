@@ -6,7 +6,7 @@
 //                 forge.py:91 (ops/ecvrf_batch.alpha_from_slots, :83;
 //                 hash_to_curve, :130; prove, :265; the leader bracket).
 //   ed_sign     — Ed25519 signing of the window's deduplicated OCert
-//                 signables, one lane each. Replaces the plain-XLA
+//                 signables, 32 a block. Replaces the plain-XLA
 //                 `forge_sign` of protocol/forge.py:125 (ops/
 //                 ed25519_batch.sign, :140).
 //
@@ -151,11 +151,84 @@ __global__ void __launch_bounds__(4 * PK_GROUP, 4) forge_sweep_kernel(
   }
 }
 
-__global__ void __launch_bounds__(PK_GROUP) ed_sign_kernel(
-    int B, int NB, const u32 *base8, const u8 *a, const u8 *aenc, const u8 *rblocks,
-    const int32_t *rnb, const u8 *hblocks, const int32_t *hnb, u8 *out) {
-  const int i = blockIdx.x * PK_GROUP + threadIdx.x;
-  if (i < B) ed_sign_lane(i, NB, base8, a, aenc, rblocks, rnb, hblocks, hnb, out);
+// ed_sign (forge.cuh: es_*): 32 signables a block on eight warps. A
+// signable's chain is its two hashes, R = r·B and R's inversion, so one
+// signable on one thread (the first version) left 131 SMs idle and paced
+// the launch by a 32-add walk and a 265-step inversion on one thread.
+// Bound: the dependent path (a launch of a few signables is 1e-5 of the
+// card's products), not throughput. What the design does about it:
+// R = r·B on a team of eight threads a signable, four windows a thread
+// and a pairwise sum in three levels (the walk's 32 dependent additions
+// become 3 + 3, the entries loaded a step ahead and added as affine
+// points: 8 products), four teams a warp; a warp whose slots all lie
+// past B skips the walk, so at two signables warp 0 has its scheduler to
+// itself (a thread's additions are paced by its scheduler's issue of
+// products: a second chain a thread gained nothing, and four threads a
+// signable with every warp walking were 1.09x slower at two signables
+// on an H100, equal at 256 and 4,096). R's Z is inverted once a block
+// (a tree over the block's 32 signables, the root on warp 0 as a field
+// element over ten lanes: w_inv, ≈ 0.11 µs a step where a one-thread
+// step took ≈ 0.35). The hashes and the mod-L tail stay on a thread a
+// signable (a compression's 80 rounds are one chain), h's message staged
+// in shared memory by warps 1-7 while warp 0 hashes r, so that h's hash
+// waits on R alone. Issue slots, in a warp's wide products a full block
+// of 32 signables: the walk 44,000 (eight warps of 55: 3 additions of 8,
+// the entries' 2d·T, the team's 3 additions of 9, most lanes idle in the
+// levels) where one warp took 28,800 (32 additions of 9); R's inversion
+// about 3,200 (the tree and w_inv's 265 steps at about six products a
+// lane) where the first version's one-thread inversions took 15,070:
+// 47,200 against 44,070 in all, 7 % more, which shows once the blocks
+// fill every SM (past 4,224 signables; no path launches so many). The
+// block counts are checked on the card (bad[], read by the wrapper after
+// the launch), so nothing is read back before it. Not used: tensor
+// cores, TMA, wgmma (10 × 25.5-bit limbs on 32×32 → 64-bit products,
+// pk.cuh); shared memory holds the staged message, the teams' exchange
+// and the tree. Teams of 16 or 32 do not fit this body: 512 threads cap
+// a thread at 128 registers against its 190, and their exchange takes
+// the static shared memory past 48 KB.
+__global__ void __launch_bounds__(ES_THREADS, 1) ed_sign_kernel(SignArgs a, u64 *stamps) {
+  __shared__ __align__(16) SignScratch sc;
+  const int t = threadIdx.x, lane = t % PK_GROUP, g = blockIdx.x * PK_GROUP;
+  (void)stamps;
+  if (t < PK_GROUP) {
+    const bool bad = es_r(lane, g, a, sc, stamps);
+    const bool any = __any_sync(0xffffffffu, bad);
+    if (lane == 0) a.bad[blockIdx.x] = any ? 1 : 0;
+  } else {
+    es_stage(t - PK_GROUP, g, a, sc);
+  }
+  __syncthreads();  // r, and h's staged blocks
+  ge p = ge_identity();
+  if (es_warp_live(t, g, a.B)) {  // uniform over the warp
+    p = es_walk(t, a.base8, sc);
+#pragma unroll 1
+    for (int d = 1; d < ES_TEAM; d <<= 1) {  // a team's lanes lie in one warp
+      es_level_put(t, d, p, sc);
+      __syncwarp();
+      es_level_add(t, d, p, sc);
+      __syncwarp();
+    }
+  }
+  const int s = t / ES_TEAM;
+  if (t % ES_TEAM == 0) {
+    es_publish(s, p, sc);
+    ES_STAMP(g + s < a.B, g + s, 3, p.z.v[0]);
+  }
+  __syncthreads();  // every R's X, Y, Z and leaf
+  if (t >= PK_GROUP) return;
+  fs_tree(sc.node, lane);
+  es_finish(lane, g, a, sc, stamps);
+}
+
+static int ed_sign_launch(int B, int NB, const void *base8, const void *a, const void *aenc,
+                          const void *rblocks, const void *rnb, const void *hblocks,
+                          const void *hnb, void *out, void *bad, void *stamps, void *stream) {
+  SignArgs sa{B, NB, (const u32 *)base8, (const u8 *)a, (const u8 *)aenc,
+              (const u8 *)rblocks, (const int32_t *)rnb, (const u8 *)hblocks,
+              (const int32_t *)hnb, (u8 *)out, (int32_t *)bad};
+  ed_sign_kernel<<<(B + PK_GROUP - 1) / PK_GROUP, ES_THREADS, 0, (cudaStream_t)stream>>>(
+      sa, (u64 *)stamps);
+  return (int)cudaGetLastError();
 }
 
 static cudaError_t sweep_smem() {
@@ -174,7 +247,16 @@ static int forge_sweep_launch(int B, int P, long long slot0, const void *base8,
   return (int)cudaGetLastError();
 }
 
-#ifdef FS_STAMPS
+#if defined(ES_STAMPS)
+// stamps: [B][ES_NSTAMP] u64, zeroed by the caller
+extern "C" int pk_ed_sign_stamps(int B, int NB, const void *base8, const void *a,
+                                 const void *aenc, const void *rblocks, const void *rnb,
+                                 const void *hblocks, const void *hnb, void *out, void *bad,
+                                 void *stamps, void *stream) {
+  return ed_sign_launch(B, NB, base8, a, aenc, rblocks, rnb, hblocks, hnb, out, bad, stamps,
+                        stream);
+}
+#elif defined(FS_STAMPS)
 // stamps: [ceil(B / 32)][4][FS_NSTAMP] u64, zeroed by the caller
 extern "C" int pk_forge_sweep_stamps(int B, int P, long long slot0, const void *base8,
                                      const void *pools, const void *nonce, void *out,
@@ -190,11 +272,10 @@ extern "C" int pk_forge_sweep(int B, int P, long long slot0, const void *base8,
 
 extern "C" int pk_ed_sign(int B, int NB, const void *base8, const void *a,
                           const void *aenc, const void *rblocks, const void *rnb,
-                          const void *hblocks, const void *hnb, void *out, void *stream) {
-  ed_sign_kernel<<<(B + PK_GROUP - 1) / PK_GROUP, PK_GROUP, 0, (cudaStream_t)stream>>>(
-      B, NB, (const u32 *)base8, (const u8 *)a, (const u8 *)aenc, (const u8 *)rblocks,
-      (const int32_t *)rnb, (const u8 *)hblocks, (const int32_t *)hnb, (u8 *)out);
-  return (int)cudaGetLastError();
+                          const void *hblocks, const void *hnb, void *out, void *bad,
+                          void *stream) {
+  return ed_sign_launch(B, NB, base8, a, aenc, rblocks, rnb, hblocks, hnb, out, bad, nullptr,
+                        stream);
 }
 
 // Resident blocks per SM of the sweep, the source's heavier kernel.
@@ -206,6 +287,7 @@ extern "C" int pk_forge_occupancy(int *blocks) {
 }
 
 extern "C" int pk_ed_sign_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ed_sign_kernel, PK_GROUP, 0);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ed_sign_kernel, ES_THREADS,
+                                                            0);
 }
 #endif

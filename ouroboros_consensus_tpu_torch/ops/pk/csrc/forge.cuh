@@ -403,49 +403,334 @@ PK_DEV void fs_beta(int i, int lane, const ForgeArgs &a, const ForgeScratch &sc)
   o[FS_AMB] = amb ? 1 : 0;
 }
 
-// SHA-512 over `nb` padded 128-byte blocks at `blocks`; with `hole`, the
-// first 64 message bytes are the hole's (the challenge's R ‖ A)
-PK_DEV void fs_sha512_rows(const u8 *blocks, int nb, const u8 *hole, u8 *out) {
+// ---------------------------------------------------------------------------
+// ed_sign: RFC 8032 Ed25519 signing, 32 signables a block on eight warps
+// ---------------------------------------------------------------------------
+//
+// Signable i: r = SHA-512(prefix ‖ M) mod L, R = r·B, h = SHA-512(R ‖ A ‖
+// M) mod L, s = r + h·a mod L -> out[i] = R ‖ s. Its messages come padded,
+// [B][NB][128] bytes a side (rblocks: prefix ‖ M; hblocks: a 64-byte hole
+// ‖ M, the hole R ‖ A filled here), with a block count each (rnb, hnb).
+// Slot s of a block is signable 32·blockIdx + s; slots past B run along
+// as signable B - 1 (or skip R = r·B, below) and write nothing.
+//
+//   warp 0, a thread a slot: the block counts checked (a count outside
+//     1..NB flags the block in bad[] and is clamped for the reads, so
+//     nothing is read past NB; the wrapper raises), r's hash and r mod L
+//     into shared memory (es_r);
+//   warps 1-7 beside it: h's first ES_HB blocks and a ‖ A of every slot
+//     into shared memory (es_stage), so that h's hash waits on R alone;
+//   every warp: R = r·B as a team of ES_TEAM threads a slot, four teams a
+//     warp: thread j walks windows ES_WIN·j .. ES_WIN·j + ES_WIN - 1 of
+//     the fixed-base table (affine entries: 8 products an addition, the
+//     next entry loaded while it adds), then the team sums its eight
+//     parts pairwise in three levels through shared memory (es_walk,
+//     es_level_*). The extended addition is complete, so an identity
+//     entry (a zero byte of r) takes no branch; the gather of r's entries
+//     is the only access that depends on r. A warp whose four slots all
+//     lie past B skips this step (es_warp_live: a test of B alone) and
+//     leaves its slots' R the identity, so a launch of two signables adds
+//     on warp 0 alone;
+//   warp 0: R's Z of every slot a leaf of one product tree whose root the
+//     warp inverts as a field element over ten lanes (fs_tree, w_inv),
+//     then R's encoding, h's hash, h mod L and s on a thread a slot
+//     (es_finish).
+//
+// Each step is a function of (thread, scratch), so the host build runs a
+// block's steps one after another in an order the barriers allow
+// (csrc/host_emu.cpp) and the CPU tests hold it to the twin
+// (ops/pk/prove.py: ed_sign_plain).
+#define ES_TEAM 8                        // threads a slot in R = r·B
+#define ES_THREADS (ES_TEAM * PK_GROUP)  // 256: eight warps, four teams a warp
+#define ES_WIN (32 / ES_TEAM)            // fixed-base windows a thread walks
+#define ES_HB 3                          // h's blocks staged in shared memory a slot
+#define ES_HROW (128 * ES_HB + 16)       // a staged row, padded against bank conflicts
+#define ES_AROW 80                       // a ‖ A a slot, padded
+#define ES_NSTAMP 7
+
+struct SignArgs {
+  int B, NB;
+  const u32 *base8;         // [32][256][40] limbs, affine entries (x, y, 1, xy)
+  const u8 *a, *aenc;       // [B][32]: the clamped secret scalar, the public key
+  const u8 *rblocks;        // [B][NB][128]
+  const int32_t *rnb;       // [B]
+  const u8 *hblocks;        // [B][NB][128]
+  const int32_t *hnb;       // [B]
+  u8 *out;                  // [B][64]: R ‖ s
+  int32_t *bad;             // [ceil(B / 32)]: 1 where a block count of the block is out of range
+};
+
+// what the steps hand on; 43 KB
+struct SignScratch {
+  u8 hb[PK_GROUP * ES_HROW];   // h's first min(NB, ES_HB) blocks a slot
+  u8 ak[PK_GROUP * ES_AROW];   // a ‖ A a slot
+  u32 x[ES_TEAM / 2 * 40 * PK_GROUP];  // the teams' exchange: four points a team
+  u32 pts[30 * PK_GROUP];      // R's X, Y, Z a slot
+  u32 node[10 * FS_TN];        // the tree of R's Z (a zero leaf holds 1)
+  u8 r[32 * PK_GROUP];         // r a slot, lane-minor
+  u8 zero[FS_LEAVES];
+};
+
+#ifdef ES_STAMPS
+// the instrument build (ed_sign_stamps.cu): clock64 into stamps[i][k] at
+// the end of phase k of signable i, after a value the phase computed
+#define ES_STAMP(live, i, k, dep)                                         \
+  do {                                                                    \
+    asm volatile("" ::"r"((u32)(dep)) : "memory");                        \
+    if (live) stamps[(size_t)(i) * ES_NSTAMP + (k)] = clock64();          \
+  } while (0)
+#else
+#define ES_STAMP(live, i, k, dep) ((void)0)
+#endif
+
+// a block count clamped to 1..NB (NB >= 1: the wrapper refuses NB = 0)
+PK_DEV int es_clamp(int n, int NB) { return n < 1 ? 1 : n > NB ? NB : n; }
+
+// 16 bytes from src to dst, both 16-byte aligned (src in global memory)
+PK_DEV void es_copy16(u8 *dst, const u8 *src) {
+#ifdef PK_HOST
+  for (int k = 0; k < 16; k++) dst[k] = src[k];
+#else
+  *reinterpret_cast<uint4 *>(dst) = __ldg(reinterpret_cast<const uint4 *>(src));
+#endif
+}
+
+// words t0 .. t0 + 2n - 1 of a SHA-512 block, big-endian, from the
+// 16n bytes at p (16-byte aligned; global memory with `ldg`, else shared)
+template <bool LDG>
+PK_DEV void es_words(const u8 *p, u64 *w, int t0, int n) {
+#ifdef PK_HOST
+  for (int t = t0; t < t0 + 2 * n; t++) {
+    u64 x = 0;
+    for (int k = 0; k < 8; k++) x = (x << 8) | p[8 * (t - t0) + k];
+    w[t] = x;
+  }
+#else
+  const uint4 *q = reinterpret_cast<const uint4 *>(p);
+#pragma unroll
+  for (int c = 0; c < n; c++) {
+    const uint4 v = LDG ? __ldg(q + c) : q[c];
+    w[t0 + 2 * c] = (u64)__byte_perm(v.x, 0, 0x0123) << 32 | __byte_perm(v.y, 0, 0x0123);
+    w[t0 + 2 * c + 1] = (u64)__byte_perm(v.z, 0, 0x0123) << 32 | __byte_perm(v.w, 0, 0x0123);
+  }
+#endif
+}
+
+// warps 1-7, thread t of 224 (the host's one pass: each t in turn): h's
+// first min(NB, ES_HB) blocks and a ‖ A of the block's 32 slots into
+// shared memory, 16 bytes a copy
+PK_DEV void es_stage(int t, int g, const SignArgs &a, SignScratch &sc) {
+  const int nbs = a.NB < ES_HB ? a.NB : ES_HB, per = 8 * nbs + 4;
+  for (int c = t; c < PK_GROUP * per; c += ES_THREADS - PK_GROUP) {
+    const int slot = c / per, k = c % per;
+    const int ii = g + slot < a.B ? g + slot : a.B - 1;
+    if (k < 8 * nbs) {
+      es_copy16(sc.hb + slot * ES_HROW + 16 * k, a.hblocks + (size_t)ii * a.NB * 128 + 16 * k);
+    } else {
+      const int q = k - 8 * nbs;  // 0, 1: a; 2, 3: A
+      es_copy16(sc.ak + slot * ES_AROW + 16 * q,
+                (q < 2 ? a.a : a.aenc) + (size_t)ii * 32 + 16 * (q & 1));
+    }
+  }
+}
+
+// warp 0, a thread a slot: the counts checked, r = SHA-512(prefix ‖ M) mod
+// L into sc.r; -> whether a count of a live slot lies outside 1..NB
+PK_DEV bool es_r(int lane, int g, const SignArgs &a, SignScratch &sc, u64 *stamps) {
+  const int i = g + lane;
+  const bool live = i < a.B;
+  const int ii = live ? i : a.B - 1;
+  (void)stamps;
+  ES_STAMP(live, i, 0, 0);
+  const int rn = a.rnb[ii], hn = a.hnb[ii];
+  const bool bad = live && (rn < 1 || rn > a.NB || hn < 1 || hn > a.NB);
+  const int nr = es_clamp(rn, a.NB);
+  const u8 *rows = a.rblocks + (size_t)ii * a.NB * 128;
   u64 st[8], w[16];
+  u8 dg[64], r[32];
   sha512_init(st);
 #pragma unroll 1
-  for (int b = 0; b < nb; b++) {
-    for (int t = 0; t < 16; t++) {
-      u64 x = 0;
-      for (int j = 0; j < 8; j++) {
-        const int k = 128 * b + 8 * t + j;
-        x = (x << 8) | (hole != nullptr && k < 64 ? hole[k] : PK_LDG(blocks + k));
+  for (int b = 0; b < nr; b++) {
+    es_words<true>(rows + 128 * b, w, 0, 8);
+    sha512_compress(st, w);
+  }
+  sha512_digest(st, dg);
+  ES_STAMP(live, i, 1, dg[0]);
+  sc_reduce512(dg, r);
+  for (int k = 0; k < 32; k++) sc.r[(k << 5) + lane] = r[k];
+  ES_STAMP(live, i, 2, r[0]);
+  return bad;
+}
+
+// whether thread t's warp holds a slot below B (g the block's first)
+PK_DEV bool es_warp_live(int t, int g, int B) { return g + (t & ~31) / ES_TEAM < B; }
+
+// window w's entry for digit d: X, Y, T and 2d·T (Z is 1)
+struct esent { fe x, y, t, t2d; };
+
+PK_DEV esent es_entry(const u32 *table, int w, int d) {
+  const u32 *e = table + ((size_t)w * 256 + d) * 40;
+  esent p;
+#ifdef PK_HOST
+  for (int l = 0; l < 10; l++) {
+    p.x.v[l] = e[l];
+    p.y.v[l] = e[10 + l];
+    p.t.v[l] = e[30 + l];
+  }
+#else
+  // 16-byte loads: X and Y are words 0-19, T words 30-39 (in 28-39)
+  const uint4 *q = reinterpret_cast<const uint4 *>(e);
+  u32 v[40];
+#pragma unroll
+  for (int c = 0; c < 10; c++) {
+    if (c == 5 || c == 6) continue;  // Z alone
+    const uint4 u = __ldg(q + c);
+    v[4 * c] = u.x; v[4 * c + 1] = u.y; v[4 * c + 2] = u.z; v[4 * c + 3] = u.w;
+  }
+#pragma unroll
+  for (int l = 0; l < 10; l++) {
+    p.x.v[l] = v[l];
+    p.y.v[l] = v[10 + l];
+    p.t.v[l] = v[30 + l];
+  }
+#endif
+  p.t2d = fe_mul(p.t, fe_const(PK_D2));
+  return p;
+}
+
+// q + p for p affine (Z = 1): ge_add with Z1·Z2 = Z1 and p's 2d·T formed
+// at its load, off q's chain
+PK_DEV ge es_madd(const ge &q, const esent &p) {
+  const fe a = fe_mul(fe_sub(q.y, q.x), fe_sub(p.y, p.x));
+  const fe b = fe_mul(fe_add(q.y, q.x), fe_add(p.y, p.x));
+  const fe c = fe_mul(q.t, p.t2d);
+  const fe d = fe_add(q.z, q.z);
+  const fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
+  ge r;
+  r.x = fe_mul(e, f); r.y = fe_mul(g, h); r.z = fe_mul(f, g); r.t = fe_mul(e, h);
+  return r;
+}
+
+// thread t of the block (slot t / ES_TEAM, part j = t % ES_TEAM): the sum
+// of windows ES_WIN·j .. ES_WIN·j + ES_WIN - 1 of r·B, every window added
+// (a zero digit's entry is the identity), each entry loaded a step ahead
+PK_NOINLINE ge es_walk(int t, const u32 *table, const SignScratch &sc) {
+  const int s = t / ES_TEAM, w0 = ES_WIN * (t % ES_TEAM);
+  esent cur = es_entry(table, w0, sc.r[(w0 << 5) + s]);
+  ge q;
+  q.x = cur.x;
+  q.y = cur.y;
+  q.z = fe_one();
+  q.t = cur.t;
+  cur = es_entry(table, w0 + 1, sc.r[((w0 + 1) << 5) + s]);
+#pragma unroll 1
+  for (int k = 2; k <= ES_WIN; k++) {
+    const esent p = cur;
+    if (k < ES_WIN) cur = es_entry(table, w0 + k, sc.r[((w0 + k) << 5) + s]);
+    q = es_madd(q, p);
+  }
+  return q;
+}
+
+// a team's point in the exchange, lane-minor: coordinate c limb l of
+// point k of slot s at x[((40 k + 10 c + l) << 5) + s]
+PK_DEV void es_put(u32 *x, int k, int s, const ge &p) {
+  u32 *w = x + 40 * PK_GROUP * k + s;
+  for (int l = 0; l < 10; l++) {
+    w[(l) << 5] = p.x.v[l];
+    w[(10 + l) << 5] = p.y.v[l];
+    w[(20 + l) << 5] = p.z.v[l];
+    w[(30 + l) << 5] = p.t.v[l];
+  }
+}
+
+PK_DEV ge es_get(const u32 *x, int k, int s) {
+  const u32 *w = x + 40 * PK_GROUP * k + s;
+  ge p;
+  for (int l = 0; l < 10; l++) {
+    p.x.v[l] = w[(l) << 5];
+    p.y.v[l] = w[(10 + l) << 5];
+    p.z.v[l] = w[(20 + l) << 5];
+    p.t.v[l] = w[(30 + l) << 5];
+  }
+  return p;
+}
+
+// level d (1, 2, ...) of a team's pairwise sum: part j with j mod 2d = d
+// puts its point, part j with j mod 2d = 0 adds it (the host: every put
+// of the level before every add)
+PK_DEV void es_level_put(int t, int d, const ge &p, SignScratch &sc) {
+  const int j = t % ES_TEAM;
+  if (j % (2 * d) == d) es_put(sc.x, j / (2 * d), t / ES_TEAM, p);
+}
+
+PK_DEV void es_level_add(int t, int d, ge &p, const SignScratch &sc) {
+  const int j = t % ES_TEAM;
+  if (j % (2 * d) == 0) p = ge_add(p, es_get(sc.x, j / (2 * d), t / ES_TEAM));
+}
+
+// part 0 of slot s, after the team's sum: R's X, Y, Z for the finish and
+// its Z a leaf of the block's tree
+PK_DEV void es_publish(int s, const ge &p, SignScratch &sc) {
+  for (int l = 0; l < 10; l++) {
+    sc.pts[(l << 5) + s] = p.x.v[l];
+    sc.pts[((10 + l) << 5) + s] = p.y.v[l];
+    sc.pts[((20 + l) << 5) + s] = p.z.v[l];
+  }
+  fs_tree_leaf(sc.node, sc.zero, s, p.z);
+}
+
+// warp 0, a thread a slot, after the tree: R's encoding from its Z's
+// inverse, h = SHA-512(R ‖ A ‖ M) mod L (the staged blocks from shared
+// memory, any later ones from global), s = r + h·a mod L -> out[i]
+PK_NOINLINE void es_finish(int lane, int g, const SignArgs &a, const SignScratch &sc,
+                           u64 *stamps) {
+  const int i = g + lane;
+  const bool live = i < a.B;
+  const int ii = live ? i : a.B - 1;
+  (void)stamps;
+  const fe iz = fs_tree_inv(sc.node, sc.zero, lane);
+  u8 rb[32], xb[32];
+  fe_to_bytes(xb, fe_mul(fs_get_fe(sc.pts, 0, lane), iz));
+  fe_to_bytes(rb, fe_mul(fs_get_fe(sc.pts, 1, lane), iz));
+  rb[31] |= (u8)((xb[0] & 1) << 7);
+  ES_STAMP(live, i, 4, rb[31]);
+  const int nh = es_clamp(a.hnb[ii], a.NB);
+  const u8 *row = sc.hb + lane * ES_HROW, *ak = sc.ak + lane * ES_AROW;
+  u64 st[8], w[16];
+  u8 dg[64], h[32], sa[32], r[32], ha[32], s[32];
+  sha512_init(st);
+#pragma unroll 1
+  for (int b = 0; b < nh; b++) {
+    if (b == 0) {  // R ‖ A ‖ the block's last 64 bytes
+      for (int t = 0; t < 4; t++) {
+        u64 x = 0;
+        for (int k = 0; k < 8; k++) x = (x << 8) | rb[8 * t + k];
+        w[t] = x;
       }
-      w[t] = x;
+      es_words<false>(ak + 32, w, 4, 2);
+      es_words<false>(row + 64, w, 8, 4);
+    } else if (b < ES_HB) {
+      es_words<false>(row + 128 * b, w, 0, 8);
+    } else {
+      es_words<true>(a.hblocks + ((size_t)ii * a.NB + b) * 128, w, 0, 8);
     }
     sha512_compress(st, w);
   }
-  sha512_digest(st, out);
-}
-
-// Ed25519 sign of lane i: r = SHA-512(prefix ‖ M) mod L, R = r·B, h =
-// SHA-512(R ‖ A ‖ M) mod L, s = r + h·a mod L -> out[i] = R ‖ s. The
-// message blocks [B][NB][128] (rblocks: prefix ‖ M padded; hblocks: a
-// 64-byte hole ‖ M padded), the block counts per lane
-PK_DEV void ed_sign_lane(int i, int NB, const u32 *base8, const u8 *a, const u8 *aenc,
-                         const u8 *rblocks, const int32_t *rnb, const u8 *hblocks,
-                         const int32_t *hnb, u8 *out) {
-  u8 dg[64], r[32], hole[64], h[32], sa[32], ha[32], s[32];
-  fs_sha512_rows(rblocks + (size_t)i * NB * 128, rnb[i], nullptr, dg);
-  sc_reduce512(dg, r);
-  ge rp = ge_base_mul_w8(base8, r);
-  ge_compress_many(&rp, 1, hole);
-  for (int k = 0; k < 32; k++) {
-    hole[32 + k] = PK_LDG(aenc + (size_t)i * 32 + k);
-    sa[k] = PK_LDG(a + (size_t)i * 32 + k);
-  }
-  fs_sha512_rows(hblocks + (size_t)i * NB * 128, hnb[i], hole, dg);
+  sha512_digest(st, dg);
+  ES_STAMP(live, i, 5, dg[0]);
   sc_reduce512(dg, h);
+  for (int k = 0; k < 32; k++) {
+    sa[k] = ak[k];
+    r[k] = sc.r[(k << 5) + lane];
+  }
   sc_mul<8>(h, sa, ha);
   sc_add(r, ha, s);
-  u8 *o = out + (size_t)i * 64;
+  ES_STAMP(live, i, 6, s[0]);
+  if (!live) return;
+  u8 *o = a.out + (size_t)i * 64;
   for (int k = 0; k < 32; k++) {
-    o[k] = hole[k];
+    o[k] = rb[k];
     o[32 + k] = s[k];
   }
 }

@@ -289,13 +289,71 @@ extern "C" int pk_forge_sweep(int B, int P, long long slot0, const void *base8,
   return 0;
 }
 
+// R = r·B of the 32 slots of the block at g from the r in sc.r: every
+// live warp's walks (a warp with no slot below B keeps the identity),
+// then each level of the teams' sums (the level's puts before its adds),
+// then part 0's publish; p[t] holds thread t's point
+static void es_host_sum(const u32 *table, int g, int B, SignScratch &sc, ge *p) {
+  for (int t = 0; t < ES_THREADS; t++)
+    p[t] = es_warp_live(t, g, B) ? es_walk(t, table, sc) : ge_identity();
+  for (int d = 1; d < ES_TEAM; d <<= 1) {
+    for (int t = 0; t < ES_THREADS; t++)
+      if (es_warp_live(t, g, B)) es_level_put(t, d, p[t], sc);
+    for (int t = 0; t < ES_THREADS; t++)
+      if (es_warp_live(t, g, B)) es_level_add(t, d, p[t], sc);
+  }
+  for (int s = 0; s < PK_GROUP; s++) es_publish(s, p[ES_TEAM * s], sc);
+}
+
+// the signer block by block over a scratch filled with 0xA5 first, in an
+// order the kernel's barriers allow: warp 0's counts and r (its flag for
+// the block), warps 1-7's staging, the teams' R, the tree, the finish
 extern "C" int pk_ed_sign(int B, int NB, const void *base8, const void *a,
                           const void *aenc, const void *rblocks, const void *rnb,
-                          const void *hblocks, const void *hnb, void *out, void *) {
-  for (int i = 0; i < B; i++)
-    ed_sign_lane(i, NB, (const u32 *)base8, (const u8 *)a, (const u8 *)aenc,
-                 (const u8 *)rblocks, (const int32_t *)rnb, (const u8 *)hblocks,
-                 (const int32_t *)hnb, (u8 *)out);
+                          const void *hblocks, const void *hnb, void *out, void *bad, void *) {
+  SignArgs sa{B, NB, (const u32 *)base8, (const u8 *)a, (const u8 *)aenc,
+              (const u8 *)rblocks, (const int32_t *)rnb, (const u8 *)hblocks,
+              (const int32_t *)hnb, (u8 *)out, (int32_t *)bad};
+  static SignScratch sc;
+  static ge p[ES_THREADS];
+  for (int g = 0; g < B; g += PK_GROUP) {
+    u8 *raw = (u8 *)&sc;
+    for (size_t k = 0; k < sizeof sc; k++) raw[k] = 0xA5;
+    bool any = false;
+    for (int l = 0; l < PK_GROUP; l++) any = es_r(l, g, sa, sc, nullptr) || any;
+    sa.bad[g / PK_GROUP] = any ? 1 : 0;
+    for (int t = 0; t < ES_THREADS - PK_GROUP; t++) es_stage(t, g, sa, sc);
+    es_host_sum(sa.base8, g, B, sc, p);
+    fs_tree(sc.node, 0);
+    for (int l = 0; l < PK_GROUP; l++) es_finish(l, g, sa, sc, nullptr);
+  }
+  return 0;
+}
+
+// host only: the signer's R = r·B alone (the teams' walks and sums) for
+// [B][32] little-endian scalars r -> [B][40] limbs X, Y, Z, T
+extern "C" int pk_ed_sign_walk(int B, const void *base8, const void *r, void *pts) {
+  static SignScratch sc;
+  static ge p[ES_THREADS];
+  for (int g = 0; g < B; g += PK_GROUP) {
+    u8 *raw = (u8 *)&sc;
+    for (size_t k = 0; k < sizeof sc; k++) raw[k] = 0xA5;
+    for (int s = 0; s < PK_GROUP; s++) {
+      const int ii = g + s < B ? g + s : B - 1;
+      for (int k = 0; k < 32; k++) sc.r[(k << 5) + s] = ((const u8 *)r)[32 * ii + k];
+    }
+    es_host_sum((const u32 *)base8, g, B, sc, p);
+    for (int s = 0; s < PK_GROUP && g + s < B; s++) {
+      const ge &q = p[ES_TEAM * s];
+      u32 *o = (u32 *)pts + (size_t)40 * (g + s);
+      for (int l = 0; l < 10; l++) {
+        o[l] = q.x.v[l];
+        o[10 + l] = q.y.v[l];
+        o[20 + l] = q.z.v[l];
+        o[30 + l] = q.t.v[l];
+      }
+    }
+  }
   return 0;
 }
 

@@ -945,25 +945,38 @@ def forge_sweep(pools, slot0: int, b: int, nonce):
 
 
 def _ed_sign_launch(fn, stream, a, a_enc, rblocks, rnblocks, hblocks, hnblocks):
+    """One launch of `fn` (pk_ed_sign of either build) -> (signatures [B,
+    64] uint8, bad [ceil(B / 32)] int32: 1 for a block with a block count
+    outside 1..NB), both still on the device."""
     b, nb = rblocks.shape[0], rblocks.shape[1]
     out = torch.empty((b, 64), dtype=torch.uint8, device=a.device)
+    bad = torch.empty((-(-b // 32),), dtype=torch.int32, device=a.device)
     rc = fn(b, nb, _p(_base8(a.device)), _p(a), _p(a_enc), _p(rblocks), _p(rnblocks),
-            _p(hblocks), _p(hnblocks), _p(out), stream)
+            _p(hblocks), _p(hnblocks), _p(out), _p(bad), stream)
     _raise_on(rc, "ed_sign")
-    return out
+    return out, bad
+
+
+def _bad_counts(nb: int, got: str = "") -> ValueError:
+    return ValueError(f"ed_sign: a message's SHA-512 block count lies outside 1..{nb}{got}")
 
 
 def ed_sign(a, a_enc, rblocks, rnblocks, hblocks, hnblocks):
-    """Ed25519 signatures of the OCert signables, one lane each: a, a_enc
-    [B, 32] uint8 (the clamped secret scalar, the public key); rblocks,
-    hblocks [B, NB, 128] uint8 and rnblocks, hnblocks [B] int32
-    (prove.stage_sign_np) -> [B, 64] uint8 R ‖ s.
+    """Ed25519 signatures of the OCert signables: a, a_enc [B, 32] uint8
+    (the clamped secret scalar, the public key); rblocks, hblocks [B, NB,
+    128] uint8 and rnblocks, hnblocks [B] int32 (prove.stage_sign_np) ->
+    [B, 64] uint8 R ‖ s. A block count outside 1..NB raises ValueError: on
+    the card the kernel flags it and this reads the flags after the
+    launch (the one wait for the card, which a caller reading the
+    signatures pays anyway), so nothing is read back before the launch.
 
     Replaces the plain-XLA `forge_sign` of
     ouroboros_consensus_tpu/protocol/forge.py:125 (ops/ed25519_batch.py:140
     sign), in one launch (csrc/forge.cu). Plain version: prove.ed_sign_plain.
-    Bound: operations: a 32-add fixed-base walk, one inversion, two
-    SHA-512 and the mod-L products a lane; a thread a lane."""
+    Bound: the dependent path (a 32-add fixed-base walk, one inversion,
+    two SHA-512 and the mod-L products a signable); 32 signables a block
+    on eight warps, R = r·B on eight threads a signable, R's inversion one
+    a block."""
     dev = a.device
     b = a.shape[0]
     nb = rblocks.shape[1] if rblocks.dim() == 3 else 0
@@ -973,18 +986,24 @@ def ed_sign(a, a_enc, rblocks, rnblocks, hblocks, hnblocks):
                          ("hblocks", hblocks, (b, nb, 128), torch.uint8),
                          ("hnblocks", hnblocks, (b,), torch.int32)):
         _check(f"ed_sign.{n}", t, sh, dev, dt)
-    if b:
-        lo, hi = torch.aminmax(torch.cat((rnblocks, hnblocks)))
-        if int(lo) < 1 or int(hi) > nb:
-            raise ValueError(f"ed_sign: a message's SHA-512 block count lies outside "
-                             f"1..{nb} (got {int(lo)}..{int(hi)})")
+    if b and nb < 1:
+        raise _bad_counts(nb)
     if _route(dev) == "plain":
+        if b:  # the tensors are on the host: no copy from the card
+            lo, hi = torch.aminmax(torch.cat((rnblocks, hnblocks)))
+            if int(lo) < 1 or int(hi) > nb:
+                raise _bad_counts(nb, f" (got {int(lo)}..{int(hi)})")
         return pp.ed_sign_plain(a, a_enc, rblocks, rnblocks, hblocks, hnblocks)
     if b == 0:
         return torch.empty((0, 64), dtype=torch.uint8, device=dev)
+    for n, t in (("a", a), ("a_enc", a_enc), ("rblocks", rblocks), ("hblocks", hblocks)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"ed_sign.{n}: expected 16-byte aligned data")
     from . import build
 
-    out = _ed_sign_launch(build.kernel_lib("forge", "pk_ed_sign"), _stream(dev), a, a_enc,
-                          rblocks, rnblocks, hblocks, hnblocks)
+    out, bad = _ed_sign_launch(build.kernel_lib("forge", "pk_ed_sign"), _stream(dev), a, a_enc,
+                               rblocks, rnblocks, hblocks, hnblocks)
     LAUNCHES["ed_sign"] += 1
+    if bad.cpu().any():
+        raise _bad_counts(nb)
     return out

@@ -27,6 +27,8 @@ from ouroboros_consensus_tpu.tools import db_synthesizer as jds
 from ouroboros_consensus_tpu_torch import carry
 from ouroboros_consensus_tpu_torch.ops import host_kes
 from ouroboros_consensus_tpu_torch.ops.pk import build
+from ouroboros_consensus_tpu_torch.ops.pk import curve as pc
+from ouroboros_consensus_tpu_torch.ops.pk import field as fe_mod
 from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
 from ouroboros_consensus_tpu_torch.ops.pk import prove as pp
 from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
@@ -140,17 +142,66 @@ def _sign_inputs(msgs):
     return seeds, [torch.from_numpy(np.ascontiguousarray(a)) for a in pp.stage_sign_np(seeds, msgs)]
 
 
-def test_ed_sign_twin_and_host_build_match_jax_signer():
-    """Messages of 0 to 200 bytes (one to three SHA-512 blocks; an OCert
-    signable is 48): the twin and the lane body against the JAX
-    package's host signer."""
-    msgs = [b"", b"o" * 48, b"m" * 63, b"n" * 64, b"q" * 111, b"r" * 200]
+# messages of 0 to 200 bytes: one to three SHA-512 blocks on either side
+# (an OCert signable is 48)
+SIGN_LENGTHS = (0, 48, 63, 64, 111, 200)
+SIGN_MSGS = {"six-lengths": [b"", b"o" * 48, b"m" * 63, b"n" * 64, b"q" * 111, b"r" * 200]}
+SIGN_MSGS.update({str(n): [bytes([k % 251]) * SIGN_LENGTHS[k % 6] for k in range(n)]
+                  for n in (1, 2, 31, 32, 33, 70)})
+# and 400 bytes: four blocks a side, h's fourth read past the three staged
+SIGN_MSGS["33-with-400"] = [bytes([k % 251]) * (SIGN_LENGTHS + (400,))[k % 7] for k in range(33)]
+
+
+@pytest.mark.parametrize("case", list(SIGN_MSGS))
+def test_ed_sign_twin_and_host_build_match_jax_signer(case):
+    """The twin and the kernel's body (the host build: warp 0's hashes, the
+    teams' walks and sums, the block's tree) against the JAX package's
+    host signer and the port's C++ signer, around the 32-signable block
+    (1, 2, one short of a block, a block, a block and one, three blocks),
+    messages of 0 to 200 bytes, and 400 (NB = 4) at 33 signables."""
+    from ouroboros_consensus_tpu_torch import native
+
+    msgs = SIGN_MSGS[case]
     seeds, staged = _sign_inputs(msgs)
     twin = K.ed_sign(*staged)
-    emu = K._ed_sign_launch(_emu().pk_ed_sign, None, *staged)
+    emu, bad = K._ed_sign_launch(_emu().pk_ed_sign, None, *staged)
     assert torch.equal(twin, emu)
+    assert bad.tolist() == [0] * (-(-len(msgs) // 32))
     for i, (seed, m) in enumerate(zip(seeds, msgs)):
-        assert twin[i].numpy().tobytes() == red.sign(seed, m)
+        assert twin[i].numpy().tobytes() == red.sign(seed, m) == native.ed25519_sign(seed, m)
+
+
+def _scalar(x: int) -> bytes:
+    return x.to_bytes(32, "little")
+
+
+# 0, 1, L - 1, middle windows 0 (identity entries inside the teams' sums:
+# windows 8-23 span parts 2 to 5 whole), every window 255
+WALK_SCALARS = (0, 1, red.L - 1,
+                int.from_bytes(bytes([0x5A] * 8) + bytes(16) + bytes([0xC3] * 8), "little"),
+                (1 << 256) - 1)
+
+
+def test_ed_sign_tree_walk_matches_twin_base_mul():
+    """R = r·B alone (the host build's teams: each part's four windows,
+    then the pairwise sums) against the twin's `base_mul_w8` on crafted
+    scalars, as points (the same compression; the sums' order differs, so
+    the limbs do), against the JAX package's host `base_point_mul`, and
+    X·Y = Z·T."""
+    rows = [_scalar(x) for x in WALK_SCALARS]
+    r = np.frombuffer(b"".join(rows), np.uint8).reshape(-1, 32).copy()
+    b = r.shape[0]
+    base8 = K._base8(torch.device("cpu"))
+    pts = np.zeros((b, 40), np.uint32)
+    assert _emu().pk_ed_sign_walk(b, base8.data_ptr(), r.ctypes.data, pts.ctypes.data) == 0
+    got = pc.unstack(torch.from_numpy(pts.T.astype(np.int64)))
+    want = pc.base_mul_w8(torch.from_numpy(r.T.astype(np.int64)))
+    assert torch.equal(pc.compress_many([got])[0], pc.compress_many([want])[0])
+    for i, sc in enumerate(WALK_SCALARS):
+        x, y, z, t = (sum(int(v) << fe_mod.OFF[k] for k, v in enumerate(pts[i, 10 * c:10 * c + 10]))
+                      for c in range(4))
+        assert (x * y - z * t) % fe_mod.P == 0
+        assert red.point_equal((x, y, z, t), red.base_point_mul(sc))
 
 
 def test_staging_matches_jax_staging():
@@ -196,6 +247,55 @@ def test_wrappers_check_their_inputs():
     for bad_rn, bad_hn in ((rn * 0, hn), (rn, hn * 0 + nb + 1), (rn * 0 - 1, hn)):
         with pytest.raises(ValueError, match="block count"):
             K.ed_sign(a, a_enc, rb, bad_rn, hb, bad_hn)
+
+
+def test_ed_sign_card_route_reads_nothing_back_before_the_launch(monkeypatch):
+    """The card route of `kernels.ed_sign`, run here on the host build: no
+    torch call before the launch reads a tensor back to the host (the
+    kernel checks the block counts and flags its block; the wrapper reads
+    the flags after the launch, once), and an out-of-range count still
+    raises ValueError there."""
+    from torch.overrides import TorchFunctionMode
+
+    seen = []
+
+    class Spy(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            seen.append(getattr(func, "__name__", str(func)))
+            return func(*args, **(kwargs or {}))
+
+    emu = _emu().pk_ed_sign
+
+    def launch(*args):
+        seen.append("<launch>")
+        return emu(*args)
+
+    _seeds, staged = _sign_inputs([b"x" * 48, b"y" * 150, b""])
+    want = K.ed_sign(*staged)  # the plain route
+    K._base8(staged[0].device)  # the table, once
+    monkeypatch.setattr(K, "_route", lambda dev: "cuda")
+    monkeypatch.setattr(K, "_stream", lambda dev: None)
+    monkeypatch.setattr(build, "kernel_lib", lambda name, entry=None: launch)
+    reads = {"item", "cpu", "tolist", "numpy", "__int__", "__bool__", "__float__", "__index__",
+             "aminmax", "to", "copy_"}
+    with Spy():
+        got = K.ed_sign(*staged)
+    at = seen.index("<launch>")
+    assert not reads & set(seen[:at]), seen[:at]
+    assert seen[at + 1:].count("cpu") == 1
+    assert torch.equal(got, want)
+    a, a_enc, rb, rn, hb, hn = staged
+    nb = rb.shape[1]
+    for bad_rn, bad_hn in ((rn * 0, hn), (rn, hn * 0 + nb + 1), (rn * 0 - 1, hn)):
+        seen.clear()
+        with pytest.raises(ValueError, match="block count"), Spy():
+            K.ed_sign(a, a_enc, rb, bad_rn, hb, bad_hn)
+        assert "<launch>" in seen and not reads & set(seen[:seen.index("<launch>")])
+    # the kernel reads 16 bytes at a time: data off a 16-byte boundary is refused
+    shifted = torch.empty(a.numel() + 1, dtype=torch.uint8)[1:].view(a.shape)
+    shifted.copy_(a)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        K.ed_sign(shifted, a_enc, rb, rn, hb, hn)
 
 
 # ---------------------------------------------------------------------------
