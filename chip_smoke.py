@@ -190,6 +190,30 @@ Phases (any failure raises and the script exits non-zero):
       KES-signature byte, a Babbage VRF-proof byte with the header
       KES-signed again) that stop the card's replay at their index with
       the reference's error class; and both `--cardano` CLIs.
+   i. observability (`phase_obs`, `obs {...}` line) on a's chain at
+      max_batch 8,192: an untraced replay, then one with the flight
+      recorder installed and the live plane armed (a heartbeat file, the
+      metrics port), whose verdicts, final state and launches (kernel by
+      kernel) must equal the untraced one's, whose oct_windows_total,
+      oct_headers_validated_total and byte counters must equal its
+      result's windows, headers and bytes, with one WindowStaged and one
+      WindowSpan a window, /healthz answered mid-replay with a phase
+      that is not idle, the heartbeat's last document "done" and the
+      Perfetto document valid (written under _build/); then untraced and
+      traced replays in alternating pairs (the overhead: each side's
+      median and quartiles, each pair's ratio, "unresolved" where the
+      pairs' quartiles take both signs), each with the untraced launches,
+      and the seconds inside every call of the seam (the Enclose
+      brackets, the transfer and window events, the recorder) over one
+      more traced replay, pipelined and serial (one thread: no waits for
+      the GIL); the warmup report with every source's nvcc wall
+      and every launched kernel's first launch wall (the five largest of
+      each printed). The resources report is held after phase 4 (the
+      tools' kernels too): a row for every kernel the run launched, its
+      registers, local and static shared bytes equal to ptxas's for the
+      kernel its attributes entry reads, and its blocks per SM from the
+      occupancy API equal to sm_90's own count from those figures at the
+      entry's geometry (`sm90_blocks_per_sm`).
    The main paths' replays use revalidate's default (validate_all=True);
    the read's measurements (`sidecar_checks`, `read_breakdown`,
    `overlap_turns`, `pipeline_timeline`, `layer_breakdown`) and the
@@ -205,7 +229,8 @@ Phases (any failure raises and the script exits non-zero):
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
 5. A `kernels` JSON line (sixteen kernels; the forge's two with their
    launches on each forged chain beside its headers; every kernel's
-   launches by path, the serving plane's included), the card line, and
+   launches by path, the serving plane's included; each kernel's
+   resources row, held to ptxas after phase 4), the card line, and
    the final status line.
 
 Phase 2 also times the six stage kernels at the main path's one-block
@@ -319,6 +344,8 @@ PATH_KERNELS = {
     "tools": {"primitives", "fe_bench"},
     # the device engine's forge of the bc and the mixed chain
     "forge": {"forge_sweep", "ed_sign"},
+    # phase 3i's traced replay of the bc chain
+    "obs": AGG | WIRE,
     # phase 3f's replays: the aggregate, and the stages of its finish fault
     "recovery": AGG | BC_STAGES | WIRE,
     # phase 3g's batched serving runs: draft-03 and bc windows, a dirty
@@ -403,6 +430,7 @@ def ptxas_record(text: str, kernel: str | None) -> dict:
     stack = [int(x) for x in
              re.findall(r"(\d+) bytes (?:cumulative stack size|stack frame)", text)]
     spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", text)]
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", text)]
     # each function's own spill stores, by its name (of the mangled
     # `_Z<length><name>...`), where it spills
     by_fn = {}
@@ -413,7 +441,31 @@ def ptxas_record(text: str, kernel: str | None) -> dict:
         if int(n):
             by_fn[key] = by_fn.get(key, 0) + int(n)
     return {"registers": max(regs, default=None), "stack_bytes": max(stack, default=None),
+            "shared_bytes": max(smem, default=0),
             "spill_store_bytes": sum(spills), "spill_stores_by_function": by_fn}
+
+
+# the CUDA occupancy calculator's per-SM figures for compute capability
+# 9.0 (H100): registers, their unit (a warp's registers are allocated in
+# 256s) and the sub-partitions they are split over, warps, blocks, shared
+# bytes, the shared bytes the runtime reserves a block and their unit
+SM90 = {"regs": 65536, "reg_unit": 256, "sub_partitions": 4, "warps": 64, "blocks": 32,
+        "smem": 233472, "smem_reserved": 1024, "smem_unit": 128}
+
+
+def sm90_blocks_per_sm(registers: int, shared_bytes: int, threads: int) -> int:
+    """Resident blocks an SM of a kernel with `registers` a thread and
+    `shared_bytes` (static and dynamic) a block, at `threads` a block,
+    counted from sm_90's limits (SM90): the least of the blocks, the
+    warps, the registers each sub-partition holds and the shared memory
+    allow. Independent of the runtime's occupancy API, which
+    check_resources holds to it."""
+    warps = -(-threads // 32)
+    reg_warp = -(-registers * 32 // SM90["reg_unit"]) * SM90["reg_unit"]
+    by_regs = (SM90["regs"] // SM90["sub_partitions"] // reg_warp) * SM90["sub_partitions"]
+    smem = shared_bytes + SM90["smem_reserved"]
+    smem = -(-smem // SM90["smem_unit"]) * SM90["smem_unit"]
+    return min(SM90["blocks"], SM90["warps"] // warps, by_regs // warps, SM90["smem"] // smem)
 
 
 # ---------------------------------------------------------------------------
@@ -3992,6 +4044,269 @@ def phase_cardano(dev, forges: "Forges", workdir: str) -> dict:
     return {"launches": launches, "line": line}
 
 
+OBS_PAIRS = 12  # phase 3i's pairs of an untraced and a traced replay
+
+
+def phase_obs(dev, forges: Forges, max_batch: int = 8192) -> dict:
+    """Phase 3i: the observability plane on the card, on the bc chain of
+    phase 3a at full width (the docstring's 3i). -> the traced replay's
+    launches, the overhead pairs, the seam's cost and the warmup
+    summary."""
+    import statistics
+    import threading
+    import urllib.request
+
+    import torch
+
+    from ouroboros_consensus_tpu_torch import carry, obs
+    from ouroboros_consensus_tpu_torch.obs import live, perfetto
+    from ouroboros_consensus_tpu_torch.obs.warmup import WARMUP
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.testing import synth
+    from ouroboros_consensus_tpu_torch.tools import db_analyser
+    from ouroboros_consensus_tpu_torch.utils import trace as T
+
+    params = bench_params()
+    lview = synth.make_ledger_view([synth.make_pool(0, kes_depth=params.kes_depth)])
+    db, n = forges.get("bc")
+
+    def replay(**kw):
+        torch.cuda.synchronize()
+        r = db_analyser.revalidate(db, params, lview, device=dev, max_batch=max_batch,
+                                   validate_all="stream", **kw)
+        torch.cuda.synchronize()
+        return r
+
+    def outcome(r):
+        return (r.n_blocks, r.n_valid, carry.error_to_plain(r.error),
+                carry.state_to_plain(r.final_state))
+
+    def totals(rec) -> dict:
+        snap = rec.registry.snapshot()
+        return {k: sum(s["value"] for s in snap[k]["samples"]) if k in snap else 0
+                for k in ("oct_windows_total", "oct_headers_validated_total",
+                          "oct_h2d_bytes_total", "oct_d2h_bytes_total")}
+
+    # a. the untraced replay (no tracer on the seam), then the traced one
+    #    with the plane armed
+    if pbatch.BATCH_TRACER is not None:
+        raise AssertionError(f"obs: a tracer before the untraced replay: {pbatch.BATCH_TRACER}")
+    K.reset_launches()
+    base = replay()
+    base_launches = dict(K.LAUNCHES)
+    if base.error is not None or base.n_valid != n:
+        raise AssertionError(f"obs: the untraced replay {base.n_valid}/{n}, {base.error!r}")
+    rec = obs.recorder()
+    rec.clear()
+    before = totals(rec)
+    hb = os.path.join(build.BUILD_DIR, "obs_heartbeat.json")
+    seen: dict = {}
+    scraped = threading.Event()
+    epilogue = pbatch.epilogue
+
+    def scrape():
+        """/healthz from a second thread while the first window waits at
+        its epilogue."""
+        try:
+            port = live.armed().server.port
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=10) as f:
+                seen["healthz"] = json.loads(f.read())
+        finally:
+            scraped.set()
+
+    def held(*a, **kw):
+        if not scraped.is_set():
+            threading.Thread(target=scrape, daemon=True).start()
+            scraped.wait(30)
+        return epilogue(*a, **kw)
+
+    pbatch.epilogue = held
+    K.reset_launches()
+    try:
+        traced = replay(collect_phases=True, flight_recorder=True, heartbeat=hb,
+                        metrics_port=0, stall_budget_s=600)
+    finally:
+        pbatch.epilogue = epilogue
+    launches = dict(K.LAUNCHES)
+    after = totals(rec)
+    if outcome(traced) != outcome(base):
+        raise AssertionError("obs: the traced replay's verdicts or final state differ")
+    if launches != base_launches:
+        raise AssertionError(f"obs: launches traced {launches} != untraced {base_launches}")
+    got = {k: after[k] - before[k] for k in after}
+    want = {"oct_windows_total": traced.n_windows, "oct_headers_validated_total": traced.n_valid,
+            "oct_h2d_bytes_total": traced.h2d_bytes, "oct_d2h_bytes_total": traced.d2h_bytes}
+    if got != want:
+        raise AssertionError(f"obs: recorder {got} != result {want}")
+    events = [e for _t, e in rec.timed_events()]
+    staged = [e.index for e in events if type(e).__name__ == "WindowStaged"]
+    spans = [e.index for e in events if type(e).__name__ == "WindowSpan"]
+    if not (len(staged) == len(spans) == traced.n_windows and staged == spans):
+        raise AssertionError(f"obs: {len(staged)} WindowStaged, {len(spans)} WindowSpan, "
+                             f"{traced.n_windows} windows")
+    phase = (seen.get("healthz") or {}).get("phase")
+    if phase in (None, "idle", "warmup"):
+        raise AssertionError(f"obs: /healthz mid-replay answered {seen.get('healthz')!r}")
+    final = live.classify(live.read_heartbeat(hb))
+    if final != "done":
+        raise AssertionError(f"obs: the heartbeat's last document classifies as {final!r}")
+    trace_path = os.path.join(build.BUILD_DIR, "obs_trace.perfetto.json")
+    doc = rec.write_chrome_trace(trace_path)
+    problems = perfetto.validate_chrome_trace(doc)
+    if problems:
+        raise AssertionError(f"obs: the Perfetto document is invalid: {problems[:5]}")
+    log(f"obs: traced replay == untraced (n_valid {traced.n_valid}, {traced.n_windows} "
+        f"windows, launches {json.dumps({k: v for k, v in launches.items() if v})}); "
+        f"recorder {json.dumps(got)}; /healthz mid-replay phase {phase!r}; heartbeat {final}; "
+        f"Perfetto {trace_path} ({os.path.getsize(trace_path)} bytes, "
+        f"{len(doc['traceEvents'])} events)")
+
+    # b. the overhead: an untraced and a traced replay in each pair, the
+    #    pair's order flipped each time, every replay launching what the
+    #    untraced one of (a) launched
+    turns: dict = {"untraced": [], "traced": []}
+    per_window = []
+    for k in range(OBS_PAIRS):
+        for side in (("untraced", "traced") if k % 2 == 0 else ("traced", "untraced")):
+            rec.clear()
+            K.reset_launches()
+            r = replay(flight_recorder=side == "traced")
+            if outcome(r) != outcome(base):
+                raise AssertionError(f"obs: a {side} turn's replay differs")
+            if K.LAUNCHES != base_launches:
+                raise AssertionError(f"obs: a {side} turn launched {dict(K.LAUNCHES)} != "
+                                     f"untraced {base_launches}")
+            turns[side].append({"validate_s": r.validate_s, "wall_s": r.wall_s})
+            if side == "traced":
+                per_window.append(len(rec.timed_events()) / max(
+                    1, sum(type(e).__name__ == "WindowSpan" for _t, e in rec.timed_events())))
+
+    def quartiles(xs) -> dict:
+        q1, med, q3 = statistics.quantiles(xs, n=4, method="inclusive")
+        return {"q1": q1, "median": med, "q3": q3}
+
+    keys = ("validate_s", "wall_s")
+    spread = {side: {k: quartiles([t[k] for t in ts]) for k in keys}
+              for side, ts in turns.items()}
+    overhead = {k: spread["traced"][k]["median"] / spread["untraced"][k]["median"] - 1
+                for k in keys}
+    # each pair's traced / untraced - 1: resolved only where its quartiles
+    # keep one sign
+    pair = {k: quartiles([t[k] / u[k] - 1 for t, u in zip(turns["traced"], turns["untraced"])])
+            for k in keys}
+    verdict = {k: ("traced slower" if pair[k]["q1"] > 0 else
+                   "traced faster" if pair[k]["q3"] < 0 else "unresolved") for k in keys}
+    # the seam's own cost, which the pairs' spread hides: the seconds inside
+    # every call of it over a traced replay (the Enclose brackets, the
+    # transfer and window events, the recorder's calls from any other site;
+    # a call inside another is not counted twice; each timed call's clock
+    # reads are in it). Pipelined, a call's wall also holds its waits for the
+    # GIL while the staging and prefetch threads run; serial (one thread,
+    # the same windows and events) it is the seam's own work. Each against
+    # the untraced pairs' median validate_s and wall_s.
+    lock, depth = threading.Lock(), threading.local()
+
+    def seam_cost(**kw) -> dict:
+        spent = {"s": 0.0, "calls": 0}
+
+        def timed(fn):
+            def call(*a, **kw):
+                if getattr(depth, "n", 0):
+                    return fn(*a, **kw)
+                depth.n = 1
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    dt = time.perf_counter() - t0
+                    depth.n = 0
+                    with lock:
+                        spent["s"] += dt
+                        spent["calls"] += 1
+            return call
+
+        seam = [(pbatch, n)
+                for n in ("_enclose", "_emit_transfer", "_win_meta", "_emit_window_span")]
+        seam += [(T.Enclose, "__enter__"), (T.Enclose, "__exit__"), (type(rec), "__call__")]
+        saved = [(o, n, o.__dict__[n]) for o, n in seam]
+        for o, n, fn in saved:
+            setattr(o, n, timed(fn))
+        try:
+            rec.clear()
+            K.reset_launches()
+            r = replay(flight_recorder=True, **kw)
+        finally:
+            for o, n, fn in saved:
+                setattr(o, n, fn)
+        if outcome(r) != outcome(base) or K.LAUNCHES != base_launches:
+            raise AssertionError(f"obs: the timed traced replay {kw} differs: launches "
+                                 f"{dict(K.LAUNCHES)}")
+        spent.update(events=len(rec.timed_events()), validate_s=r.validate_s,
+                     us_a_call=spent["s"] / max(1, spent["calls"]) * 1e6,
+                     share_of_validate_s=spent["s"] / spread["untraced"]["validate_s"]["median"],
+                     share_of_wall_s=spent["s"] / spread["untraced"]["wall_s"]["median"])
+        return spent
+
+    spent = {"pipelined": seam_cost(),
+             "serial": seam_cost(pipeline_depth=1, prefetch=False)}
+    log(f"obs overhead: {OBS_PAIRS} pairs {json.dumps(turns)}; quartiles {json.dumps(spread)}; "
+        f"median traced/untraced - 1 {json.dumps(overhead)}; each pair's traced/untraced - 1 "
+        f"{json.dumps(pair)} -> {json.dumps(verdict)}; recorder events a window "
+        f"{per_window}; inside the seam over one traced replay: {json.dumps(spent)}")
+
+    # d. the warmup report
+    wu = WARMUP.report()
+    if set(wu["builds"]) != set(build.KERNELS):
+        raise AssertionError(f"obs: nvcc walls for {sorted(wu['builds'])}")
+    top = {part: sorted(((v["wall_s"], k) for k, v in wu[part].items()), reverse=True)[:5]
+           for part in ("builds", "stages")}
+    log(f"obs warmup: nvcc walls, the five largest (s): {top['builds']}; first launch walls, "
+        f"the five largest (s): {top['stages']}; {wu['n_stages']} kernels launched")
+    out = {"launches": launches, "windows": traced.n_windows, "turns": turns,
+           "quartiles": spread, "overhead": overhead, "pair_overhead": pair,
+           "verdict": verdict, "events_per_window": per_window, "seam_cost": spent,
+           "trace_bytes": os.path.getsize(trace_path), "healthz_phase": phase,
+           "warmup_top": top}
+    print("obs " + json.dumps(out), flush=True)
+    return out
+
+
+def check_resources(ptxas_file) -> dict:
+    """The resources report after the run (phase 3i's (c), after the
+    tools): a row for every kernel the run launched, none failed; its
+    registers, local and static shared bytes equal to ptxas's for the
+    kernel its attributes entry reads (`ptxas_file(source)`: that build's
+    report), and its blocks per SM (the occupancy API's) equal to
+    `sm90_blocks_per_sm` of ptxas's registers and shared bytes with the
+    dynamic shared bytes, at the threads a block the entry asked it at.
+    -> the rows."""
+    from ouroboros_consensus_tpu_torch.obs import resources
+    from ouroboros_consensus_tpu_torch.obs.warmup import WARMUP
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+
+    report = resources.RESOURCES.report()
+    launched = sorted(WARMUP.report()["stages"])
+    missing = [k for k in launched if k not in report["kernels"]]
+    if missing or report["failed"]:
+        raise AssertionError(f"obs: no resources row for {missing}; failed {report['failed']}")
+    for name in launched:
+        row = report["kernels"][name]
+        source, _stem = build.LAUNCH_SOURCE.get(name, (name, name))
+        want = ptxas_record(ptxas_file(source), build.ATTRIBUTE_KERNEL[name])
+        bps = sm90_blocks_per_sm(want["registers"],
+                                 want["shared_bytes"] + row["dynamic_shared_bytes"],
+                                 row["block_threads"])
+        got = (row["registers"], row["local_bytes"], row["shared_bytes"], row["blocks_per_sm"])
+        if got != (want["registers"], want["stack_bytes"], want["shared_bytes"], bps):
+            raise AssertionError(f"obs: {name}'s resources {row} != ptxas {want}, sm_90's "
+                                 f"blocks per SM {bps}")
+    log(f"obs resources ({len(launched)} kernels, each held to ptxas and to sm_90's blocks "
+        f"per SM): {json.dumps(report['kernels'])}")
+    return report["kernels"]
+
+
 def phase_tools(dev, reps: int = 5) -> dict:
     """The primitive harness (all seven bodies OK on the card) and the
     field-op microbenchmark, with the launch counts zeroed just before and
@@ -4280,11 +4595,18 @@ def main(argv=None) -> int:
     from ouroboros_consensus_tpu_torch.device import (int_op_rate, max_sm_clock_hz, resolve,
                                                       wide_product_rate)
 
+    from ouroboros_consensus_tpu_torch.ops.pk import build
+
     dev = resolve(None)
     card = card_line()
     log(f"card: {card}")
     t_all = time.monotonic()
     ptxas = phase_build()
+
+    def ptxas_file(source: str) -> str:
+        with open(build.ptxas_report(source)) as f:
+            return f.read()
+
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     forges = Forges(work, a.headers)
     try:
@@ -4304,11 +4626,13 @@ def main(argv=None) -> int:
         served = phase_serve(dev, card, work)
         stages["ed_verify"] = phase_ed_verify(dev)
         cardano = phase_cardano(dev, forges, work)
+        observed = phase_obs(dev, forges)
     finally:
         forges.close()
         shutil.rmtree(work, ignore_errors=True)
     tools = phase_tools(dev)
     stages.update(tools["records"])
+    kernel_rows = check_resources(ptxas_file)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
     # operation bound: the field work's 32x32->64 products (wide_products)
@@ -4324,6 +4648,7 @@ def main(argv=None) -> int:
     by_path["recovery"] = recovered["launches"]
     by_path["serve"] = served["launches"]
     by_path["cardano"] = cardano["launches"]
+    by_path["obs"] = observed["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
         stray = sorted(k for k in PATH_ONLY - ks if by_path[path].get(k, 0))
@@ -4363,7 +4688,8 @@ def main(argv=None) -> int:
             "launches_by_path": {p: by_path[p][name] for p in used},
             "max_abs_err": st["max_abs_err"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": None, "field_ops_per_lane": st.get("field_ops"),
+            "library_ms": None, "resources": kernel_rows.get(name),
+            "field_ops_per_lane": st.get("field_ops"),
             "wide_products_per_lane": per_lane,
             "ms_by_lanes": st.get("ms_by_lanes"), "wrapper_ms": st.get("wrapper_ms"),
             "plain_ms_by_lanes": st.get("plain_ms_by_lanes"),

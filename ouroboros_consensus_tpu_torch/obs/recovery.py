@@ -33,9 +33,13 @@ of its backend's ladder until one returns; its result is the window's:
 The device ladder has no host rung: a window that exhausts it re-raises
 its last error (a failed launch raises with no fallback). A sticky CUDA
 error fails both rungs; its recovery is the checkpoint and a new
-process. Every transition is a `RecoveryEvent` on the supervisor
-(`events`, `counts`), which revalidate puts on its result. Recovery runs
-are not re-dispatches: they never count in `batch.AGG_REDISPATCH`.
+process. Every transition is a `utils.trace.RecoveryEvent` on the
+supervisor (`events`, `counts`), which revalidate puts on its result, a
+row of the warmup report (`WARMUP.note_recovery`) and an event through
+the batch tracer (`oct_recovery_total{action=}`). Recovery runs are not
+re-dispatches: they never count in `batch.AGG_REDISPATCH`. The record's
+writes, a resume and the completion are `CheckpointEvent`s through the
+same tracer (`oct_checkpoint_events_total{kind=}`).
 """
 
 from __future__ import annotations
@@ -45,7 +49,9 @@ import json
 import os
 import threading
 import time
-from dataclasses import dataclass
+
+from ..utils.trace import CheckpointEvent, RecoveryEvent
+from .warmup import WARMUP
 
 SCHEMA_VERSION = 1
 
@@ -113,6 +119,15 @@ def chain_tag(db_path: str, params) -> str:
     return hashlib.blake2s(blob, digest_size=8).hexdigest()
 
 
+def _emit(ev) -> None:
+    """An event through the batch tracer, when one is installed."""
+    from ..protocol import batch as pbatch
+
+    tracer = pbatch.BATCH_TRACER
+    if tracer is not None:
+        tracer(ev)
+
+
 # ---------------------------------------------------------------------------
 # ProgressWriter: the record rewritten as each window retires
 # ---------------------------------------------------------------------------
@@ -135,6 +150,8 @@ class ProgressWriter:
             self.headers += int(n_new)
             self.windows += 1
             self._write(state, complete=False, error=None)
+            ev = CheckpointEvent("write", self.headers, self.windows)
+        _emit(ev)
 
     def finalize(self, state, error=None) -> None:
         """The replay ended (cleanly or at a validation error): mark the
@@ -142,6 +159,8 @@ class ProgressWriter:
         with self._lock:
             self._write(state, complete=True,
                         error=None if error is None else repr(error)[:200])
+            ev = CheckpointEvent("complete", self.headers, self.windows)
+        _emit(ev)
 
     def _write(self, state, complete: bool, error) -> None:
         enc = encode_state(state)
@@ -217,6 +236,14 @@ def read_checkpoint(path: str | None) -> dict | None:
     return doc
 
 
+def note_resume(doc: dict) -> None:
+    """A replay seeded itself from a record instead of genesis: a warmup
+    note and a CheckpointEvent("resume")."""
+    WARMUP.note(f"resumed from checkpoint: {doc['headers']} headers / "
+                f"{doc['windows']} windows already retired")
+    _emit(CheckpointEvent("resume", int(doc["headers"]), int(doc["windows"])))
+
+
 def resume_record(chain_tag_: str, path: str | None) -> dict | None:
     """The record a replay of `chain_tag_` may resume from: valid, of
     this chain, not complete, with at least one retired header."""
@@ -233,20 +260,6 @@ def resume_record(chain_tag_: str, path: str | None) -> dict | None:
 # ---------------------------------------------------------------------------
 # RecoverySupervisor: the in-process ladder
 # ---------------------------------------------------------------------------
-
-
-@dataclass(frozen=True)
-class RecoveryEvent:
-    """One ladder transition: a rung tried, "recovered", "exhausted", or
-    the reader's "chunk-reread"."""
-
-    action: str
-    window: int
-    lanes: int
-    attempt: int
-    fault: str
-    detail: str
-    ok: bool | None = None
 
 
 def recoverable(exc: BaseException) -> bool:
@@ -281,9 +294,14 @@ class RecoverySupervisor:
         self._lock = threading.Lock()
 
     def note(self, ev: RecoveryEvent) -> None:
+        """Bank one transition: on the supervisor, in the warmup report
+        and through the batch tracer."""
         with self._lock:
             self.events.append(ev)
             self.counts[ev.action] = self.counts.get(ev.action, 0) + 1
+        WARMUP.note_recovery(action=ev.action, window=ev.window, attempt=ev.attempt,
+                             fault=ev.fault, detail=ev.detail, ok=ev.ok)
+        _emit(ev)
 
     def _run_rung(self, rung: str, params, ticked, hvs, backend: str, device, aggregate):
         from ..protocol import batch as pbatch

@@ -8,9 +8,10 @@ Routes (minimal HTTP/1.0, no dependencies):
 
     GET /metrics        Prometheus text exposition format 0.0.4
     GET /metrics.json   the registry's JSON snapshot
-    GET /healthz        the heartbeat document (`live_doc()`; without
-                        one, the idle heartbeat the reference serves in
-                        a process that has retired no window)
+    GET /healthz        the heartbeat document: `live_doc()`, else the
+                        armed live plane's (obs/live.py `current_doc`),
+                        else the idle heartbeat of a process with no
+                        plane armed
     GET /progress       its compact twin: phase / headers /
                         headers_per_s / age_s / window_index
     GET /slo            the serving plane's SLO document (node/serve.py
@@ -54,7 +55,12 @@ def idle_heartbeat() -> dict:
 
 
 def _live_doc(live_doc) -> dict:
-    return live_doc() if live_doc is not None else idle_heartbeat()
+    if live_doc is not None:
+        return live_doc()
+    from . import live
+
+    doc = live.current_doc()
+    return doc if doc is not None else idle_heartbeat()
 
 
 def handle_path(path: str, registry=None, live_doc=None, slo_doc=None):

@@ -40,6 +40,7 @@ is verified again by the per-lane stage kernels (protocol/batch.py:
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import NamedTuple
 
 import torch
@@ -209,7 +210,7 @@ def agg_prep(*cols, kes_depth: int):
     and the block's one inversion, with fifteen or more SHA-512 and ten
     Blake2b compressions; the longest path is one exponentiation, the
     root's inversion on the warp and three compressions."""
-    from .kernels import LAUNCHES, _check, _route, _stream
+    from .kernels import _check, _launched, _route, _stream
 
     if len(cols) != 22:
         raise ValueError(f"agg_prep: expected the 22 batch-compatible columns, got {len(cols)}")
@@ -228,8 +229,10 @@ def agg_prep(*cols, kes_depth: int):
         return agg_prep_plain(*cols, kes_depth=kes_depth)
     from . import build
 
-    out = _agg_prep_launch(build.kernel_lib("agg_prep"), _stream(dev), cols, kes_depth)
-    LAUNCHES["agg_prep"] += 1
+    fn = build.kernel_lib("agg_prep")
+    t0 = time.monotonic()
+    out = _agg_prep_launch(fn, _stream(dev), cols, kes_depth)
+    _launched("agg_prep", t0, cols, out)
     return out
 
 
@@ -394,7 +397,7 @@ def window_tables(cols, pts: torch.Tensor, scal: torch.Tensor):
     Bound: bytes (keys, coefficients and B rows read once, the slots
     written once)."""
     from . import build
-    from .kernels import LAUNCHES, _raise_on, _route, _stream
+    from .kernels import _launched, _raise_on, _route, _stream
 
     dev = pts.device
     keys = [cols[k] for k in DEDUPE_KEYS]
@@ -416,11 +419,13 @@ def window_tables(cols, pts: torch.Tensor, scal: torch.Tensor):
         raise ValueError(f"dedupe: {b} lanes, the kernel takes at most {DEDUPE_MAX_LANES}")
     # the rows' addresses (no slices: a tensor view costs microseconds)
     sp = scal.data_ptr()
-    red, tpts, ok, rc = _dedupe_launch(build.kernel_lib("dedupe"), _stream(dev), keys,
-                                       sp + SC_Z1 * b * 32, pts.data_ptr() + PT_RE * b * 160,
-                                       sp + SC_B1 * b * 32, _DEDUPE_CAP)
+    fn = build.kernel_lib("dedupe")
+    t0 = time.monotonic()
+    red, tpts, ok, rc = _dedupe_launch(fn, _stream(dev), keys, sp + SC_Z1 * b * 32,
+                                       pts.data_ptr() + PT_RE * b * 160, sp + SC_B1 * b * 32,
+                                       _DEDUPE_CAP)
     _raise_on(rc, "dedupe")
-    LAUNCHES["dedupe"] += 1
+    _launched("dedupe", t0, (keys, pts, scal), (red, tpts, ok))
     return red, tpts, ok
 
 

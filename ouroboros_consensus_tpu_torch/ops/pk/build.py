@@ -32,27 +32,28 @@ BUILD_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     "_build",
 )
-# kernel source (csrc/<name>.cu) -> its C entry points
+# kernel source (csrc/<name>.cu) -> its C entry points (the launchers
+# first; each shipped kernel's `pk_<name>_attributes` beside them)
 ENTRIES = {
-    "ed": ("pk_ed",),
-    "ed_verify": ("pk_ed_verify",),
+    "ed": ("pk_ed", "pk_ed_attributes"),
+    "ed_verify": ("pk_ed_verify", "pk_ed_verify_attributes"),
     "ed_verify_stamps": ("pk_ed_verify_stamps",),  # the instrument: ed_verify with clock64 stamps
-    "kes": ("pk_kes",),
-    "vrf_prep": ("pk_vrf_prep",),
-    "vrf_bc_prep": ("pk_vrf_bc_prep",),
-    "vrf_ladders": ("pk_vrf_ladders",),
-    "finish": ("pk_finish",),
-    "unpack": ("pk_unpack",),
-    "nonce_fold": ("pk_nonce_fold", "pk_b2b_bench"),
+    "kes": ("pk_kes", "pk_kes_attributes"),
+    "vrf_prep": ("pk_vrf_prep", "pk_vrf_prep_attributes"),
+    "vrf_bc_prep": ("pk_vrf_bc_prep", "pk_vrf_bc_prep_attributes"),
+    "vrf_ladders": ("pk_vrf_ladders", "pk_vrf_ladders_attributes"),
+    "finish": ("pk_finish", "pk_finish_attributes"),
+    "unpack": ("pk_unpack", "pk_unpack_attributes"),
+    "nonce_fold": ("pk_nonce_fold", "pk_b2b_bench", "pk_nonce_fold_attributes"),
     "primitives": ("pk_prim_sha", "pk_prim_shav", "pk_prim_b2b", "pk_prim_base",
-                   "pk_prim_lad", "pk_prim_dec", "pk_prim_red"),
-    "fe_bench": ("pk_fe_bench",),
-    "agg_prep": ("pk_agg_prep",),
+                   "pk_prim_lad", "pk_prim_dec", "pk_prim_red", "pk_primitives_attributes"),
+    "fe_bench": ("pk_fe_bench", "pk_fe_bench_attributes"),
+    "agg_prep": ("pk_agg_prep", "pk_agg_prep_attributes"),
     "agg_stamps": ("pk_agg_prep_stamps",),  # the instrument: agg_prep with clock64 stamps
-    "dedupe": ("pk_dedupe",),
+    "dedupe": ("pk_dedupe", "pk_dedupe_attributes"),
     "dedupe_stamps": ("pk_dedupe_stamps",),  # the instrument: dedupe with clock64 stamps
-    "msm": ("pk_msm",),
-    "forge": ("pk_forge_sweep", "pk_ed_sign"),
+    "msm": ("pk_msm", "pk_msm_attributes"),
+    "forge": ("pk_forge_sweep", "pk_ed_sign", "pk_forge_attributes", "pk_ed_sign_attributes"),
     "forge_stamps": ("pk_forge_sweep_stamps",),  # the instrument: the sweep with clock64 stamps
     "ed_sign_stamps": ("pk_ed_sign_stamps",),  # the instrument: the signer with clock64 stamps
 }
@@ -95,6 +96,9 @@ ARGTYPES = {
     "pk_forge_sweep_stamps": [_I, _I, ctypes.c_longlong] + [_P] * 6,
     "pk_ed_sign": [_I, _I] + [_P] * 10,
     "pk_ed_sign_stamps": [_I, _I] + [_P] * 11,
+    # each kernel's figures into int out[4] (pk.cuh `pk_func_attributes`)
+    **{e: [ctypes.POINTER(_I)] for es in ENTRIES.values() for e in es
+       if e.endswith("_attributes")},
     # host build only: fe_sq over [10, B] limb columns, the one-thread
     # Blake2b-256 over [B, 128] messages
     "pk_fe_sq": [_I] + [_P] * 3,
@@ -118,9 +122,23 @@ ARGTYPES = {
     "pk_dedupe_shape": [_I, _P],
     "pk_agg_tables": [_I, _P, _P, _P],
 }
-# the instruments: no host build
+# the instruments and the runtime's attribute queries: no host build
 DEVICE_ONLY = ("pk_agg_prep_stamps", "pk_dedupe_stamps", "pk_ed_verify_stamps",
-               "pk_forge_sweep_stamps", "pk_ed_sign_stamps")
+               "pk_forge_sweep_stamps", "pk_ed_sign_stamps",
+               *(e for e in ARGTYPES if e.endswith("_attributes")))
+# a LAUNCHES name whose source holds two kernels -> (its source, the stem
+# of its occupancy and attributes entries)
+LAUNCH_SOURCE = {"forge_sweep": ("forge", "forge"), "ed_sign": ("forge", "ed_sign")}
+# the kernel function each attributes and occupancy entry reads, as
+# ptxas names it in its report (chip_smoke.py holds the two together)
+ATTRIBUTE_KERNEL = {
+    "ed": "ed_kernel", "ed_verify": "ed_verify_kernel", "kes": "kes_kernel",
+    "vrf_prep": "vrf_prep_kernel", "vrf_bc_prep": "vrf_bc_prep_kernel",
+    "vrf_ladders": "vrf_ladder_kernel", "finish": "finish_kernel", "unpack": "unpack_kernel",
+    "nonce_fold": "nonce_fold_kernel", "primitives": "k_lad", "fe_bench": "fe_bench_kernelILi0E",
+    "agg_prep": "agg_prep_kernel", "dedupe": "dedupe_kernel", "msm": "msm_chunk_kernel",
+    "forge_sweep": "forge_sweep_kernel", "ed_sign": "ed_sign_kernel",
+}
 
 _LIBS: dict = {}
 # wall seconds from the start of the parallel build to each source's nvcc exit
@@ -201,6 +219,11 @@ def build_cuda() -> dict:
     out = {k: os.path.join(BUILD_DIR, f"{k}.{dg}.so") for k in KERNELS}
     todo = [k for k in KERNELS
             if not (os.path.exists(out[k]) and os.path.exists(ptxas_report(k)))]
+    from ...obs.warmup import WARMUP
+
+    for k in KERNELS:
+        if k not in todo and k not in WARMUP.builds:
+            WARMUP.note_build(k, 0.0, cached=True)
     procs = {}
     t0 = time.monotonic()
     for k in todo:
@@ -217,6 +240,7 @@ def build_cuda() -> dict:
             if p.poll() is None:
                 continue
             BUILD_SECONDS[k] = time.monotonic() - t0
+            WARMUP.note_build(k, BUILD_SECONDS[k])
             log.close()
             del procs[k]
             if p.returncode != 0:
@@ -256,22 +280,43 @@ def kernel_lib(name: str, entry: str | None = None):
     return getattr(_lib(name), entry or ENTRIES[name][0])
 
 
-def blocks_per_sm(name: str, kernel: str | None = None) -> int:
+def occupancy(name: str, kernel: str | None = None) -> dict:
     """Resident blocks per SM of one kernel source at its launch geometry
     (128 threads: ed, kes, ed_verify; vrf_prep, vrf_bc_prep and finish 96, vrf_ladders and
     unpack 256; agg_prep 320; msm's chunk phase 128; dedupe 256; forge's
     sweep 128),
     with its shared memory, from the CUDA occupancy API (registers, stack
     and shared memory); for a source with several kernels, its heaviest,
-    or `kernel`'s (forge: "ed_sign")."""
+    or `kernel`'s (forge: "ed_sign"). -> blocks_per_sm, and the
+    block_threads and dynamic_shared_bytes the entry asked it at (pk.cuh
+    `pk_occupancy`)."""
     fn = getattr(_lib(name), f"pk_{kernel or name}_occupancy")
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p]
-    n = ctypes.c_int(0)
-    rc = fn(ctypes.byref(n))
+    out = (ctypes.c_int * 3)()
+    rc = fn(out)
     if rc != 0:
         raise RuntimeError(f"{name}: occupancy query failed: cudaError {rc}")
-    return n.value
+    return {"blocks_per_sm": out[0], "block_threads": out[1], "dynamic_shared_bytes": out[2]}
+
+
+def blocks_per_sm(name: str, kernel: str | None = None) -> int:
+    """`occupancy`'s resident blocks per SM."""
+    return occupancy(name, kernel)["blocks_per_sm"]
+
+
+def kernel_figures(name: str) -> dict:
+    """One launched kernel's own figures (`name` a LAUNCHES key): its
+    registers, local bytes, static shared bytes and max threads a block
+    from its `pk_<name>_attributes` entry, and its blocks per SM at the
+    launch geometry, with that geometry (`occupancy`)."""
+    source, stem = LAUNCH_SOURCE.get(name, (name, name))
+    out = (ctypes.c_int * 4)()
+    rc = kernel_lib(source, f"pk_{stem}_attributes")(out)
+    if rc != 0:
+        raise RuntimeError(f"{name}: attribute query failed: cudaError {rc}")
+    return {"registers": out[0], "local_bytes": out[1], "shared_bytes": out[2],
+            "max_threads": out[3], **occupancy(source, None if stem == source else stem)}
 
 
 def build_host_emu() -> ctypes.CDLL:

@@ -188,8 +188,13 @@ extern "C" int pk_agg_prep(int B, int depth, int nb_ed, int nb_kes,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_agg_prep_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, agg_prep_kernel, AGG_THREADS, 0);
+extern "C" int pk_agg_prep_occupancy(int *out) {
+  return pk_occupancy((const void *)agg_prep_kernel, AGG_THREADS, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_agg_prep_attributes(int *out) {
+  return pk_func_attributes((const void *)agg_prep_kernel, out);
 }
 #endif

@@ -99,7 +99,13 @@ extern "C" int pk_dedupe(int B, int cap, const void *k0, const void *k1,
 
 // Resident blocks per SM of the kernel (256 threads, its static shared
 // memory).
-extern "C" int pk_dedupe_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dedupe_kernel, DD_TILE, 0);
+extern "C" int pk_dedupe_occupancy(int *out) {
+  return pk_occupancy((const void *)dedupe_kernel, DD_TILE, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_dedupe_attributes(int *out) {
+  return pk_func_attributes((const void *)dedupe_kernel, out);
 }
 #endif

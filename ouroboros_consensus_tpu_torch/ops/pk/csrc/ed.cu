@@ -53,9 +53,14 @@ extern "C" int pk_ed(int B, const void *base8, const void *pk, const void *s,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_ed_occupancy(int *blocks) {
+extern "C" int pk_ed_occupancy(int *out) {
   cudaError_t e = with_smem();
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, ed_kernel, 4 * PK_GROUP, sizeof(EdScratch));
+  return pk_occupancy((const void *)ed_kernel, 4 * PK_GROUP, sizeof(EdScratch), out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_ed_attributes(int *out) {
+  return pk_func_attributes((const void *)ed_kernel, out);
 }

@@ -25,6 +25,12 @@ extern "C" int pk_fe_bench(int B, int op, int k, const void *x, void *out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pk_fe_bench_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fe_bench_kernel<0>, 128, 0);
+extern "C" int pk_fe_bench_occupancy(int *out) {
+  return pk_occupancy((const void *)fe_bench_kernel<0>, 128, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_fe_bench_attributes(int *out) {
+  return pk_func_attributes((const void *)fe_bench_kernel<0>, out);
 }

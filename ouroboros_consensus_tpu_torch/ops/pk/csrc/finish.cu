@@ -62,7 +62,12 @@ extern "C" int pk_finish(int B, const void *edok, const void *edpt,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_finish_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, finish_kernel, 3 * PK_GROUP, 0);
+extern "C" int pk_finish_occupancy(int *out) {
+  return pk_occupancy((const void *)finish_kernel, 3 * PK_GROUP, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_finish_attributes(int *out) {
+  return pk_func_attributes((const void *)finish_kernel, out);
 }

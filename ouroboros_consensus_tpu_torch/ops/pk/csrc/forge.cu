@@ -279,15 +279,26 @@ extern "C" int pk_ed_sign(int B, int NB, const void *base8, const void *a,
 }
 
 // Resident blocks per SM of the sweep, the source's heavier kernel.
-extern "C" int pk_forge_occupancy(int *blocks) {
+extern "C" int pk_forge_occupancy(int *out) {
   cudaError_t e = sweep_smem();
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, forge_sweep_kernel, 4 * PK_GROUP, sizeof(ForgeScratch));
+  return pk_occupancy((const void *)forge_sweep_kernel, 4 * PK_GROUP, sizeof(ForgeScratch),
+                      out);
 }
 
-extern "C" int pk_ed_sign_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ed_sign_kernel, ES_THREADS,
-                                                            0);
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_forge_attributes(int *out) {
+  return pk_func_attributes((const void *)forge_sweep_kernel, out);
+}
+
+extern "C" int pk_ed_sign_occupancy(int *out) {
+  return pk_occupancy((const void *)ed_sign_kernel, ES_THREADS, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_ed_sign_attributes(int *out) {
+  return pk_func_attributes((const void *)ed_sign_kernel, out);
 }
 #endif

@@ -54,11 +54,16 @@ extern "C" int pk_kes(int B, int depth, const void *base8, const void *vk,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_kes_occupancy(int *blocks) {
+extern "C" int pk_kes_occupancy(int *out) {
   int smem = (int)sizeof(EdScratch);
   cudaError_t e = cudaFuncSetAttribute(
       kes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, kes_kernel, 4 * PK_GROUP, smem);
+  return pk_occupancy((const void *)kes_kernel, 4 * PK_GROUP, smem, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_kes_attributes(int *out) {
+  return pk_func_attributes((const void *)kes_kernel, out);
 }

@@ -261,7 +261,12 @@ extern "C" int pk_msm(int n, int n_small, int ws, int ww, const void *base8,
 
 // Resident blocks per SM of the chunk phase, the launch that does most of
 // the bucket additions.
-extern "C" int pk_msm_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, msm_chunk_kernel, MSM_THREADS, 0);
+extern "C" int pk_msm_occupancy(int *out) {
+  return pk_occupancy((const void *)msm_chunk_kernel, MSM_THREADS, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_msm_attributes(int *out) {
+  return pk_func_attributes((const void *)msm_chunk_kernel, out);
 }

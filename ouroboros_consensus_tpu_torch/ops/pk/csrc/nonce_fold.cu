@@ -145,7 +145,12 @@ extern "C" int pk_b2b_bench(int reps, int mode, const void *in, void *out,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_nonce_fold_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, nonce_fold_kernel, 128, 0);
+extern "C" int pk_nonce_fold_occupancy(int *out) {
+  return pk_occupancy((const void *)nonce_fold_kernel, 128, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_nonce_fold_attributes(int *out) {
+  return pk_func_attributes((const void *)nonce_fold_kernel, out);
 }

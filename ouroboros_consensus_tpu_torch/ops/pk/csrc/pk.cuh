@@ -42,6 +42,36 @@
 
 #include "consts.cuh"
 
+#ifndef PK_HOST
+// A kernel's own figures from the runtime (cudaFuncGetAttributes): out[0]
+// registers a thread, out[1] local bytes a thread, out[2] static shared
+// bytes, out[3] the most threads a block. Each source's
+// pk_<name>_attributes entry calls it on the kernel its occupancy entry
+// reads. Returns the cudaError.
+static inline int pk_func_attributes(const void *kernel, int *out) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  out[3] = a.maxThreadsPerBlock;
+  return 0;
+}
+
+// A kernel's resident blocks an SM at a launch geometry, from the CUDA
+// occupancy API: out[0] the blocks, out[1] the threads a block and out[2]
+// the dynamic shared bytes a block it was asked at (chip_smoke.py holds
+// out[0] to its own count from ptxas's figures and out[1], out[2]). Each
+// source's pk_<name>_occupancy entry calls it at its wrapper's launch.
+// Returns the cudaError.
+static inline int pk_occupancy(const void *kernel, int threads, size_t smem, int *out) {
+  out[1] = threads;
+  out[2] = (int)smem;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, threads, smem);
+}
+#endif
+
 typedef uint8_t u8;
 typedef uint32_t u32;
 typedef uint64_t u64;

@@ -68,6 +68,12 @@ extern "C" int pk_prim_red(int B, const void *r, void *o, void *c, void *stream)
 
 // Resident blocks per SM of the heaviest body (the w4 ladder) at the
 // 128-thread launch above.
-extern "C" int pk_primitives_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k_lad, 128, 0);
+extern "C" int pk_primitives_occupancy(int *out) {
+  return pk_occupancy((const void *)k_lad, 128, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_primitives_attributes(int *out) {
+  return pk_func_attributes((const void *)k_lad, out);
 }

@@ -68,8 +68,14 @@ extern "C" int pk_unpack(int B, const int *lay, const void *body,
 
 // Resident blocks per SM of the kernel the wrapper launches, at a full
 // window's tile (32 lanes of 1,024-byte bodies, depth 7).
-extern "C" int pk_unpack_occupancy(int *blocks) {
+extern "C" int pk_unpack_occupancy(int *out) {
   WireLayout L{1024, 0, 0, 0, 0, 0, 0, 7, 1, 0, 128};
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, unpack_kernel, UNPACK_THREADS, wire_tile_bytes(L, 32));
+  return pk_occupancy((const void *)unpack_kernel, UNPACK_THREADS, wire_tile_bytes(L, 32),
+                      out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_unpack_attributes(int *out) {
+  return pk_func_attributes((const void *)unpack_kernel, out);
 }

@@ -46,7 +46,12 @@ extern "C" int pk_vrf_bc_prep(int B, const void *pk, const void *gamma,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_vrf_bc_prep_occupancy(int *blocks) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, vrf_bc_prep_kernel, 3 * PK_GROUP, 0);
+extern "C" int pk_vrf_bc_prep_occupancy(int *out) {
+  return pk_occupancy((const void *)vrf_bc_prep_kernel, 3 * PK_GROUP, 0, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_vrf_bc_prep_attributes(int *out) {
+  return pk_func_attributes((const void *)vrf_bc_prep_kernel, out);
 }

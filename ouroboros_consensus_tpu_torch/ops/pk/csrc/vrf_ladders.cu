@@ -57,10 +57,15 @@ extern "C" int pk_vrf_ladders(int B, const void *base8, const void *c16,
 }
 
 // Resident blocks per SM of the kernel the wrapper launches.
-extern "C" int pk_vrf_ladders_occupancy(int *blocks) {
+extern "C" int pk_vrf_ladders_occupancy(int *out) {
   int smem = (int)sizeof(QLadderScratch);
   cudaError_t e = with_smem(vrf_ladder_kernel, smem);
   if (e != cudaSuccess) return (int)e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, vrf_ladder_kernel, 8 * PK_GROUP, smem);
+  return pk_occupancy((const void *)vrf_ladder_kernel, 8 * PK_GROUP, smem, out);
+}
+
+// The same kernel's registers, local bytes, static shared bytes and
+// max threads a block (obs/resources.py).
+extern "C" int pk_vrf_ladders_attributes(int *out) {
+  return pk_func_attributes((const void *)vrf_ladder_kernel, out);
 }

@@ -54,9 +54,12 @@ from __future__ import annotations
 
 import ctypes
 import math
+import time
 
 import torch
 
+from ...obs import resources
+from ...obs.warmup import WARMUP
 from ...protocol import nonces as pn
 from ...testing import chaos
 from . import curve as pc
@@ -79,6 +82,22 @@ _BASE8: dict = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def _launched(name: str, t0: float, args, outs, capture: bool = True) -> None:
+    """Each wrapper calls it right after its kernel's launch (`t0`:
+    monotonic before the launch call, `args` / `outs` the launch's
+    tensors): one more in LAUNCHES[name]; a kernel's first launch in the
+    process goes into the warmup report (the host wall of the call, the
+    module's load on the card included), and its figures into the
+    resources report once (obs/resources.py; `capture` False leaves that
+    to a later launch of the name). Two lookups a launch after that;
+    never a synchronisation."""
+    LAUNCHES[name] += 1
+    if name not in WARMUP.stages:
+        WARMUP.note_stage(name, time.monotonic() - t0)
+    if capture and not resources.RESOURCES.tried(name):
+        resources.capture_kernel(name, args, outs)
 
 
 def _base8(device: torch.device) -> torch.Tensor:
@@ -168,8 +187,10 @@ def ed_points(pk, s, hblocks, hnblocks):
         return ok.to(torch.int32)[None], pc.stack(p).to(torch.int32)
     from . import build
 
-    out = _ed_launch(build.kernel_lib("ed"), _stream(dev), pk, s, hblocks, hnblocks)
-    LAUNCHES["ed"] += 1
+    fn = build.kernel_lib("ed")
+    t0 = time.monotonic()
+    out = _ed_launch(fn, _stream(dev), pk, s, hblocks, hnblocks)
+    _launched("ed", t0, (pk, s, hblocks, hnblocks), out)
     return out
 
 
@@ -220,9 +241,10 @@ def ed_verify(pk, r, s, hblocks, hnblocks):
         return ed_verify_plain(pk, r, s, hblocks, hnblocks)
     from . import build
 
-    out = _ed_verify_launch(build.kernel_lib("ed_verify"), _stream(dev), pk, r, s, hblocks,
-                            hnblocks)
-    LAUNCHES["ed_verify"] += 1
+    fn = build.kernel_lib("ed_verify")
+    t0 = time.monotonic()
+    out = _ed_verify_launch(fn, _stream(dev), pk, r, s, hblocks, hnblocks)
+    _launched("ed_verify", t0, (pk, r, s, hblocks, hnblocks), out)
     return out
 
 
@@ -274,9 +296,11 @@ def kes_points(vk, period, s, vk_leaf, siblings, hblocks, hnblocks, depth):
         return ok.to(torch.int32)[None], pc.stack(p).to(torch.int32)
     from . import build
 
-    out = _kes_launch(build.kernel_lib("kes"), _stream(dev), vk, period, s,
-                      vk_leaf, siblings, hblocks, hnblocks, depth)
-    LAUNCHES["kes"] += 1
+    fn = build.kernel_lib("kes")
+    t0 = time.monotonic()
+    out = _kes_launch(fn, _stream(dev), vk, period, s, vk_leaf, siblings, hblocks, hnblocks,
+                      depth)
+    _launched("kes", t0, (vk, period, s, vk_leaf, siblings, hblocks, hnblocks), out)
     return out
 
 
@@ -322,9 +346,10 @@ def vrf_prep(pk, gamma, s, alpha):
         return ok.to(torch.int32)[None], prep.to(torch.int32)
     from . import build
 
-    out = _vrf_prep_launch(build.kernel_lib("vrf_prep"), _stream(dev), pk,
-                           gamma, s, alpha)
-    LAUNCHES["vrf_prep"] += 1
+    fn = build.kernel_lib("vrf_prep")
+    t0 = time.monotonic()
+    out = _vrf_prep_launch(fn, _stream(dev), pk, gamma, s, alpha)
+    _launched("vrf_prep", t0, (pk, gamma, s, alpha), out)
     return out
 
 
@@ -366,9 +391,10 @@ def vrf_bc_prep(pk, gamma, u, v, s, alpha):
         return ok.to(torch.int32)[None], c16.to(torch.int32), prep.to(torch.int32)
     from . import build
 
-    out = _vrf_bc_prep_launch(build.kernel_lib("vrf_bc_prep"), _stream(dev),
-                              pk, gamma, u, v, s, alpha)
-    LAUNCHES["vrf_bc_prep"] += 1
+    fn = build.kernel_lib("vrf_bc_prep")
+    t0 = time.monotonic()
+    out = _vrf_bc_prep_launch(fn, _stream(dev), pk, gamma, u, v, s, alpha)
+    _launched("vrf_bc_prep", t0, (pk, gamma, u, v, s, alpha), out)
     return out
 
 
@@ -407,9 +433,10 @@ def vrf_ladders(c16, s, prep):
         return torch.cat([pc.stack(p) for p in pts]).to(torch.int32)
     from . import build
 
-    out = _vrf_ladders_launch(build.kernel_lib("vrf_ladders"), _stream(dev),
-                              c16, s, prep)
-    LAUNCHES["vrf_ladders"] += 1
+    fn = build.kernel_lib("vrf_ladders")
+    t0 = time.monotonic()
+    out = _vrf_ladders_launch(fn, _stream(dev), c16, s, prep)
+    _launched("vrf_ladders", t0, (c16, s, prep), out)
     return out
 
 
@@ -481,8 +508,10 @@ def finish(ed_ok, ed_pt, ed_r, kes_ok, kes_pt, kes_r, vrf_ok, vrf_pts,
         return flags.to(torch.int32), eta.to(torch.int32), lv.to(torch.int32)
     from . import build
 
-    out = _finish_launch(build.kernel_lib("finish"), _stream(dev), *args)
-    LAUNCHES["finish"] += 1
+    fn = build.kernel_lib("finish")
+    t0 = time.monotonic()
+    out = _finish_launch(fn, _stream(dev), *args)
+    _launched("finish", t0, args, out)
     return out
 
 
@@ -751,8 +780,10 @@ def unpack_limb_first(layout, cols, device):
         return _limb_first(pbatch.unpack_packed(layout, cols, device))
     from . import build
 
-    out = _unpack_launch(build.kernel_lib("unpack"), _stream(device), layout, cols)
-    LAUNCHES["unpack"] += 1
+    fn = build.kernel_lib("unpack")
+    t0 = time.monotonic()
+    out = _unpack_launch(fn, _stream(device), layout, cols)
+    _launched("unpack", t0, cols, out)
     return out
 
 
@@ -839,9 +870,10 @@ def nonce_fold(beta, within, n_real: int, carry):
         return nonce_fold_plain(beta, within, n_real, carry)
     from . import build
 
-    out = _nonce_fold_launch(build.kernel_lib("nonce_fold"), _stream(dev), beta,
-                             within, n_real, carry)
-    LAUNCHES["nonce_fold"] += 1
+    fn = build.kernel_lib("nonce_fold")
+    t0 = time.monotonic()
+    out = _nonce_fold_launch(fn, _stream(dev), beta, within, n_real, carry)
+    _launched("nonce_fold", t0, (beta, within, carry), out)
     return out
 
 
@@ -938,9 +970,10 @@ def forge_sweep(pools, slot0: int, b: int, nonce):
         return torch.empty((0, pp.OUT_BYTES), dtype=torch.uint8, device=dev)
     from . import build
 
-    out = _forge_sweep_launch(build.kernel_lib("forge", "pk_forge_sweep"), _stream(dev),
-                              pools, slot0, b, nonce)
-    LAUNCHES["forge_sweep"] += 1
+    fn = build.kernel_lib("forge", "pk_forge_sweep")
+    t0 = time.monotonic()
+    out = _forge_sweep_launch(fn, _stream(dev), pools, slot0, b, nonce)
+    _launched("forge_sweep", t0, (pools, nonce), out)
     return out
 
 
@@ -1001,9 +1034,10 @@ def ed_sign(a, a_enc, rblocks, rnblocks, hblocks, hnblocks):
             raise ValueError(f"ed_sign.{n}: expected 16-byte aligned data")
     from . import build
 
-    out, bad = _ed_sign_launch(build.kernel_lib("forge", "pk_ed_sign"), _stream(dev), a, a_enc,
-                               rblocks, rnblocks, hblocks, hnblocks)
-    LAUNCHES["ed_sign"] += 1
+    fn = build.kernel_lib("forge", "pk_ed_sign")
+    t0 = time.monotonic()
+    out, bad = _ed_sign_launch(fn, _stream(dev), a, a_enc, rblocks, rnblocks, hblocks, hnblocks)
+    _launched("ed_sign", t0, (a, a_enc, rblocks, rnblocks, hblocks, hnblocks), (out, bad))
     if bad.cpu().any():
         raise _bad_counts(nb)
     return out

@@ -32,6 +32,7 @@ of a bucket in any order), so the two agree as points (compressed bytes,
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
@@ -272,7 +273,7 @@ def msm(points: torch.Tensor, scalars: torch.Tensor, n_small: int, base: torch.T
     (the bucket additions, 9 field products each); on a replay window
     the Horner chain (252 doublings, 22 additions) is the dependent
     path."""
-    from .kernels import LAUNCHES, _check, _raise_on, _route, _stream
+    from .kernels import _check, _launched, _raise_on, _route, _stream
 
     dev = points.device
     n = points.shape[0]
@@ -288,7 +289,9 @@ def msm(points: torch.Tensor, scalars: torch.Tensor, n_small: int, base: torch.T
         return msm_plain(points, scalars, n_small, base)
     from . import build
 
-    bufs = msm_launch(build.kernel_lib("msm"), _stream(dev), points, scalars, n_small, base)
+    fn = build.kernel_lib("msm")
+    t0 = time.monotonic()
+    bufs = msm_launch(fn, _stream(dev), points, scalars, n_small, base)
     _raise_on(bufs["rc"], "msm")
-    LAUNCHES["msm"] += 1
+    _launched("msm", t0, (points, scalars, base), (bufs["total"], bufs["ident"]))
     return bufs["total"], bufs["ident"]

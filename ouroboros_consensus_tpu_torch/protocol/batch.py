@@ -54,9 +54,7 @@ results are on the host.
 
 from __future__ import annotations
 
-import threading
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass
 from fractions import Fraction
 from functools import cached_property, lru_cache
@@ -822,6 +820,7 @@ class PackedVerdicts:
         self._carry = to_host(carry) if self.carried else None
         self._eta = to_host(eta_u8) if eta_u8 is not None else None
         self._ready = None
+        self.meta = None  # the window's WindowStaged meta (`_win_meta`), when traced
         if masks.device.type == "cuda":
             self._ready = torch.cuda.Event()
             self._ready.record(torch.cuda.current_stream(masks.device))
@@ -864,6 +863,11 @@ class PackedVerdicts:
             return None
         self._wait()
         return self._eta.numpy()
+
+    def d2h_bytes(self) -> int:
+        """The bytes the window's dispatch copies back to the host."""
+        return self._masks.nbytes + (self._carry.nbytes if self.carried else 0) + (
+            self._eta.nbytes if self._eta is not None else 0)
 
     def full(self) -> Verdicts:
         if self._full is None:
@@ -1176,49 +1180,93 @@ DECLINES: dict[str, int] = {}
 AGG_REDISPATCH = 0
 
 
-class PhaseTally:
-    """What revalidate(collect_phases=True) reports (the reference's
-    _PhaseCollector, tools/db_analyser.py:66-99, over its tracer's
-    events), passed down through validate_chain: wall seconds per phase
-    of the window loop ("stage": a window's host half; "dispatch": its
-    H2D, launches and copies back queued; "materialize": the wait for its
-    verdicts, with a dirty aggregated window's re-dispatch; "epilogue"),
-    the bytes copied to the card and back, and the windows dispatched,
-    packed ones apart. The staging thread adds its phase beside the
-    launching thread's: each `add` takes the lock."""
+# ---------------------------------------------------------------------------
+# The batch tracer seam (the reference's protocol/batch.py:1915-2020)
+# ---------------------------------------------------------------------------
 
-    def __init__(self):
-        self.wall: dict = {}
-        self.h2d_bytes = 0
-        self.d2h_bytes = 0
-        self.windows = 0
-        self.packed_windows = 0
-        self._lock = threading.Lock()
-
-    def add(self, label: str, seconds: float) -> None:
-        with self._lock:
-            self.wall[label] = self.wall.get(label, 0.0) + seconds
-
-    def dispatched(self, sw: "StagedWindow", v: "PackedVerdicts") -> None:
-        with self._lock:
-            self.windows += 1
-            self.packed_windows += sw.layout is not None
-            self.h2d_bytes += _nbytes(sw.packed if sw.layout is not None else sw.batch)
-            self.d2h_bytes += v._masks.nbytes + (v._carry.nbytes if v.carried else 0) + (
-                v._eta.nbytes if v._eta is not None else 0)
+# Enclose brackets around the window loop's phases ("stage": a window's
+# host half; "dispatch": its uploads and launches, queued; "materialize":
+# the wait for its verdicts, with a dirty aggregated window's re-dispatch;
+# "epilogue": the sequential fold), byte accounting (TransferEvent) and
+# the per-window spans (WindowStaged at dispatch, WindowSpan at retire),
+# emitted through BATCH_TRACER. None (the default) costs one None check
+# a site. Events come from the staging thread ("stage") and the
+# launching thread (the rest). obs.install chains the flight recorder
+# in; revalidate(collect_phases=True) chains its phase collector.
+BATCH_TRACER = None
 
 
-@contextmanager
-def _phase(phases: PhaseTally | None, label: str):
-    """Add the block's wall to phases[label], when a tally is given."""
-    if phases is None:
-        yield
+def set_batch_tracer(tracer) -> None:
+    global BATCH_TRACER
+    BATCH_TRACER = tracer
+
+
+class _NullEnclose:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_ENCLOSE = _NullEnclose()
+
+
+def _enclose(label: str):
+    tracer = BATCH_TRACER
+    if tracer is None:
+        return _NULL_ENCLOSE
+    from ..utils.trace import Enclose
+
+    return Enclose(tracer, label)
+
+
+def _emit_transfer(phase: str, **kw) -> None:
+    tracer = BATCH_TRACER
+    if tracer is not None:
+        from ..utils.trace import TransferEvent
+
+        tracer(TransferEvent(phase=phase, **kw))
+
+
+# the process-wide window dispatch sequence (WindowStaged/WindowSpan
+# `index`), advanced only while a tracer is installed, on the launching
+# thread
+_WIN_SEQ = 0
+
+
+def _win_meta(outcome: str, gate: str | None, b: int, lanes: int,
+              t0: float, t1: float) -> tuple | None:
+    """Emit a dispatched window's WindowStaged and return the meta its
+    WindowSpan needs; None when no tracer is set."""
+    global _WIN_SEQ
+    tracer = BATCH_TRACER
+    if tracer is None:
+        return None
+    from ..utils.trace import WindowStaged
+
+    idx = _WIN_SEQ
+    _WIN_SEQ += 1
+    t2 = time.monotonic()
+    tracer(WindowStaged(idx, b, lanes, outcome, gate, t1 - t0, t2 - t1))
+    return (idx, outcome, gate, t1 - t0, t2 - t1, lanes, t2)
+
+
+def _emit_window_span(meta, lanes: int, n_valid: int, failed: bool, t_m0: float,
+                      t_m1: float, t_e0: float, t_done: float) -> None:
+    """Emit a retired window's WindowSpan (its dispatch's meta and the
+    materialize and epilogue walls of the retire)."""
+    tracer = BATCH_TRACER
+    if tracer is None or meta is None:
         return
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        phases.add(label, time.perf_counter() - t0)
+    from ..utils.trace import WindowSpan
+
+    idx, outcome, gate, stage_s, dispatch_s, _lanes_padded, t_disp = meta
+    tracer(WindowSpan(
+        index=idx, lanes=lanes, outcome=outcome, gate=gate, stage_s=stage_s,
+        dispatch_s=dispatch_s, materialize_s=t_m1 - t_m0, epilogue_s=t_done - t_e0,
+        t_dispatch=t_disp, t_materialized=t_m1, t_done=t_done, n_valid=n_valid,
+        failed=failed))
 
 
 def _nbytes(x) -> int:
@@ -1230,15 +1278,22 @@ def _nbytes(x) -> int:
     return 0
 
 
-def _retire(params: PraosParams, ticked: TickedPraosState, hvs, pre, v: "PackedVerdicts",
-            phases: PhaseTally | None):
+def _retire(params: PraosParams, ticked: TickedPraosState, hvs, pre, v: "PackedVerdicts"):
     """A dispatched window's verdicts, waited for (a dirty aggregated
-    window re-dispatched, `materialize`), then its epilogue."""
-    with _phase(phases, "materialize"):
+    window re-dispatched, `materialize`), then its epilogue, and its
+    WindowSpan."""
+    traced = BATCH_TRACER is not None
+    t_m0 = time.monotonic() if traced else 0.0
+    with _enclose("materialize"):
         v = materialize(v)
         v.masks  # the wait for the copies back
-    with _phase(phases, "epilogue"):
-        return epilogue(params, ticked, hvs, pre, v)
+    t_m1 = time.monotonic() if traced else 0.0
+    with _enclose("epilogue"):
+        res = epilogue(params, ticked, hvs, pre, v)
+    if traced:
+        _emit_window_span(v.meta, len(hvs), res.n_valid, res.error is not None, t_m0, t_m1,
+                          t_m1, time.monotonic())
+    return res
 
 
 class StagedWindow(NamedTuple):
@@ -1256,6 +1311,9 @@ class StagedWindow(NamedTuple):
     # a batch-compatible packed window takes the window aggregate
     # (dispatch_prepared; validate_chain's `aggregate`)
     aggregate: bool = True
+    gate: str | None = None  # why the packed staging declined (a generic window)
+    t0: float = 0.0  # monotonic at the staging's start and end, when traced
+    t1: float = 0.0
 
 
 def prepare_window(params: PraosParams, lview: LedgerView, eta0,
@@ -1270,22 +1328,27 @@ def prepare_window(params: PraosParams, lview: LedgerView, eta0,
     ledger view, and touches host memory only: the window pipeline runs
     it on its staging thread."""
     chaos.fire("stage")  # staging-thread-death@window:N
-    if pre is None:
-        pre = host_prechecks(params, lview, hvs)
-    b = len(hvs)
-    try:
-        if isinstance(hvs, ViewColumns):
-            layout, packed = stage_packed_columns(params, lview, eta0, hvs, pre)
-        else:
-            layout, packed = stage_packed(params, lview, eta0, hvs)
-    except NotStagedError as e:
-        if e.reason not in GENERIC_REASONS:
-            raise
-        DECLINES[e.reason] = DECLINES.get(e.reason, 0) + 1
-        batch = pad_batch_to(stage_any(params, lview, eta0, hvs, pre), bucket_size(b))
-        return StagedWindow(hvs, pre, b, None, None, buf, batch)
-    packed = pad_packed_into(packed, bucket_size(b), buf.numpy())
-    return StagedWindow(hvs, pre, b, layout, packed, buf, None)
+    traced = BATCH_TRACER is not None
+    t0 = time.monotonic() if traced else 0.0
+    with _enclose("stage"):
+        if pre is None:
+            pre = host_prechecks(params, lview, hvs)
+        b = len(hvs)
+        try:
+            if isinstance(hvs, ViewColumns):
+                layout, packed = stage_packed_columns(params, lview, eta0, hvs, pre)
+            else:
+                layout, packed = stage_packed(params, lview, eta0, hvs)
+        except NotStagedError as e:
+            if e.reason not in GENERIC_REASONS:
+                raise
+            DECLINES[e.reason] = DECLINES.get(e.reason, 0) + 1
+            batch = pad_batch_to(stage_any(params, lview, eta0, hvs, pre), bucket_size(b))
+            return StagedWindow(hvs, pre, b, None, None, buf, batch, gate=e.reason, t0=t0,
+                                t1=time.monotonic() if traced else 0.0)
+        packed = pad_packed_into(packed, bucket_size(b), buf.numpy())
+    return StagedWindow(hvs, pre, b, layout, packed, buf, None, t0=t0,
+                        t1=time.monotonic() if traced else 0.0)
 
 
 def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> PackedVerdicts:
@@ -1301,15 +1364,33 @@ def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> Pac
     dirty (the reference's default, OCT_VRF_AGG=1). `carry` is the fold's
     carry-in: the previous packed window's device carry-out, or a host
     seed (`state_carry`); None is the neutral one. A generic window runs
-    the five stage kernels and ships its eta bytes (no fold, no carry)."""
+    the five stage kernels and ships its eta bytes (no fold, no carry).
+    Traced, it emits the window's H2D TransferEvent and its WindowStaged
+    inside the "dispatch" bracket (the reference's order)."""
     chaos.fire("dispatch")  # device-error@dispatch:N, compile-stall@window:N
+    with _enclose("dispatch"):
+        traced = BATCH_TRACER is not None
+        if traced:
+            t_d = time.monotonic()
+            t0, t1 = (sw.t0, sw.t1) if sw.t1 else (t_d, t_d)  # a window staged untraced
+            _emit_transfer("dispatch", lanes=bucket_size(sw.b), packed=sw.layout is not None,
+                           h2d_bytes=_nbytes(sw.packed if sw.layout is not None else sw.batch))
+        v, outcome = _dispatch(sw, device, carry)
+        if traced:
+            v.meta = _win_meta(outcome, sw.gate, sw.b, bucket_size(sw.b), t0, t1)
+    return v
+
+
+def _dispatch(sw: StagedWindow, device: torch.device, carry) -> tuple:
+    """dispatch_prepared's launches -> (PackedVerdicts, the window's
+    outcome: "generic", "packed-agg" or "packed")."""
     b = sw.b
     if sw.layout is None:
         cols = batch_columns(sw.batch, device)
         (masks, eta_u8), flags, eta, lv = pk_kernels.verify_staged(
             cols, isinstance(sw.batch.vrf, stage_np.EcvrfBcBatch),
             sw.batch.kes.siblings.shape[1], b)
-        return PackedVerdicts(masks, b, (flags, eta, lv), eta_u8=eta_u8)
+        return PackedVerdicts(masks, b, (flags, eta, lv), eta_u8=eta_u8), "generic"
     packed = upload_staged(sw.packed, sw.buf, device)
     if carry is None:
         carry = nonces.pack_carry(None, None)
@@ -1319,10 +1400,10 @@ def dispatch_prepared(sw: StagedWindow, device: torch.device, carry=None) -> Pac
         (masks, carry_out), av, limb = pk_kernels.verify_praos_packed_agg(
             sw.layout, packed, b, device, carry)
         return PackedVerdicts(masks, b, (av.flags, av.eta, av.leader_value),
-                              carry=carry_out, agg=(sw.layout, limb))
+                              carry=carry_out, agg=(sw.layout, limb)), "packed-agg"
     (masks, carry_out), flags, eta, lv = pk_kernels.verify_praos_packed_split(
         sw.layout, packed, b, device, carry)
-    return PackedVerdicts(masks, b, (flags, eta, lv), carry=carry_out)
+    return PackedVerdicts(masks, b, (flags, eta, lv), carry=carry_out), "packed"
 
 
 def materialize(v: PackedVerdicts) -> PackedVerdicts:
@@ -1334,43 +1415,52 @@ def materialize(v: PackedVerdicts) -> PackedVerdicts:
     verdicts replace the aggregate's. The fold is not run again: it read
     unpack's β rows, so the window's carry-out stays valid, and later
     windows, already in flight on it, are not touched. Counts
-    AGG_REDISPATCH."""
+    AGG_REDISPATCH. Traced, it emits a D2H TransferEvent for each set of
+    words read back, and AggRedispatch before the re-dispatch (the
+    reference's materialize_verdicts)."""
     global AGG_REDISPATCH
+    traced = BATCH_TRACER is not None
     if v.agg is None or v.clean():
+        if traced:
+            _emit_transfer("materialize", lanes=v.b, d2h_bytes=v.d2h_bytes(),
+                           packed=v.agg is not None or v.carried)
         return v
     AGG_REDISPATCH += 1
+    if traced:
+        from ..utils.trace import AggRedispatch
+
+        _emit_transfer("materialize", lanes=v.b, d2h_bytes=v.d2h_bytes(), packed=True)
+        BATCH_TRACER(AggRedispatch(v.b))
     layout, limb = v.agg
     flags, eta, lv = pk_kernels._tiles(limb, True, layout.kes_depth)
     masks, _ = verdict_reduce(flags, eta, v.b)
-    return PackedVerdicts(masks, v.b, (flags, eta, lv), carry=v.carry)
+    out = PackedVerdicts(masks, v.b, (flags, eta, lv), carry=v.carry)
+    out.meta = v.meta
+    if traced:
+        _emit_transfer("materialize", lanes=v.b, d2h_bytes=out.d2h_bytes(), packed=True)
+    return out
 
 
 def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
                     hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
-                    device: torch.device, carry=None, aggregate: bool = True,
-                    phases: PhaseTally | None = None) -> PackedVerdicts:
+                    device: torch.device, carry=None, aggregate: bool = True) -> PackedVerdicts:
     """prepare_window then dispatch_prepared, inline: one window's
     staging (with its prechecks `pre`), kernels, reduce and the copies of
     its results back (the serial loop's step)."""
     device = torch.device(device)
-    with _phase(phases, "stage"):
-        sw = prepare_window(params, lview, eta0, hvs, staging_buffer(params, hvs, device), pre)
-    with _phase(phases, "dispatch"):
-        v = dispatch_prepared(sw._replace(aggregate=aggregate), device, carry)
-    if phases is not None:
-        phases.dispatched(sw, v)
-    return v
+    sw = prepare_window(params, lview, eta0, hvs, staging_buffer(params, hvs, device), pre)
+    return dispatch_prepared(sw._replace(aggregate=aggregate), device, carry)
 
 
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", backend: str,
                    device: torch.device | None, carry=None,
-                   aggregate: bool = True, phases: PhaseTally | None = None) -> BatchResult:
+                   aggregate: bool = True) -> BatchResult:
     """One within-epoch window of one proof format.
     `carry`: the device nonce carry of the previous packed window, None
     to seed the fold from the ticked state (tick only rotates the epoch
     nonce, so a carry stays valid across an epoch boundary). `aggregate`:
-    dispatch_prepared's. `phases`: validate_chain's."""
+    dispatch_prepared's."""
     lview = ticked.ledger_view
     eta0 = ticked.state.epoch_nonce
     pre = host_prechecks(params, lview, hvs)
@@ -1379,8 +1469,8 @@ def validate_batch(params: PraosParams, ticked: TickedPraosState,
         res = epilogue(params, ticked, hvs, pre, v)
     elif backend == "device":
         seed = state_carry(ticked.state) if carry is None else carry
-        v = dispatch_window(params, lview, eta0, hvs, pre, device, seed, aggregate, phases)
-        res = _retire(params, ticked, hvs, pre, v, phases)
+        v = dispatch_window(params, lview, eta0, hvs, pre, device, seed, aggregate)
+        res = _retire(params, ticked, hvs, pre, v)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     if isinstance(v, PackedVerdicts) and v.carried and res.error is None:
@@ -1440,7 +1530,7 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
                    hvs: "Sequence[HeaderView] | ViewColumns", max_batch: int = 8192,
                    backend: str = "device", device=None,
                    pipeline_depth: int = 3, aggregate: bool = True,
-                   phases: PhaseTally | None = None, supervisor=None) -> BatchResult:
+                   supervisor=None) -> BatchResult:
     """Validate a run of headers (a HeaderView list or ViewColumns):
     windows cut at epoch boundaries, at `max_batch` within an epoch and
     where the proof format changes; the state threads through `tick`
@@ -1456,8 +1546,8 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
     device backend): batch-compatible packed windows take the window
     aggregate, and a dirty one the per-lane stages again (the
     reference's default); False runs the per-lane stages on every
-    window. `phases` (the device backend): a PhaseTally that the window
-    loop adds its phase walls, bytes and windows to. `supervisor`: the
+    window. The device loops emit the window events of the tracer seam
+    (BATCH_TRACER). `supervisor`: the
     obs/recovery.RecoverySupervisor that a window whose validation
     raises a RECOVER-class error goes to, in retire order (None: a
     default one). As each window retires, the checkpoint seam
@@ -1476,14 +1566,13 @@ def validate_chain(params: PraosParams, ledger_view_for_epoch, state: PraosState
 
     if backend == "device" and pipeline_depth > 1:
         return _pipeline(params, lview_of, state, hvs, windows, dev, pipeline_depth,
-                         aggregate, phases, sup)
+                         aggregate, sup)
     carry = None
     total = 0
     for k, (epoch, i, j) in enumerate(windows):
         ticked = praos.tick(params, lview_of(epoch), _slot_at(hvs, i), state)
         try:
-            res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate,
-                                 phases)
+            res = validate_batch(params, ticked, hvs[i:j], backend, dev, carry, aggregate)
         except Exception as e:  # noqa: BLE001 — the supervisor decides
             res = sup.recover_window(params, ticked, hvs[i:j], e, backend, dev, aggregate, k)
             res.carry = None  # the next packed window seeds from the state
@@ -1527,7 +1616,7 @@ def _done(value=None, exc: BaseException | None = None):
 
 def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: list,
               dev: torch.device, depth: int, aggregate: bool = True,
-              phases: PhaseTally | None = None, sup=None) -> BatchResult:
+              sup=None) -> BatchResult:
     """The device loop of validate_chain (the reference's _device_loop):
     at most `depth` windows staged ahead (`prepare_window` on one staging
     thread, into staging buffers allocated here) and at most `depth` in
@@ -1566,10 +1655,6 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
     total = 0
     pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="validate-stage")
 
-    def stage(*args) -> StagedWindow:
-        with _phase(phases, "stage"):
-            return prepare_window(*args)
-
     def stage_ahead() -> None:
         nonlocal k_stage
         while k_stage < len(windows) and len(staged) < depth:
@@ -1581,7 +1666,7 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
                                         state).state.epoch_nonce
             whvs = hvs[i:j]
             staged.append((k_stage, pool.submit(
-                stage, params, lview_of(epoch), eta[epoch], whvs,
+                prepare_window, params, lview_of(epoch), eta[epoch], whvs,
                 staging_buffer(params, whvs, dev))))
             k_stage += 1
 
@@ -1609,16 +1694,13 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
                 carry, carry_ok = state_carry(state), True
             staged.popleft()
             try:
-                with _phase(phases, "dispatch"):
-                    v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
+                v = dispatch_prepared(sw, dev, carry if sw.layout is not None else None)
             except Exception as e:  # noqa: BLE001 — recovered where it retires
                 if not failed(e):
                     raise
                 carry_ok = False
                 inflight.append((k, sw, _FailedWindow(e)))
                 continue
-            if phases is not None:
-                phases.dispatched(sw, v)
             if v.carried:
                 carry = v.carry
             else:
@@ -1638,7 +1720,7 @@ def _pipeline(params: PraosParams, lview_of, state: PraosState, hvs, windows: li
             try:
                 if isinstance(v, _FailedWindow):
                     raise v.exc
-                res = _retire(params, ticked, sw.hvs, sw.pre, v, phases)
+                res = _retire(params, ticked, sw.hvs, sw.pre, v)
             except Exception as e:  # noqa: BLE001 — the supervisor decides
                 if not failed(e):
                     raise

@@ -50,11 +50,15 @@ class QuarantineError(Exception):
 def note_repair(action: str, chunk: int = -1, kept: int = 0,
                 dropped: int = 0, bytes_quarantined: int = 0,
                 applied: bool = True, detail: str = "") -> dict:
-    """One repair action as a row (the reference's note_repair without
-    its warmup and tracer mirrors, which the port does not have yet):
-    the ImmutableDB keeps the rows of an open on its `repairs`, and
-    `count_actions` counts them."""
-    return {
+    """One repair action as a row (the reference's note_repair): the
+    ImmutableDB keeps the rows of an open on its `repairs`, and
+    `count_actions` counts them; the row goes into the warmup report
+    (`WARMUP.note_repair`) and, as a `RepairEvent`, through the batch
+    tracer (`oct_repair_total{action=}` counts the applied ones)."""
+    from ..obs.warmup import WARMUP
+    from ..protocol import batch as pbatch
+
+    row = {
         "action": action,
         "chunk": chunk,
         "kept": kept,
@@ -63,6 +67,16 @@ def note_repair(action: str, chunk: int = -1, kept: int = 0,
         "applied": applied,
         "detail": detail[:200],
     }
+    WARMUP.note_repair(action=action, chunk=chunk, kept=kept, dropped=dropped,
+                       bytes_quarantined=bytes_quarantined, applied=applied, detail=detail)
+    tracer = pbatch.BATCH_TRACER
+    if tracer is not None:
+        from ..utils.trace import RepairEvent
+
+        tracer(RepairEvent(action=action, chunk=chunk, blocks_kept=kept, blocks_dropped=dropped,
+                           bytes_quarantined=bytes_quarantined, applied=applied,
+                           detail=detail[:200]))
+    return row
 
 
 def count_actions(rows, applied_only: bool = True) -> dict:

@@ -118,9 +118,17 @@ def sidecar_path(db_dir: str, chunk: int) -> str:
 _COUNTS = {k: 0 for k in SIDECAR_OUTCOMES}
 
 
-def record(outcome: str) -> None:
-    """Count one probe or build outcome."""
+def record(outcome: str, chunk: int = -1) -> None:
+    """Count one probe or build outcome of chunk `chunk`, and emit it as
+    a `SidecarEvent` through the batch tracer (`oct_sidecar_total`)."""
+    from ..protocol import batch as pbatch
+
     _COUNTS[outcome] += 1
+    tracer = pbatch.BATCH_TRACER
+    if tracer is not None:
+        from ..utils.trace import SidecarEvent
+
+        tracer(SidecarEvent(outcome=outcome, chunk=chunk))
 
 
 def counters() -> dict:

@@ -35,6 +35,13 @@ the native replay's rate). The device replays take the window aggregate
 on every batch-compatible window (revalidate's default);
 `--no-aggregate` runs the five per-lane stage kernels instead. It needs
 a CUDA card and raises without one.
+
+The observability flags (`--trace`, `--heartbeat`, `--stall-budget-s`,
+`--stall-dump`, `--metrics-port`, `--warmup-report`; obs.add_arguments)
+are revalidate's keywords for every device replay. Each run appends one record to the run ledger
+(obs/ledger.py: `.oct_ledger/`, `--ledger DIR`, `--ledger 0` for none):
+the last line's keys, the best replay's phases, the flags, the warmup
+and resources reports and, traced, the recorder's metrics.
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ import shutil
 import subprocess
 from fractions import Fraction
 
+from .. import obs
 from ..device import resolve
+from ..obs import ledger
 from ..protocol import batch as pbatch
 from ..protocol.praos import PraosParams
 from ..storage import sidecar
@@ -121,7 +130,7 @@ def attribution(r) -> dict:
 
 
 def measure(db: str, runs: int = 2, max_batch: int = MAX_BATCH, device=None,
-            aggregate: bool = True, native=None) -> dict:
+            aggregate: bool = True, native=None, **obs_kw) -> dict:
     """bench.py's sequence on the chain at `db`: the native replay
     (`native`: its revalidate result, when the caller has run it on this
     chain already; over a NATIVE_CAP-header prefix of a longer chain,
@@ -138,7 +147,8 @@ def measure(db: str, runs: int = 2, max_batch: int = MAX_BATCH, device=None,
     (phases, windows, bytes per window), its sidecar counters,
     `aggregate`, `agg_redispatch` (the windows the timed replays
     re-dispatched lane by lane), the prefix replay's headers and wall,
-    and the native replay's times and the open it left out."""
+    and the native replay's times and the open it left out. `obs_kw`:
+    revalidate's observability keywords, for every device replay."""
     import torch
 
     dev = resolve(device)
@@ -162,7 +172,8 @@ def measure(db: str, runs: int = 2, max_batch: int = MAX_BATCH, device=None,
 
     def replay(**kw):
         r = db_analyser.revalidate(db, params, lview, backend="device", max_batch=max_batch,
-                                   device=dev, aggregate=aggregate, validate_all="stream", **kw)
+                                   device=dev, aggregate=aggregate, validate_all="stream",
+                                   **obs_kw, **kw)
         torch.cuda.synchronize()
         if r.error is not None or r.n_valid != r.n_blocks or r.n_valid == 0:
             raise AssertionError(f"device replay {r.n_valid}/{r.n_blocks}, {r.error!r}")
@@ -223,7 +234,9 @@ def main(argv=None) -> int:
     ap.add_argument("--runs", type=int, default=2, help="timed device replays")
     ap.add_argument("--no-aggregate", dest="aggregate", action="store_false",
                     help="the per-lane stage kernels on every window")
+    obs.add_arguments(ap)
     a = ap.parse_args(argv)
+    obs_kw = obs.keywords(a)
     resolve(None)  # no card: raise before forging
     db, forged = (a.db, None) if a.db else build_or_load_chain(a.headers or default_headers())
     if forged is not None:
@@ -234,7 +247,7 @@ def main(argv=None) -> int:
               f"{forged.assemble_s!r} s), {forged.n_blocks / forged.wall_s!r} headers/s; "
               f"launches forge_sweep {LAUNCHES['forge_sweep']} ed_sign {LAUNCHES['ed_sign']}",
               flush=True)
-    out = measure(db, a.runs, aggregate=a.aggregate)
+    out = measure(db, a.runs, aggregate=a.aggregate, **obs_kw)
     print(f"card: {card_line()}", flush=True)
     print(f"validate_s {out['validate_s']!r} read_s {out['read_s']!r} "
           f"wait_s {out['wait_s']!r} wall_s {out['wall_s']!r}; prefix replay "
@@ -246,6 +259,15 @@ def main(argv=None) -> int:
     print(f"attribution {json.dumps(out['attribution'])}", flush=True)
     print(f"sidecar {json.dumps(out['sidecar'])} aggregate {out['aggregate']} "
           f"agg_redispatch {out['agg_redispatch']}", flush=True)
+    rec = ledger.record_replay(
+        "bench", recorder=obs.recorder() if a.flight_recorder else None, dir_=a.ledger,
+        config={"db": db, "runs": a.runs, "aggregate": a.aggregate, "max_batch": MAX_BATCH},
+        result={k: out[k] for k in ("metric", "value", "unit", "vs_baseline", "wall_s",
+                                    "validate_s", "read_s", "wait_s")},
+        wall_s=out["wall_s"], phases_s=out["attribution"]["phases_s"],
+        env={**obs_kw, "headers": a.headers, "db": a.db})
+    if rec is not None:
+        print(f"ledger: {rec['_path']}", flush=True)
     print(json.dumps({k: out[k] for k in ("metric", "value", "unit", "vs_baseline")}),
           flush=True)
     return 0

@@ -69,7 +69,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from .. import native_scan
+from .. import native_scan, obs
 from ..block.praos_block import Block
 from ..obs import recovery as recovery_mod
 from ..protocol import batch as pbatch
@@ -81,6 +81,7 @@ from ..storage import repair as repair_mod
 from ..storage import sidecar as sidecar_mod
 from ..storage.immutable import ImmutableDB
 from ..testing import chaos as chaos_mod
+from ..utils.trace import fanout
 
 
 @dataclass
@@ -100,9 +101,10 @@ class ValidationResult:
     wait_s: float = 0.0
     # the store's open (every chunk's index loaded), inside read_s
     open_s: float = 0.0
-    # filled by collect_phases=True (batch.PhaseTally): wall s per phase
-    # (the read, and the window loop's stage, dispatch, materialize and
-    # epilogue), bytes copied to the card and back, windows dispatched
+    # filled by collect_phases=True (_PhaseCollector, a tracer over the
+    # batch seam): wall s per phase (the read, and the window loop's
+    # stage, dispatch, materialize and epilogue), bytes copied to the
+    # card and back, windows dispatched
     phases: dict | None = None
     h2d_bytes: int = 0
     d2h_bytes: int = 0
@@ -113,6 +115,54 @@ class ValidationResult:
     repairs: dict | None = None  # {action: count} of the repairs applied
     # the supervisor's RecoveryEvents (obs/recovery.py), in order
     recoveries: list = field(default_factory=list)
+
+
+class _PhaseCollector:
+    """The batch tracer of revalidate(collect_phases=True) and of
+    tools/profile_replay.py (the reference's _PhaseCollector,
+    tools/db_analyser.py:64-99): every Enclose bracket's seconds and
+    count by label, the bytes across the card's boundary and the windows
+    dispatched from its TransferEvents. `fill` gives the result the
+    window loop's four phases: its "read" phase is the reader's own time,
+    not the read's spans (stream, stream-mmap, stream-parse). Events
+    come from the staging thread and the launching thread, so the sums
+    take a lock."""
+
+    PHASES = ("stage", "dispatch", "materialize", "epilogue")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.wall: dict = {}  # label -> seconds; guarded-by: _lock
+            self.count: dict = {}  # label -> brackets; guarded-by: _lock
+            self.h2d = self.d2h = self.windows = self.packed = 0  # guarded-by: _lock
+
+    def __call__(self, ev) -> None:
+        from ..utils.trace import EncloseEvent, TransferEvent
+
+        if isinstance(ev, EncloseEvent):
+            if ev.edge == "end":
+                with self._lock:
+                    self.wall[ev.label] = self.wall.get(ev.label, 0.0) + ev.duration
+                    self.count[ev.label] = self.count.get(ev.label, 0) + 1
+        elif isinstance(ev, TransferEvent):
+            with self._lock:
+                if ev.phase == "dispatch":
+                    self.h2d += ev.h2d_bytes
+                    self.windows += 1
+                    self.packed += ev.packed
+                else:
+                    self.d2h += ev.d2h_bytes
+
+    def fill(self, res: ValidationResult, read_s: float) -> None:
+        with self._lock:
+            res.phases = {"read": read_s,
+                          **{k: v for k, v in self.wall.items() if k in self.PHASES}}
+            res.h2d_bytes, res.d2h_bytes = self.h2d, self.d2h
+            res.n_windows, res.packed_windows = self.windows, self.packed
 
 
 def read_header_views(db_path: str) -> list:
@@ -174,8 +224,10 @@ def _chunk_good(imm: ImmutableDB, n: int, data: bytes, entries: list, use_sideca
     sidecar columns when it is a hit and every entry passed (else None)."""
     sc = None
     if use_sidecar:
-        sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries), fs=imm.fs)
-        sidecar_mod.record(outcome)
+        with pbatch._enclose("stream-mmap"):
+            sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries), fs=imm.fs)
+        sidecar_mod.record(outcome, n)
+
     def exact():
         return imm.deep_check_loaded(data, entries, open_mod.default_check_integrity,
                                      open_mod.default_check_integrity_batch)
@@ -215,35 +267,45 @@ def _stream_windows(imm: ImmutableDB, res: ValidationResult, columnar: bool, sid
     do not columnarize falls to a list) or as one HeaderView list, and a
     writer's open seals the chunk's sidecar from that scan (walked when
     this read checked the chunk). The stream ends with the first chunk
-    that holds a failing block."""
+    that holds a failing block. Traced, a chunk's read, checks and scan
+    are a "stream" span, its sidecar's probe and pieces "stream-mmap"
+    and its header scan "stream-parse" (the reference's spans)."""
     use_sidecar = sidecar and columnar
     for chunk_idx, n in enumerate(list(imm._chunks)):
         entries = imm._entries.get(n)
         if not entries:
             continue
-        data = _read_chunk(imm, n, chunk_idx, sup)
-        if imm.stream_deep:
-            good, sc = _chunk_good(imm, n, data, entries, use_sidecar)
-        else:
-            good, sc = len(entries), None
-            if use_sidecar:
-                sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries),
-                                                       fs=imm.fs)
-                sidecar_mod.record(outcome)
-        truncated = good < len(entries)
-        if truncated and imm.stream_repair:
-            imm.repair_to(n, good, data=data)
-        pieces = sc.pieces(data) if sc is not None else None
+        cols = pieces = None
+        with pbatch._enclose("stream"):
+            data = _read_chunk(imm, n, chunk_idx, sup)
+            if imm.stream_deep:
+                good, sc = _chunk_good(imm, n, data, entries, use_sidecar)
+            else:
+                good, sc = len(entries), None
+                if use_sidecar:
+                    with pbatch._enclose("stream-mmap"):
+                        sc, outcome = sidecar_mod.load_sidecar(imm.path, n, data, len(entries),
+                                                               fs=imm.fs)
+                    sidecar_mod.record(outcome, n)
+            truncated = good < len(entries)
+            if truncated and imm.stream_repair:
+                imm.repair_to(n, good, data=data)
+            if sc is not None:
+                with pbatch._enclose("stream-mmap"):
+                    pieces = sc.pieces(data)
+            if pieces is not None:
+                res.n_blocks += sc.n
+            elif good:
+                with pbatch._enclose("stream-parse"):
+                    cols = native_scan.extract_headers(data, [e.offset for e in entries[:good]])
+                res.n_blocks += cols.n
+                if use_sidecar and sc is None and not truncated and imm._repair:
+                    if sidecar_mod.backfill(imm.path, n, cols, data, walked=imm.stream_deep,
+                                            fs=imm.fs):
+                        sidecar_mod.record("rebuilt", n)
         if pieces is not None:
-            res.n_blocks += sc.n
             yield from pieces
-        elif good:
-            cols = native_scan.extract_headers(data, [e.offset for e in entries[:good]])
-            res.n_blocks += cols.n
-            if use_sidecar and sc is None and not truncated and imm._repair:
-                if sidecar_mod.backfill(imm.path, n, cols, data, walked=imm.stream_deep,
-                                        fs=imm.fs):
-                    sidecar_mod.record("rebuilt")
+        elif cols is not None:
             pieces = ViewColumns.pieces_from_header_columns(cols) if columnar else None
             if pieces is None:
                 yield _views_from_columns(cols)
@@ -419,7 +481,10 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
                collect_phases: bool = False, resume: bool = False,
                repair: bool = False, network_magic: int | None = None,
                checkpoint: str | None = None, recovery: bool = True,
-               backoff_s: float = 0.05, chaos=None) -> ValidationResult:
+               backoff_s: float = 0.05, chaos=None, flight_recorder: bool = False,
+               heartbeat: str | None = None, stall_budget_s: float | None = None,
+               stall_dump: str | None = None, metrics_port: int | None = None,
+               warmup_report: str | None = None) -> ValidationResult:
     """Full-chain revalidation from genesis (or from a checkpoint)
     against a constant ledger view; -> n_valid, the first error (or
     None) and the final state.
@@ -438,7 +503,8 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
     `max_headers`: replay the first max_headers headers only (`n_blocks`
     is at most that). `trace`: called with a progress line after each
     epoch segment. `collect_phases`: fill `phases`, `h2d_bytes`,
-    `d2h_bytes`, `n_windows` and `packed_windows` (batch.PhaseTally).
+    `d2h_bytes`, `n_windows` and `packed_windows` (`_PhaseCollector`, a
+    tracer chained into the batch seam for the call).
     `sidecar`: read a chunk's sealed columns where they hold (tier 1;
     `columnar=False` reads none). `prefetch` (device backend): read the
     next epoch segment on a thread while this one validates.
@@ -454,6 +520,14 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
     chain there seeds the fold and its headers are skipped
     (`resumed_headers`, counted in `n_valid`). `chaos`: a fault plan
     (testing/chaos.py spec or ChaosPlan) armed for the call.
+    Observability (obs/, the reference's OCT_* levers; obs.observe):
+    `flight_recorder` installs the flight recorder; `heartbeat` (a file
+    rewritten every ~2 s), `stall_budget_s` (the stall watchdog's
+    budget; its dump at `stall_dump`) and `metrics_port` (the HTTP
+    endpoint; 0 binds a free port) arm the live plane, which installs
+    the recorder too; `warmup_report` is the warmup report's file. All
+    are undone when the call returns or raises. (Each kernel's resources
+    row is taken at its first launch whatever the keywords.)
     `validate_s` sums the validate_chain calls (one an epoch segment),
     `read_s` the read's own time (`open_s` of it the store's open),
     `wait_s` the time validation waited for it, and `wall_s` is the
@@ -468,7 +542,9 @@ def revalidate(db_path: str, params: PraosParams, lview: LedgerView,
         from ..device import resolve
 
         device = resolve(device)
-    with chaos_mod.arming(chaos):
+    with chaos_mod.arming(chaos), obs.observe(
+            flight_recorder, heartbeat, stall_budget_s, stall_dump, metrics_port,
+            warmup_report):
         return _revalidate_guarded(
             db_path, params, lview, backend, max_batch, device, columnar, sidecar, prefetch,
             pipeline_depth, aggregate, validate_all, max_headers, trace, collect_phases,
@@ -528,13 +604,17 @@ def _replay(imm, db_path, params, lview, backend, max_batch, device, columnar, s
     skip = int(doc["headers"]) if doc is not None else 0
     recovery_mod.arm_writer(checkpoint, tag, skip, int(doc["windows"]) if doc else 0)
     if doc is not None:
+        recovery_mod.note_resume(doc)
         st = recovery_mod.decode_state(doc["state"])
         res.n_valid = res.resumed_headers = skip
     tally = ValidationResult(read_s=open_s)  # the reader's counts, on its thread
     segs = _timed_segments(params, imm, tally, columnar, sidecar, max_headers, skip, sup)
     if backend == "device" and prefetch:
         segs = _prefetch_iter(segs, depth=2)
-    phases = pbatch.PhaseTally() if collect_phases else None
+    coll = prev_tracer = None
+    if collect_phases:
+        coll, prev_tracer = _PhaseCollector(), pbatch.BATCH_TRACER
+        pbatch.set_batch_tracer(coll if prev_tracer is None else fanout(prev_tracer, coll))
     try:
         while True:
             tw = time.perf_counter()
@@ -547,7 +627,7 @@ def _replay(imm, db_path, params, lview, backend, max_batch, device, columnar, s
             out = pbatch.validate_chain(params, lambda _e: lview, st, seg,
                                         max_batch=max_batch, backend=backend,
                                         device=device, pipeline_depth=pipeline_depth,
-                                        aggregate=aggregate, phases=phases, supervisor=sup)
+                                        aggregate=aggregate, supervisor=sup)
             res.validate_s += time.monotonic() - ts
             st = out.state
             res.n_valid += out.n_valid
@@ -560,15 +640,15 @@ def _replay(imm, db_path, params, lview, backend, max_batch, device, columnar, s
     finally:
         segs.close()  # stops and joins the prefetch thread
         recovery_mod.disarm_writer()
+        if coll is not None:
+            pbatch.set_batch_tracer(prev_tracer)
     if res.error is None:
         res.n_blocks = tally.n_blocks
     if max_headers is not None:
         res.n_blocks = min(res.n_blocks, max_headers)
     res.read_s = tally.read_s
-    if phases is not None:
-        res.phases = {"read": tally.read_s, **phases.wall}
-        res.h2d_bytes, res.d2h_bytes = phases.h2d_bytes, phases.d2h_bytes
-        res.n_windows, res.packed_windows = phases.windows, phases.packed_windows
+    if coll is not None:
+        coll.fill(res, tally.read_s)
     res.recoveries = list(sup.events)
     res.final_state = st
     return res

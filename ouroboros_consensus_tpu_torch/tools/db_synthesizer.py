@@ -43,6 +43,7 @@ from fractions import Fraction
 
 from .. import native
 from ..device import resolve
+from ..protocol import batch as pbatch
 from ..protocol import forge as pforge
 from ..protocol import nonces, praos
 from ..protocol.leader import is_leader
@@ -55,8 +56,12 @@ from ..storage.immutable import ImmutableDB
 from ..storage.open import open_repair_store
 from ..testing import chaos as chaos_mod
 from ..testing import synth
+from ..utils.trace import ForgeSpan
 
 ENGINES = ("device", "host", "loop")
+# the process-wide forge-window sequence (ForgeSpan `index`), advanced
+# only while a tracer is installed
+_FORGE_SEQ = 0
 
 
 @dataclass(frozen=True)
@@ -181,7 +186,9 @@ def _forge_pipeline(imm, params, pools, lview, limit, res, ch: _Chain, txs_per_b
     ends at its epoch's end (η0 is epoch-constant), at the slots limit,
     and near a blocks limit (about 2/f slots a block still owed, plus
     64); under a blocks limit the slots counted end at the block that
-    reaches it, as the loop's do."""
+    reaches it, as the loop's do. Each window is a `ForgeSpan` through
+    the batch tracer (`oct_forge_*`), when one is installed."""
+    global _FORGE_SEQ
     asm = pforge.BlockAssembler(params, pools)
     formats = proof_formats(proof_format)
     thr = pforge.pool_thresholds(params, lview, pools)
@@ -208,6 +215,8 @@ def _forge_pipeline(imm, params, pools, lview, limit, res, ch: _Chain, txs_per_b
         t1 = time.perf_counter()
         res.elect_s += t1 - t0
         last = slot
+        pairs = (wend - slot) * len(pools)
+        signed = 0
         for el in elected:
             if limit.blocks is not None and ch.block_no >= limit.blocks:
                 break
@@ -221,11 +230,19 @@ def _forge_pipeline(imm, params, pools, lview, limit, res, ch: _Chain, txs_per_b
             _append(imm, params, ch, ticked, block, res, trace)
             ch.counters[pool.pool_id] = n
             last = el.slot
-        res.assemble_s += time.perf_counter() - t1
+            signed += 1
+        t2 = time.perf_counter()
+        res.assemble_s += t2 - t1
         if limit.blocks is not None and ch.block_no >= limit.blocks:
             wend = last + 1
         res.n_slots += wend - slot
         ch.slot = wend
+        tracer = pbatch.BATCH_TRACER
+        if tracer is not None:
+            tracer(ForgeSpan(index=_FORGE_SEQ, engine=engine, slots=wend - slot, pairs=pairs,
+                             elected=len(elected), signed=signed, elect_s=t1 - t0,
+                             assemble_s=t2 - t1))
+            _FORGE_SEQ += 1
 
 
 def synthesize(db_path: str, params: PraosParams, pools: list, lview: LedgerView,

@@ -22,6 +22,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import sys
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -238,13 +239,17 @@ def _launch(fn, body: Body, dev: torch.device, stream) -> tuple:
 
 def launch(body: Body, dev: torch.device) -> tuple:
     """The CUDA body on `dev` -> its int32 outputs (counted in
-    kernels.LAUNCHES["primitives"]); no synchronisation."""
+    kernels.LAUNCHES["primitives"]); no synchronisation. The source's
+    resources row is k_lad's (build.ATTRIBUTE_KERNEL), so only the
+    ladder's launch fills it, with its own bytes."""
     if dev.type != "cuda":
         raise ValueError(f"the primitive kernels run on CUDA, not {dev}")
     from ..ops.pk import build
 
-    outs = _launch(build.kernel_lib("primitives", body.entry), body, dev, K._stream(dev))
-    K.LAUNCHES["primitives"] += 1
+    fn = build.kernel_lib("primitives", body.entry)
+    t0 = time.monotonic()
+    outs = _launch(fn, body, dev, K._stream(dev))
+    K._launched("primitives", t0, body.args, outs, capture=body.entry == "pk_prim_lad")
     return outs
 
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -94,8 +95,10 @@ def run(op: str, x: torch.Tensor, k: int) -> torch.Tensor:
         return twin(op, x, k)
     from ..ops.pk import build
 
-    out = _launch(build.kernel_lib("fe_bench"), K._stream(x.device), op, x, k)
-    K.LAUNCHES["fe_bench"] += 1
+    fn = build.kernel_lib("fe_bench")
+    t0 = time.monotonic()
+    out = _launch(fn, K._stream(x.device), op, x, k)
+    K._launched("fe_bench", t0, (x,), out)
     return out
 
 

@@ -76,7 +76,9 @@ def test_scan_covers_the_tools_and_every_kernel_source():
             "protocol/instances.py", "protocol/tpraos.py", "ops/ed25519_batch.py",
             "block/forge.py", "hardfork/__init__.py", "hardfork/history.py",
             "hardfork/combinator.py", "hardfork/byron_mock.py",
-            "hardfork/composite.py"} <= scanned
+            "hardfork/composite.py", "utils/trace.py", "obs/__init__.py",
+            "obs/recorder.py", "obs/perfetto.py", "obs/warmup.py", "obs/resources.py",
+            "obs/live.py", "obs/ledger.py", "tools/profile_replay.py"} <= scanned
     csrc = PORT / "ops" / "pk" / "csrc"
     assert sorted(p.stem for p in csrc.glob("*.cu")) == sorted(build.KERNELS)
     assert {"vrf_prep", "vrf_bc_prep", "primitives", "fe_bench", "forge",
@@ -86,6 +88,37 @@ def test_scan_covers_the_tools_and_every_kernel_source():
     for p in sorted(csrc.iterdir()):
         for inc in re.findall(r'^#include [<"]([^>"]+)[>"]', p.read_text(), re.M):
             assert inc in local or inc in system, (p.name, inc)
+
+
+def _env_reads(path: pathlib.Path):
+    """The OCT_* names a source reads from its environment (os.environ
+    .get / [...] / in, os.getenv)."""
+    def lever(node):
+        return (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and node.value.startswith("OCT_"))
+
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Call) and node.args and lever(node.args[0]):
+            fn = node.func
+            if isinstance(fn, ast.Attribute) and fn.attr in ("get", "getenv", "pop",
+                                                             "setdefault", "getenvb"):
+                yield node.args[0].value
+        elif isinstance(node, ast.Subscript) and lever(node.slice):
+            yield node.slice.value
+        elif isinstance(node, ast.Compare) and lever(node.left):
+            yield node.left.value
+
+
+def test_no_module_reads_an_oct_lever():
+    """The reference's OCT_* environment levers are keywords in the port
+    (the obs plane's included): no module and not chip_smoke.py reads
+    one."""
+    bad = [(str(p.relative_to(REPO)), m) for p in _sources() for m in _env_reads(p)]
+    assert bad == []
+    # the scan sees a read where there is one
+    probe = REPO / "tests" / "test_torch_isolation.py"
+    assert "OCT_PROBE" not in os.environ and os.environ.get("OCT_PROBE") is None
+    assert "OCT_PROBE" in set(_env_reads(probe))
 
 
 def test_relative_imports_stay_in_the_port():
@@ -152,6 +185,10 @@ def test_device_entry_point_refuses_without_cuda(tmp_path, monkeypatch):
         bench.main(["--db", str(tmp_path)])
     with pytest.raises(ValueError):
         bench.measure(str(tmp_path), device="cpu")
+    from ouroboros_consensus_tpu_torch.tools import profile_replay
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profile_replay.main(["--db", str(tmp_path), "--ledger", "0"])
     from ouroboros_consensus_tpu_torch.tools import db_synthesizer
 
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -60,12 +60,25 @@ def _script_columns(reg):
     c.labels(path="/slo").inc(1.5)
 
 
+def _script_bounds(reg):
+    """One value at a time on each bucket's bound and just beside it
+    (a bound belongs to its own bucket), and the same column at once."""
+    one = reg.histogram("oct_one_seconds", "observe", buckets=(0.001, 0.01, 0.1, 1.0))
+    col = reg.histogram("oct_col_seconds", "observe_many", buckets=(0.001, 0.01, 0.1, 1.0))
+    vals = [x * f for x in (0.001, 0.01, 0.1, 1.0) for f in (1 - 1e-12, 1.0, 1 + 1e-12)]
+    vals += [0.0, -1.0, 5.0]
+    for v in vals:
+        one.observe(v)
+    col.observe_many(vals)
+
+
 def _script_empty(reg):
     reg.counter("oct_untouched_total", "a family with no child", ("x",))
     reg.histogram("oct_untouched_seconds", "no observation")
 
 
 SCRIPTS = {"serve": _script_serve, "columns": _script_columns, "empty": _script_empty,
+           "bounds": _script_bounds,
            "all": lambda r: (_script_serve(r), _script_columns(r), _script_empty(r))}
 
 
