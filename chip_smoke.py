@@ -214,6 +214,31 @@ Phases (any failure raises and the script exits non-zero):
       kernel its attributes entry reads, and its blocks per SM from the
       occupancy API equal to sm_90's own count from those figures at the
       entry's geometry (`sm90_blocks_per_sm`).
+   j. the ledger core and the ChainDB (`phase_chaindb`, one `chaindb {...}`
+      line) at Cardano mainnet's securityParam, k = 2,160: a's chain's
+      first blocks in a fresh ImmutableDB, the next k (straddling the
+      epoch boundary at slot 43,200) in a VolatileDB, a LedgerDB snapshot
+      at the immutable tip (its replay from genesis by tickThenReapply on
+      the host, timed apart as `replay_s`); `storage.open.open_chaindb` on
+      two copies, with `PraosProtocol(use_device_batch=True)` on the card
+      (initial chain selection's `LedgerDB.push_many`: one packed window
+      an epoch segment, `validate_batch(collect_states=True)`) and with
+      the C++ verifier a header, which must agree on the tip, the chain,
+      every LedgerDB state and the tip state's snapshot bytes, each
+      clean window's device nonce carry equal to the host fold's nonces,
+      the device open's layers timed (`selection_split_s`);
+      the first window's `unpack`, `nonce_fold` and five stages held to
+      their plain versions at its bucket with every corrupt kind; then on
+      both: the next 512 blocks with their first one last (one window),
+      a fork 64 blocks below the tip forged by `block.forge.forge_block`
+      (one window) and the original chain grown past it (the 64 blocks
+      reapplied with no launch, one window for the 2 fresh ones), the
+      snapshot files of both stores equal; and two copies with a flipped
+      KES-signature byte in the candidate's second epoch segment,
+      reopened: the same hash marked invalid with the same error and the
+      same valid prefix adopted. Each step's launches are zeroed before it
+      and must equal its windows (every kernel of the path once a
+      window); the device ChainDBs never call the C++ verifier.
    The main paths' replays use revalidate's default (validate_all=True);
    the read's measurements (`sidecar_checks`, `read_breakdown`,
    `overlap_turns`, `pipeline_timeline`, `layer_breakdown`) and the
@@ -229,7 +254,8 @@ Phases (any failure raises and the script exits non-zero):
    (tools/fe_bench.py: fe_mul against fe_sq, ns per op beside the bound).
 5. A `kernels` JSON line (sixteen kernels; the forge's two with their
    launches on each forged chain beside its headers; every kernel's
-   launches by path, the serving plane's included; each kernel's
+   launches by path, the serving plane's and the ChainDB's included, and
+   phase 3j's hold at the ChainDB's width (`held_chaindb`); each kernel's
    resources row, held to ptxas after phase 4), the card line, and
    the final status line.
 
@@ -355,6 +381,9 @@ PATH_KERNELS = {
     # TPraos epoch's five stages (the generic staging), the Babbage epoch's
     # packed window (unpack, the five stages, the fold beside them)
     "cardano": {"ed_verify"} | BC_STAGES | WIRE,
+    # phase 3j's ChainDB: a packed window an epoch segment of fresh blocks
+    # (the protocol instance's batch: no aggregate)
+    "chaindb": BC_STAGES | WIRE,
 }
 REPLAY_KERNELS = BC_STAGES | D3_STAGES | AGG | WIRE
 # none may launch off its path
@@ -3012,9 +3041,9 @@ def pipeline_timeline(db: str, params, lview, dev) -> dict:
         launch.append((sw.b, stage.get(id(sw.hvs)), a, b, e0, e1, id(sw.hvs)))
         return v
 
-    def p_epi(params_, ticked, hvs, pre, v):
+    def p_epi(params_, ticked, hvs, pre, v, **kw):
         a = now()
-        res = epi(params_, ticked, hvs, pre, v)
+        res = epi(params_, ticked, hvs, pre, v, **kw)
         retire[id(hvs)] = (a, now())
         return res
 
@@ -4273,6 +4302,430 @@ def phase_obs(dev, forges: Forges, max_batch: int = 8192) -> dict:
     return out
 
 
+# phase 3j: the ledger core and the ChainDB on the card, at Cardano
+# mainnet's securityParam (k = 2,160, its Shelley genesis): a VolatileDB
+# of k blocks across 3a's epoch boundary, a snapshot at the immutable tip
+CHAINDB_K = 2160
+CHAINDB_EXTRA = 512  # the out-of-order blocks added after the open
+CHAINDB_DEPTH = 64  # the blocks the fork rolls back
+
+
+# the host and device layers of the device open's selection that
+# `_ChainDBHooks(split=True)` times (none calls another)
+CHAINDB_SPLIT = (("chaindb", "_candidates_through"), ("chaindb", "_load_fragment"),
+                 ("batch", "host_prechecks"), ("batch", "prepare_window"),
+                 ("batch", "dispatch_prepared"), ("batch", "materialize"),
+                 ("batch", "epilogue"))
+
+
+class _ChainDBHooks:
+    """Phase 3j's measurement hooks around `open_chaindb`: every LedgerDB
+    that `init_from_snapshots` opens gets `tracer` (so that the batches of
+    initial chain selection are seen), and each ChainDB's initial chain
+    selection is timed into `selection_s` (after a synchronise when
+    `on_card`); with `split`, each CHAINDB_SPLIT function's host wall is
+    summed into `split_s` (`materialize` holds the wait for the card).
+    Undone on exit."""
+
+    def __init__(self, tracer, on_card: bool, split: bool = False):
+        self.tracer, self.on_card, self.selection_s = tracer, on_card, []
+        self.split_s = dict.fromkeys((name for _m, name in CHAINDB_SPLIT), 0.0) if split else {}
+
+    def __enter__(self):
+        import torch
+
+        from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+        from ouroboros_consensus_tpu_torch.storage import chaindb as cdb
+        from ouroboros_consensus_tpu_torch.storage.ledgerdb import LedgerDB
+
+        self._init = LedgerDB.__dict__["init_from_snapshots"]
+        self._select = cdb.ChainDB._init_chain_selection
+        init, select, hooks = self._init.__func__, self._select, self
+
+        def traced_init(cls, *a, **kw):
+            db = init(cls, *a, **kw)
+            db.tracer = hooks.tracer
+            return db
+
+        def timed_select(chain_db):
+            t0 = time.monotonic()
+            select(chain_db)
+            if hooks.on_card:
+                torch.cuda.synchronize()
+            hooks.selection_s.append(time.monotonic() - t0)
+
+        LedgerDB.init_from_snapshots = classmethod(traced_init)
+        cdb.ChainDB._init_chain_selection = timed_select
+        self._saved = []
+        for mod, name in CHAINDB_SPLIT if self.split_s else ():
+            owner = cdb.ChainDB if mod == "chaindb" else pbatch
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+
+            def timed(*a, _fn=fn, _name=name, **kw):
+                t0 = time.monotonic()
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    hooks.split_s[_name] += time.monotonic() - t0
+
+            setattr(owner, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        from ouroboros_consensus_tpu_torch.storage import chaindb as cdb
+        from ouroboros_consensus_tpu_torch.storage.ledgerdb import LedgerDB
+
+        LedgerDB.init_from_snapshots = self._init
+        cdb.ChainDB._init_chain_selection = self._select
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+
+def chaindb_view(db) -> dict:
+    """What phase 3j holds equal between the device and the native
+    ChainDB: the tip, the current chain's hashes, the immutable tip, every
+    LedgerDB state as plain values, the invalid map (errors as plain
+    values) and the tip state's snapshot bytes."""
+    from ouroboros_consensus_tpu_torch import carry
+    from ouroboros_consensus_tpu_torch.storage.ledgerdb import encode_snapshot
+
+    return {
+        "tip": db.tip_point(),
+        "chain": [b.hash_ for b in db.current_chain],
+        "immutable_tip": db.immutable.tip_point(),
+        "states": [carry.ext_state_to_plain(s) for _p, s in db.ledgerdb._seq],
+        "invalid": {h: carry.error_to_plain(e) for h, e in db.invalid.items()},
+        "tip_snapshot": encode_snapshot(db.current_ledger()),
+    }
+
+
+def same_chaindbs(tag: str, dev_db, nat_db) -> None:
+    a, b = chaindb_view(dev_db), chaindb_view(nat_db)
+    bad = [key for key in a if a[key] != b[key]]
+    if bad:
+        raise AssertionError(f"chaindb {tag}: device and native differ on {bad}")
+
+
+def hold_chaindb_window(dev, captured: list, seed: int = 31) -> dict:
+    """Phase 3j's kernels held to their plain versions at the ChainDB's own
+    width, on the first packed window that batch.dispatch_prepared got in
+    the device open (`captured`: its (StagedWindow, carry-in) pairs):
+    `unpack` with every WIRE_KINDS corruption on four lanes each,
+    `nonce_fold` over its real lanes from the window's carry-in, and the
+    five bc stages on its unpacked columns with every corrupt_columns
+    kind. -> {kernel: hold's record}"""
+    import torch
+
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.protocol import nonces
+    from ouroboros_consensus_tpu_torch.testing.corrupt import corrupt_packed
+
+    packed = [w for w in captured if w[0].layout is not None]
+    if not packed or len(packed) != len(captured):
+        raise AssertionError(f"chaindb: {len(captured) - len(packed)} of {len(captured)} "
+                             f"windows were staged generically (DECLINES {pbatch.DECLINES})")
+    sw, carry = packed[0]
+    layout = sw.layout
+    if layout.vrf_proof_len != 128:
+        raise AssertionError("chaindb: the open's window is not batch-compatible")
+    rng = np.random.default_rng(seed)
+    cpu = torch.device("cpu")
+    host = pbatch.Packed(*(a.copy() for a in sw.packed))  # off the staging buffer
+    width, depth = host.body.shape[0], layout.kes_depth
+    rec = {}
+    rec["unpack"], _ = hold_unpack("chaindb open", layout, corrupt_packed(layout, host, rng),
+                                   width, dev, 0)
+    cols = [c.contiguous().clone()
+            for c in K.staged_to_limb_first_bc(*pbatch.unpack_packed(layout, host, cpu))]
+    if carry is None:
+        carry = nonces.pack_carry(None, None)
+    cin = carry if isinstance(carry, torch.Tensor) else pbatch.to_device(carry, dev)
+    within = torch.from_numpy(host.within).to(dev)
+    rec["nonce_fold"] = hold_fold("chaindb open", cols[K.UNPACK_BETA].to(dev), within, sw.b,
+                                  cin.to(dev), dev, 0)
+    kinds = corrupt_columns(cols, rng, depth)
+    stages, _ = hold_stages(f"chaindb open, {sw.b} of {width} lanes",
+                            [c.to(dev).contiguous() for c in cols], kinds, dev, 0, depth)
+    return {**rec, **stages}
+
+
+def phase_chaindb(dev, db: str, workdir: str, k: int = CHAINDB_K,
+                  extra: int = CHAINDB_EXTRA, depth: int = CHAINDB_DEPTH) -> dict:
+    """Phase 3j: the ledger core and the ChainDB (the docstring's 3j) on
+    the forged chain at `db`. -> the device ChainDB's launches (summed over
+    its steps), and its times."""
+    import torch
+
+    from ouroboros_consensus_tpu_torch import carry as carry_mod
+    from ouroboros_consensus_tpu_torch.block.forge import forge_block
+    from ouroboros_consensus_tpu_torch.block.praos_block import Block
+    from ouroboros_consensus_tpu_torch.ledger import ExtLedger
+    from ouroboros_consensus_tpu_torch.ledger import mock as mock_ledger
+    from ouroboros_consensus_tpu_torch.ops.pk import kernels as K
+    from ouroboros_consensus_tpu_torch.protocol import batch as pbatch
+    from ouroboros_consensus_tpu_torch.protocol import nonces, praos
+    from ouroboros_consensus_tpu_torch.protocol.forge import BlockAssembler
+    from ouroboros_consensus_tpu_torch.protocol.instances import PraosProtocol
+    from ouroboros_consensus_tpu_torch.storage.immutable import ImmutableDB
+    from ouroboros_consensus_tpu_torch.storage.ledgerdb import LedgerDB
+    from ouroboros_consensus_tpu_torch.storage.open import open_chaindb
+    from ouroboros_consensus_tpu_torch.storage.volatile import VolatileDB
+    from ouroboros_consensus_tpu_torch.testing import corrupt, synth
+
+    t_phase = time.monotonic()
+    params = bench_params()
+    pool = synth.make_pool(0, kes_depth=params.kes_depth)
+    lview = synth.make_ledger_view([pool])
+    on_card = dev.type == "cuda"
+    path_kernels = PATH_KERNELS["chaindb"]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    # 1. the store: the chain's first m blocks in an ImmutableDB, the next
+    #    k (across the epoch boundary) in a VolatileDB, a snapshot at the
+    #    immutable tip (the LedgerDB's replay from genesis, on the host)
+    rows = list(ImmutableDB(os.path.join(db, "immutable")).stream_all())
+    n = len(rows)
+    boundary = next((i for i, (e, _r) in enumerate(rows) if e.slot >= params.epoch_length), n)
+    m = max(1, min(boundary - k // 2, n - k - extra - 3))
+    blocks = [Block.from_bytes(raw) for _e, raw in rows[m: m + k + extra + 3]]
+    store = os.path.join(workdir, "chaindb_store")
+    t0 = time.monotonic()
+    imm = ImmutableDB(os.path.join(store, "immutable"), repair=True)
+    for e, raw in rows[:m]:
+        imm.append_block(e.slot, e.block_no, e.hash_, raw)
+    imm.flush()
+    vol = VolatileDB(os.path.join(store, "volatile"))
+    for b in blocks[:k]:
+        vol.put_block(b)
+    store_s = time.monotonic() - t0
+    del rows
+
+    def ext(use_device_batch: bool) -> ExtLedger:
+        return ExtLedger(mock_ledger.MockLedger(mock_ledger.MockConfig(
+            lview, params.stability_window)),
+            PraosProtocol(params, device=dev, use_device_batch=use_device_batch))
+
+    host_ext = ext(False)
+    genesis = host_ext.genesis(host_ext.ledger.genesis_state([]))
+    snap_dir = os.path.join(store, "ledger")
+    t0 = time.monotonic()
+    ldb = LedgerDB.init_from_snapshots(host_ext, k, snap_dir, genesis, imm)
+    replay_s = time.monotonic() - t0
+    if ldb.tip_point() != imm.tip_point():
+        raise AssertionError(f"chaindb: the replay ended at {ldb.tip_point()}, "
+                             f"the store at {imm.tip_point()}")
+    ldb.take_snapshot(snap_dir)
+    paths = {}
+    for name in ("device", "native", "bad_device", "bad_native"):
+        paths[name] = os.path.join(workdir, f"chaindb_{name}")
+        shutil.copytree(store, paths[name])
+    shutil.rmtree(store)
+    # the corrupted copies: a KES-signature byte of a block in the middle
+    # of the volatile candidate's second epoch segment
+    first_of_next = boundary - m
+    c = (first_of_next + (k - first_of_next) // 2) if 0 < first_of_next < k else k // 2
+    bad = {corrupt.flip_volatile_byte(os.path.join(paths[name], "volatile"), blocks[c].hash_)
+           for name in ("bad_device", "bad_native")}
+    if len(bad) != 1:
+        raise AssertionError("chaindb: the two corrupted copies differ")
+    bad_hash = bad.pop()
+
+    def epochs(bs) -> int:
+        return len({params.epoch_of(b.slot) for b in bs})
+
+    events: list = []
+    captured: list = []
+    results: list = []
+    steps: dict = {}
+    launches = dict.fromkeys(K.LAUNCHES, 0)
+
+    def step(name: str, windows: int, headers: int, run) -> float:
+        """One device step with the launch counts zeroed just before it
+        and read just after: `windows` device windows of `headers` headers
+        in all, each launching every kernel of the path once."""
+        K.reset_launches()
+        events.clear()
+        sync()
+        t0 = time.monotonic()
+        run()
+        sync()
+        wall = time.monotonic() - t0
+        got = dict(K.LAUNCHES)
+        for key, v in got.items():
+            launches[key] += v
+        seen = [(ev.n_headers, ev.n_valid) for ev in events]
+        if len(events) != windows or sum(ev.n_headers for ev in events) != headers:
+            raise AssertionError(f"chaindb {name}: batches {seen}, expected {windows} "
+                                 f"window(s) of {headers} headers")
+        if on_card:
+            want = {key: (windows if key in path_kernels else 0) for key in got}
+            if got != want:
+                raise AssertionError(f"chaindb {name}: launches {got}, expected {want}")
+        steps[name] = {"windows": windows, "headers": headers, "wall_s": wall,
+                       "validated_batch_s": [ev.device_s for ev in events], "batches": seen}
+        return wall
+
+    # 2. open twice: on the card (use_device_batch) and through the C++
+    #    verifier a header
+    vb = PraosProtocol.validate_batch
+    updates = {"device": 0}
+    dispatch = pbatch.dispatch_prepared
+
+    def spy_dispatch(sw, device, carry=None):  # the open's windows, for the holds
+        captured.append((sw, carry))
+        return dispatch(sw, device, carry)
+
+    def open_db(name: str, use_device_batch: bool):
+        e = ext(use_device_batch)
+        proto = e.protocol
+
+        def spy_batch(ticked, views, collect_states=False, backend="device"):
+            res = vb(proto, ticked, views, collect_states=collect_states, backend=backend)
+            if use_device_batch:
+                results.append(res)
+            return res
+
+        def spy_update(view, slot, ticked):
+            updates[name] += 1
+            return PraosProtocol.update(proto, view, slot, ticked)
+
+        proto.validate_batch = spy_batch
+        if use_device_batch:
+            updates[name] = 0
+            proto.update = spy_update
+        hooks = _ChainDBHooks(events.append, on_card, split=use_device_batch)
+        sync()
+        t0 = time.monotonic()
+        with hooks:
+            chain_db = open_chaindb(paths[name], e, genesis, k)
+        sync()
+        return chain_db, time.monotonic() - t0, hooks.selection_s[0], hooks.split_s
+
+    opened = {}
+    pbatch.dispatch_prepared = spy_dispatch
+    try:
+        step("open", epochs(blocks[:k]), k,
+             lambda: opened.update(device=open_db("device", True)))
+    finally:
+        pbatch.dispatch_prepared = dispatch
+    events.clear()
+    opened["native"] = open_db("native", False)
+    dev_db, nat_db = opened["device"][0], opened["native"][0]
+    same_chaindbs("open", dev_db, nat_db)
+    if dev_db.tip_point() != blocks[k - 1].point or len(dev_db.current_chain) != k:
+        raise AssertionError(f"chaindb open: tip {dev_db.tip_point()} with "
+                             f"{len(dev_db.current_chain)} volatile blocks, expected "
+                             f"{blocks[k - 1].point} with {k}")
+    held = hold_chaindb_window(dev, captured)
+    captured.clear()
+
+    # 3. out of order: the next `extra` blocks, the first of them last
+    later = blocks[k: k + extra]
+    order = later[1:] + later[:1]
+    step("out_of_order", epochs(later), extra, lambda: [dev_db.add_block(b) for b in order])
+    for b in order:
+        nat_db.add_block(b)
+    same_chaindbs("out of order", dev_db, nat_db)
+    if dev_db.tip_point() != later[-1].point:
+        raise AssertionError(f"chaindb out of order: tip {dev_db.tip_point()}")
+
+    # 4. a fork `depth` blocks below the tip: it skips the pool's next
+    #    leader slot and takes the following ones until it is longer
+    tip_i = k + extra - 1
+    parent = blocks[tip_i - depth]
+    st = dev_db.ledgerdb.past_state(parent.point).header_state.chain_dep_state
+    asm = BlockAssembler(params, [pool])
+    branch, prev, bno = [], parent.hash_, parent.block_no + 1
+    t0 = time.monotonic()
+    for orig in blocks[tip_i - depth + 2: tip_i + 3]:
+        ticked = praos.tick(params, lview, orig.slot, st)
+        b = forge_block(params, pool, slot=orig.slot, block_no=bno, prev_hash=prev,
+                        epoch_nonce=ticked.state.epoch_nonce,
+                        ocert_counter=orig.header.body.ocert.counter, assembler=asm)
+        st = praos.reupdate(params, b.header.to_view(), b.slot, ticked)
+        branch.append(b)
+        prev, bno = b.hash_, bno + 1
+    forge_s = time.monotonic() - t0
+    fork_order = branch[1:] + branch[:1]
+    step("fork", epochs(branch), len(branch), lambda: [dev_db.add_block(b) for b in fork_order])
+    for b in fork_order:
+        nat_db.add_block(b)
+    same_chaindbs("fork", dev_db, nat_db)
+    if dev_db.tip_point() != branch[-1].point:
+        raise AssertionError(f"chaindb fork: tip {dev_db.tip_point()}, not the branch's")
+
+    # the original chain grows past the branch: the switch back reapplies
+    # its `depth` blocks (no launch) and batches the two fresh ones
+    back = [blocks[tip_i + 2], blocks[tip_i + 1]]
+    step("switch_back", epochs(back), 2, lambda: [dev_db.add_block(b) for b in back])
+    for b in back:
+        nat_db.add_block(b)
+    same_chaindbs("switch back", dev_db, nat_db)
+    if dev_db.tip_point() != blocks[tip_i + 2].point:
+        raise AssertionError(f"chaindb switch back: tip {dev_db.tip_point()}")
+    ledger_files = {}
+    for name in ("device", "native"):
+        d = os.path.join(paths[name], "ledger")
+        ledger_files[name] = {}
+        for f in sorted(os.listdir(d)):
+            with open(os.path.join(d, f), "rb") as fh:
+                ledger_files[name][f] = fh.read()
+    if ledger_files["device"] != ledger_files["native"]:
+        raise AssertionError(f"chaindb: the snapshots differ: {sorted(ledger_files['device'])} "
+                             f"against {sorted(ledger_files['native'])}")
+
+    # 5. the corrupted copies, reopened: the same hash marked invalid with
+    #    the same error, the same valid prefix adopted
+    results_before = len(results)
+    step("corrupted", epochs(blocks[:c + 1]), c + 1,
+         lambda: opened.update(bad_device=open_db("bad_device", True)))
+    opened["bad_native"] = open_db("bad_native", False)
+    bad_dev, bad_nat = opened["bad_device"][0], opened["bad_native"][0]
+    same_chaindbs("corrupted", bad_dev, bad_nat)
+    if set(bad_dev.invalid) != {bad_hash} or bad_dev.tip_point() != blocks[c - 1].point:
+        raise AssertionError(f"chaindb corrupted: invalid {[h.hex()[:12] for h in bad_dev.invalid]}, "
+                             f"tip {bad_dev.tip_point()}; expected {bad_hash.hex()[:12]} at "
+                             f"{blocks[c - 1].point}")
+    error = carry_mod.error_to_plain(bad_dev.invalid[bad_hash])
+    if updates["device"] or updates["bad_device"]:
+        raise AssertionError(f"chaindb: the device ChainDBs called the C++ verifier "
+                             f"{updates} times")
+
+    # the device nonce carry after each clean window equals the host
+    # fold's nonces there (the exact epilogue over the eta column)
+    carried = 0
+    for res in results[:results_before]:
+        if res.error is None:
+            if res.carry is None:
+                raise AssertionError("chaindb: a clean device window returned no carry")
+            ev, cand = nonces.unpack_carry(res.carry.cpu().numpy())
+            if (ev, cand) != (res.state.evolving_nonce, res.state.candidate_nonce):
+                raise AssertionError("chaindb: the device nonce carry differs from the "
+                                     "host fold's nonces")
+            carried += 1
+    out = {
+        "card": card_line() if on_card else "cpu", "k": k, "immutable_blocks": m,
+        "volatile_blocks": k, "store_s": store_s, "replay_s": replay_s,
+        "replay_headers_per_s": m / replay_s,
+        "open_s": {name: opened[name][1] for name in opened},
+        "selection_s": {name: opened[name][2] for name in opened},
+        "headers_per_s": {name: k / opened[name][2] for name in ("device", "native")},
+        "selection_split_s": {name: opened[name][3] for name in ("device", "bad_device")},
+        "steps": steps, "fork_forge_s": forge_s, "carries_checked": carried,
+        "corrupted": {"index": c, "error": error[0]},
+        "snapshots": sorted(ledger_files["device"]), "launches": launches,
+        "wall_s": time.monotonic() - t_phase,
+    }
+    log(f"chaindb {json.dumps(out, default=str)}")
+    return {"launches": launches, "held": held, **out}
+
+
 def check_resources(ptxas_file) -> dict:
     """The resources report after the run (phase 3i's (c), after the
     tools): a row for every kernel the run launched, none failed; its
@@ -4627,6 +5080,7 @@ def main(argv=None) -> int:
         stages["ed_verify"] = phase_ed_verify(dev)
         cardano = phase_cardano(dev, forges, work)
         observed = phase_obs(dev, forges)
+        chained = phase_chaindb(dev, forges.get("bc")[0], work)
     finally:
         forges.close()
         shutil.rmtree(work, ignore_errors=True)
@@ -4649,6 +5103,7 @@ def main(argv=None) -> int:
     by_path["serve"] = served["launches"]
     by_path["cardano"] = cardano["launches"]
     by_path["obs"] = observed["launches"]
+    by_path["chaindb"] = chained["launches"]
     for path, ks in PATH_KERNELS.items():
         missing = sorted(k for k in ks if by_path[path][k] <= 0)
         stray = sorted(k for k in PATH_ONLY - ks if by_path[path].get(k, 0))
@@ -4706,6 +5161,7 @@ def main(argv=None) -> int:
             "launches_by_chain": ({t: {"headers": c["headers"], "launches": c["launches"][name]}
                                    for t, c in forged["chains"].items()}
                                   if name in PATH_KERNELS["forge"] else None),
+            "held_chaindb": chained["held"].get(name),
         })
     for p, out in paths.items():
         fill = [{"kernel": k, "lanes": n, "blocks": -(-n // 32)}

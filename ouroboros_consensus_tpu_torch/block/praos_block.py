@@ -145,6 +145,14 @@ class Block:
     def block_no(self) -> int:
         return self.header.block_no
 
+    @property
+    def prev_hash(self) -> bytes | None:
+        return self.header.prev_hash
+
+    @property
+    def point(self) -> Point:
+        return Point(self.slot, self.hash_)
+
     @classmethod
     def from_bytes(cls, data: bytes) -> "Block":
         (body_obj, sig), txs = cbor.decode(data)

@@ -1,11 +1,13 @@
 """Carry the reference package's constants and protocol objects across.
 
 This system has no weights: what crosses from the JAX package is its
-fixed-base table and its protocol objects (Praos, TPraos and PBFT
+fixed-base table, its protocol objects (Praos, TPraos and PBFT
 parameters, views and states, the hard-fork state, the composite's
-config). Everything here reads plain Python and numpy values by
-attribute (duck typing), so the port never imports the JAX package; only
-the tests hand objects of both over.
+config) and its ledger and header states (the mock ledger's UTxO state,
+the header state, the extended state a LedgerDB checkpoints). Everything
+here reads plain Python and numpy values by attribute (duck typing), so
+the port never imports the JAX package; only the tests hand objects of
+both over.
 """
 
 from __future__ import annotations
@@ -128,6 +130,48 @@ def hfstate_from_reference(st):
     return HFState(int(st.era), _inner_from_reference(st.inner))
 
 
+def mock_state_from_reference(st):
+    """The reference's MockState (UTxO, tip slot, stake snapshots)."""
+    from .ledger.mock import MockState
+
+    return MockState(
+        {(bytes(t), int(ix)): (bytes(a), int(amt)) for (t, ix), (a, amt) in st.utxo.items()},
+        None if st.tip_slot_ is None else int(st.tip_slot_),
+        tuple((int(lo), int(hi), tuple((bytes(p), int(n), int(d)) for p, n, d in distr))
+              for lo, hi, distr in st.snapshots),
+    )
+
+
+def _chain_dep_from_reference(st):
+    if hasattr(st, "era") and hasattr(st, "inner"):
+        return hfstate_from_reference(st)
+    return _inner_from_reference(st)
+
+
+def header_state_from_reference(hs):
+    """The reference's HeaderState: its AnnTip and its chain-dep state
+    (Praos, TPraos, PBFT or hard-fork)."""
+    from .ledger.header_validation import AnnTip, HeaderState
+
+    t = hs.tip
+    tip = None if t is None else AnnTip(int(t.slot), int(t.block_no), bytes(t.hash_))
+    return HeaderState(tip, _chain_dep_from_reference(hs.chain_dep_state))
+
+
+def ext_state_from_reference(st):
+    """The reference's ExtLedgerState over its mock ledger (or a
+    hard-fork state wrapping one)."""
+    from .hardfork.combinator import HFState
+    from .ledger.extended import ExtLedgerState
+
+    ls = st.ledger_state
+    if hasattr(ls, "era") and hasattr(ls, "inner"):
+        ls = HFState(int(ls.era), mock_state_from_reference(ls.inner))
+    else:
+        ls = mock_state_from_reference(ls)
+    return ExtLedgerState(ls, header_state_from_reference(st.header_state))
+
+
 def cardano_config_from_reference(cfg):
     """The reference's CardanoMockConfig as the port's, field by field."""
     from .hardfork.composite import CardanoMockConfig
@@ -157,6 +201,33 @@ def state_to_plain(st) -> dict | None:
         "epoch_nonce": _nonce(st.epoch_nonce),
         "lab_nonce": _nonce(st.lab_nonce),
         "last_epoch_block_nonce": _nonce(st.last_epoch_block_nonce),
+    }
+
+
+def ledger_state_to_plain(ls) -> dict:
+    """A mock ledger state of either package (or a hard-fork state over
+    one) as a plain dict."""
+    if hasattr(ls, "era") and hasattr(ls, "inner"):
+        return {"era": int(ls.era), "inner": ledger_state_to_plain(ls.inner)}
+    return {
+        "utxo": sorted(((bytes(t), int(ix)), (bytes(a), int(amt)))
+                       for (t, ix), (a, amt) in ls.utxo.items()),
+        "tip_slot": ls.tip_slot_,
+        "snapshots": [(int(lo), int(hi), [(bytes(p), int(n), int(d)) for p, n, d in distr])
+                      for lo, hi, distr in ls.snapshots],
+    }
+
+
+def ext_state_to_plain(st) -> dict:
+    """An extended ledger state of either package as a plain dict: the
+    ledger state, the header state's tip and its chain-dep state (with
+    the state's class name, which both packages share)."""
+    t = st.header_state.tip
+    cds = st.header_state.chain_dep_state
+    return {
+        "ledger": ledger_state_to_plain(st.ledger_state),
+        "tip": None if t is None else (int(t.slot), int(t.block_no), bytes(t.hash_)),
+        "chain_dep": (type(cds).__name__, state_to_plain(cds)),
     }
 
 

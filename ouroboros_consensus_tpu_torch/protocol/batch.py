@@ -887,6 +887,7 @@ class BatchResult:
     state: PraosState  # state after the last VALID header
     n_valid: int  # length of the valid prefix
     error: praos.PraosValidationError | None  # error at position n_valid
+    states: list | None = None  # the state after each valid header (collect_states)
     # the device nonce carry after a valid packed window (None: the next
     # packed window seeds the fold from `state`)
     carry: torch.Tensor | None = None
@@ -1035,22 +1036,27 @@ def _epilogue_columns_fast(params, ticked, vc: ViewColumns, pre: ColumnChecks, v
 
 def epilogue(params: PraosParams, ticked: TickedPraosState,
              hvs: "Sequence[HeaderView] | ViewColumns", pre: HostChecks,
-             v, lane_error_fn=None) -> BatchResult:
+             v, lane_error_fn=None, collect_states: bool = False) -> BatchResult:
     """Sequential epilogue: counters + nonce fold, stop at the first
     failure with the reference's error. A ViewColumns window first tries
     the columnar fast path; when that declines, the window's HeaderViews
     take the exact per-header fold (the packed fast path, which checks
     the same gates, is skipped). `lane_error_fn`: the per-lane error rule
-    in place of `lane_error` (TPraos's genesis-delegate counter default)."""
+    in place of `lane_error` (TPraos's genesis-delegate counter default).
+    `collect_states`: the exact fold always runs (neither fast path, so a
+    carried window's nonces come from its eta column, not its carry) and
+    `states` holds the state after each valid header (the LedgerDB's
+    per-header checkpoints)."""
     err_of = lane_error if lane_error_fn is None else lane_error_fn
     columns_declined = isinstance(hvs, ViewColumns)
     if columns_declined:
-        res = _epilogue_columns_fast(params, ticked, hvs, pre, v)
-        if res is not None:
-            return res
+        if not collect_states:
+            res = _epilogue_columns_fast(params, ticked, hvs, pre, v)
+            if res is not None:
+                return res
         hvs = hvs.views()
     if isinstance(v, PackedVerdicts):
-        if not columns_declined:
+        if not columns_declined and not collect_states:
             res = _epilogue_packed_fast(params, ticked, hvs, pre, v)
             if res is not None:
                 return res
@@ -1061,6 +1067,7 @@ def epilogue(params: PraosParams, ticked: TickedPraosState,
     counters = dict(st.ocert_counters)
     evolving, candidate = st.evolving_nonce, st.candidate_nonce
     lab, last_slot = st.lab_nonce, st.last_slot
+    states = [] if collect_states else None
     etas = np.ascontiguousarray(np.asarray(v.eta).astype(np.uint8))
     for i, hv in enumerate(hvs):
         err = err_of(params, lview, eta0, hv, pre, v, i, counters)
@@ -1071,7 +1078,7 @@ def epilogue(params: PraosParams, ticked: TickedPraosState,
                 epoch_nonce=st.epoch_nonce, lab_nonce=lab,
                 last_epoch_block_nonce=st.last_epoch_block_nonce,
             )
-            return BatchResult(state, i, err)
+            return BatchResult(state, i, err, states)
         evolving = nonces.combine(evolving, etas[i].tobytes())
         if hv.slot + params.stability_window < params.first_slot_of(
                 params.epoch_of(hv.slot) + 1):
@@ -1079,13 +1086,20 @@ def epilogue(params: PraosParams, ticked: TickedPraosState,
         lab = nonces.prev_hash_to_nonce(hv.prev_hash)
         counters[hash_key(hv.vk_cold)] = hv.ocert.counter
         last_slot = hv.slot
+        if states is not None:
+            states.append(PraosState(
+                last_slot=last_slot, ocert_counters=dict(counters),
+                evolving_nonce=evolving, candidate_nonce=candidate,
+                epoch_nonce=st.epoch_nonce, lab_nonce=lab,
+                last_epoch_block_nonce=st.last_epoch_block_nonce,
+            ))
     state = PraosState(
         last_slot=last_slot, ocert_counters=counters,
         evolving_nonce=evolving, candidate_nonce=candidate,
         epoch_nonce=st.epoch_nonce, lab_nonce=lab,
         last_epoch_block_nonce=st.last_epoch_block_nonce,
     )
-    return BatchResult(state, len(hvs), None)
+    return BatchResult(state, len(hvs), None, states)
 
 
 # ---------------------------------------------------------------------------
@@ -1278,10 +1292,11 @@ def _nbytes(x) -> int:
     return 0
 
 
-def _retire(params: PraosParams, ticked: TickedPraosState, hvs, pre, v: "PackedVerdicts"):
+def _retire(params: PraosParams, ticked: TickedPraosState, hvs, pre, v: "PackedVerdicts",
+            collect_states: bool = False):
     """A dispatched window's verdicts, waited for (a dirty aggregated
-    window re-dispatched, `materialize`), then its epilogue, and its
-    WindowSpan."""
+    window re-dispatched, `materialize`), then its epilogue
+    (`collect_states`: epilogue's), and its WindowSpan."""
     traced = BATCH_TRACER is not None
     t_m0 = time.monotonic() if traced else 0.0
     with _enclose("materialize"):
@@ -1289,7 +1304,7 @@ def _retire(params: PraosParams, ticked: TickedPraosState, hvs, pre, v: "PackedV
         v.masks  # the wait for the copies back
     t_m1 = time.monotonic() if traced else 0.0
     with _enclose("epilogue"):
-        res = epilogue(params, ticked, hvs, pre, v)
+        res = epilogue(params, ticked, hvs, pre, v, collect_states=collect_states)
     if traced:
         _emit_window_span(v.meta, len(hvs), res.n_valid, res.error is not None, t_m0, t_m1,
                           t_m1, time.monotonic())
@@ -1455,22 +1470,23 @@ def dispatch_window(params: PraosParams, lview: LedgerView, eta0,
 def validate_batch(params: PraosParams, ticked: TickedPraosState,
                    hvs: "Sequence[HeaderView] | ViewColumns", backend: str,
                    device: torch.device | None, carry=None,
-                   aggregate: bool = True) -> BatchResult:
+                   aggregate: bool = True, collect_states: bool = False) -> BatchResult:
     """One within-epoch window of one proof format.
     `carry`: the device nonce carry of the previous packed window, None
     to seed the fold from the ticked state (tick only rotates the epoch
     nonce, so a carry stays valid across an epoch boundary). `aggregate`:
-    dispatch_prepared's."""
+    dispatch_prepared's. `collect_states`: epilogue's (the state after
+    each valid header in `states`)."""
     lview = ticked.ledger_view
     eta0 = ticked.state.epoch_nonce
     pre = host_prechecks(params, lview, hvs)
     if backend == "native":
         v = run_batch_native(params, lview, eta0, hvs, pre)
-        res = epilogue(params, ticked, hvs, pre, v)
+        res = epilogue(params, ticked, hvs, pre, v, collect_states=collect_states)
     elif backend == "device":
         seed = state_carry(ticked.state) if carry is None else carry
         v = dispatch_window(params, lview, eta0, hvs, pre, device, seed, aggregate)
-        res = _retire(params, ticked, hvs, pre, v)
+        res = _retire(params, ticked, hvs, pre, v, collect_states)
     else:
         raise ValueError(f"unknown backend {backend!r}")
     if isinstance(v, PackedVerdicts) and v.carried and res.error is None:

@@ -68,18 +68,23 @@ def check_is_leader(params: PraosParams, can_be_leader: PraosCanBeLeader, slot: 
     return None
 
 
-def _split_by_proof(params: PraosParams, ticked: TickedPraosState, hvs, run):
+def _split_by_proof(params: PraosParams, ticked: TickedPraosState, hvs, run,
+                    collect_states: bool = False):
     """The reference validate_batch's cut at proof-format changes (a
     batch stages one proof column; the cut changes no verdict): `run`
-    over each run of one format, the state ticked between them."""
+    over each run of one format, the state ticked between them; with
+    `collect_states`, the runs' per-header states concatenated."""
     total = 0
+    states = [] if collect_states else None
     i = 0
     while True:
         j = pbatch._proof_break(hvs, i, len(hvs))
         res = run(ticked, hvs[i:j])
         total += res.n_valid
+        if states is not None:
+            states.extend(res.states or [])
         if res.error is not None or j == len(hvs):
-            return pbatch.BatchResult(res.state, total, res.error)
+            return pbatch.BatchResult(res.state, total, res.error, states, res.carry)
         i = j
         ticked = praos.tick(params, ticked.ledger_view, pbatch._slot_at(hvs, i), res.state)
 
@@ -90,12 +95,16 @@ class PraosProtocol:
     batch; "cpu": the plain twins) is where backend "device" runs. A
     device batch is one packed window through the five per-lane stage
     kernels (no window aggregate), as the reference instance's batch
-    verifies lane by lane."""
+    verifies lane by lane. `use_device_batch` (the reference's): True
+    sends the LedgerDB's runs of more than one fresh block to
+    `validate_batch` on the card; False folds them block by block through
+    `update` (the C++ verifier)."""
 
-    def __init__(self, params: PraosParams, device=None):
+    def __init__(self, params: PraosParams, device=None, use_device_batch: bool = True):
         self.params = params
         self.security_param = params.security_param
         self.device = device
+        self.use_device_batch = use_device_batch
 
     def initial_state(self) -> PraosState:
         return PraosState()
@@ -123,18 +132,21 @@ class PraosProtocol:
     def compare_candidates(self, ours, theirs) -> int:
         return select.compare_select_views(ours, theirs)
 
-    def validate_batch(self, ticked, views: Sequence, backend: str = "device"
-                       ) -> pbatch.BatchResult:
+    def validate_batch(self, ticked, views: Sequence, collect_states: bool = False,
+                       backend: str = "device") -> pbatch.BatchResult:
         """The fold of `update` over a within-epoch run of views as one
         batch: the stage kernels ("device") or the C++ verifier
-        ("native"); cut where the proof format changes."""
+        ("native"); cut where the proof format changes. A device window is
+        seeded from the ticked state. `collect_states`: the state after
+        each valid header in `states`."""
         if backend not in ("device", "native"):
             raise ValueError(f"unknown backend {backend!r}")
         if not len(views):
-            return pbatch.BatchResult(ticked.state, 0, None)
+            return pbatch.BatchResult(ticked.state, 0, None, [] if collect_states else None)
         dev = resolve(self.device) if backend == "device" else None
         return _split_by_proof(self.params, ticked, views, lambda t, hvs: pbatch.validate_batch(
-            self.params, t, hvs, backend, dev, aggregate=False))
+            self.params, t, hvs, backend, dev, aggregate=False,
+            collect_states=collect_states), collect_states)
 
 
 # ---------------------------------------------------------------------------

@@ -392,6 +392,10 @@ class ImmutableDB:
                 return self._entries[n][-1]
         return None
 
+    def tip_point(self) -> Point | None:
+        t = self.tip()
+        return None if t is None else Point(t.slot, t.hash_)
+
     def n_blocks(self) -> int:
         return sum(len(v) for v in self._entries.values())
 
@@ -466,6 +470,33 @@ class ImmutableDB:
             data = self.read_chunk(n)
             for e in entries:
                 yield e, data[e.offset: e.offset + e.size]
+
+    def get_block_bytes(self, point: Point) -> bytes:
+        """The bytes of the block at `point`; MissingBlock if absent."""
+        n = point.slot // self.chunk_size
+        for e in self._entries.get(n, ()):
+            if e.slot == point.slot and e.hash_ == point.hash_:
+                return self.fs.read_at(os.path.join(self.path, chunk_name(n)), e.offset, e.size)
+        raise MissingBlock(point)
+
+    def iter_points(self) -> Iterator[Point]:
+        """Every block's point in slot order, no block read (the plan
+        ChainDB's ranged iterators walk)."""
+        for _n, entries in self.chunk_entries():
+            for e in entries:
+                yield Point(e.slot, e.hash_)
+
+    def stream_from(self, after_slot: int) -> Iterator[tuple[IndexEntry, bytes]]:
+        """The blocks with slot > `after_slot`, in slot order, reading no
+        chunk that ends at or before it (the replay from a snapshot,
+        LedgerDB/Init.hs:116)."""
+        for n, entries in self.chunk_entries():
+            if entries[-1].slot <= after_slot:
+                continue
+            data = self.read_chunk(n)
+            for e in entries:
+                if e.slot > after_slot:
+                    yield e, data[e.offset: e.offset + e.size]
 
     def stream_validated(self, decode, check) -> Iterator:
         """Yield decode(blob) for every block in slot order, stopping at

@@ -1,9 +1,10 @@
-"""The store's validation policies and the deep open with repair.
+"""The store's validation policies, the deep open with repair, and the
+ChainDB's open.
 
 Reference: the JAX package's storage/open.py (`escalate_policy`,
-`open_repair_store`, `default_check_integrity(_batch)`; Node/Recovery.hs
-:24-59 and Run.hs:133-143). Its `open_chaindb` waits for the port's
-ChainDB.
+`open_repair_store`, `default_check_integrity(_batch)`, `open_chaindb`;
+Node/Recovery.hs:24-59, Run.hs:133-143, and `ChainDB.openDB` via
+`openChainDB`, diffusion Node.hs:568-580).
 
 The policy is the `validate_all` value: True (`ValidateAllChunks`: every
 chunk deep-checked at the open, corruption truncated on disk), False
@@ -14,12 +15,17 @@ checks folded into the replay's own chunk reads).
 from __future__ import annotations
 
 import os
+from typing import Callable
 
 import numpy as np
 
 from .. import native, native_scan
 from ..block.praos_block import Block
+from ..ledger.extended import ExtLedger, ExtLedgerState
+from .chaindb import ChainDB
 from .immutable import ImmutableDB
+from .ledgerdb import LedgerDB
+from .volatile import VolatileDB
 
 ValidateAllChunks = True
 ValidateMostRecentChunk = False
@@ -81,3 +87,48 @@ def default_check_integrity_batch(data: bytes, entries: list) -> int:
         if not default_check_integrity(data[offsets[i]: ends[i]]):
             return i
     return limit
+
+
+def open_chaindb(
+    path: str,
+    ext: ExtLedger,
+    genesis: ExtLedgerState,
+    k: int,
+    validate_all: bool = False,
+    chunk_size: int = 21600,
+    trace: Callable[[str], None] = lambda s: None,
+    fs=None,
+    check_in_future=None,
+    decode_block=None,
+    check_integrity=None,
+    tracer=None,
+) -> ChainDB:
+    """openDB: the ImmutableDB (a writer's open: the most recent chunk
+    checked, every chunk with `validate_all`, cuts written to disk), the
+    VolatileDB (its files reparsed), the LedgerDB from the newest
+    readable snapshot under ``<path>/ledger`` and a replay of the
+    immutable blocks after it, then initial chain selection over the
+    volatile blocks (ChainDB's constructor: a run of fresh blocks goes
+    through the protocol's device batch when it has `use_device_batch`).
+    `fs`: a MockFS runs the whole ChainDB in memory; `decode_block` and
+    `check_integrity`: the block codec's seams (the Praos block's by
+    default); `tracer`: the typed ChainDB events (utils/trace.py)."""
+    check_integrity_batch = None
+    if check_integrity is None and validate_all:
+        check_integrity = default_check_integrity
+        if decode_block is None:
+            # the chunk-wide check parses the Praos block's layout only
+            check_integrity_batch = default_check_integrity_batch
+    imm = ImmutableDB(
+        os.path.join(path, "immutable"), chunk_size=chunk_size,
+        check_integrity=check_integrity if validate_all else None,
+        validate_all=validate_all, fs=fs,
+        check_integrity_batch=check_integrity_batch, repair=True,
+    )
+    vol = VolatileDB(os.path.join(path, "volatile"), fs=fs, decode_block=decode_block)
+    snap_dir = os.path.join(path, "ledger")
+    ldb = LedgerDB.init_from_snapshots(ext, k, snap_dir, genesis, imm, trace, fs=fs,
+                                       decode_block=decode_block)
+    return ChainDB(ext, imm, vol, ldb, k, snap_dir=snap_dir, trace=trace,
+                   check_in_future=check_in_future, decode_block=decode_block,
+                   tracer=tracer)

@@ -8,6 +8,11 @@ proof lies inside the KES-signed header body); given the forging
 credentials, the header body is KES-signed again after the flip, so that
 the VRF check is the one that fails.
 
+`flip_volatile_byte` flips a byte of a block in a VolatileDB's files and
+re-frames its record (length and CRC), so that the reopened VolatileDB
+keeps the block, under a new hash (the header's bytes changed), and only
+chain selection's validation can reject it.
+
 `flip_mixed_byte` does the same to a block of a mixed-era chain (a
 Byron signature, a Praos-class KES signature or VRF proof).
 
@@ -24,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import struct
 import zlib
 
 import numpy as np
@@ -32,6 +38,7 @@ from ..block.praos_block import Block, Header
 from ..ops.host_kes import sign as kes_sign
 from ..protocol.batch import LANE_COLUMNS
 from ..storage.immutable import ImmutableDB, chunk_name, index_name
+from ..storage.volatile import VolatileDB
 from ..utils import cbor
 
 FIELDS = ("kes_sig", "vrf_proof", "ocert_sigma", "body_hash")
@@ -70,6 +77,31 @@ def flip_header_byte(db_path: str, index: int, field: str, offset: int = 40,
             raise AssertionError("the re-signed block changed length")
         data[e.offset: e.offset + e.size] = new
     _rewrite(imm, n, k, e, data)
+
+
+def flip_volatile_byte(vol_path: str, hash_: bytes, field: str = "kes_sig",
+                       offset: int = 40) -> bytes:
+    """Flip byte `offset` of `field` (one of FIELDS) in the header of the
+    block `hash_` of the VolatileDB at `vol_path`, with its record's CRC
+    re-sealed. -> the corrupted block's hash."""
+    if field not in FIELDS:
+        raise ValueError(f"unknown field {field!r}")
+    info = VolatileDB(vol_path).get_block_info(hash_)
+    if info is None:
+        raise KeyError(f"no block {hash_.hex()} in {vol_path}")
+    path = os.path.join(vol_path, f"blocks-{info.file_no:04d}.dat")
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    blob = bytes(data[info.offset: info.offset + info.size])
+    h = Block.from_bytes(blob).header
+    target = {"kes_sig": h.kes_sig, "vrf_proof": h.body.vrf_proof,
+              "ocert_sigma": h.body.ocert.sigma, "body_hash": h.body.body_hash}[field]
+    data[info.offset + blob.index(target) + offset] ^= 0x01
+    new = bytes(data[info.offset: info.offset + info.size])
+    struct.pack_into("<I", data, info.offset - 4, zlib.crc32(new))
+    with open(path, "wb") as f:
+        f.write(bytes(data))
+    return Block.from_bytes(new).hash_
 
 
 def _rewrite(imm, n: int, k: int, e, data: bytearray) -> None:

@@ -13,9 +13,12 @@ Ported: the combinators, the batch path's events (`TransferEvent`,
 `WindowStaged`, `WindowSpan`, `AggRedispatch`), the read's and the
 store's (`SidecarEvent`, `RepairEvent`), the recovery plane's
 (`RecoveryEvent`, `CheckpointEvent`), the live plane's `StallEvent` and
-the forge's `ForgeSpan`. The ChainDB and node events come with the
-ChainDB, `ShardSpan` with multi-GPU, and `LadderEvent` not at all (the
-port has no warm ladder: it compiles nothing while it runs)."""
+the forge's `ForgeSpan`, the consensus events (`AddedBlock`,
+`SwitchedToFork`, `InvalidBlockEvent`), the ChainDB's event algebra and
+the LedgerDB's `ValidatedBatch`. The node's (`ForgedBlock`,
+`NodeTracers`) come with the node, `ShardSpan` with multi-GPU, and
+`LadderEvent` not at all (the port has no warm ladder: it compiles
+nothing while it runs)."""
 
 from __future__ import annotations
 
@@ -241,3 +244,137 @@ class WindowSpan:
     t_done: float  # monotonic after the epilogue
     n_valid: int
     failed: bool  # the window held the chain's first error
+
+
+# -- the consensus event vocabulary (Tracers' record, condensed) -------------
+
+
+@dataclass(frozen=True)
+class AddedBlock:
+    slot: int
+    block_no: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class SwitchedToFork:
+    n_rollback: int
+    new_tip_slot: int
+
+
+@dataclass(frozen=True)
+class InvalidBlockEvent:
+    slot: int
+    hash_: bytes
+    reason: str
+
+
+# -- the ChainDB event algebra (ChainDB/Impl.hs:10-28) -----------------------
+# One dataclass per constructor family: the add-block lifecycle,
+# validation verdicts, diffusion pipelining, followers, and the
+# copy/snapshot/GC background — typed and matchable so tests assert
+# event SEQUENCES, not log strings.
+
+
+@dataclass(frozen=True)
+class IgnoreBlockOlderThanK:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class IgnoreInvalidBlock:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class AddedBlockToQueue:
+    slot: int
+    hash_: bytes
+    queue_len: int
+
+
+@dataclass(frozen=True)
+class PoppedBlockFromQueue:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class AddedBlockToVolatileDB:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class StoreButDontChange:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class AddedToCurrentChain:
+    n_blocks: int
+    new_tip_slot: int
+
+
+@dataclass(frozen=True)
+class SwitchedToAFork:
+    n_rollback: int
+    n_blocks: int
+    new_tip_slot: int
+
+
+@dataclass(frozen=True)
+class ValidCandidate:
+    n_blocks: int
+    tip_slot: int
+
+
+@dataclass(frozen=True)
+class SetTentativeHeader:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class TrapTentativeHeader:
+    slot: int
+    hash_: bytes
+
+
+@dataclass(frozen=True)
+class NewFollowerEvent:
+    include_tentative: bool
+
+
+@dataclass(frozen=True)
+class CopiedToImmutableDB:
+    n_blocks: int
+    up_to_slot: int
+
+
+@dataclass(frozen=True)
+class TookSnapshot:
+    n_since_last: int
+
+
+@dataclass(frozen=True)
+class ScheduledGC:
+    slot: int
+
+
+@dataclass(frozen=True)
+class PerformedGC:
+    slot: int
+
+
+@dataclass(frozen=True)
+class ValidatedBatch:
+    """One device batch of the LedgerDB completed (the batched push of
+    a run of fresh headers, one epoch segment)."""
+
+    n_headers: int
+    n_valid: int
+    device_s: float
